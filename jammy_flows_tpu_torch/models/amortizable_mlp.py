@@ -1,0 +1,183 @@
+"""AmortizableMLP: an MLP whose whole weight set is one flat vector.
+
+PyTorch counterpart of ``jammy_flows_tpu/models/amortizable_mlp.py`` for
+highway mode 0 (a plain chain of linear maps with tanh between them).  The
+packed layout - per matrix [u (out*in) | v | bias] with the final bias last -
+and the numpy initialization are identical, so a JAX ``mlp_<k>`` vector loads
+1:1 and ``default_init`` reproduces JAX's values from the same seed.  The
+highway modes 1-4 and precise custom structures are not ported yet (ROADMAP.md,
+Queue 1).
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+
+def list_from_str(s):
+    if isinstance(s, int):
+        return [s]
+    if isinstance(s, (list, tuple)):
+        return list(s)
+    s = str(s).strip()
+    if not s:
+        return []
+    return [int(tok) for tok in s.replace("-", " ").split()]
+
+
+def _make_block(inputs, outputs, low_rank, add_final_bias, svd_mode):
+    """Describe one chain of linear maps and its packed sizes."""
+    num_u, num_v, num_b, full_flags, used_ranks = [], [], [], [], []
+    total = 0
+    n = len(inputs)
+    for i in range(n):
+        max_rank = min(inputs[i], outputs[i])
+        lr = low_rank[i]
+        if lr > 0:
+            used_rank = min(max_rank, lr)
+        else:
+            used_rank = 0 if svd_mode == "naive" else max_rank
+        used_ranks.append(used_rank)
+        full_np = inputs[i] * outputs[i]
+        use_low_rank = (lr > 0 and used_rank * (inputs[i] + outputs[i]) < full_np) \
+            if svd_mode == "smart" else (svd_mode == "naive" and used_rank > 0)
+        if use_low_rank:
+            num_u.append(used_rank * outputs[i])
+            num_v.append(used_rank * inputs[i])
+            full_flags.append(False)
+            total += num_u[-1] + num_v[-1]
+        else:
+            num_u.append(full_np)
+            num_v.append(0)
+            full_flags.append(True)
+            total += full_np
+        nb = outputs[i] if (i < n - 1 or add_final_bias) else 0
+        num_b.append(nb)
+        total += nb
+    return dict(inputs=list(inputs), outputs=list(outputs), num_u=num_u,
+                num_v=num_v, num_b=num_b, full_flags=full_flags,
+                used_ranks=used_ranks, num_params=total)
+
+
+class AmortizableMLP:
+    """Static MLP configuration; parameters always arrive packed."""
+
+    def __init__(self, input_dim, hidden_dims, output_dim, highway_mode=0,
+                 low_rank_approximations=0, svd_mode="smart"):
+        if highway_mode != 0:
+            raise NotImplementedError(
+                f"amortization MLP highway_mode={highway_mode} is not ported "
+                "yet (ROADMAP.md, Queue 1)")
+        self.input_dim = input_dim
+        self.output_dim = output_dim
+        hidden = list_from_str(hidden_dims)
+        self.hidden_dims = hidden
+        n_mat = len(hidden) + 1
+        if isinstance(low_rank_approximations, int):
+            ranks = [low_rank_approximations] * n_mat
+        elif isinstance(low_rank_approximations, str):
+            ranks = list_from_str(low_rank_approximations)
+        else:
+            ranks = list(low_rank_approximations)
+        if len(ranks) != n_mat:
+            raise ValueError(f"{len(ranks)} ranks for {n_mat} matrices")
+        self.block = _make_block([input_dim] + hidden, hidden + [output_dim],
+                                 ranks, True, svd_mode)
+        self.num_params = self.block["num_params"]
+
+    def _apply_block(self, block, x, params):
+        """Run one chain of (optionally low-rank) linear maps with broadcast
+        (1, num_params) weights."""
+        idx = 0
+        prev = x
+        n = len(block["inputs"])
+        flat = params[0]
+
+        def take(m):
+            nonlocal idx
+            out = flat[idx:idx + m]
+            idx += m
+            return out
+
+        for i in range(n):
+            u = take(block["num_u"][i])
+            v = take(block["num_v"][i])
+            b = take(block["num_b"][i])
+            out_d, in_d = block["outputs"][i], block["inputs"][i]
+            if block["full_flags"][i]:
+                out = torch.matmul(prev, u.reshape(out_d, in_d).T)
+            else:
+                r = block["used_ranks"][i]
+                out = torch.matmul(torch.matmul(prev, v.reshape(r, in_d).T),
+                                   u.reshape(out_d, r).T)
+            if b.numel():
+                out = out + b
+            prev = out if i == n - 1 else torch.tanh(out)
+        return prev
+
+    def apply(self, flat_params, x):
+        """flat_params: (1, num_params) or (num_params,); x: (B, In)."""
+        if flat_params.ndim == 1:
+            flat_params = flat_params[None, :]
+        if flat_params.shape != (1, self.num_params):
+            raise ValueError(f"MLP parameters of shape {tuple(flat_params.shape)}"
+                             f", expected (1, {self.num_params})")
+        return self._apply_block(self.block, x, flat_params)
+
+    __call__ = apply
+
+    def supports_full_fusion(self):
+        """True for a plain one-hidden-layer full-rank tanh MLP with both
+        biases: the whole-block kernel then runs both matmuls itself."""
+        blk = self.block
+        return (len(blk["inputs"]) == 2 and all(blk["full_flags"])
+                and blk["num_b"][0] > 0 and blk["num_b"][-1] > 0)
+
+    def first_layer_weights(self, flat_params):
+        """(w1 (H, In), b1 (H,)) with hidden = tanh(x @ w1.T + b1)."""
+        if flat_params.ndim == 2:
+            flat_params = flat_params[0]
+        nu0, nb0 = self.block["num_u"][0], self.block["num_b"][0]
+        w1 = flat_params[:nu0].reshape(self.block["outputs"][0],
+                                       self.block["inputs"][0])
+        return w1, flat_params[nu0:nu0 + nb0]
+
+    def final_layer_weights(self, flat_params):
+        """(w (P, H), b (P,)) with output = hidden @ w.T + b."""
+        if flat_params.ndim == 2:
+            flat_params = flat_params[0]
+        nu, nb = self.block["num_u"][-1], self.block["num_b"][-1]
+        w = flat_params[self.num_params - nu - nb:self.num_params - nb]
+        return (w.reshape(self.block["outputs"][-1], self.block["inputs"][-1]),
+                flat_params[self.num_params - nb:])
+
+    def default_init(self, rng=None, fix_final_bias=None,
+                     prev_damping_factor=1000.0):
+        """Packed init vector: kaiming-uniform full matrices, randn low-rank
+        factors, uniform biases; optionally pin the final bias and damp all
+        upstream parameters."""
+        rng = rng or np.random.default_rng(0)
+        init = rng.standard_normal(self.num_params)
+        block = self.block
+        idx = 0
+        for i in range(len(block["inputs"])):
+            nu, nv, nb = block["num_u"][i], block["num_v"][i], block["num_b"][i]
+            if block["full_flags"][i]:
+                fan_in = block["inputs"][i]
+                gain = math.sqrt(2.0 / (1.0 + 5.0))
+                bound = math.sqrt(3.0) * gain / math.sqrt(fan_in)
+                init[idx:idx + nu] = rng.uniform(-bound, bound, nu)
+                if nb > 0:
+                    bb = 1.0 / math.sqrt(fan_in)
+                    init[idx + nu + nv:idx + nu + nv + nb] = rng.uniform(
+                        -bb, bb, nb)
+            idx += nu + nv + nb
+        if fix_final_bias is not None:
+            init = init / prev_damping_factor
+            nb_final = block["num_b"][-1]
+            if nb_final != len(fix_final_bias):
+                raise ValueError((nb_final, len(fix_final_bias)))
+            init[-nb_final:] = np.asarray(fix_final_bias)
+        return init

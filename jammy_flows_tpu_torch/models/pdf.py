@@ -1,0 +1,425 @@
+"""The joint autoregressive manifold PDF orchestrator.
+
+PyTorch counterpart of ``jammy_flows_tpu/models/pdf.py`` for the serving
+path: the two-string DSL, ``log_prob`` and ancestral ``sample``.  The object
+holds static configuration only; numbers live in a parameter dict with the
+JAX package's keys and packing, so a JAX dict loads 1:1
+(utils/convert.params_from_jax):
+
+    "flow_0"  : (P0,)  permanent parameters of sub-pdf 0 (unconditional pdfs)
+    "mlp_<k>" : (Pk,)  packed AmortizableMLP predicting sub-pdf k
+
+Routing per sub-manifold, as in the JAX package: a float32 stack of `g`
+layers that ops/gf_block.block_meta accepts runs as one whole-block op (the
+CUDA kernel on the card, its plain version on the CPU) with permanent
+parameters ("perm") or a fused one-hidden-layer MLP ("lazy2"); an s2 stack
+runs on the (z, phi) column path; other Euclidean stacks (float64, or a
+materialized per-row slab) run layer by layer.
+
+Entry points run on the card unless the caller passes ``device="cpu"``; with
+no device given and no CUDA, the constructor raises.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import registry
+from ..ops import gf_block, manifold
+from ..ops.lazy_params import LazyParams
+from ..ops.special import std_normal_log_prob
+from .amortizable_mlp import AmortizableMLP, list_from_str
+
+_TODO = "is not ported yet (ROADMAP.md, Queue 1)"
+
+
+def resolve_device(device=None):
+    """torch.device for the port's entry points: the current CUDA device
+    unless the caller names one; raises when no CUDA device exists."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass device='cpu' to run the "
+                               "port's plain PyTorch path on the CPU")
+        return torch.device("cuda", torch.cuda.current_device())
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _parse_subspace(token):
+    """'e4' -> ('e', 4)."""
+    return token.split("_")[0][0], int(token.split("_")[0][1:])
+
+
+def _resolve_flow_options(flow_defs_list, options_overwrite):
+    """3-level option override precedence: (manifold, layer) tuple >
+    manifold int > flow symbol."""
+    flow_opts = {}
+    for ind, cur_flow_defs in enumerate(flow_defs_list):
+        flow_opts[ind] = []
+        for cur_flow_index, abbrv in enumerate(cur_flow_defs):
+            opts = registry.obtain_default_options(abbrv)
+            found_specific = False
+            for k, v in options_overwrite.items():
+                if isinstance(k, tuple) and k == (ind, cur_flow_index):
+                    found_specific = True
+                    for detail_abbrv, detail_opts in v.items():
+                        if detail_abbrv != abbrv:
+                            raise ValueError(f"override for {k} names "
+                                             f"{detail_abbrv}, layer is {abbrv}")
+                        for o, ov in detail_opts.items():
+                            registry.check_flow_option(abbrv, o, ov)
+                            opts[o] = ov
+            if not found_specific:
+                for k, v in options_overwrite.items():
+                    if isinstance(k, int) and not isinstance(k, bool) \
+                            and k == ind and abbrv in v:
+                        found_specific = True
+                        for o, ov in v[abbrv].items():
+                            registry.check_flow_option(abbrv, o, ov)
+                            opts[o] = ov
+            if not found_specific and abbrv in options_overwrite:
+                for o, ov in options_overwrite[abbrv].items():
+                    registry.check_flow_option(abbrv, o, ov)
+                    opts[o] = ov
+            flow_opts[ind].append(opts)
+    return flow_opts
+
+
+class PDF:
+    """Joint autoregressive (conditional) normalizing-flow PDF over products
+    of manifolds, defined by a two-string DSL - e.g.
+    ``PDF("e4+s2+e4", "gggg+f+gggg")``."""
+
+    def __init__(self, pdf_defs, flow_defs, options_overwrite=None,
+                 conditional_input_dim=None, amortization_mlp_dims="128",
+                 amortization_mlp_ranks=0, amortization_mlp_highway_mode=0,
+                 device=None):
+        self.device = resolve_device(device)
+        self.pdf_defs_list = pdf_defs.split("+")
+        self.flow_defs_list = flow_defs.split("+")
+        if len(self.pdf_defs_list) != len(self.flow_defs_list):
+            raise ValueError((self.pdf_defs_list, self.flow_defs_list))
+        if conditional_input_dim is not None and \
+                not isinstance(conditional_input_dim, int):
+            raise NotImplementedError(f"per-sub-pdf conditional inputs {_TODO}")
+        self.conditional_input_dim = conditional_input_dim
+        self.amortization_mlp_highway_mode = amortization_mlp_highway_mode
+        n_sub = len(self.pdf_defs_list)
+        self.amortization_mlp_dims = [amortization_mlp_dims] * n_sub \
+            if isinstance(amortization_mlp_dims, str) \
+            else list(amortization_mlp_dims)
+        self.amortization_mlp_ranks = [amortization_mlp_ranks] * n_sub \
+            if isinstance(amortization_mlp_ranks, (int, str)) \
+            else list(amortization_mlp_ranks)
+        self.flow_opts = _resolve_flow_options(self.flow_defs_list,
+                                               options_overwrite or {})
+        self._build_layers()
+        self._update_embedding_structure()
+        self._build_mlps()
+        self._block_meta = [gf_block.block_meta(layers)
+                            for layers in self.layer_list]
+
+    # ------------------------------------------------------------------
+    # construction
+    # ------------------------------------------------------------------
+    def _build_layers(self):
+        """Instantiate the layers with the auto-injected options: the last
+        Euclidean layer gets an offset, the first `g` layer of a stack swaps
+        isigmoid for inormal_partly_precise, the first spherical layer
+        projects from the plane."""
+        self.layer_list = []
+        self.num_parameter_list = []
+        for sub_idx, sub_def in enumerate(self.pdf_defs_list):
+            mtype, dim = _parse_subspace(sub_def)
+            flow_str = self.flow_defs_list[sub_idx]
+            layers = []
+            for layer_ind, sym in enumerate(flow_str):
+                if registry.manifold_type(sym) != mtype:
+                    raise ValueError(f"layer {sym} incompatible with manifold "
+                                     f"{sub_def}")
+                kwargs = dict(self.flow_opts[sub_idx][layer_ind])
+                if mtype == "s":
+                    kwargs["euclidean_to_sphere_as_first"] = int(layer_ind == 0)
+                elif mtype == "e" and sym != "x":
+                    if layer_ind == len(flow_str) - 1 and \
+                            kwargs.get("skip_model_offset", 0) == 0:
+                        kwargs["model_offset"] = 1
+                    elif layer_ind == 0 and sym in ("g", "h") and \
+                            kwargs.get("replace_first_sigmoid_with_icdf", 0) > 0 \
+                            and kwargs.get("inverse_function_type") == "isigmoid":
+                        kwargs["inverse_function_type"] = "inormal_partly_precise"
+                elif mtype != "e":
+                    raise NotImplementedError(
+                        f"manifold type {mtype!r} {_TODO}")
+                kwargs.pop("skip_model_offset", None)
+                kwargs.pop("replace_first_sigmoid_with_icdf", None)
+                layers.append(registry.get_layer_class(sym)(dim, **kwargs))
+            self.layer_list.append(layers)
+            self.num_parameter_list.append([l.num_params for l in layers])
+
+    def _update_embedding_structure(self):
+        self.target_dim_indices = []
+        self.base_dim_indices = []
+        td = tb = 0
+        for layers in self.layer_list:
+            d_tgt = layers[-1].intrinsic_dim
+            d_base = layers[0].base_dim
+            self.target_dim_indices.append((td, td + d_tgt))
+            self.base_dim_indices.append((tb, tb + d_base))
+            td += d_tgt
+            tb += d_base
+        self.total_target_dim = td
+        self.total_base_dim = tb
+
+    def _build_mlps(self):
+        """Per-sub-pdf amortization MLPs: sub-pdf k reads [conditional
+        input, embeddings of sub-pdfs < k]."""
+        self.mlp_predictors = []
+        prev_extra_input_num = 0
+        for k in range(len(self.pdf_defs_list)):
+            tot_pars = sum(self.num_parameter_list[k])
+            emb_dim_k = self.layer_list[k][-1].embedded_dim
+            if (k == 0 and self.conditional_input_dim is None) or tot_pars == 0:
+                self.mlp_predictors.append(None)
+                prev_extra_input_num += emb_dim_k
+                continue
+            summary_dim = prev_extra_input_num + (self.conditional_input_dim
+                                                  or 0)
+            self.mlp_predictors.append(AmortizableMLP(
+                summary_dim, list_from_str(self.amortization_mlp_dims[k]),
+                tot_pars, low_rank_approximations=self.amortization_mlp_ranks[k],
+                highway_mode=self.amortization_mlp_highway_mode))
+            prev_extra_input_num += emb_dim_k
+
+    # ------------------------------------------------------------------
+    # parameters
+    # ------------------------------------------------------------------
+    def init_params(self, seed=0, dtype=torch.float32):
+        """Parameter dict: layer init vectors for permanent parameters; each
+        MLP gets kaiming init, its final bias pinned to the layers' init
+        vector and everything upstream damped by 1000.  Same numpy RNG
+        sequence as the JAX package, so the values are equal."""
+        rng = np.random.default_rng(seed)
+        desired = [np.concatenate([l.default_params(rng) for l in layers])
+                   if sum(self.num_parameter_list[k]) > 0 else np.zeros(0)
+                   for k, layers in enumerate(self.layer_list)]
+        params = {}
+        for k in range(len(self.layer_list)):
+            if self.mlp_predictors[k] is not None:
+                vec = self.mlp_predictors[k].default_init(
+                    rng, fix_final_bias=desired[k], prev_damping_factor=1000.0)
+                params[f"mlp_{k}"] = vec
+            elif k == 0 and self.conditional_input_dim is None \
+                    and desired[0].size:
+                params["flow_0"] = desired[0]
+        return {key: torch.as_tensor(v, dtype=dtype, device=self.device)
+                for key, v in params.items()}
+
+    # ------------------------------------------------------------------
+    # conditioning / parameter prediction
+    # ------------------------------------------------------------------
+    def _predict_extra_params(self, params, k, data_summary_parts,
+                              conditional_input):
+        """Sub-pdf k's parameters: a (1, P) permanent slab, LazyParams for a
+        fusable MLP in float32, a materialized (B, P) slab otherwise, or
+        None."""
+        mlp = self.mlp_predictors[k]
+        if mlp is None:
+            if sum(self.num_parameter_list[k]) == 0:
+                return None
+            return params["flow_0"][None, :]
+        parts = ([conditional_input] if conditional_input is not None
+                 else []) + list(data_summary_parts)
+        if not parts:
+            raise ValueError("autoregressive conditioning input required")
+        summary = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+        flat = params[f"mlp_{k}"]
+        if summary.dtype == torch.float32 and mlp.supports_full_fusion():
+            w1, b1 = mlp.first_layer_weights(flat)
+            w, b = mlp.final_layer_weights(flat)
+            return LazyParams(summary.contiguous(), w1, b1, w, b)
+        return mlp.apply(flat, summary)
+
+    # ------------------------------------------------------------------
+    # core mappings
+    # ------------------------------------------------------------------
+    def _try_block(self, k, extra, target, direction):
+        """Sub-manifold k's whole gggg stack as one block op, or None.
+        Returns (out, ld summed over dims)."""
+        info = self._block_meta[k]
+        if target.dtype != torch.float32 or info is None or extra is None:
+            return None
+        prep, meta = info
+        target = target.contiguous()
+        if isinstance(extra, LazyParams):
+            fn = gf_block.gf_block_density_lazy2 if direction == "density" \
+                else gf_block.gf_block_sample_lazy2
+            out, ld = fn(target, extra.summary, extra.w1, extra.b1, extra.w,
+                         extra.b, prep, meta)
+        elif extra.shape[0] == 1:
+            fn = gf_block.gf_block_density_perm if direction == "density" \
+                else gf_block.gf_block_sample_perm
+            out, ld = fn(target, extra[0], prep, meta)
+        else:
+            return None
+        return out, ld.sum(dim=-1)
+
+    def _zphi_columns(self, k, extra, target, log_det, direction):
+        """Run s2 sub-manifold k's stack on flat (z = cos(theta), phi)
+        columns.  The sub-manifold's boundary coordinates are (theta, phi);
+        its first layer projects from or to the plane.  Slicing mirrors the
+        row loops: front for forward, back-reversed for inverse."""
+        layers = self.layer_list[k]
+        if extra is None:
+            slab = torch.zeros((0, 1), dtype=target.dtype, device=target.device)
+        elif isinstance(extra, LazyParams):
+            slab = extra.materialize_T()
+        else:
+            slab = extra.T
+        cols = (target[:, 0], target[:, 1])
+        cnt = 0
+        if direction == "density":
+            theta = manifold.safe_angle_within_pi(cols[0])
+            log_det = log_det + torch.log(torch.sin(theta))
+            cols = (torch.cos(theta), cols[1])
+            total = slab.shape[0]
+            for layer in reversed(layers):
+                p = layer.num_params
+                hi = total - cnt
+                cols, log_det = layer.inverse_cols_z(slab[hi - p:hi], cols,
+                                                     log_det)
+                cnt += p
+        else:
+            for layer in layers:
+                p = layer.num_params
+                cols, log_det = layer.forward_cols_z(slab[cnt:cnt + p], cols,
+                                                     log_det)
+                cnt += p
+            theta = torch.arccos(manifold.safe_costheta(cols[0]))
+            log_det = log_det - torch.log(torch.sin(
+                manifold.safe_angle_within_pi(theta)))
+            cols = (theta, cols[1])
+        return torch.stack(cols, dim=1), log_det
+
+    @staticmethod
+    def _layer_slab(extra, lo, hi, target):
+        if extra is None or hi == lo:
+            return torch.zeros((target.shape[0], 0), dtype=target.dtype,
+                               device=target.device)
+        if isinstance(extra, LazyParams):
+            return extra.rows(lo, hi).materialize()
+        return extra[:, lo:hi]
+
+    def _apply_stack(self, k, extra, target, log_det, direction):
+        """Sub-manifold k's layer stack in one direction: whole-block op,
+        (z, phi) column path, or the per-layer row loop."""
+        fused = self._try_block(k, extra, target, direction)
+        if fused is not None:
+            out, ld_sum = fused
+            return out, (log_det + ld_sum if direction == "density"
+                         else log_det - ld_sum)
+        if self.pdf_defs_list[k] == "s2":
+            return self._zphi_columns(k, extra, target, log_det, direction)
+        layers = self.layer_list[k]
+        total = sum(self.num_parameter_list[k])
+        cnt = 0
+        if direction == "density":
+            for layer in reversed(layers):
+                p = layer.num_params
+                sl = self._layer_slab(extra, total - cnt - p, total - cnt,
+                                      target)
+                target, log_det = layer.inverse(sl, target, log_det)
+                cnt += p
+        else:
+            for layer in layers:
+                p = layer.num_params
+                sl = self._layer_slab(extra, cnt, cnt + p, target)
+                target, log_det = layer.forward(sl, target, log_det)
+                cnt += p
+        return target, log_det
+
+    def _input(self, t, name):
+        if not isinstance(t, torch.Tensor):
+            return torch.as_tensor(t, device=self.device)
+        if t.device != self.device:
+            raise ValueError(f"{name} is on {t.device}, the pdf runs on "
+                             f"{self.device}")
+        return t
+
+    def all_layer_inverse(self, params, x, log_det, conditional_input=None):
+        """Autoregressive target -> base mapping."""
+        x = self._input(x, "x")
+        if x.shape[1] != self.total_target_dim:
+            raise ValueError((x.shape[1], self.total_target_dim))
+        if conditional_input is not None:
+            conditional_input = self._input(conditional_input,
+                                            "conditional_input")
+        summaries = []
+        base_targets = []
+        for k, layers in enumerate(self.layer_list):
+            extra = self._predict_extra_params(params, k, summaries,
+                                               conditional_input)
+            lo, hi = self.target_dim_indices[k]
+            out, log_det = self._apply_stack(k, extra, x[:, lo:hi], log_det,
+                                             "density")
+            base_targets.append(out)
+            summaries.append(layers[-1].embedding_conditional_return(
+                x[:, lo:hi]))
+        return torch.cat(base_targets, dim=1), log_det
+
+    def all_layer_forward(self, params, z, log_det, conditional_input=None):
+        """Autoregressive base -> target mapping."""
+        z = self._input(z, "z")
+        if conditional_input is not None:
+            conditional_input = self._input(conditional_input,
+                                            "conditional_input")
+        summaries = []
+        new_targets = []
+        for k, layers in enumerate(self.layer_list):
+            extra = self._predict_extra_params(params, k, summaries,
+                                               conditional_input)
+            lo, hi = self.base_dim_indices[k]
+            out, log_det = self._apply_stack(k, extra, z[:, lo:hi], log_det,
+                                             "sample")
+            new_targets.append(out)
+            summaries.append(layers[-1].embedding_conditional_return(out))
+        return torch.cat(new_targets, dim=1), log_det
+
+    # ------------------------------------------------------------------
+    # public API
+    # ------------------------------------------------------------------
+    def log_prob(self, params, x, conditional_input=None):
+        """log p(x [| c]).  Returns (log_pdf, log_pdf_base, base_pos)."""
+        x = self._input(x, "x")
+        log_det = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+        base_pos, log_det = self.all_layer_inverse(params, x, log_det,
+                                                   conditional_input)
+        log_base = std_normal_log_prob(base_pos)
+        return log_base + log_det, log_base, base_pos
+
+    def sample(self, params, samplesize=1, conditional_input=None,
+               generator=None, dtype=None):
+        """Ancestral sampling.  Returns (x, base_pos, log_pdf, log_pdf_base).
+        Base draws come from ``generator`` (a torch.Generator on the pdf's
+        device); with a conditional input the batch size is its row count."""
+        if conditional_input is not None:
+            conditional_input = self._input(conditional_input,
+                                            "conditional_input")
+            n = conditional_input.shape[0]
+            dtype = conditional_input.dtype
+        else:
+            n = samplesize
+            dtype = dtype or next(iter(params.values())).dtype
+        z = torch.randn((n, self.total_base_dim), generator=generator,
+                        dtype=dtype, device=self.device)
+        log_base = std_normal_log_prob(z)
+        log_det = torch.zeros(n, dtype=dtype, device=self.device)
+        x, log_det = self.all_layer_forward(params, z, log_det,
+                                            conditional_input)
+        return x, z, log_base - log_det, log_base
+
+
+# user-facing alias matching `jammy_flows.pdf`
+pdf = PDF

@@ -1,0 +1,213 @@
+"""Plain PyTorch versions of the Gaussianization-flow kernel bodies.
+
+Counterparts of the shared bodies in ``jammy_flows_tpu/ops/pallas_gf.py``:
+the iCDF passes of the kernels, the mixture value/derivative evaluations, the
+regulator prep of raw parameter slabs, the component-quantile bracket and the
+bracket-safeguarded Newton solve.  The CUDA block kernel implements the same
+expressions in csrc/gf_common.cuh; the TPU layout (sublane fold, Mosaic
+workarounds, block sizes) is not carried over.
+
+Layout: x is (D, C); a mixture is (means, inv_widths, log_norm_w), each
+(K, D, 1|C), already regulated and normalized over K (axis 0).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import logistic_kde
+from .special import logaddexp
+
+N_NEWTON = 4       # no bisection phase (N_BISECT = 0 in the JAX package)
+LO, HI = -1e5, 1e5
+
+_SQRT2 = 1.4142135623730951
+_LOG_SQRT_2PI = 0.9189385332046727
+_PADE_A = logistic_kde.PADE_A
+_LOG_4 = logistic_kde.LOG_4
+_LOG_SEAM = logistic_kde.LOG_SEAM
+_TINY_K = 1e-37      # the partly_precise kernel branch's own floor
+
+
+def icdf_pass_kernel(log_cdf, log_sf, ift):
+    """Kernel variant of logistic_kde.icdf_pass (f32 formulation)."""
+    if ift == "isigmoid":
+        return log_cdf - log_sf
+    if ift in ("inormal_partly_crude", "inormal_full_pade"):
+        return logistic_kde.icdf_pass(log_cdf, log_sf, ift)
+    if ift != "inormal_partly_precise":
+        raise ValueError(f"unknown inverse_function_type {ift}")
+    tiny = _TINY_K
+    ln_fac_raw = log_cdf + log_sf + _LOG_4
+    good = ln_fac_raw > _LOG_SEAM
+    ln_fac_mid = torch.where(good, ln_fac_raw, -1.0)
+    xx, ww = logistic_kde.erfinv_f32_args_from_logs(log_cdf, log_sf,
+                                                    ln_fac_mid)
+    val = _SQRT2 * logistic_kde.erfinv_f32_poly(xx, ww)
+    ln_fac = torch.where(good, -1.0, ln_fac_raw)
+    c = 2.0 / (3.141592653589793 * _PADE_A)
+    combined = c + ln_fac / 2.0
+    pos_entry = 2.0 * (torch.sqrt(torch.clamp(combined**2 - ln_fac / _PADE_A,
+                                              min=tiny)) - combined)
+    total_factor = torch.sqrt(torch.clamp(pos_entry, min=tiny))
+    right = (~good) & (log_cdf >= log_sf)
+    return torch.where(good, val,
+                       torch.where(right, total_factor, -total_factor))
+
+
+def icdf_log_deriv_kernel(log_cdf, log_sf, log_pdf, ift):
+    """Kernel variant of logistic_kde.icdf_log_derivative (f32 branch)."""
+    if ift == "isigmoid":
+        return logaddexp(-log_sf, -log_cdf) + log_pdf
+    if ift in ("inormal_partly_crude", "inormal_full_pade"):
+        return logistic_kde.icdf_log_derivative(log_cdf, log_sf, log_pdf, ift)
+    if ift != "inormal_partly_precise":
+        raise ValueError(f"unknown inverse_function_type {ift}")
+    tiny = _TINY_K
+    ln_fac_raw = log_cdf + log_sf + _LOG_4
+    good = ln_fac_raw > _LOG_SEAM
+    ln_fac_mid = torch.where(good, ln_fac_raw, -1.0)
+    xx, ww = logistic_kde.erfinv_f32_args_from_logs(log_cdf, log_sf,
+                                                    ln_fac_mid)
+    ei = logistic_kde.erfinv_f32_poly(xx, ww)
+    middle = _LOG_SQRT_2PI + ei**2 + log_pdf
+    ln_fac = torch.where(good, -1.0, ln_fac_raw)
+    c = 2.0 / (3.141592653589793 * _PADE_A)
+    F = ln_fac / 2.0 + c
+    F2 = torch.sqrt(torch.clamp(F**2 - ln_fac / _PADE_A, min=tiny))
+    log_num = torch.log(torch.clamp(-(F - 1.0 / _PADE_A - F2), min=tiny))
+    log_den = (0.5 * 2.0794415416798357
+               + 0.5 * torch.log(torch.clamp(F2 - F, min=tiny))
+               + torch.log(torch.clamp(F2, min=tiny)))
+    cdf = torch.exp(log_cdf)
+    extra = torch.log(torch.clamp(torch.abs(1.0 - 2.0 * cdf), min=tiny))
+    total_factor = log_num - log_den - (ln_fac - _LOG_4) + extra
+    return torch.where(good, middle, total_factor + log_pdf)
+
+
+def mixture_value_deriv(x, mix, deriv_mode, ift):
+    """Gaussianization value (iCDF pass of the mixture CDF) and derivative,
+    density-direction form (with the far-tail fallback lanes).
+    x: (D, C); deriv_mode: None | "exp" | "log"."""
+    means, inv_widths, log_norm_w = mix
+    common = (x[None, :, :] - means) * inv_widths
+    need_pdf = deriv_mode is not None
+    log_cdf, log_sf, log_pdf = logistic_kde.mixture_linear_logs(
+        common, torch.exp(log_norm_w), log_norm_w, inv_widths,
+        torch.log(inv_widths) if need_pdf else None, need_pdf)
+    val = icdf_pass_kernel(log_cdf, log_sf, ift)
+    if deriv_mode is None:
+        return val, None
+    log_deriv = icdf_log_deriv_kernel(log_cdf, log_sf, log_pdf, ift)
+    if deriv_mode == "log":
+        return val, log_deriv
+    return val, torch.exp(log_deriv)
+
+
+def mixture_value_deriv_solve(x, mix, deriv_mode, ift):
+    """Lean solve-side twin of :func:`mixture_value_deriv`: the same
+    expressions as its non-fallback branch (bracketed iterates never reach
+    the fallback), plus the isigmoid Newton shortcut pdf/(F*SF)."""
+    means, inv_widths, log_norm_w = mix
+    tiny = 1e-37
+    common = (x[None, :, :] - means) * inv_widths
+    norm_w = torch.exp(log_norm_w)
+    u = torch.clamp(common, -60.0, 60.0)
+    e = torch.exp(u)
+    r = 1.0 / (1.0 + e)
+    sig = e * r
+    F = torch.sum(norm_w * sig, dim=0)
+    SF = torch.sum(norm_w * r, dim=0)
+    log_cdf = torch.log(torch.clamp(F, min=tiny))
+    log_sf = torch.log(torch.clamp(SF, min=tiny))
+    val = icdf_pass_kernel(log_cdf, log_sf, ift)
+    if deriv_mode is None:
+        return val, None
+    P = torch.sum((norm_w * inv_widths) * (sig * r), dim=0)
+    if deriv_mode == "exp" and ift == "isigmoid":
+        return val, P / torch.clamp(F * SF, min=tiny)
+    log_pdf = torch.log(torch.clamp(P, min=tiny))
+    log_deriv = icdf_log_deriv_kernel(log_cdf, log_sf, log_pdf, ift)
+    if deriv_mode == "log":
+        return val, log_deriv
+    return val, torch.exp(log_deriv)
+
+
+def logit_phi(x):
+    """logit(Phi(x)) for the standard normal, f32-stable in both tails
+    (Abramowitz & Stegun 26.2.17 tail polynomial)."""
+    ax = torch.abs(x)
+    t = 1.0 / (1.0 + 0.2316419 * ax)
+    poly = t * (0.319381530 + t * (-0.356563782 + t * (
+        1.781477937 + t * (-1.821255978 + t * 1.330274429))))
+    log_tail = -0.5 * ax * ax - _LOG_SQRT_2PI + torch.log(poly)
+    log_head = torch.log1p(-torch.exp(log_tail))
+    return torch.where(x >= 0.0, log_head - log_tail, log_tail - log_head)
+
+
+def component_bracket(target, mix, ift):
+    """Exact initial bracket from the mixture-quantile bound: F^-1(q) lies
+    between the smallest and largest component quantiles
+    m_k + s_k * logit(q).  Returns (lo, hi, q_k)."""
+    means, inv_widths, _ = mix
+    t = target if ift == "isigmoid" else logit_phi(target)
+    q_k = means + t[None, :, :] / inv_widths
+    lo = torch.amin(q_k, dim=0)
+    hi = torch.amax(q_k, dim=0)
+    if ift == "isigmoid":
+        margin = 1e-4 * (hi - lo) + 1e-5
+    else:
+        margin = 0.05 * (hi - lo) + 0.5
+    return lo - margin, hi + margin, q_k
+
+
+def prep_raw_params(slabs, prep):
+    """Regulators + mixture-weight normalization on raw (K, D, 1|C) slabs.
+
+    slabs = (means, lw_raw[, ln_raw]); prep = (width_regulator,
+    norm_regulator_or_None, fit_normalization).  Returns the mixture
+    (means, inv_widths, log_norm_w)."""
+    width_reg, norm_reg, fit_norm = prep
+    means, lw_raw = slabs[0], slabs[1]
+    lw = width_reg(lw_raw)
+    inv_widths = torch.exp(-lw)
+    if fit_norm:
+        ln_raw = slabs[2]
+        ln = norm_reg(ln_raw) if norm_reg is not None else ln_raw
+        m = torch.amax(ln, dim=0, keepdim=True)
+        log_norm_w = ln - (m + torch.log(torch.sum(torch.exp(ln - m), dim=0,
+                                                   keepdim=True)))
+    else:
+        log_norm_w = torch.full_like(lw, -math.log(lw.shape[0]))
+    return means, inv_widths, log_norm_w
+
+
+def solve(target, mix, ift):
+    """Bracket-safeguarded Newton solve: component-quantile bracket, then a
+    weighted-quantile start (isigmoid) or a regula-falsi start from two
+    bracket-validity evaluations (inormal_*), then N_NEWTON Newton steps
+    that fall back to the bisection midpoint when they leave the bracket."""
+    log_norm_w = mix[2]
+    lo, hi, q_k = component_bracket(target, mix, ift)
+    if ift == "isigmoid":
+        x = torch.sum(torch.exp(log_norm_w) * q_k, dim=0)
+        x = torch.minimum(torch.maximum(x, lo), hi)
+    else:
+        vlo, _ = mixture_value_deriv_solve(lo, mix, None, ift)
+        vhi, _ = mixture_value_deriv_solve(hi, mix, None, ift)
+        good = (vlo <= target) & (vhi >= target)
+        t = (target - vlo) / torch.clamp(vhi - vlo, min=1e-30)
+        x_rf = lo + t * (hi - lo)
+        lo = torch.where(good, lo, LO)
+        hi = torch.where(good, hi, HI)
+        x = torch.where(good, x_rf, 0.0)
+    for _ in range(N_NEWTON):
+        val, deriv = mixture_value_deriv_solve(x, mix, "exp", ift)
+        right = val < target
+        lo = torch.where(right, x, lo)
+        hi = torch.where(right, hi, x)
+        x_new = x - (val - target) / deriv
+        bad = (~torch.isfinite(x_new)) | (x_new < lo) | (x_new > hi)
+        x = torch.where(bad, 0.5 * (lo + hi), x_new)
+    return x

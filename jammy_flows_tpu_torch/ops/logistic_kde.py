@@ -1,0 +1,279 @@
+"""Logistic-mixture KDE math of the Gaussianization flow.
+
+PyTorch counterpart of ``jammy_flows_tpu/ops/logistic_kde.py`` (values only;
+the hand-written tangent rule comes with the training slice).
+
+  * log CDF / log SF / log PDF of a normalized logistic mixture;
+  * the four inverse-Gaussian-CDF passes (isigmoid, inormal_partly_precise,
+    inormal_partly_crude, inormal_full_pade) and their log-derivatives, each
+    with the f64 branch (exact ndtri / erfinv) and the f32 branch (the
+    log-space seam and erfinv-from-ln_fac formulation the CUDA block kernel
+    shares, csrc/gf_common.cuh).
+
+Shapes follow the JAX package: x is (B, D); mixture parameters are (K, D, Bp)
+with Bp in {1, B}; reductions run over axis 0.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .special import logaddexp, softplus
+
+PADE_BOUND = 0.5e-7
+PADE_A = 0.147
+SQRT2 = math.sqrt(2.0)
+LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
+LOG_4 = math.log(4.0)
+LOG_CENTER_DERIV = math.log(2.506628)
+FULL_PADE_F32_CENTER = 0.1
+SQRT_HALF_PI = math.sqrt(math.pi / 2.0)
+ERFINV_SLOPE = math.sqrt(math.pi) / 2.0
+ERFINV_CUBIC = math.pi / 12.0
+# central seam of the erfinv argument reconstruction (ln_fac > -1 uses the
+# difference form cdf - sf; see the JAX module for the derivation)
+LIN_SEAM_LNFAC = -1.0
+LOG_SEAM = math.log(4.0 * PADE_BOUND * (1.0 - PADE_BOUND))
+
+
+def _tiny(t):
+    return torch.finfo(t.dtype).tiny
+
+
+def mixture_linear_logs(common, norm_w, log_norm_w, inv_widths,
+                        log_inv_widths, need_pdf):
+    """(log_cdf, log_sf, log_pdf|None) of a normalized logistic mixture by
+    linear odds-space accumulation, with the +-60 clip and the far-tail
+    max-term fallback lanes (every component beyond 55 width-units)."""
+    tiny = _tiny(common)
+    u = torch.clamp(common, -60.0, 60.0)
+    e = torch.exp(u)
+    r = 1.0 / (1.0 + e)
+    sig = e * r
+    F = torch.sum(norm_w * sig, dim=0)
+    SF = torch.sum(norm_w * r, dim=0)
+    neg_all = torch.amax(common, dim=0) < -55.0
+    pos_all = torch.amin(common, dim=0) > 55.0
+    mc = torch.amax(log_norm_w + torch.clamp(common, max=0.0), dim=0)
+    ms = torch.amax(log_norm_w - torch.clamp(common, min=0.0), dim=0)
+    log_cdf = torch.where(neg_all, mc, torch.log(torch.clamp(F, min=tiny)))
+    log_sf = torch.where(pos_all, ms, torch.log(torch.clamp(SF, min=tiny)))
+    if not need_pdf:
+        return log_cdf, log_sf, None
+    P = torch.sum((norm_w * inv_widths) * (sig * r), dim=0)
+    far = torch.amin(torch.abs(common), dim=0) > 55.0
+    mp = torch.amax(log_norm_w + log_inv_widths - torch.abs(common), dim=0)
+    log_pdf = torch.where(far, mp, torch.log(torch.clamp(P, min=tiny)))
+    return log_cdf, log_sf, log_pdf
+
+
+def logistic_mixture_log_quantities(x, means, log_widths, log_norms,
+                                    calculate_pdf=True):
+    """(log_cdf, log_sf, log_pdf) of the (unskewed) logistic mixture at
+    x (B, D); params (K, D, Bp); outputs (B, D)."""
+    xT = x.T[None, :, :]
+    common = (xT - means) * torch.exp(-log_widths)
+    individual_normalizers = log_norms - torch.logsumexp(log_norms, dim=0,
+                                                         keepdim=True)
+    if x.dtype == torch.float32:
+        log_cdf, log_sf, log_pdf = mixture_linear_logs(
+            common, torch.exp(individual_normalizers), individual_normalizers,
+            torch.exp(-log_widths), -log_widths, calculate_pdf)
+        return log_cdf.T, log_sf.T, (log_pdf.T if log_pdf is not None
+                                     else None)
+    sp_neg = softplus(-common)
+    log_pdf = None
+    if calculate_pdf:
+        log_pdfs = -common - log_widths - 2.0 * sp_neg + individual_normalizers
+        log_pdf = torch.logsumexp(log_pdfs, dim=0).T
+    log_cdfs = -sp_neg + individual_normalizers
+    log_sfs = -common - sp_neg + individual_normalizers
+    return (torch.logsumexp(log_cdfs, dim=0).T,
+            torch.logsumexp(log_sfs, dim=0).T, log_pdf)
+
+
+def erfinv_f32_args_from_logs(log_cdf, log_sf, ln_fac_mid):
+    """(x, w) = (2*cdf - 1, -log(1 - x^2)) for the erfinv polynomial,
+    f32-stable everywhere (see LIN_SEAM_LNFAC)."""
+    near = ln_fac_mid > LIN_SEAM_LNFAC
+    sign = torch.where(log_cdf >= log_sf, 1.0, -1.0).to(log_cdf.dtype)
+    u = torch.where(near, 1.0, 1.0 - torch.exp(ln_fac_mid))
+    x_sqrt = sign * torch.sqrt(torch.clamp(u, min=_tiny(log_cdf)))
+    x_lin = torch.exp(log_cdf) - torch.exp(log_sf)
+    x = torch.where(near, x_lin, x_sqrt)
+    x_c = torch.clamp(x_lin, -0.99, 0.99)
+    w = torch.where(near, -torch.log(1.0 - x_c * x_c), -ln_fac_mid)
+    return x, w
+
+
+def _lnfac_f32_stable(log_cdf, log_sf, ln_fac_raw, tiny):
+    """ln_fac = log(4 c (1-c)) with the central region recomputed from the
+    difference form 2c-1 = cdf - sf."""
+    x_lin = torch.exp(log_cdf) - torch.exp(log_sf)
+    x_c = torch.clamp(x_lin, -0.99, 0.99)
+    lf_lin = torch.log(torch.clamp(1.0 - x_c * x_c, min=tiny))
+    near = ln_fac_raw > LIN_SEAM_LNFAC
+    return torch.where(near, torch.clamp(lf_lin, max=-tiny),
+                       torch.clamp(ln_fac_raw, max=-tiny))
+
+
+_P_SMALL = (3.43273939e-07, -3.5233877e-06, -4.39150654e-06, 0.00021858087,
+            -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_P_BIG = (0.000100950558, 0.00134934322, -0.00367342844, 0.00573950773,
+          -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+
+
+def erfinv_f32_poly(x, w):
+    """Single-precision erfinv(x) with w = -log(1 - x^2) precomputed
+    (Giles 2012)."""
+    small = w < 5.0
+    ws = torch.where(small, w - 2.5,
+                     torch.sqrt(torch.clamp(w, min=5.0)) - 3.0)
+    p_small = torch.full_like(ws, 2.81022636e-08)
+    for c in _P_SMALL:
+        p_small = p_small * ws + c
+    p_big = torch.full_like(ws, -0.000200214257)
+    for c in _P_BIG:
+        p_big = p_big * ws + c
+    return torch.where(small, p_small, p_big) * x
+
+
+def _pade_total_factor(ln_fac, tiny):
+    """|sqrt(2) erfinv(2c-1)| via the Winitzki pade approximation from
+    ln_fac = log(4 c (1-c)) <= 0 (sanitized)."""
+    c = 2.0 / (math.pi * PADE_A)
+    combined = c + ln_fac / 2.0
+    pos_entry = 2.0 * (torch.sqrt(torch.clamp(combined**2 - ln_fac / PADE_A,
+                                              min=tiny)) - combined)
+    return torch.sqrt(torch.clamp(pos_entry, min=tiny))
+
+
+def icdf_pass(log_cdf, log_sf, inverse_function_type):
+    """Map mixture-CDF space to an unbounded coordinate."""
+    if inverse_function_type == "isigmoid":
+        return log_cdf - log_sf
+    tiny = _tiny(log_cdf)
+    cdf = torch.exp(log_cdf)
+    ln_fac_raw = log_cdf + log_sf + LOG_4
+    f32 = log_cdf.dtype == torch.float32
+
+    if "partly" in inverse_function_type:
+        if f32:
+            good = ln_fac_raw > LOG_SEAM
+            ln_fac_mid = torch.where(good, ln_fac_raw, -1.0)
+            xx, ww = erfinv_f32_args_from_logs(log_cdf, log_sf, ln_fac_mid)
+            val = SQRT2 * erfinv_f32_poly(xx, ww)
+            right = (~good) & (log_cdf >= log_sf)
+        else:
+            good = (cdf > PADE_BOUND) & (cdf < 1.0 - PADE_BOUND) \
+                & (ln_fac_raw > LOG_SEAM)
+            cdf_good = torch.where(good, cdf, 0.5)
+            val = torch.special.ndtri(cdf_good)
+            right = log_cdf >= log_sf
+        ln_fac = torch.where(good, -1.0, ln_fac_raw)
+        if inverse_function_type == "inormal_partly_crude":
+            total_factor = torch.sqrt(torch.clamp(-2.0 * (ln_fac - LOG_4),
+                                                  min=tiny)) - 0.4717
+        else:
+            total_factor = _pade_total_factor(ln_fac, tiny)
+        return torch.where(good, val,
+                           torch.where(right, total_factor, -total_factor))
+
+    if f32:
+        x_lin = torch.exp(log_cdf) - torch.exp(log_sf)
+        near = torch.abs(x_lin) <= FULL_PADE_F32_CENTER
+        ln_fac = torch.where(near, -1.0,
+                             _lnfac_f32_stable(log_cdf, log_sf, ln_fac_raw,
+                                               tiny))
+        total_factor = _pade_total_factor(ln_fac, tiny)
+        val = torch.where(log_cdf >= log_sf, total_factor, -total_factor)
+        series = SQRT_HALF_PI * x_lin * (1.0 + ERFINV_CUBIC * x_lin * x_lin)
+        return torch.where(near, series, val)
+    ln_fac = torch.clamp(ln_fac_raw, max=-tiny)
+    total_factor = _pade_total_factor(ln_fac, tiny)
+    return torch.where(cdf > 0.5, total_factor, -total_factor)
+
+
+def _pade_log_total(ln_fac, tiny):
+    c = 2.0 / (math.pi * PADE_A)
+    F = ln_fac / 2.0 + c
+    F2 = torch.sqrt(torch.clamp(F**2 - ln_fac / PADE_A, min=tiny))
+    log_numerator = torch.log(torch.clamp(-(F - 1.0 / PADE_A - F2), min=tiny))
+    log_denominator = (0.5 * math.log(8.0)
+                       + 0.5 * torch.log(torch.clamp(F2 - F, min=tiny))
+                       + torch.log(torch.clamp(F2, min=tiny)))
+    return log_numerator - log_denominator
+
+
+def icdf_log_derivative(log_cdf, log_sf, log_pdf, inverse_function_type):
+    """log |d icdf_pass / dx| including the mixture pdf factor."""
+    if inverse_function_type == "isigmoid":
+        return logaddexp(-log_sf, -log_cdf) + log_pdf
+    tiny = _tiny(log_cdf)
+    cdf = torch.exp(log_cdf)
+    ln_fac_raw = log_cdf + log_sf + LOG_4
+    f32 = log_cdf.dtype == torch.float32
+
+    if "partly" in inverse_function_type:
+        if f32:
+            good = ln_fac_raw > LOG_SEAM
+            ln_fac_mid = torch.where(good, ln_fac_raw, -1.0)
+            xx, ww = erfinv_f32_args_from_logs(log_cdf, log_sf, ln_fac_mid)
+            ei = erfinv_f32_poly(xx, ww)
+            middle = LOG_SQRT_2PI + ei**2 + log_pdf
+        else:
+            good = (cdf > PADE_BOUND) & (cdf < 1.0 - PADE_BOUND) \
+                & (ln_fac_raw > LOG_SEAM)
+            cdf_good = torch.where(good, cdf, 0.5)
+            middle = (LOG_SQRT_2PI
+                      + torch.special.erfinv(2.0 * cdf_good - 1.0)**2
+                      + log_pdf)
+        ln_fac = torch.where(good, -1.0, ln_fac_raw)
+        if inverse_function_type == "inormal_partly_crude":
+            total_factor = -0.5 * torch.log(torch.clamp(
+                -(ln_fac - LOG_4) * 2.0, min=tiny)) - (ln_fac - LOG_4)
+        else:
+            extra = torch.log(torch.clamp(torch.abs(1.0 - 2.0 * cdf),
+                                          min=tiny))
+            total_factor = _pade_log_total(ln_fac, tiny) - (ln_fac - LOG_4) \
+                + extra
+        return torch.where(good, middle, total_factor + log_pdf)
+
+    if f32:
+        x_lin = torch.exp(log_cdf) - torch.exp(log_sf)
+        abs_x = torch.abs(x_lin)
+        near_center = abs_x <= FULL_PADE_F32_CENTER
+        ln_fac = torch.where(near_center, -1.0,
+                             _lnfac_f32_stable(log_cdf, log_sf, ln_fac_raw,
+                                               tiny))
+        ei_lin = ERFINV_SLOPE * x_lin * (1.0 + ERFINV_CUBIC * x_lin * x_lin)
+        center = LOG_CENTER_DERIV + ei_lin * ei_lin + log_pdf
+    else:
+        abs_x = torch.abs(1.0 - 2.0 * cdf)
+        near_center = (cdf >= 0.49999) & (cdf <= 0.50001)
+        ln_fac = torch.where(near_center, -1.0,
+                             torch.clamp(ln_fac_raw, max=-tiny))
+        center = LOG_CENTER_DERIV + log_pdf
+    extra = torch.log(torch.clamp(abs_x, min=tiny))
+    full = _pade_log_total(ln_fac, tiny) - (ln_fac - LOG_4) + log_pdf + extra
+    return torch.where(near_center, center, full)
+
+
+def gaussianize_forward(x, means, log_widths, log_norms,
+                        inverse_function_type):
+    """x -> (icdf_pass(x), log|d/dx|): the analytic (density) direction."""
+    log_cdf, log_sf, log_pdf = logistic_mixture_log_quantities(
+        x, means, log_widths, log_norms, calculate_pdf=True)
+    val = icdf_pass(log_cdf, log_sf, inverse_function_type)
+    log_deriv = icdf_log_derivative(log_cdf, log_sf, log_pdf,
+                                    inverse_function_type)
+    return val, log_deriv
+
+
+def gaussianize_value(x, means, log_widths, log_norms,
+                      inverse_function_type):
+    """Value-only variant (used inside the Newton iteration)."""
+    log_cdf, log_sf, _ = logistic_mixture_log_quantities(
+        x, means, log_widths, log_norms, calculate_pdf=False)
+    return icdf_pass(log_cdf, log_sf, inverse_function_type)

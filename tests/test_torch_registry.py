@@ -1,0 +1,48 @@
+"""The port's flow registry equals the JAX package's: the same symbols,
+manifold types, layer class names, option defaults, and validators that
+accept and reject the same values."""
+import pytest
+
+from jammy_flows_tpu import registry as jreg
+from jammy_flows_tpu_torch import registry as treg
+
+PROBES = [0, 1, 2, -1, -2, 0.5, -0.5, 1e-3, 0.0, 1.0, 3, 100, -1.0,
+          "isigmoid", "inormal_full_pade", "householder", "none", "angles",
+          "classic", "rq_splines", "diagonal", "full", "oo", "rr", "32",
+          "dopri5", "exponential", "direct_log_real_bounded", "bogus"]
+
+
+def _accepts(check, sym, opt, val):
+    try:
+        check(sym, opt, val)
+        return True
+    except (AssertionError, ValueError, TypeError):
+        return False
+
+
+def test_option_tables_match():
+    assert set(treg.OPTS) == set(jreg.OPTS)
+    for sym, (mt, mod, cls, opts) in jreg.OPTS.items():
+        tmt, tmod, tcls, topts = treg.OPTS[sym]
+        assert (tmt, tcls) == (mt, cls)
+        assert tmod.split(".")[-1] == mod.split(".")[-1]
+        assert treg.obtain_default_options(sym) == \
+            jreg.obtain_default_options(sym)
+        assert list(topts) == list(opts)
+
+
+@pytest.mark.parametrize("sym", sorted(jreg.OPTS))
+def test_validators_accept_and_reject_the_same_values(sym):
+    for opt, (default, _) in jreg.OPTS[sym][3].items():
+        for val in PROBES + [default]:
+            assert _accepts(treg.check_flow_option, sym, opt, val) == \
+                _accepts(jreg.check_flow_option, sym, opt, val), (sym, opt, val)
+    assert not _accepts(treg.check_flow_option, sym, "no_such_option", 1)
+
+
+def test_unported_layers_raise_not_implemented():
+    assert treg.get_layer_class("g").__name__ == "GaussianizationFlow"
+    assert treg.get_layer_class("f").__name__ == "FisherVonMises2D"
+    for sym in ("m", "o", "v", "c", "y", "r", "z", "u", "w", "t", "x"):
+        with pytest.raises(NotImplementedError):
+            treg.get_layer_class(sym)
