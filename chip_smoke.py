@@ -2,23 +2,32 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA block kernels from jammy_flows_tpu_torch/csrc,
-then drives the flagship ``pdf("e4+s2+e4", "gggg+f+gggg")`` serving path
-twice, unconditional (1,048,576 rows) and conditional_input_dim=3 (262,144
-rows): ``sample``, then ``log_prob`` of the samples.  Each path has its own
-launch counts, which must be exactly the kernels that path runs.  Every
-kernel call of both paths is recorded and held against the plain PyTorch
-version on the same inputs; the card's float32 log-prob is cross-checked
-against the port's float64 CPU path for both models; then each kernel, its
-plain version and the whole ``sample`` / ``log_prob`` are timed.  Every
-failure raises (non-zero exit).  The last line of standard output is the
-device JSON; the line before it the per-kernel JSON.  Needs one CUDA device;
-imports nothing of JAX.
+Builds the hand-written CUDA block kernels from jammy_flows_tpu_torch/csrc
+(forward and backward sources compiled in parallel), then drives the
+flagship ``pdf("e4+s2+e4", "gggg+f+gggg")``:
+
+* serving, twice, unconditional (1,048,576 rows) and conditional_input_dim=3
+  (262,144 rows): ``sample``, then ``log_prob`` of the samples;
+* training, for both configurations at 262,144 rows sampled from the model:
+  the fused ``nll_value_and_grad`` (T3 per block), autograd of
+  ``-log_prob(...).mean()`` (T1 + T2) and of a sample objective (T1 + the
+  T2 sample body), then ``train.fit`` for 20 full-batch Adam steps.
+
+Each path has its own launch counts, which must be exactly the kernels that
+path runs.  Every kernel call of every path is recorded and held against the
+plain PyTorch version on the same inputs; the fused NLL against autograd;
+the card's float32 log-prob and gradients against the port's float64 CPU
+path; then each kernel, its plain version, the whole ``sample`` /
+``log_prob`` and the training step are timed.  Every failure raises
+(non-zero exit).  The last line of standard output is the device JSON; the
+line before it the per-kernel JSON.  Needs one CUDA device; imports nothing
+of JAX.
 """
 from __future__ import annotations
 
 import contextlib
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -41,14 +50,47 @@ TOL_CROSS = 1e-3
 TIMING_REPS = 20
 ENTRY_POINTS = ("density_perm", "sample_perm", "density_lazy2",
                 "sample_lazy2")
+BWD_KERNELS = ("density_bwd_perm", "density_bwd_lazy2", "sample_bwd_perm",
+               "sample_bwd_lazy2", "nll_perm", "nll_lazy2")
 # launches of one sample + log_prob: the unconditional flagship's block 0
 # has permanent parameters (perm) and block 2 a fused MLP (lazy2); the
 # conditional one amortizes both blocks (lazy2, 3- and 10-wide summaries)
 EXPECTED_LAUNCHES = {
     "unconditional": {"density_perm": 1, "sample_perm": 1,
                       "density_lazy2": 1, "sample_lazy2": 1},
-    "conditional": {"density_perm": 0, "sample_perm": 0,
-                    "density_lazy2": 2, "sample_lazy2": 2},
+    "conditional": {"density_lazy2": 2, "sample_lazy2": 2},
+}
+# training: rows per step (the JAX package's training step,
+# pallas_gf_block.py:4-7), a ragged batch, the f64 cross-check size, steps
+N_TRAIN = 262_144
+N_RAGGED = N_TRAIN - 1
+TRAIN_STEPS = 20
+TRAIN_LR = 1e-3
+# backward vs plain, relative (per-row gradients: max|diff| over max|ref|;
+# broadcast gradients: relative norm), and fused NLL vs autograd: the JAX
+# package's kernel-vs-XLA gradient limits (tests/test_tpu_kernels.py:136,
+# 147, 178-182); T3's val / ld vs T1's: the same code, so equal
+TOL_GRAD = {"density": 1e-4, "nll": 1e-4, "sample": 3e-4}
+TOL_NLL_LOSS = 1e-4
+TOL_T3_VS_T1 = 1e-6
+TOL_CROSS_GRAD = 1e-3
+# launches of each training path, per configuration: the fused NLL runs
+# one T3 launch per block and nothing else; autograd of log_prob the T1
+# density and T2 density kernels of each block; autograd of sample the T1
+# sample and T2 sample kernels of each block
+EXPECTED_TRAIN_LAUNCHES = {
+    "unconditional": {
+        "nll": {"nll_perm": 1, "nll_lazy2": 1},
+        "log_prob_grad": {"density_perm": 1, "density_lazy2": 1,
+                          "density_bwd_perm": 1, "density_bwd_lazy2": 1},
+        "sample_grad": {"sample_perm": 1, "sample_lazy2": 1,
+                        "sample_bwd_perm": 1, "sample_bwd_lazy2": 1},
+        "fit": {"nll_perm": TRAIN_STEPS, "nll_lazy2": TRAIN_STEPS}},
+    "conditional": {
+        "nll": {"nll_lazy2": 2},
+        "log_prob_grad": {"density_lazy2": 2, "density_bwd_lazy2": 2},
+        "sample_grad": {"sample_lazy2": 2, "sample_bwd_lazy2": 2},
+        "fit": {"nll_lazy2": 2 * TRAIN_STEPS}},
 }
 # H100 SXM peaks (NVIDIA data sheet): FP32 on the CUDA cores, HBM3
 PEAK_F32_FLOPS = 67e12
@@ -57,6 +99,12 @@ PEAK_BYTES = 3.35e12
 
 def log(msg):
     print(msg, flush=True)
+
+
+def all_counts(expected):
+    """An expected launch dict with every other kernel at 0."""
+    from jammy_flows_tpu_torch.ops import gf_block as gb
+    return {k: expected.get(k, 0) for k in gb.LAUNCHES}
 
 
 def card_line():
@@ -164,36 +212,83 @@ def check_calls(label, calls):
 # operation and byte counts for the bound
 # ---------------------------------------------------------------------------
 
-def block_work(name, n, meta, n_in=0, hid=0):
-    """(flops, bytes) the block function needs for n rows.  Flops count an
-    FMA as 2 and every other f32 operation, transcendentals included, as 1;
-    per mixture component: 12 for a value, 16 with the pdf, 28 with the
-    density form's fallback terms, 31 for the regulators and log-softmax of
-    its parameters; an iCDF pass with its log-derivative 30; a householder
-    reflection 8 per dimension.  The trip counts are fixed (no early exit),
-    so this is what every run needs."""
+# FP32 operations counted from the kernels' expressions (csrc/gf_common.cuh,
+# gf_block_src.cuh, gf_block_bwd.cu): an FMA as 2, every other operation
+# (add, multiply, divide, compare, select, min/max, transcendental) as 1.
+# Each function's minimum is counted once: a backward reuses every value its
+# forward made (the mixture's terms, the parameter rows, the rotated inputs)
+# and recomputes none, and parameter-only terms count per row where the
+# parameters differ per row (lazy2), else once per call.  Data-dependent
+# branches count the branch of a row inside the mixture (no far-tail
+# fallback lane; the erfinv centre of the normal iCDF).
+MIX_OPS = 27        # per component: c, exp, sigmoid, F, SF, P, fallback maxima
+MIX_DIM_OPS = 12    # per dimension: log_cdf, log_sf, log_pdf from the sums
+ICDF_OPS = {"isigmoid": 12, "inormal_partly_precise": 41}  # pass + log-deriv
+PREP_OPS = 50       # per component: both regulators, exp(-lw), log-softmax,
+                    # nw * iw, lnw + log iw
+PREP_DIM_OPS = 2    # per dimension: the log-softmax's log-sum
+ADJ_OPS = 30        # per component: the transposed tangent rule -> dx, dm,
+                    # dlw, dln
+ADJ_DIM_OPS = 7     # per dimension: 1/F, 1/SF, 1/P and their cotangents
+ICDF_ADJ_OPS = {"isigmoid": 8, "inormal_partly_precise": 28}
+PREP_ADJ_OPS = 14   # per component: the two regulators' derivatives
+JVP_OPS = 6         # sample body, per component: the tangent along ds
+JVP_DIM_OPS = 7     # sample body, per dimension: c = (gs + gld lx) / fp
+ICDF_JVP_OPS = {"isigmoid": 5, "inormal_partly_precise": 11}
+
+
+def work(name, n, meta, n_in=0, hid=0):
+    """(flops, bytes) of one kernel call on n rows, name as in LAUNCHES.
+    Per layer and row: the offset, the householder reflections (4d - 1 each,
+    their unit vectors and 2v 4d + 1 per parameter set; backward 13d - 2)
+    and per dimension the mixture (MIX_OPS ...); the forward sample
+    direction's solve per dimension: the bracket 4 per component, its start
+    (isigmoid a weighted quantile, 3 per component, else two value passes of
+    12 per component + 15), four Newton steps and the log-derivative (16 per
+    component + 30 each).  lazy2 adds the MLP: 2 H In + 2 H for the hidden
+    layer, 2 P H + P for the parameter rows; its backward dh = w^T dp and gw
+    = sum_rows dp x hidden (2 P H each), gb (P) and the hidden layer's
+    backward (4 H In + 4 H); perm's backward sums dp over rows (P).  The
+    loops have fixed trip counts, so this is what every run needs.  Bytes:
+    each input read once, each output written once."""
     from jammy_flows_tpu_torch.ops.gf_block import block_rows
     k, d, layers = meta
-    direction, mode = name.split("_")
+    parts = name.split("_")
+    kind, lazy = parts[0], parts[-1] == "lazy2"
+    bwd = kind == "nll" or parts[1] == "bwd"
     p = block_rows(k, d, layers)
-    per_row = 0
+    row = prep = 0
     for has_off, rot_it, _, ift in layers:
-        per_row += d * (has_off + 8 * rot_it)
-        if direction == "density":
-            unit = 28 * k + 30
-        else:
+        prep += d * (k * PREP_OPS + PREP_DIM_OPS) + rot_it * (4 * d + 1)
+        row += d * has_off + rot_it * (4 * d - 1)
+        if kind == "sample" and not bwd:
             start = 3 * k if ift == "isigmoid" else 2 * (12 * k + 15)
-            unit = 4 * k + start + 4 * (16 * k + 30) + (16 * k + 30)
-        per_row += d * unit
-        if mode == "lazy2":
-            per_row += d * 31 * k
-    byts = 3 * n * d * 4
-    if mode == "lazy2":
-        per_row += 2 * hid * n_in + 2 * hid + 2 * p * hid + p
-        byts += 4 * (n * n_in + hid * n_in + hid + p * hid + p)
-    else:
-        byts += 4 * p
-    return per_row * n, byts
+            row += d * (4 * k + start + 5 * (16 * k + 30))
+        else:
+            row += d * (k * MIX_OPS + MIX_DIM_OPS + ICDF_OPS[ift])
+        if bwd:
+            prep += d * k * PREP_ADJ_OPS
+            row += rot_it * (13 * d - 2) + d * (
+                k * ADJ_OPS + ADJ_DIM_OPS + ICDF_ADJ_OPS[ift])
+            if kind == "sample":
+                row += d * (k * JVP_OPS + JVP_DIM_OPS + ICDF_JVP_OPS[ift])
+            else:                  # the offset's cotangent -g
+                row += d * has_off
+    if kind == "nll":              # the cotangent wv * val
+        row += d
+    n_io = 4 if bwd else 3         # x, out, ld (+ the cotangents, gx)
+    byts = n_io * n * d * 4
+    if lazy:
+        row += prep + 2 * hid * n_in + 2 * hid + 2 * p * hid + p
+        weights = hid * n_in + hid + p * hid + p
+        byts += 4 * (n * n_in + weights)
+        if bwd:
+            row += 4 * p * hid + p + 4 * hid * n_in + 4 * hid
+            byts += 4 * (n * n_in + weights)   # gsummary, the gradients
+        return row * n, byts
+    row += p if bwd else 0
+    byts += 4 * p * (2 if bwd else 1)
+    return row * n + prep, byts
 
 
 def bound_ms(flops, byts):
@@ -206,15 +301,17 @@ def bound_ms(flops, byts):
 # main path
 # ---------------------------------------------------------------------------
 
-def jittered_params(p, seed):
-    """init_params(seed=0) with every MLP's weights moved by 0.02 * N(0, 1):
-    the initial MLP's output hardly depends on its input (its weights are
-    damped by 1000), so this gives the lazy2 kernel parameters that differ
-    from row to row, as a trained model's do."""
+def jittered_params(p, seed, flow_scale=0.0):
+    """init_params(seed=0) with every MLP's weights moved by 0.02 * N(0, 1)
+    (and the permanent flow_0 by flow_scale * N(0, 1)): the initial MLP's
+    output hardly depends on its input (its weights are damped by 1000), so
+    this gives the lazy2 kernel parameters that differ from row to row, as a
+    trained model's do."""
     params = p.init_params(seed=0)
     g = torch.Generator(device=p.device).manual_seed(seed)
-    return {k: v + 0.02 * torch.randn(v.shape, generator=g, device=v.device)
-            if k.startswith("mlp_") else v for k, v in params.items()}
+    scale = {k: 0.02 if k.startswith("mlp_") else flow_scale for k in params}
+    return {k: v + scale[k] * torch.randn(v.shape, generator=g, device=v.device)
+            if scale[k] else v for k, v in params.items()}
 
 
 def roundtrip(p, params, n, ci, seed):
@@ -244,7 +341,7 @@ def serve(label, p, params, n, ci, seed):
     torch.cuda.synchronize()
     launches = dict(gb.LAUNCHES)
     log(f"{label} ({n} rows): launches {launches}")
-    if launches != EXPECTED_LAUNCHES[label]:
+    if launches != all_counts(EXPECTED_LAUNCHES[label]):
         raise AssertionError(f"{label}: launches {launches}, expected "
                              f"{EXPECTED_LAUNCHES[label]}")
     if len(calls) != sum(launches.values()):
@@ -280,6 +377,306 @@ def cross_check(label, p, params, x, ci):
                              f"{cross:.3e}")
 
 
+# ---------------------------------------------------------------------------
+# training: the backward (T2) and fused NLL (T3) calls, held against the
+# plain versions
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def recording_bwd(calls):
+    """Wrap the block backward and the fused NLL call so that every T2 / T3
+    call appends (name, kind, inputs, outputs) to ``calls``, as copies; the
+    wrapped call still launches, and counts, its kernel once."""
+    from jammy_flows_tpu_torch.ops import gf_block as gb
+    run_bwd, run_nll = gb._run_bwd, gb._run_nll
+
+    def bwd(direction, res, params, g_out, g_ld, prep, meta, lazy):
+        kept = (res.clone(), tuple(p.clone() for p in params),
+                g_out.contiguous().clone(), g_ld.contiguous().clone())
+        gx, grads = run_bwd(direction, res, params, g_out, g_ld, prep, meta,
+                            lazy)
+        calls.append((f"{direction}_bwd_{gb._mode(lazy)}", direction, kept,
+                      prep, meta, lazy, (gx.clone(),
+                                         tuple(g.clone() for g in grads))))
+        return gx, grads
+
+    def nll(x, params, prep, meta, lazy, wv, wl):
+        kept = (x.clone(), tuple(p.clone() for p in params), wv, wl)
+        val, ld, gx, grads = run_nll(x, params, prep, meta, lazy, wv, wl)
+        calls.append((f"nll_{gb._mode(lazy)}", "nll", kept, prep, meta, lazy,
+                      (val.clone(), ld.clone(), gx.clone(),
+                       tuple(g.clone() for g in grads))))
+        return val, ld, gx, grads
+
+    gb._run_bwd, gb._run_nll = bwd, nll
+    try:
+        yield
+    finally:
+        gb._run_bwd, gb._run_nll = run_bwd, run_nll
+
+
+def grad_errors(got, ref):
+    """(largest relative error, largest absolute difference, the output with
+    the largest relative error) over a call's gradients (gx, then the
+    parameters' in the wrapper's order): per-row ones (gx, gsummary) as
+    max|diff| / max|ref|, broadcast ones as relative norms."""
+    rel, absd, worst = 0.0, 0.0, 0
+    for i, (a, b) in enumerate(zip(got, ref)):
+        if not torch.isfinite(a).all():
+            return float("inf"), float("inf"), i
+        d = (a.double() - b.double())
+        absd = max(absd, d.abs().max().item() if d.numel() else 0.0)
+        per_row = i == 0 or (len(got) == 6 and i == 1)
+        if per_row:
+            scale = b.abs().max().item() if b.numel() else 0.0
+            e = d.abs().max().item() / scale if scale > 0 else 0.0
+        else:
+            n = b.double().norm().item()
+            e = d.norm().item() / n if n > 0 else d.norm().item()
+        if e > rel:
+            rel, worst = e, i
+    return rel, absd, worst
+
+
+def check_bwd_calls(label, calls):
+    """Each recorded T2 / T3 call against its plain version on the same
+    inputs, and each T3 call's val / ld against the T1 forward's; returns
+    the largest |diff| per kernel."""
+    from jammy_flows_tpu_torch.ops import gf_block as gb
+    errs = {}
+    for name, kind, kept, prep, meta, lazy, outs in calls:
+        if kind == "nll":
+            x, params, wv, wl = kept
+            val, ld, gx, grads = outs
+            ref = gb.block_nll_plain(x, params, prep, meta, lazy, wv, wl)
+            got, want = (gx, *grads), (ref[2], *ref[3])
+            t1_out, t1_ld = gb._run(x, params, prep, meta, lazy, "density")
+            t13 = max((val - t1_out).abs().max().item(),
+                      (ld - t1_ld).abs().max().item())
+            log(f"{label} {name}: T3 val/ld vs T1 max|diff| {t13:.3e} "
+                f"(limit {TOL_T3_VS_T1:g})")
+            if not t13 <= TOL_T3_VS_T1:
+                raise AssertionError(f"{label} {name}: T3 val/ld differ from "
+                                     f"T1 by {t13:.3e}")
+        else:
+            res, params, g_out, g_ld = kept
+            gx, grads = outs
+            ref = gb.block_bwd_plain(kind, res, params, g_out, g_ld, prep,
+                                     meta, lazy)
+            got, want = (gx, *grads), (ref[0], *ref[1])
+        torch.cuda.synchronize()
+        rel, absd, worst = grad_errors(got, want)
+        tol = TOL_GRAD[kind]
+        log(f"kernel vs plain {label} {name} ({kept[0].shape[0]} rows): "
+            f"largest relative error {rel:.3e} (output {worst}), max|diff| "
+            f"{absd:.3e} (limit {tol:g})")
+        if not rel < tol:
+            raise AssertionError(f"{label} {name}: kernel disagrees with its "
+                                 f"plain version ({rel:.3e} >= {tol:g})")
+        errs[name] = max(errs.get(name, 0.0), absd)
+    return errs
+
+
+def train_path(label, what, p, fn):
+    """One training path with the launch counts set to 0 just before it and
+    read just after; returns (result, launches, recorded T2 / T3 calls)."""
+    from jammy_flows_tpu_torch.ops import gf_block as gb
+    calls = []
+    gb.reset_launch_counts()
+    with recording_bwd(calls):
+        out = fn()
+    torch.cuda.synchronize()
+    launches = dict(gb.LAUNCHES)
+    want = all_counts(EXPECTED_TRAIN_LAUNCHES[label][what])
+    log(f"{label} training path {what}: launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    if launches != want:
+        raise AssertionError(f"{label} {what}: launches {launches}, expected "
+                             f"{want}")
+    return out, launches, calls
+
+
+def sample_objective(p, pp, z, ci):
+    """(x**2).mean() + 0.1 * log q.mean() through all_layer_forward on base
+    draws z (log q = log N(z) - log det; log N(z) does not depend on the
+    parameters)."""
+    x, ld = p.all_layer_forward(pp, z, torch.zeros(z.shape[0], dtype=z.dtype,
+                                                   device=z.device), ci)
+    return (x**2).mean() - 0.1 * ld.mean()
+
+
+def rel_norm(a, b):
+    a, b = a.double().cpu(), b.double().cpu()
+    return (a - b).norm().item() / max(b.norm().item(), 1e-300)
+
+
+def train(label, p, params, seed):
+    """The training phase of one configuration; returns (launches per path,
+    errors per kernel, recorded calls of the unconditional paths, step
+    times)."""
+    from jammy_flows_tpu_torch import pdf, train as ttrain
+    from jammy_flows_tpu_torch.utils.convert import params_from_jax
+    dev = p.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ci = None if p.conditional_input_dim is None else torch.randn(
+        (N_TRAIN, p.conditional_input_dim), generator=g, device=dev)
+    # the rows come from another jittered model (flow_0 moved as well): at
+    # the model that drew them, a gradient is a sum of cancelling per-row
+    # terms and its relative error measures float32 summation order only
+    with torch.no_grad():
+        x = p.sample(jittered_params(p, seed + 100, flow_scale=0.1),
+                     samplesize=N_TRAIN, conditional_input=ci,
+                     generator=g)[0]
+    z = torch.randn((N_TRAIN, p.total_base_dim), generator=g, device=dev)
+
+    (l_f, g_f), l_nll, c_nll = train_path(
+        label, "nll", p, lambda: p.nll_value_and_grad(params, x, ci))
+    (l_a, g_a), l_lp, c_lp = train_path(
+        label, "log_prob_grad", p, lambda: p._value_and_grad(
+            lambda pp: -p.log_prob(pp, x, ci)[0].mean(), params))
+    (l_s, g_s), l_sg, c_sg = train_path(
+        label, "sample_grad", p, lambda: p._value_and_grad(
+            lambda pp: sample_objective(p, pp, z, ci), params))
+
+    d_loss = abs(l_f.item() - l_a.item())
+    rels = {k: rel_norm(g_f[k], g_a[k]) for k in g_f}
+    log(f"{label}: fused NLL {l_f.item():.6f} vs autograd {l_a.item():.6f} "
+        f"(|diff| {d_loss:.3e}, limit {TOL_NLL_LOSS:g}); gradient relative "
+        f"norms {', '.join(f'{k} {v:.3e}' for k, v in rels.items())} "
+        f"(limit {TOL_GRAD['nll']:g})")
+    if not (d_loss < TOL_NLL_LOSS and max(rels.values()) < TOL_GRAD["nll"]):
+        raise AssertionError(f"{label}: fused NLL disagrees with autograd")
+    for k, v in list(g_f.items()) + list(g_s.items()):
+        if not torch.isfinite(v).all():
+            raise AssertionError(f"{label}: non-finite gradient {k}")
+    log(f"{label}: sample objective {l_s.item():.6f}, gradient norms "
+        f"{', '.join(f'{k} {v.norm().item():.4g}' for k, v in g_s.items())}")
+
+    errs = {}
+    for calls in (c_nll, c_lp, c_sg):
+        for k, v in check_bwd_calls(label, calls).items():
+            errs[k] = max(errs.get(k, 0.0), v)
+
+    # a ragged batch through T3, against the plain version
+    from jammy_flows_tpu_torch.ops import gf_block as gb
+    for name, _, kept, prep, meta, lazy, _ in c_nll:
+        xr, params_r, wv, wl = kept
+        xr = xr[:N_RAGGED]
+        params_r = (params_r[0][:N_RAGGED].contiguous(),) + params_r[1:] \
+            if lazy else params_r
+        out = gb._run_nll(xr, params_r, prep, meta, lazy, wv, wl)
+        ref = gb.block_nll_plain(xr, params_r, prep, meta, lazy, wv, wl)
+        rel, absd, _ = grad_errors((out[2], *out[3]), (ref[2], *ref[3]))
+        log(f"{label} {name} ragged ({N_RAGGED} rows): largest relative "
+            f"error {rel:.3e}, max|diff| {absd:.3e} (limit "
+            f"{TOL_GRAD['nll']:g})")
+        if not rel < TOL_GRAD["nll"]:
+            raise AssertionError(f"{label} {name}: ragged batch disagrees")
+        errs[name] = max(errs.get(name, 0.0), absd)
+
+    # card f32 against the port's f64 CPU path, N_CROSS rows
+    p_cpu = pdf(*FLAGSHIP, conditional_input_dim=p.conditional_input_dim,
+                device="cpu")
+    par64 = params_from_jax({k: v.cpu().numpy() for k, v in params.items()},
+                            dtype=torch.float64)
+    xs, zs = x[:N_CROSS], z[:N_CROSS]
+    cis = None if ci is None else ci[:N_CROSS]
+    cis64 = None if cis is None else cis.double().cpu()
+    _, gn_card = p.nll_value_and_grad(params, xs, cis)
+    _, gn_cpu = p_cpu.nll_value_and_grad(par64, xs.double().cpu(), cis64)
+    _, gs_card = p._value_and_grad(
+        lambda pp: sample_objective(p, pp, zs, cis), params)
+    _, gs_cpu = p_cpu._value_and_grad(
+        lambda pp: sample_objective(p_cpu, pp, zs.double().cpu(), cis64),
+        par64)
+    for what, a, b in (("NLL", gn_card, gn_cpu), ("sample", gs_card, gs_cpu)):
+        rels = {k: rel_norm(a[k], b[k]) for k in a}
+        log(f"{label}: card f32 vs CPU f64 {what} gradient on {N_CROSS} rows: "
+            f"relative norms {', '.join(f'{k} {v:.3e}' for k, v in rels.items())}"
+            f" (limit {TOL_CROSS_GRAD:g})")
+        if not max(rels.values()) < TOL_CROSS_GRAD:
+            raise AssertionError(f"{label}: card vs CPU f64 {what} gradient")
+
+    # train.fit: TRAIN_STEPS full-batch Adam steps from init_params(seed=0)
+    # on the rows sampled from the jittered model
+    init = p.init_params(seed=0)
+    # one untimed step first: the first optimizer step of a process carries
+    # one-time set-up (torch.optim's lazy imports)
+    ttrain.fit(p, init, x[:4096], conditional_input=None if ci is None
+               else ci[:4096], num_steps=1, learning_rate=TRAIN_LR)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    (_, losses), l_fit, _ = train_path(
+        label, "fit", p, lambda: ttrain.fit(p, init, x, conditional_input=ci,
+                                            num_steps=TRAIN_STEPS,
+                                            learning_rate=TRAIN_LR))
+    torch.cuda.synchronize()
+    fit_s = time.time() - t0
+    log(f"{label}: train.fit {TRAIN_STEPS} Adam steps (lr {TRAIN_LR:g}, "
+        f"{N_TRAIN} rows): NLL {losses[0]:.6f} -> {losses[-1]:.6f}; "
+        f"{fit_s / TRAIN_STEPS * 1e3:.3f} ms per step (host clock, mean, after "
+        f"a one-step warm-up fit)")
+    log(f"{label}: loss history {' '.join(f'{v:.6f}' for v in losses)}")
+    if not (len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses))
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"{label}: training did not lower the loss: "
+                             f"{list(losses)}")
+
+    step_fused = cuda_ms(lambda: p.nll_value_and_grad(params, x, ci), 10)
+    step_auto = cuda_ms(lambda: p._value_and_grad(
+        lambda pp: -p.log_prob(pp, x, ci)[0].mean(), params), 10)
+    log(f"{label} value-and-grad step at {N_TRAIN} rows: fused "
+        f"{step_fused:.3f} ms, autograd {step_auto:.3f} ms (median of 10)")
+    launches = {"nll": l_nll, "log_prob_grad": l_lp, "sample_grad": l_sg,
+                "fit": l_fit}
+    return launches, errs, c_nll + c_lp + c_sg, (step_fused, step_auto)
+
+
+def time_bwd_kernels(calls, launches_by_path, errs, card):
+    """Each new kernel on the unconditional training path's own inputs:
+    kernel, plain version, bound; returns the JSON rows."""
+    from jammy_flows_tpu_torch.ops import gf_block as gb
+    rows = []
+    for name in BWD_KERNELS:
+        _, kind, kept, prep, meta, lazy, _ = next(c for c in calls
+                                                  if c[0] == name)
+        if kind == "nll":
+            x, params, wv, wl = kept
+            fn = lambda: gb._launch_bwd("nll", x, params, None, None, prep,
+                                        meta, lazy, wv, wl)
+            plain = lambda: gb.block_nll_plain(x, params, prep, meta, lazy,
+                                               wv, wl)
+        else:
+            x, params, g_out, g_ld = kept
+            fn = lambda: gb._launch_bwd(kind, x, params, g_out, g_ld, prep,
+                                        meta, lazy)
+            plain = lambda: gb.block_bwd_plain(kind, x, params, g_out, g_ld,
+                                               prep, meta, lazy)
+        ms = cuda_ms(fn, TIMING_REPS)
+        plain_ms = cuda_ms(plain, TIMING_REPS)
+        n_in, hid = (params[0].shape[1], params[1].shape[0]) if lazy \
+            else (0, 0)
+        flops, byts = work(name, x.shape[0], meta, n_in, hid)
+        b_ms, b_by = bound_ms(flops, byts)
+        log(f"{name} at {x.shape[0]} rows on {card}: kernel {ms:.4f} "
+            f"ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+            f"{flops:.4g} flop, {byts:.4g} B)")
+        by_path = {f"{cfg} {what}": n[name]
+                   for cfg, paths in launches_by_path.items()
+                   for what, n in paths.items() if n[name]}
+        replaces = "jammy_flows_tpu/ops/pallas_gf_block.py:" + (
+            "536" if kind == "nll" else "514")
+        rows.append({"name": f"gf_block_{name}", "route": "cuda",
+                     "source": "jammy_flows_tpu_torch/csrc/gf_block_bwd.cu",
+                     "replaces": replaces,
+                     "launches": sum(by_path.values()),
+                     "launches_by_path": by_path,
+                     "max_abs_err": errs[name],
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": None})
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -292,13 +689,14 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.time()
     ptxas = []
-    lib, compiled = cuda_build.build("gf_block", log=ptxas.append)
-    if compiled:
-        log(f"built gf_block.cu in {time.time() - t0:.1f} s")
-        for line in ptxas_summary("".join(ptxas)):
-            log(line)
-    else:
-        log(f"loaded cached library {lib.name} (not rebuilt)")
+    built = cuda_build.build_all(["gf_block", "gf_block_bwd"],
+                                 log=ptxas.append)
+    for name, (lib, compiled) in built.items():
+        log(f"built {name}.cu (nvcc processes in parallel, "
+            f"{time.time() - t0:.1f} s in all)" if compiled
+            else f"loaded cached library {lib.name} (not rebuilt)")
+    for line in ptxas_summary("".join(ptxas)):
+        log(line)
     dev = torch.device("cuda", torch.cuda.current_device())
 
     p_u = pdf(*FLAGSHIP, device=dev)
@@ -334,7 +732,7 @@ def main():
                                                   meta, lazy), TIMING_REPS)
         n_in, hid = (params[0].shape[1], params[1].shape[0]) if lazy \
             else (0, 0)
-        flops, byts = block_work(name, x.shape[0], meta, n_in, hid)
+        flops, byts = work(name, x.shape[0], meta, n_in, hid)
         b_ms, b_by = bound_ms(flops, byts)
         log(f"{name} at {x.shape[0]} rows on {card}: kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
@@ -357,6 +755,24 @@ def main():
     for what, ms in (("sample", sample_ms), ("log_prob", log_prob_ms)):
         log(f"unconditional {what} on {card}: {ms:.3f} ms per "
             f"{N_SAMPLE_UNCOND} rows = {N_SAMPLE_UNCOND / ms * 1e3:.6g} rows/s")
+
+    # training: both configurations at N_TRAIN rows
+    t_train = time.time()
+    launch_t, errs_t, calls_t, steps = {}, {}, {}, {}
+    for label, p, par, seed in (("unconditional", p_u, par_u, 7),
+                                ("conditional", p_c, par_c, 8)):
+        launch_t[label], e, calls_t[label], steps[label] = train(
+            label, p, par, seed)
+        for k, v in e.items():
+            errs_t[k] = max(errs_t.get(k, 0.0), v)
+    del calls_t["conditional"]
+    rows += time_bwd_kernels(calls_t["unconditional"], launch_t, errs_t, card)
+    del calls_t
+    for label, (fused, auto) in steps.items():
+        log(f"{label} training step on {card}: fused nll_value_and_grad "
+            f"{fused:.3f} ms, autograd of -log_prob().mean() {auto:.3f} ms "
+            f"per {N_TRAIN} rows")
+    log(f"training phase {time.time() - t_train:.1f} s")
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,589 @@
+// Backward of the whole-block Gaussianization-flow kernels for Hopper
+// (sm_90a), and the fused NLL value-and-gradient.
+//
+// Replaces the TPU kernels of jammy_flows_tpu/ops/pallas_gf_block.py:
+//   * `_block_bwd_call` (T2): the VJP of a whole `gggg` block for arbitrary
+//     cotangents (g_out, g_ld).  Density body (`_make_block_density_bwd`):
+//     the forward recomputed, then a reverse sweep through the chain.
+//     Sample body (`_make_block_sample_bwd`): each layer's solve output s_l
+//     reconstructed from the block output y (one mixture value pass per
+//     layer, no re-solve), then per-layer implicit steps
+//     c = (gs + gld * lx) / fp and the parameters' VJP with (-c, gld);
+//   * `_block_fused_call` (T3, `_make_block_density_fused`): the density
+//     forward and its VJP in one launch with the cotangents (wv * val, wl)
+//     known in advance; val and ld are the forward kernel's (same code).
+// perm (one broadcast (P,) vector) and lazy2 (the fused one-hidden-layer
+// tanh MLP) modes, as the forward kernels (gf_block.cu).
+//
+// What bounds it on an H100: arithmetic, as the forward.  Per row it
+// recomputes the forward (the density chain, or one value pass per layer
+// for the sample body), runs the adjoint of every mixture (the iCDF
+// partials by a three-tangent dual number, gf_common.cuh), and in lazy2
+// spends 2*P*H flops on the parameter rows, 2*P*H on the hidden cotangent
+// dh = w^T dp and 2*P*H on gw = sum_rows dp (x) hidden: ~3x the forward's
+// MLP work, on the CUDA cores in f32.  Bytes: x, the cotangents, the
+// summary and gx per row, plus each block's partial gradients (P*H floats
+// in lazy2), read and written once per staged row group through L2.
+//
+// Design, simple first:
+//   * one thread per batch row, 128-row tiles; a fixed grid of persistent
+//     blocks walks the tiles in a fixed order, so the run is deterministic;
+//   * per row, the forward's per-layer inputs (L*d floats) are kept and the
+//     layers swept in reverse;
+//   * parameter-row cotangents dp (one mixture's 3K rows, one reflection's
+//     or offset's d rows) are staged for the block's 128 rows in shared
+//     memory; the block then adds sum_rows dp to its private partial of
+//     gb / gpvec and (lazy2) sum_rows dp * hidden[h] to its partial of gw,
+//     thread h owning column h (hidden and dh columns padded to 129 floats,
+//     conflict-free), and each thread adds w^T dp to its row's dh column;
+//   * lazy2 ends each tile with dh * (1 - hidden^2) -> gsummary per row and
+//     the block's gb1 / gw1 partials;
+//   * a second small kernel sums the blocks' partials in block order
+//     (two-stage reduction, no atomics).
+// Tensor cores for the three MLP products are later work.
+#include <cuda_runtime.h>
+
+#include "gf_block_src.cuh"
+
+using namespace gf;
+
+namespace {
+
+constexpr int STAGE = 32;  // parameter rows staged per flush (<= threads)
+constexpr int SMEM_LIMIT = 227 * 1024;
+
+struct BwdArgs {
+  BlockArgs a;        // a.x: x (density, nll) or y (sample); a.out, a.ld: nll
+  const float* gout;  // (B, D) cotangent of out (density, sample)
+  const float* gld;   // (B, D) cotangent of ld
+  float wv, wl;       // nll cotangents: wv * val, wl
+  float* gx;          // (B, D)
+  float* gsummary;    // lazy2: (B, n_in)
+  float* partials;    // (gridDim.x, G)
+  int G;              // perm: P; lazy2: H*n_in + H + P*H + P
+  int hs;             // stride of a hidden / dh row in shared memory
+};
+
+// shared memory of one block
+struct Stage {
+  float* hid;  // lazy2: (H, hs)
+  float* dh;   // lazy2: (H, hs)
+  float* dp;   // (STAGE, blockDim.x)
+  int* prow;   // (STAGE,)
+};
+
+// rows of one mixture group: [means | raw log-widths | raw log-norms]
+struct MixRows {
+  int m0, lw0, ln0, K, D, dd;
+  __device__ int operator()(int j) const {
+    const int g = j / K, k = j - g * K;
+    return (g == 0 ? m0 : (g == 1 ? lw0 : ln0)) + k * D + dd;
+  }
+};
+
+// a contiguous span of rows (one offset, one householder vector)
+struct SpanRows {
+  int r0;
+  __device__ int operator()(int j) const { return r0 + j; }
+};
+
+// Add the staged rows' cotangents (cnt rows, one per block row in each)
+// to the block's partials.
+template <bool LAZY>
+__device__ void flush(const BwdArgs& A, const Stage& st, int cnt) {
+  const BlockArgs& a = A.a;
+  const int T = blockDim.x, tid = threadIdx.x;
+  float* part = A.partials + (size_t)blockIdx.x * A.G;
+  if (LAZY) {
+    float* pw = part + a.H * a.n_in + a.H;
+    float* pb = pw + (size_t)a.P * a.H;
+    for (int idx = tid; idx < cnt * a.H; idx += T) {
+      const int j = idx / a.H, h = idx - j * a.H;
+      const float* dp = st.dp + j * T;
+      const float* hv = st.hid + h * A.hs;
+      float acc = 0.0f;
+      for (int t = 0; t < T; ++t) acc += dp[t] * hv[t];
+      pw[(size_t)st.prow[j] * a.H + h] += acc;
+    }
+    for (int j = tid; j < cnt; j += T) {
+      float acc = 0.0f;
+      for (int t = 0; t < T; ++t) acc += st.dp[j * T + t];
+      pb[st.prow[j]] += acc;
+    }
+    float* dcol = st.dh + tid;
+    for (int h = 0; h < a.H; ++h) {
+      float acc = 0.0f;
+      for (int j = 0; j < cnt; ++j)
+        acc += st.dp[j * T + tid] * __ldg(a.w + (size_t)st.prow[j] * a.H + h);
+      dcol[h * A.hs] += acc;
+    }
+  } else {
+    for (int j = tid; j < cnt; j += T) {
+      float acc = 0.0f;
+      for (int t = 0; t < T; ++t) acc += st.dp[j * T + t];
+      part[st.prow[j]] += acc;
+    }
+  }
+}
+
+// Stage this thread's n row cotangents vals (rows given by `rows`) and
+// flush them, STAGE rows at a time.  Every thread of the block calls it
+// with the same n.
+template <bool LAZY, class Rows>
+__device__ void stage_flush(const BwdArgs& A, const Stage& st,
+                            const float* vals, int n, const Rows& rows) {
+  const int T = blockDim.x, tid = threadIdx.x;
+  for (int c0 = 0; c0 < n; c0 += STAGE) {
+    const int cnt = min(STAGE, n - c0);
+    for (int j = 0; j < cnt; ++j) st.dp[j * T + tid] = vals[c0 + j];
+    if (tid < cnt) st.prow[tid] = rows(c0 + tid);
+    __syncthreads();
+    flush<LAZY>(A, st, cnt);
+    __syncthreads();
+  }
+}
+
+// Reflection i's backward: x_out = x_in - 2 v (v . x_in), v = u / |u|.
+// On entry x holds x_out (reflected back in place to x_in: a reflection is
+// its own inverse) and g the cotangent of x_out; on exit g is the cotangent
+// of x_in and gu that of the raw row u.
+template <int DN, class Src>
+__device__ __forceinline__ void reflect_bwd(const Src& src, int r0, int D,
+                                            float* x, float* g, float* gu,
+                                            bool x_is_output) {
+  float v[DN], nrm;
+  src.unit_vec(r0, D, v, nrm);
+  if (x_is_output) {
+    float dot = 0.0f;
+    for (int j = 0; j < D; ++j) dot += v[j] * x[j];
+    for (int j = 0; j < D; ++j) x[j] = x[j] - (2.0f * v[j]) * dot;
+  }
+  float vx = 0.0f, vg = 0.0f;
+  for (int j = 0; j < D; ++j) {
+    vx += v[j] * x[j];
+    vg += v[j] * g[j];
+  }
+  float gv[DN], vgv = 0.0f;
+  for (int j = 0; j < D; ++j) {
+    gv[j] = -2.0f * (vx * g[j] + vg * x[j]);
+    vgv += v[j] * gv[j];
+  }
+  for (int j = 0; j < D; ++j) {
+    gu[j] = (gv[j] - v[j] * vgv) / nrm;
+    g[j] = g[j] - (2.0f * v[j]) * vg;
+  }
+}
+
+// ---- density body (T2 density, T3) ----------------------------------------
+template <bool LAZY, bool NLL, int KT, int DT, class Src>
+__device__ void density_tile(const BwdArgs& A, const Stage& st, const Src& src,
+                             int row) {
+  constexpr int N = KT > 0 ? KT : KMAX;
+  constexpr int DN = DT > 0 ? DT : DMAX;
+  const BlockArgs& a = A.a;
+  const int K = KT > 0 ? KT : a.K;
+  const int D = DT > 0 ? DT : a.D;
+  const bool valid = row < a.B;
+
+  // forward, keeping each layer's input
+  float x[DN], ld[DN], g[DN], gl[DN];
+  float xin[MAX_LAYERS][DN];
+  for (int j = 0; j < D; ++j) {
+    x[j] = valid ? a.x[(size_t)row * D + j] : 0.0f;
+    ld[j] = 0.0f;
+  }
+  for (int l = a.n_layers - 1; l >= 0; --l) {
+    const LayerMeta& lm = a.layers[l];
+    for (int j = 0; j < D; ++j) xin[l][j] = x[j];
+    int r = lm.row0;
+    if (lm.has_off) {
+      for (int j = 0; j < D; ++j) x[j] = x[j] - src.param(r + j);
+      r += D;
+    }
+    for (int i = 0; i < lm.rot_it; ++i) reflect<DN>(src, r + i * D, x, D);
+    for (int dd = 0; dd < D; ++dd) {
+      Mix<N> mx;
+      src.load_mix(mx, lm, K, D, dd, a);
+      float lg;
+      x[dd] = density_pass<N, KT>(x[dd], mx, K, lm.ift, lg);
+      ld[dd] = ld[dd] + lg;
+    }
+  }
+  for (int j = 0; j < D; ++j) {
+    if (NLL) {
+      if (valid) {
+        a.out[(size_t)row * D + j] = x[j];
+        a.ld[(size_t)row * D + j] = ld[j];
+      }
+      g[j] = valid ? A.wv * x[j] : 0.0f;
+      gl[j] = valid ? A.wl : 0.0f;
+    } else {
+      g[j] = valid ? A.gout[(size_t)row * D + j] : 0.0f;
+      gl[j] = valid ? A.gld[(size_t)row * D + j] : 0.0f;
+    }
+  }
+
+  // reverse sweep: layer 0 first (the density direction ran it last)
+  for (int l = 0; l < a.n_layers; ++l) {
+    const LayerMeta& lm = a.layers[l];
+    float s[DN];
+    for (int j = 0; j < D; ++j) s[j] = xin[l][j];
+    int r = lm.row0;
+    if (lm.has_off) {
+      for (int j = 0; j < D; ++j) s[j] = s[j] - src.param(r + j);
+      r += D;
+    }
+    const int rot0 = r;
+    for (int i = 0; i < lm.rot_it; ++i) reflect<DN>(src, rot0 + i * D, s, D);
+    int m0, lw0, ln0;
+    mix_rows(lm, K, D, m0, lw0, ln0);
+    const int n_mix = (2 + lm.has_ln) * K;
+    for (int dd = 0; dd < D; ++dd) {
+      Mix<N> mx;
+      float lw[N], ln[N], vals[3 * N];
+      src.load_mix_raw(mx, lw, ln, lm, K, D, dd, a);
+      for (int j = 0; j < n_mix; ++j) vals[j] = 0.0f;
+      g[dd] = mix_adjoint<N, KT, false>(s[dd], mx, lw, ln, K,
+                                        lm.has_ln && a.fit_norm, a.wreg, a.nreg,
+                                        lm.ift, g[dd], gl[dd], vals, vals + K,
+                                        vals + 2 * K);
+      if (!valid)
+        for (int j = 0; j < n_mix; ++j) vals[j] = 0.0f;
+      stage_flush<LAZY>(A, st, vals, n_mix, MixRows{m0, lw0, ln0, K, D, dd});
+    }
+    // reflections were applied i = 0 .. it-1: undo them last-first
+    for (int i = lm.rot_it - 1; i >= 0; --i) {
+      float gu[DN];
+      reflect_bwd<DN>(src, rot0 + i * D, D, s, g, gu, true);
+      if (!valid)
+        for (int j = 0; j < D; ++j) gu[j] = 0.0f;
+      stage_flush<LAZY>(A, st, gu, D, SpanRows{rot0 + i * D});
+    }
+    if (lm.has_off) {
+      float go[DN];
+      for (int j = 0; j < D; ++j) go[j] = valid ? -g[j] : 0.0f;
+      stage_flush<LAZY>(A, st, go, D, SpanRows{lm.row0});
+    }
+  }
+  if (valid)
+    for (int j = 0; j < D; ++j) A.gx[(size_t)row * D + j] = g[j];
+}
+
+// ---- sample body (T2 sample) ----------------------------------------------
+template <bool LAZY, int KT, int DT, class Src>
+__device__ void sample_tile(const BwdArgs& A, const Stage& st, const Src& src,
+                            int row) {
+  constexpr int N = KT > 0 ? KT : KMAX;
+  constexpr int DN = DT > 0 ? DT : DMAX;
+  const BlockArgs& a = A.a;
+  const int K = KT > 0 ? KT : a.K;
+  const int D = DT > 0 ? DT : a.D;
+  const bool valid = row < a.B;
+
+  // reconstruct the solve outputs: s_l = R_l^T (out_l - off_l),
+  // out_{l-1} = gauss_l(s_l), from out_{L-1} = y
+  float out[DN], g[DN], gl[DN];
+  float sl[MAX_LAYERS][DN];
+  for (int j = 0; j < D; ++j) out[j] = valid ? a.x[(size_t)row * D + j] : 0.0f;
+  for (int l = a.n_layers - 1; l >= 0; --l) {
+    const LayerMeta& lm = a.layers[l];
+    float s[DN];
+    for (int j = 0; j < D; ++j) s[j] = out[j];
+    int r = lm.row0;
+    if (lm.has_off) {
+      for (int j = 0; j < D; ++j) s[j] = s[j] - src.param(r + j);
+      r += D;
+    }
+    for (int i = 0; i < lm.rot_it; ++i) reflect<DN>(src, r + i * D, s, D);
+    for (int j = 0; j < D; ++j) sl[l][j] = s[j];
+    if (l > 0) {
+      for (int dd = 0; dd < D; ++dd) {
+        Mix<N> mx;
+        src.load_mix(mx, lm, K, D, dd, a);
+        const MixOut o = mixture_eval<N, KT, true, false>(s[dd], mx, K);
+        out[dd] = icdf_pass(o.log_cdf, o.log_sf, lm.ift);
+      }
+    }
+  }
+  for (int j = 0; j < D; ++j) {
+    g[j] = valid ? A.gout[(size_t)row * D + j] : 0.0f;
+    gl[j] = valid ? A.gld[(size_t)row * D + j] : 0.0f;
+  }
+
+  for (int l = a.n_layers - 1; l >= 0; --l) {
+    const LayerMeta& lm = a.layers[l];
+    const int rot0 = lm.row0 + (lm.has_off ? D : 0);
+    // out-ops y_l = R_l s_l + off_l, R_l applying reflections it-1 .. 0
+    if (lm.has_off) {
+      float go[DN];
+      for (int j = 0; j < D; ++j) go[j] = valid ? g[j] : 0.0f;
+      stage_flush<LAZY>(A, st, go, D, SpanRows{lm.row0});
+    }
+    float xr[DN];
+    for (int j = 0; j < D; ++j) xr[j] = sl[l][j];
+    for (int i = lm.rot_it - 1; i >= 0; --i) reflect<DN>(src, rot0 + i * D, xr, D);
+    for (int i = 0; i < lm.rot_it; ++i) {
+      float gu[DN];
+      reflect_bwd<DN>(src, rot0 + i * D, D, xr, g, gu, true);
+      if (!valid)
+        for (int j = 0; j < D; ++j) gu[j] = 0.0f;
+      stage_flush<LAZY>(A, st, gu, D, SpanRows{rot0 + i * D});
+    }
+    // implicit steps through the solve and its log-derivative
+    int m0, lw0, ln0;
+    mix_rows(lm, K, D, m0, lw0, ln0);
+    const int n_mix = (2 + lm.has_ln) * K;
+    for (int dd = 0; dd < D; ++dd) {
+      Mix<N> mx;
+      float lw[N], ln[N], vals[3 * N];
+      src.load_mix_raw(mx, lw, ln, lm, K, D, dd, a);
+      for (int j = 0; j < n_mix; ++j) vals[j] = 0.0f;
+      g[dd] = mix_adjoint<N, KT, true>(sl[l][dd], mx, lw, ln, K,
+                                       lm.has_ln && a.fit_norm, a.wreg, a.nreg,
+                                       lm.ift, g[dd], gl[dd], vals, vals + K,
+                                       vals + 2 * K);
+      if (!valid)
+        for (int j = 0; j < n_mix; ++j) vals[j] = 0.0f;
+      stage_flush<LAZY>(A, st, vals, n_mix, MixRows{m0, lw0, ln0, K, D, dd});
+    }
+  }
+  if (valid)
+    for (int j = 0; j < D; ++j) A.gx[(size_t)row * D + j] = g[j];
+}
+
+template <int MODE, bool LAZY, int KT, int DT, class Src>
+__device__ __forceinline__ void run_tile(const BwdArgs& A, const Stage& st,
+                                         const Src& src, int row) {
+  if constexpr (MODE == 1)
+    sample_tile<LAZY, KT, DT>(A, st, src, row);
+  else
+    density_tile<LAZY, MODE == 2, KT, DT>(A, st, src, row);
+}
+
+// MODE 0: T2 density, 1: T2 sample, 2: T3 (fused NLL)
+template <int MODE, bool LAZY, int KT, int DT>
+__global__ void __launch_bounds__(128) gf_block_bwd_kernel(const BwdArgs A) {
+  constexpr int N = KT > 0 ? KT : KMAX;
+  constexpr int DN = DT > 0 ? DT : DMAX;
+  const BlockArgs& a = A.a;
+  const int T = blockDim.x, tid = threadIdx.x;
+  const int n_tiles = (a.B + T - 1) / T;
+  extern __shared__ float smem[];
+  Stage st;
+  if (LAZY) {
+    st.hid = smem;
+    st.dh = st.hid + (size_t)a.H * A.hs;
+    st.dp = st.dh + (size_t)a.H * A.hs;
+  } else {
+    st.hid = st.dh = nullptr;
+    st.dp = smem + 4 * a.P;  // after PermSrc's 4P floats
+  }
+  st.prow = reinterpret_cast<int*>(st.dp + STAGE * T);
+  float* part = A.partials + (size_t)blockIdx.x * A.G;
+
+  if constexpr (LAZY) {
+    float* pw1 = part;
+    float* pb1 = part + a.H * a.n_in;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const int row = tile * T + tid;
+      const bool valid = row < a.B;
+      const LazySrc<N, KT, DN> src(a, st.hid, row, A.hs);
+      for (int h = 0; h < a.H; ++h) {
+        st.dh[h * A.hs + tid] = 0.0f;
+        if (!valid) st.hid[h * A.hs + tid] = 0.0f;
+      }
+      run_tile<MODE, LAZY, KT, DT>(A, st, src, row);
+      // hidden layer: dpre = dh * (1 - hidden^2); gsummary = w1^T dpre
+      for (int h = 0; h < a.H; ++h) {
+        const float hv = st.hid[h * A.hs + tid];
+        st.dh[h * A.hs + tid] *= 1.0f - hv * hv;
+      }
+      if (valid) {
+        for (int i = 0; i < a.n_in; ++i) {
+          float acc = 0.0f;
+          for (int h = 0; h < a.H; ++h)
+            acc += __ldg(a.w1 + h * a.n_in + i) * st.dh[h * A.hs + tid];
+          A.gsummary[(size_t)row * a.n_in + i] = acc;
+        }
+      }
+      __syncthreads();
+      const int n_valid = min(T, a.B - tile * T);
+      for (int h = tid; h < a.H; h += T) {
+        float acc = 0.0f;
+        for (int t = 0; t < T; ++t) acc += st.dh[h * A.hs + t];
+        pb1[h] += acc;
+      }
+      for (int idx = tid; idx < a.H * a.n_in; idx += T) {
+        const int h = idx / a.n_in, i = idx - h * a.n_in;
+        const float* dp = st.dh + h * A.hs;
+        const float* srow = a.summary + (size_t)tile * T * a.n_in + i;
+        float acc = 0.0f;
+        for (int t = 0; t < n_valid; ++t) acc += dp[t] * __ldg(srow + (size_t)t * a.n_in);
+        pw1[idx] += acc;
+      }
+      __syncthreads();
+    }
+  } else {
+    const PermSrc<N, KT, DN> src(a, smem);
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x)
+      run_tile<MODE, LAZY, KT, DT>(A, st, src, tile * T + tid);
+  }
+}
+
+// second stage: out[j] = sum over blocks of partials[b][j], in block order
+__global__ void reduce_partials(const float* partials, int n_blocks, int G,
+                                float* out) {
+  for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < G;
+       j += gridDim.x * blockDim.x) {
+    float acc = 0.0f;
+    for (int b = 0; b < n_blocks; ++b) acc += partials[(size_t)b * G + j];
+    out[j] = acc;
+  }
+}
+
+template <int MODE, bool LAZY, int KT, int DT>
+cudaError_t launch(const BwdArgs& A, int blocks, int threads, size_t smem,
+                   cudaStream_t stream) {
+  auto kernel = gf_block_bwd_kernel<MODE, LAZY, KT, DT>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  kernel<<<blocks, threads, smem, stream>>>(A);
+  return cudaGetLastError();
+}
+
+template <int MODE, bool LAZY>
+cudaError_t dispatch_shape(const BwdArgs& A, int blocks, int threads,
+                           size_t smem, cudaStream_t stream) {
+  if (A.a.K == 10 && A.a.D == 4)
+    return launch<MODE, LAZY, 10, 4>(A, blocks, threads, smem, stream);
+  return launch<MODE, LAZY, 0, 0>(A, blocks, threads, smem, stream);
+}
+
+template <bool LAZY>
+cudaError_t dispatch(int mode, const BwdArgs& A, int blocks, int threads,
+                     size_t smem, cudaStream_t stream) {
+  if (mode == 0) return dispatch_shape<0, LAZY>(A, blocks, threads, smem, stream);
+  if (mode == 1) return dispatch_shape<1, LAZY>(A, blocks, threads, smem, stream);
+  return dispatch_shape<2, LAZY>(A, blocks, threads, smem, stream);
+}
+
+// The tile: 128 rows, one per thread, halved while lazy2's hidden and dh
+// columns (H x (threads + 1) floats each) would exceed the shared memory.
+// Writes the tile's rows and its dynamic shared memory.
+void tile_shape(int lazy, int H, int P, int& threads, size_t& smem) {
+  threads = 128;
+  if (lazy) {
+    auto need = [&](int t) {
+      return (size_t)2 * H * (t + 1) * 4 + (size_t)STAGE * t * 4 + STAGE * 4;
+    };
+    while (threads > STAGE && need(threads) > SMEM_LIMIT) threads /= 2;
+    smem = need(threads);
+  } else {
+    smem = (size_t)4 * P * 4 + (size_t)STAGE * threads * 4 + STAGE * 4;
+  }
+}
+
+}  // namespace
+
+// The grid of a call: a fixed number of persistent blocks, two per
+// streaming multiprocessor and at most one per tile.  Each block
+// accumulates a private partial of the broadcast gradients, so the caller
+// allocates (blocks, G) zeros for gf_block_bwd_launch.
+extern "C" int gf_block_bwd_blocks(int lazy, int B, int H, int P, int n_sm) {
+  int threads;
+  size_t smem;
+  tile_shape(lazy, H, P, threads, smem);
+  const int n_tiles = (B + threads - 1) / threads;
+  const int blocks = n_tiles < 2 * n_sm ? n_tiles : 2 * n_sm;
+  return blocks > 1 ? blocks : 1;
+}
+
+// mode: 0 T2 density (x, gout, gld), 1 T2 sample (x = the sample output y,
+// gout, gld), 2 T3 (x; writes val, ld; cotangents wv * val, wl).
+// meta / regs as gf_block_launch.  partials: (n_blocks, G) zeros, G = P
+// (perm) or H*n_in + H + P*H + P (lazy2); grads (G,): the sums over rows,
+// packed [gpvec] or [gw1 (H, n_in) | gb1 | gw (P, H) | gb]; gsummary
+// (B, n_in) in lazy2.  Returns 0 or a cudaError_t; launches on `stream`
+// and does not synchronize.
+extern "C" int gf_block_bwd_launch(int mode, int lazy, const float* x,
+                                   const float* gout, const float* gld,
+                                   float wv, float wl, float* val, float* ld,
+                                   float* gx, int B, const float* pvec,
+                                   const float* summary, const float* w1,
+                                   const float* b1, const float* w,
+                                   const float* b, int n_in, int H, int P,
+                                   const int* meta, const float* regs,
+                                   float* gsummary, float* partials,
+                                   int n_blocks, float* grads, void* stream) {
+  BwdArgs A{};
+  BlockArgs& a = A.a;
+  a.x = x;
+  a.out = val;
+  a.ld = ld;
+  a.B = B;
+  a.pvec = pvec;
+  a.summary = summary;
+  a.w1 = w1;
+  a.b1 = b1;
+  a.w = w;
+  a.b = b;
+  a.n_in = n_in;
+  a.H = H;
+  a.P = P;
+  a.K = meta[0];
+  a.D = meta[1];
+  a.n_layers = meta[2];
+  a.fit_norm = meta[3];
+  a.wreg = Reg{meta[4], regs[0], regs[1], regs[2], regs[3], regs[4]};
+  a.nreg = Reg{meta[5], regs[5], regs[6], regs[7], regs[8], regs[9]};
+  A.gout = gout;
+  A.gld = gld;
+  A.wv = wv;
+  A.wl = wl;
+  A.gx = gx;
+  A.gsummary = gsummary;
+  A.partials = partials;
+  if (mode < 0 || mode > 2 || a.K < 1 || a.K > KMAX || a.D < 1 ||
+      a.D > DMAX || a.n_layers < 1 || a.n_layers > MAX_LAYERS || B < 0 ||
+      n_blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  if ((mode == 2 && (val == nullptr || ld == nullptr)) ||
+      (mode != 2 && (gout == nullptr || gld == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  int row = 0;
+  for (int l = 0; l < a.n_layers; ++l) {
+    const int* m = meta + 6 + 4 * l;
+    a.layers[l] = LayerMeta{m[0], m[1], m[2], m[3], row};
+    if (m[3] < 0 || m[3] > 3 || m[1] < 0) return (int)cudaErrorInvalidValue;
+    row += (m[0] ? a.D : 0) + m[1] * a.D + (2 + m[2]) * a.K * a.D;
+  }
+  if (row != P) return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+
+  int threads;
+  size_t smem;
+  tile_shape(lazy, H, P, threads, smem);
+  if (lazy) {
+    if (H < 1 || n_in < 1 || gsummary == nullptr) return (int)cudaErrorInvalidValue;
+    A.G = H * n_in + H + P * H + P;
+    A.hs = threads + 1;
+  } else {
+    A.G = P;
+    A.hs = 0;
+  }
+  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e = lazy ? dispatch<true>(mode, A, n_blocks, threads, smem, s)
+                       : dispatch<false>(mode, A, n_blocks, threads, smem, s);
+  if (e != cudaSuccess) return (int)e;
+  reduce_partials<<<(A.G + 255) / 256, 256, 0, s>>>(partials, n_blocks, A.G,
+                                                    grads);
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* gf_block_bwd_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

@@ -153,6 +153,19 @@ class AmortizableMLP:
         return (w.reshape(self.block["outputs"][-1], self.block["inputs"][-1]),
                 flat_params[self.num_params - nb:])
 
+    def fused_grads_to_flat(self, gw1, gb1, gw, gb):
+        """The fused kernel's (gw1 (H, In), gb1 (H,), gw (P, H), gb (P,))
+        as one gradient of the packed flat vector: a one-hidden-layer
+        highway-0 MLP packs [w1, b1, w, b] (as ``pdf.py:869-876``)."""
+        if not self.supports_full_fusion():
+            raise ValueError("only a one-hidden-layer full-rank MLP with "
+                             "both biases has fused-kernel gradients")
+        flat = torch.cat([gw1.reshape(-1), gb1, gw.reshape(-1), gb])
+        if flat.numel() != self.num_params:
+            raise ValueError(f"{flat.numel()} gradient entries for "
+                             f"{self.num_params} parameters")
+        return flat
+
     def default_init(self, rng=None, fix_final_bias=None,
                      prev_damping_factor=1000.0):
         """Packed init vector: kaiming-uniform full matrices, randn low-rank

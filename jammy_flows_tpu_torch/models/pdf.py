@@ -1,10 +1,11 @@
 """The joint autoregressive manifold PDF orchestrator.
 
-PyTorch counterpart of ``jammy_flows_tpu/models/pdf.py`` for the serving
-path: the two-string DSL, ``log_prob`` and ancestral ``sample``.  The object
-holds static configuration only; numbers live in a parameter dict with the
-JAX package's keys and packing, so a JAX dict loads 1:1
-(utils/convert.params_from_jax):
+PyTorch counterpart of ``jammy_flows_tpu/models/pdf.py`` for the serving and
+training paths: the two-string DSL, ``log_prob``, ancestral ``sample`` (both
+differentiable in the parameters) and the training objective
+``nll_value_and_grad``.  The object holds static configuration only; numbers
+live in a parameter dict with the JAX package's keys and packing, so a JAX
+dict loads 1:1 (utils/convert.params_from_jax):
 
     "flow_0"  : (P0,)  permanent parameters of sub-pdf 0 (unconditional pdfs)
     "mlp_<k>" : (Pk,)  packed AmortizableMLP predicting sub-pdf k
@@ -27,7 +28,7 @@ import torch
 from .. import registry
 from ..ops import gf_block, manifold
 from ..ops.lazy_params import LazyParams
-from ..ops.special import std_normal_log_prob
+from ..ops.special import LOG_SQRT_2PI, std_normal_log_prob
 from .amortizable_mlp import AmortizableMLP, list_from_str
 
 _TODO = "is not ported yet (ROADMAP.md, Queue 1)"
@@ -398,6 +399,90 @@ class PDF:
                                                    conditional_input)
         log_base = std_normal_log_prob(base_pos)
         return log_base + log_det, log_base, base_pos
+
+    @staticmethod
+    def _value_and_grad(fn, params):
+        """(fn(params), d fn / d params) by autograd, on detached leaves."""
+        leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+        with torch.enable_grad():
+            value = fn(leaves)
+            got = torch.autograd.grad(value, list(leaves.values()),
+                                      allow_unused=True)
+        grads = {k: torch.zeros_like(v) if g is None else g
+                 for (k, v), g in zip(leaves.items(), got)}
+        return value.detach(), grads
+
+    def nll_value_and_grad(self, params, x, conditional_input=None):
+        """(mean NLL, gradient dict): the training objective
+        ``-log_prob(params, x, conditional_input)[0].mean()`` and its
+        gradient, with the routing of the JAX package (``pdf.py:802-902``).
+
+        In the density direction the autoregressive conditioning reads the
+        data, never a computed output, so each sub-pdf's NLL term decouples
+        and the cotangents of a block's outputs are known before the loss:
+        1/B times its base position and -1/B for its log-det.  Each float32
+        sub-manifold that runs as one block op therefore takes one fused
+        call (``gf_block_nll_perm`` / ``gf_block_nll_lazy2``: forward and
+        backward together); any other sub-pdf (the s2 `f` layer) takes
+        autograd of its own NLL term; float64 takes autograd of the whole
+        objective."""
+        x = self._input(x, "x")
+        if conditional_input is not None:
+            conditional_input = self._input(conditional_input,
+                                            "conditional_input")
+        if x.dtype != torch.float32:
+            return self._value_and_grad(
+                lambda pp: -self.log_prob(pp, x, conditional_input)[0].mean(),
+                params)
+        n = x.shape[0]
+        wv, wl = 1.0 / n, -1.0 / n
+        summaries = []
+        for k, layers in enumerate(self.layer_list):
+            lo, hi = self.target_dim_indices[k]
+            summaries.append(layers[-1].embedding_conditional_return(
+                x[:, lo:hi]))
+        fixed = {k: v.detach() for k, v in params.items()}
+        loss = torch.zeros((), dtype=x.dtype, device=x.device)
+        grads = {k: torch.zeros_like(v) for k, v in fixed.items()}
+        for k in range(len(self.layer_list)):
+            lo, hi = self.target_dim_indices[k]
+            target = x[:, lo:hi].contiguous()
+            parts = summaries[:k]
+            extra = self._predict_extra_params(fixed, k, parts,
+                                               conditional_input)
+            info = self._block_meta[k]
+            fused = None
+            if info is not None and extra is not None:
+                prep, meta = info
+                if isinstance(extra, LazyParams):
+                    val, ld, _, (_, gw1, gb1, gw, gb) = \
+                        gf_block.gf_block_nll_lazy2(
+                            target, extra.summary, extra.w1, extra.b1,
+                            extra.w, extra.b, prep, meta, wv, wl)
+                    fused = (f"mlp_{k}", self.mlp_predictors[k]
+                             .fused_grads_to_flat(gw1, gb1, gw, gb))
+                elif extra.shape[0] == 1:
+                    val, ld, _, (gpvec,) = gf_block.gf_block_nll_perm(
+                        target, extra[0], prep, meta, wv, wl)
+                    fused = ("flow_0", gpvec)
+            if fused is not None:
+                grads[fused[0]] = grads[fused[0]] + fused[1]
+                loss = loss + (0.5 * val * val + LOG_SQRT_2PI).sum(
+                    dim=-1).mean() - ld.sum(dim=-1).mean()
+                continue
+
+            def sub_nll(pp, k=k, parts=parts, target=target):
+                ep = self._predict_extra_params(pp, k, parts,
+                                                conditional_input)
+                log_det = torch.zeros(n, dtype=x.dtype, device=x.device)
+                out, log_det = self._apply_stack(k, ep, target, log_det,
+                                                 "density")
+                return -(std_normal_log_prob(out) + log_det).mean()
+
+            lk, gk = self._value_and_grad(sub_nll, fixed)
+            loss = loss + lk
+            grads = {key: grads[key] + gk[key] for key in grads}
+        return loss, grads
 
     def sample(self, params, samplesize=1, conditional_input=None,
                generator=None, dtype=None):

@@ -57,29 +57,45 @@ def library_path(name):
     return BUILD_DIR / f"lib{name}_{_sources_hash(main, headers)}.so"
 
 
-def build(name, log=None):
-    """Compile csrc/<name>.cu unless an up-to-date library exists; returns
-    (path, compiled), compiled False when the library was already there.
-    ``log`` (a callable) receives nvcc's -Xptxas -v report."""
-    out = library_path(name)
-    if out.exists():
-        return out, False
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
-           str(CSRC / f"{name}.cu")]
+def build_all(names, log=None):
+    """Compile each csrc/<name>.cu that has no up-to-date library, all nvcc
+    processes started together; returns {name: (path, compiled)}, compiled
+    False when the library was already there.  ``log`` (a callable)
+    receives each nvcc's -Xptxas -v report."""
+    result, running = {}, []
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            result[name] = (out, False)
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
+               str(CSRC / f"{name}.cu")]
+        running.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
     try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{res.stderr}")
-        if log is not None:
-            log(res.stderr)
-        os.replace(tmp, out)
+        for name, out, tmp, proc in running:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed for {name}.cu:\n{err}")
+                continue
+            if log is not None:
+                log(err)
+            os.replace(tmp, out)
+            result[name] = (out, True)
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return out, True
+        for _, _, tmp, proc in running:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return result
 
 
 def load(name, declare):
@@ -88,7 +104,36 @@ def load(name, declare):
     with _LOCK:
         lib = _LOADED.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build(name)[0]))
+            lib = ctypes.CDLL(str(build_all([name])[name][0]))
             declare(lib)
             _LOADED[name] = lib
         return lib
+
+
+def time_builds():
+    """Seconds of a cold build of every csrc/*.cu, one nvcc after another
+    and all started together, each into a fresh directory under build/:
+
+        python -m jammy_flows_tpu_torch.ops.cuda_build
+    """
+    import time
+    global BUILD_DIR
+    names = sorted(p.stem for p in CSRC.glob("*.cu"))
+    root = BUILD_DIR
+    for how in ("sequential", "parallel"):
+        BUILD_DIR = root.parent / f"cuda_time_{how}"
+        shutil.rmtree(BUILD_DIR, ignore_errors=True)
+        t0 = time.perf_counter()
+        if how == "parallel":
+            build_all(names)
+        else:
+            for name in names:
+                build_all([name])
+        print(f"{how} build of {', '.join(names)}: "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        shutil.rmtree(BUILD_DIR)
+    BUILD_DIR = root
+
+
+if __name__ == "__main__":
+    time_builds()

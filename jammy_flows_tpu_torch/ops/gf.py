@@ -2,10 +2,11 @@
 
 Counterparts of the shared bodies in ``jammy_flows_tpu/ops/pallas_gf.py``:
 the iCDF passes of the kernels, the mixture value/derivative evaluations, the
-regulator prep of raw parameter slabs, the component-quantile bracket and the
-bracket-safeguarded Newton solve.  The CUDA block kernel implements the same
-expressions in csrc/gf_common.cuh; the TPU layout (sublane fold, Mosaic
-workarounds, block sizes) is not carried over.
+regulator prep of raw parameter slabs, the component-quantile bracket, the
+bracket-safeguarded Newton solve and the per-layer pieces of the sample
+backward (reconstruction and implicit step).  The CUDA block kernels
+implement the same expressions in csrc/gf_common.cuh; the TPU layout
+(sublane fold, Mosaic workarounds, block sizes) is not carried over.
 
 Layout: x is (D, C); a mixture is (means, inv_widths, log_norm_w), each
 (K, D, 1|C), already regulated and normalized over K (axis 0).
@@ -132,6 +133,27 @@ def mixture_value_deriv_solve(x, mix, deriv_mode, ift):
     if deriv_mode == "log":
         return val, log_deriv
     return val, torch.exp(log_deriv)
+
+
+def gauss_value(s, mix, ift):
+    """Density-direction value of one layer's mixture pass at its solve
+    output s: the analytic reconstruction step of the sample backward
+    (layer l-1's output from s_l, no re-solve)."""
+    return mixture_value_deriv(s, mix, None, ift)[0]
+
+
+def implicit_step(s, mix, ift, gs, gld):
+    """One layer's implicit-function step of the sample backward
+    (``pallas_gf_block.py:406-417``).  With (val, ld) = the density pass at
+    the solve output s, fp = dval/ds and lx = dld/ds, the cotangent of the
+    layer's input is c = (gs + gld * lx) / fp, and the mixture parameters
+    take the VJP of (val, ld) with cotangents (-c, gld).  Returns (c, val,
+    ld) with val and ld still attached to ``mix``'s graph; s is constant."""
+    s = s.detach().requires_grad_()
+    val, ld = mixture_value_deriv(s, mix, "log", ift)
+    fp, = torch.autograd.grad(val.sum(), s, retain_graph=True)
+    lx, = torch.autograd.grad(ld.sum(), s, retain_graph=True)
+    return (gs + gld * lx) / fp, val, ld
 
 
 def logit_phi(x):

@@ -1,7 +1,8 @@
 """Whole-block Gaussianization flow: a `gggg` stack in one kernel launch.
 
-PyTorch counterpart of ``jammy_flows_tpu/ops/pallas_gf_block.py``
-(``_block_call`` / ``_make_block_kernel``, forward direction only).
+PyTorch counterpart of ``jammy_flows_tpu/ops/pallas_gf_block.py``: the
+forward (``_block_call``), its backward (``_block_bwd_call``) and the fused
+NLL value-and-gradient (``_block_fused_call``).
 
   density (target -> base, log_prob), layers in reverse:
       x -= offset;  x = R_l^T x;  (x, ld_l) = mixture iCDF pass of x
@@ -19,10 +20,19 @@ parameter modes:
   lazy2: the fused amortization MLP ``w @ tanh(w1 @ summary + b1) + b``
          evaluated inside the kernel, so the (B, P) slab is never stored.
 
+Gradients: the four forward entry points are ``torch.autograd.Function``s
+whose backward is the block backward, as the JAX package's custom VJPs are.
+The density backward differentiates the whole chain (saving x); the sample
+backward saves the output y, reconstructs each layer's solve output from it
+and chains per-layer implicit-function steps (no re-solve).  The fused NLL
+entry points run the density forward and its backward in one call with the
+cotangents (wv * val, wl) known in advance.
+
 Every public entry point takes (B, d) rows.  On a CUDA tensor it launches the
-hand-written kernel of csrc/gf_block.cu and counts the launch in
-``LAUNCHES``; on a CPU tensor it runs the plain PyTorch version below.  It
-never falls back from the kernel to the plain version.
+hand-written kernel (csrc/gf_block.cu forward, csrc/gf_block_bwd.cu backward
+and fused NLL) and counts the launch in ``LAUNCHES``; on a CPU tensor it runs
+the plain PyTorch version below.  It never falls back from the kernel to the
+plain version.
 """
 from __future__ import annotations
 
@@ -35,15 +45,18 @@ from .special import IDENTITY
 
 IFT_CODES = {"isigmoid": 0, "inormal_partly_precise": 1,
              "inormal_partly_crude": 2, "inormal_full_pade": 3}
-# limits of the CUDA kernel (csrc/gf_block.cu): its register/local arrays
-# and argument struct are sized by these.  They do not steer routing: a CUDA
-# block beyond them raises in the wrapper
+# limits of the CUDA kernels (csrc/gf_block*.cu): their register/local
+# arrays and argument struct are sized by these.  They do not steer routing:
+# a CUDA block beyond them raises in the wrapper
 KERNEL_MAX_K = 64
 KERNEL_MAX_D = 32
 KERNEL_MAX_LAYERS = 16
 
 LAUNCHES = {"density_perm": 0, "sample_perm": 0,
-            "density_lazy2": 0, "sample_lazy2": 0}
+            "density_lazy2": 0, "sample_lazy2": 0,
+            "density_bwd_perm": 0, "density_bwd_lazy2": 0,
+            "sample_bwd_perm": 0, "sample_bwd_lazy2": 0,
+            "nll_perm": 0, "nll_lazy2": 0}
 
 
 def reset_launch_counts():
@@ -196,22 +209,123 @@ def block_sample_plain(z, param_arrays, prep, meta, lazy):
     return x, ld_sum
 
 
+def _leaves(tensors):
+    return [t.detach().requires_grad_() for t in tensors]
+
+
+def _grads(out, inputs, cts):
+    got = torch.autograd.grad(out, inputs, cts, allow_unused=True)
+    return [torch.zeros_like(i) if g is None else g
+            for i, g in zip(inputs, got)]
+
+
+def block_density_bwd_plain(x, param_arrays, g_out, g_ld, prep, meta, lazy):
+    """VJP of :func:`block_density_plain` (d, B layout): the whole chain
+    differentiated, as ``_make_block_density_bwd`` does.  Returns (gx,
+    [grads of param_arrays])."""
+    with torch.enable_grad():
+        xs, *ps = _leaves([x, *param_arrays])
+        out, ld = block_density_plain(xs, ps, prep, meta, lazy)
+        gx, *gp = _grads((out, ld), [xs, *ps], (g_out, g_ld))
+    return gx, gp
+
+
+def block_sample_bwd_plain(y, param_arrays, g_out, g_ld, prep, meta, lazy):
+    """VJP of :func:`block_sample_plain` from its output y (d, B), as
+    ``_make_block_sample_bwd`` computes it: each layer's solve output is
+    reconstructed from y (s_l = R_l^T (out_l - off_l), out_{l-1} =
+    gauss_l(s_l)), then the cotangents chain backwards through the out-ops
+    (rotation, offset) and the per-layer implicit step
+    (:func:`gf.implicit_step`).  Returns (gz, [grads of param_arrays])."""
+    k, d, layers = meta
+    with torch.enable_grad():
+        ps = _leaves(param_arrays)
+        slabs = _make_slabs(ps, k, d, layers, lazy)
+        with torch.no_grad():
+            s_list = [None] * len(layers)
+            out = y
+            for li in reversed(range(len(layers))):
+                off, rot, raw = slabs[li]
+                _, rot_it, _, ift = layers[li]
+                s = out if off is None else out - off
+                if rot is not None:
+                    s = _hh_rotate(s, rot, rot_it, d, inverse=True)
+                s_list[li] = s
+                if li > 0:
+                    out = gf.gauss_value(s, _prep_mix(raw, prep), ift)
+        # parameter cotangents of every layer's terms, summed into one
+        # scalar with the cotangents held constant
+        total = 0.0
+        g = g_out
+        for li in reversed(range(len(layers))):
+            off, rot, raw = slabs[li]
+            _, rot_it, _, ift = layers[li]
+            s = s_list[li].detach().requires_grad_()
+            yy = s
+            if rot is not None:
+                yy = _hh_rotate(yy, rot, rot_it, d, inverse=False)
+            if off is not None:
+                yy = yy + off
+            gs, = torch.autograd.grad(yy, s, g, retain_graph=True)
+            total = total + (yy * g).sum()
+            c, val, ld = gf.implicit_step(s_list[li], _prep_mix(raw, prep),
+                                          ift, gs, g_ld)
+            total = total + (val * (-c)).sum() + (ld * g_ld).sum()
+            g = c
+        gp = _grads(total, ps, None)
+    return g, gp
+
+
+def _to_cols(params, lazy):
+    """Wrapper layout -> the plain versions' (d, B) layout."""
+    if lazy:
+        summary, w1, b1, w, b = params
+        return (summary.T, w1, b1[:, None], w, b[:, None])
+    return (params[0][:, None],)
+
+
+def _from_cols(grads, lazy):
+    if lazy:
+        gs, gw1, gb1, gw, gb = grads
+        return (gs.T.contiguous(), gw1, gb1[:, 0], gw, gb[:, 0])
+    return (grads[0][:, 0],)
+
+
 def block_plain(direction, x, params, prep, meta, lazy):
     """The plain PyTorch version of an entry point, in the wrapper's own
     layout: x (B, d); params (pvec,) or (summary (B, In), w1, b1 (H,), w,
     b (P,)).  Returns (out (B, d), ld (B, d))."""
-    if lazy:
-        summary, w1, b1, w, b = params
-        cols = (summary.T, w1, b1[:, None], w, b[:, None])
-    else:
-        cols = (params[0][:, None],)
     fn = block_density_plain if direction == "density" else block_sample_plain
-    out, ld = fn(x.T, cols, prep, meta, lazy)
+    out, ld = fn(x.T, _to_cols(params, lazy), prep, meta, lazy)
     return out.T.contiguous(), ld.T.contiguous()
 
 
+def block_bwd_plain(direction, x_or_y, params, g_out, g_ld, prep, meta,
+                    lazy):
+    """The plain version of the block backward, in the wrapper's layout:
+    x_or_y is the density input x or the sample output y (B, d); g_out,
+    g_ld (B, d) the cotangents of (out, ld).  Returns (gx (B, d), grads of
+    params in their own shapes: (gpvec,) or (gsummary (B, In), gw1, gb1,
+    gw, gb))."""
+    fn = block_density_bwd_plain if direction == "density" \
+        else block_sample_bwd_plain
+    gx, gp = fn(x_or_y.T, _to_cols(params, lazy), g_out.T, g_ld.T, prep,
+                meta, lazy)
+    return gx.T.contiguous(), _from_cols(gp, lazy)
+
+
+def block_nll_plain(x, params, prep, meta, lazy, wv, wl):
+    """The plain version of the fused NLL call: the density forward, then
+    its backward with the cotangents (wv * val, wl).  Returns (val, ld, gx,
+    grads) in the wrapper's layout."""
+    val, ld = block_plain("density", x, params, prep, meta, lazy)
+    gx, gp = block_bwd_plain("density", x, params, wv * val,
+                             torch.full_like(ld, wl), prep, meta, lazy)
+    return val, ld, gx, gp
+
+
 # ---------------------------------------------------------------------------
-# CUDA kernel wrapper
+# CUDA kernel wrappers
 # ---------------------------------------------------------------------------
 
 def _declare(lib):
@@ -223,9 +337,16 @@ def _declare(lib):
     lib.gf_block_error_string.restype = ctypes.c_char_p
 
 
-def _library():
-    from . import cuda_build
-    return cuda_build.load("gf_block", _declare)
+def _declare_bwd(lib):
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.gf_block_bwd_launch.argtypes = [i, i, p, p, p, f, f, p, p, p, i,
+                                        p, p, p, p, p, p, i, i, i, p, p,
+                                        p, p, i, p, p]
+    lib.gf_block_bwd_launch.restype = i
+    lib.gf_block_bwd_blocks.argtypes = [i, i, i, i, i]
+    lib.gf_block_bwd_blocks.restype = i
+    lib.gf_block_bwd_error_string.argtypes = [i]
+    lib.gf_block_bwd_error_string.restype = ctypes.c_char_p
 
 
 def _check(name, t, shape, device):
@@ -241,12 +362,12 @@ def _check(name, t, shape, device):
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if t.requires_grad:
-        raise RuntimeError(f"{name} requires grad: the block kernel's "
-                           "backward is not ported yet (training slice)")
 
 
-def _launch(x, params, prep, meta, lazy, direction):
+def _kernel_args(x, params, prep, meta, lazy):
+    """Check a call's tensors against what the kernels take; returns
+    (parameter pointers, n_in, hid, n_params, meta ints, regulator
+    floats) in the order of the C interfaces."""
     k, d, layers = meta
     b_rows = x.shape[0]
     n_params = block_rows(k, d, layers)
@@ -280,14 +401,25 @@ def _launch(x, params, prep, meta, lazy, direction):
         list(norm_reg.kernel_args()[1:])
     c_ints = (ctypes.c_int * len(ints))(*ints)
     c_floats = (ctypes.c_float * len(floats))(*floats)
+    return ptrs, n_in, hid, n_params, c_ints, c_floats
 
+
+def _mode(lazy):
+    return "lazy2" if lazy else "perm"
+
+
+def _launch(x, params, prep, meta, lazy, direction):
+    ptrs, n_in, hid, n_params, c_ints, c_floats = _kernel_args(
+        x, params, prep, meta, lazy)
+    b_rows = x.shape[0]
     out = torch.empty_like(x)
     ld = torch.empty_like(x)
     if b_rows == 0:
         return out, ld
-    lib = _library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    from . import cuda_build
+    lib = cuda_build.load("gf_block", _declare)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.gf_block_launch(int(direction == "sample"), int(lazy),
                                  x.data_ptr(), out.data_ptr(), ld.data_ptr(),
                                  b_rows, *ptrs, n_in, hid, n_params,
@@ -295,8 +427,72 @@ def _launch(x, params, prep, meta, lazy, direction):
     if rc != 0:
         msg = lib.gf_block_error_string(rc).decode()
         raise RuntimeError(f"gf_block kernel launch failed ({rc}): {msg}")
-    LAUNCHES[f"{direction}_{'lazy2' if lazy else 'perm'}"] += 1
+    LAUNCHES[f"{direction}_{_mode(lazy)}"] += 1
     return out, ld
+
+
+_BWD_MODES = {"density": 0, "sample": 1, "nll": 2}
+
+
+def _launch_bwd(kind, x, params, g_out, g_ld, prep, meta, lazy, wv=0.0,
+                wl=0.0):
+    """T2 (kind "density" / "sample": x is the density input or the sample
+    output) or T3 (kind "nll": the density forward with cotangents (wv *
+    val, wl)).  Returns (val, ld, gx, grads) with val, ld None unless T3;
+    grads in the wrapper's layout."""
+    ptrs, n_in, hid, n_params, c_ints, c_floats = _kernel_args(
+        x, params, prep, meta, lazy)
+    b_rows, d = x.shape
+    dev = x.device
+    if kind != "nll":
+        _check("g_out", g_out, (b_rows, d), dev)
+        _check("g_ld", g_ld, (b_rows, d), dev)
+    val = ld = None
+    if kind == "nll":
+        val = torch.empty_like(x)
+        ld = torch.empty_like(x)
+    gx = torch.empty_like(x)
+    n_flat = hid * n_in + hid + n_params * hid + n_params if lazy \
+        else n_params
+    flat = torch.zeros(n_flat, dtype=torch.float32, device=dev)
+    gsummary = torch.zeros((b_rows, n_in), dtype=torch.float32,
+                           device=dev) if lazy else None
+    if b_rows > 0:
+        from . import cuda_build
+        lib = cuda_build.load("gf_block_bwd", _declare_bwd)
+        # the kernel's grid, chosen by the library: persistent blocks, each
+        # with a private partial of the broadcast gradients
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        n_blocks = lib.gf_block_bwd_blocks(int(lazy), b_rows, hid, n_params,
+                                           n_sm)
+        partials = torch.zeros((n_blocks, n_flat), dtype=torch.float32,
+                               device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.gf_block_bwd_launch(
+                _BWD_MODES[kind], int(lazy), x.data_ptr(),
+                0 if g_out is None else g_out.data_ptr(),
+                0 if g_ld is None else g_ld.data_ptr(), float(wv), float(wl),
+                0 if val is None else val.data_ptr(),
+                0 if ld is None else ld.data_ptr(), gx.data_ptr(), b_rows,
+                *ptrs, n_in, hid, n_params, c_ints, c_floats,
+                0 if gsummary is None else gsummary.data_ptr(),
+                partials.data_ptr(), n_blocks, flat.data_ptr(), stream)
+        if rc != 0:
+            msg = lib.gf_block_bwd_error_string(rc).decode()
+            raise RuntimeError(f"gf_block_bwd kernel launch failed ({rc}): "
+                               f"{msg}")
+        LAUNCHES[f"{'nll' if kind == 'nll' else kind + '_bwd'}_"
+                 f"{_mode(lazy)}"] += 1
+    if lazy:
+        o1 = hid * n_in
+        o2 = o1 + hid
+        o3 = o2 + n_params * hid
+        grads = (gsummary, flat[:o1].view(hid, n_in), flat[o1:o2],
+                 flat[o2:o3].view(n_params, hid), flat[o3:])
+    else:
+        grads = (flat,)
+    return val, ld, gx, grads
 
 
 def _run(x, params, prep, meta, lazy, direction):
@@ -305,22 +501,76 @@ def _run(x, params, prep, meta, lazy, direction):
     return block_plain(direction, x, params, prep, meta, lazy)
 
 
+def _run_bwd(direction, res, params, g_out, g_ld, prep, meta, lazy):
+    if res.is_cuda:
+        _, _, gx, grads = _launch_bwd(direction, res, params,
+                                      g_out.contiguous(), g_ld.contiguous(),
+                                      prep, meta, lazy)
+        return gx, grads
+    return block_bwd_plain(direction, res, params, g_out, g_ld, prep, meta,
+                           lazy)
+
+
+class _Block(torch.autograd.Function):
+    """One forward entry point with the block backward: the density
+    direction saves its input x, the sample direction its output y (as
+    ``_bdl2_fwd`` / ``_bsl2_fwd`` / ``_bdp_fwd`` / ``_bsp_fwd``)."""
+
+    @staticmethod
+    def forward(ctx, direction, lazy, prep, meta, x, *params):
+        out, ld = _run(x, params, prep, meta, lazy, direction)
+        ctx.setup = (direction, lazy, prep, meta)
+        ctx.save_for_backward(x if direction == "density" else out, *params)
+        return out, ld
+
+    @staticmethod
+    def backward(ctx, g_out, g_ld):
+        direction, lazy, prep, meta = ctx.setup
+        res, *params = ctx.saved_tensors
+        g_out = torch.zeros_like(res) if g_out is None else g_out
+        g_ld = torch.zeros_like(res) if g_ld is None else g_ld
+        gx, grads = _run_bwd(direction, res, tuple(params), g_out, g_ld,
+                             prep, meta, lazy)
+        return (None, None, None, None, gx, *grads)
+
+
 def gf_block_density_perm(x, pvec, prep, meta):
     """x (B, d), pvec (P,) -> (base (B, d), ld (B, d))."""
-    return _run(x, (pvec,), prep, meta, False, "density")
+    return _Block.apply("density", False, prep, meta, x, pvec)
 
 
 def gf_block_sample_perm(z, pvec, prep, meta):
     """z (B, d) base draws, pvec (P,) -> (target (B, d), ld (B, d))."""
-    return _run(z, (pvec,), prep, meta, False, "sample")
+    return _Block.apply("sample", False, prep, meta, z, pvec)
 
 
 def gf_block_density_lazy2(x, summary, w1, b1, w, b, prep, meta):
     """Fused-MLP density block: x (B, d), summary (B, In), w1 (H, In),
     b1 (H,), w (P, H), b (P,) -> (base (B, d), ld (B, d))."""
-    return _run(x, (summary, w1, b1, w, b), prep, meta, True, "density")
+    return _Block.apply("density", True, prep, meta, x, summary, w1, b1, w, b)
 
 
 def gf_block_sample_lazy2(z, summary, w1, b1, w, b, prep, meta):
     """Fused-MLP sampling block (see gf_block_density_lazy2)."""
-    return _run(z, (summary, w1, b1, w, b), prep, meta, True, "sample")
+    return _Block.apply("sample", True, prep, meta, z, summary, w1, b1, w, b)
+
+
+def _run_nll(x, params, prep, meta, lazy, wv, wl):
+    if x.is_cuda:
+        return _launch_bwd("nll", x, params, None, None, prep, meta, lazy,
+                           wv, wl)
+    return block_nll_plain(x, params, prep, meta, lazy, wv, wl)
+
+
+def gf_block_nll_perm(x, pvec, prep, meta, wv, wl):
+    """Fused NLL value and gradient, permanent parameters: the density
+    forward and its VJP for the cotangents (wv * base, wl) in one call.
+    Returns (base (B, d), ld (B, d), gx (B, d), (gpvec (P,),))."""
+    return _run_nll(x, (pvec,), prep, meta, False, wv, wl)
+
+
+def gf_block_nll_lazy2(x, summary, w1, b1, w, b, prep, meta, wv, wl):
+    """Fused NLL value and gradient, fused-MLP parameters (shapes as
+    gf_block_density_lazy2).  Returns (base, ld, gx, (gsummary (B, In),
+    gw1 (H, In), gb1 (H,), gw (P, H), gb (P,)))."""
+    return _run_nll(x, (summary, w1, b1, w, b), prep, meta, True, wv, wl)

@@ -2,8 +2,10 @@
 
 PyTorch counterpart of ``make_inverse_fn`` in
 ``jammy_flows_tpu/ops/inverse.py``: fixed trip counts, where-masked repair of
-non-finite Newton steps and a clip to the bracket.  Values only; the
-implicit-function gradient comes with the training slice.
+non-finite Newton steps and a clip to the bracket.  The solve itself is not
+differentiated; the gradient is the implicit-function one of the JAX package
+(``inverse.py:86-99``): for x = f^-1(y; p), dL/dy = g / f'(x) and dL/dp is
+the VJP of f(x, .) at the root applied to -dL/dy.
 """
 from __future__ import annotations
 
@@ -29,15 +31,54 @@ def _bisection_newton_solve(value_fn, target, params, lo, hi,
     return x
 
 
+class _ImplicitInverse(torch.autograd.Function):
+    """forward: the solve, with no graph; backward: the implicit-function
+    gradient with respect to the target and every parameter tensor."""
+
+    @staticmethod
+    def forward(ctx, solve, value_fn, value_and_grad_fn, target, *params):
+        x = solve(target, params)
+        ctx.value_fn = value_fn
+        ctx.value_and_grad_fn = value_and_grad_fn
+        ctx.save_for_backward(x, *params)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *params = ctx.saved_tensors
+        with torch.no_grad():
+            _, deriv = ctx.value_and_grad_fn(x, tuple(params))
+            cot = g / deriv
+        wanted = [i for i, p in enumerate(params)
+                  if ctx.needs_input_grad[4 + i]]
+        grads = [None] * len(params)
+        if wanted:
+            with torch.enable_grad():
+                leaves = [p.detach().requires_grad_(i in wanted)
+                          for i, p in enumerate(params)]
+                val = ctx.value_fn(x, tuple(leaves))
+                got = torch.autograd.grad(val, [leaves[i] for i in wanted],
+                                          -cot, allow_unused=True)
+            for i, gi in zip(wanted, got):
+                grads[i] = torch.zeros_like(params[i]) if gi is None else gi
+        return (None, None, None, cot if ctx.needs_input_grad[3] else None,
+                *grads)
+
+
 def make_inverse_fn(value_fn, value_and_grad_fn, lo=-1e5, hi=1e5,
                     num_bisection_iter=25, num_newton_iter=20):
     """Build ``inv(target, params) -> x`` for a strictly increasing
     elementwise ``value_fn(x, params)``; ``value_and_grad_fn`` returns
-    (value, d value / dx)."""
-    def inverse(target, params):
+    (value, d value / dx); ``params`` is a tuple of tensors.  The result is
+    differentiable in the target and the parameters (implicit function)."""
+    def solve(target, params):
         with torch.no_grad():
             return _bisection_newton_solve(value_fn, target, params, lo, hi,
                                            num_bisection_iter,
                                            num_newton_iter,
                                            value_and_grad_fn)
+
+    def inverse(target, params):
+        return _ImplicitInverse.apply(solve, value_fn, value_and_grad_fn,
+                                      target, *params)
     return inverse

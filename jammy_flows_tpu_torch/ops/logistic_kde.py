@@ -1,9 +1,9 @@
 """Logistic-mixture KDE math of the Gaussianization flow.
 
-PyTorch counterpart of ``jammy_flows_tpu/ops/logistic_kde.py`` (values only;
-the hand-written tangent rule comes with the training slice).
+PyTorch counterpart of ``jammy_flows_tpu/ops/logistic_kde.py``.
 
-  * log CDF / log SF / log PDF of a normalized logistic mixture;
+  * log CDF / log SF / log PDF of a normalized logistic mixture, with the
+    JAX package's hand-written tangent rule when the pdf is asked for;
   * the four inverse-Gaussian-CDF passes (isigmoid, inormal_partly_precise,
     inormal_partly_crude, inormal_full_pade) and their log-derivatives, each
     with the f64 branch (exact ndtri / erfinv) and the f32 branch (the
@@ -19,7 +19,7 @@ import math
 
 import torch
 
-from .special import logaddexp, softplus
+from .special import logaddexp, softplus, sum_to
 
 PADE_BOUND = 0.5e-7
 PADE_A = 0.147
@@ -41,11 +41,8 @@ def _tiny(t):
     return torch.finfo(t.dtype).tiny
 
 
-def mixture_linear_logs(common, norm_w, log_norm_w, inv_widths,
+def _linear_logs_primal(common, norm_w, log_norm_w, inv_widths,
                         log_inv_widths, need_pdf):
-    """(log_cdf, log_sf, log_pdf|None) of a normalized logistic mixture by
-    linear odds-space accumulation, with the +-60 clip and the far-tail
-    max-term fallback lanes (every component beyond 55 width-units)."""
     tiny = _tiny(common)
     u = torch.clamp(common, -60.0, 60.0)
     e = torch.exp(u)
@@ -60,12 +57,76 @@ def mixture_linear_logs(common, norm_w, log_norm_w, inv_widths,
     log_cdf = torch.where(neg_all, mc, torch.log(torch.clamp(F, min=tiny)))
     log_sf = torch.where(pos_all, ms, torch.log(torch.clamp(SF, min=tiny)))
     if not need_pdf:
-        return log_cdf, log_sf, None
+        return (log_cdf, log_sf, None), None
     P = torch.sum((norm_w * inv_widths) * (sig * r), dim=0)
     far = torch.amin(torch.abs(common), dim=0) > 55.0
     mp = torch.amax(log_norm_w + log_inv_widths - torch.abs(common), dim=0)
     log_pdf = torch.where(far, mp, torch.log(torch.clamp(P, min=tiny)))
-    return log_cdf, log_sf, log_pdf
+    return (log_cdf, log_sf, log_pdf), (sig, r, F, SF, P, neg_all, pos_all,
+                                        far)
+
+
+class _LinearLogsPdf(torch.autograd.Function):
+    """(log_cdf, log_sf, log_pdf) with the JAX package's hand-written tangent
+    rule (``_linear_logs_pdf_jvp``); ``backward`` is its transpose.
+
+    Interior lanes: dF/du_k = w_k s_k r_k, dSF/du_k = -w_k s_k r_k,
+    dP/du_k = w_k iw_k s_k r_k (1 - 2 s_k), the u-tangent gated by the +-60
+    clip.  Fallback lanes (every component beyond 55 width-units) carry only
+    the coordinate tangent of the dominant max-term, selected by the one-hot
+    ``mvals >= max(mvals)`` (not normalized over ties); the log_norm_w and
+    log_inv_widths tangents are dropped there, as in the JAX rule."""
+
+    @staticmethod
+    def forward(ctx, common, norm_w, log_norm_w, inv_widths, log_inv_widths):
+        outs, res = _linear_logs_primal(common, norm_w, log_norm_w,
+                                        inv_widths, log_inv_widths, True)
+        ctx.save_for_backward(common, norm_w, log_norm_w, inv_widths,
+                              log_inv_widths, *res)
+        return outs
+
+    @staticmethod
+    def backward(ctx, g_cdf, g_sf, g_pdf):
+        (common, norm_w, log_norm_w, inv_widths, log_inv_widths,
+         sig, r, F, SF, P, neg_all, pos_all, far) = ctx.saved_tensors
+        tiny = _tiny(common)
+        zero = torch.zeros((), dtype=common.dtype, device=common.device)
+        g_cdf = zero if g_cdf is None else g_cdf
+        g_sf = zero if g_sf is None else g_sf
+        g_pdf = zero if g_pdf is None else g_pdf
+        # interior lanes: cotangents of F, SF, P
+        cF = torch.where(neg_all, 0.0, g_cdf / torch.clamp(F, min=tiny))
+        cSF = torch.where(pos_all, 0.0, g_sf / torch.clamp(SF, min=tiny))
+        cP = torch.where(far, 0.0, g_pdf / torch.clamp(P, min=tiny))
+        sr = sig * r
+        wsr = norm_w * sr
+        g_nw = cF * sig + cSF * r + (cP * inv_widths) * sr
+        g_iw = (cP * norm_w) * sr
+        g_u = wsr * (cF - cSF) + ((wsr * inv_widths) * (1.0 - 2.0 * sig)) * cP
+        g_c = torch.where(torch.abs(common) < 60.0, g_u, 0.0)
+        # fallback lanes: the dominant max-term's coordinate tangent
+        mvals = log_norm_w + log_inv_widths - torch.abs(common)
+        oh = (mvals >= torch.amax(mvals, dim=0, keepdim=True)).to(common.dtype)
+        ga = torch.where(neg_all, g_cdf, 0.0) + torch.where(far, g_pdf, 0.0)
+        gb = torch.where(pos_all, -g_sf, 0.0) - torch.where(far, g_pdf, 0.0)
+        g_c = g_c + oh * (torch.where(common < 0.0, ga, 0.0)
+                          + torch.where(common > 0.0, gb, 0.0))
+        return (g_c, sum_to(g_nw, norm_w.shape), None,
+                sum_to(g_iw, inv_widths.shape), None)
+
+
+def mixture_linear_logs(common, norm_w, log_norm_w, inv_widths,
+                        log_inv_widths, need_pdf):
+    """(log_cdf, log_sf, log_pdf|None) of a normalized logistic mixture by
+    linear odds-space accumulation, with the +-60 clip and the far-tail
+    max-term fallback lanes (every component beyond 55 width-units).  With
+    ``need_pdf`` the gradient is the JAX package's hand-written rule
+    (:class:`_LinearLogsPdf`); without it, plain autograd as in JAX."""
+    if need_pdf:
+        return _LinearLogsPdf.apply(common, norm_w, log_norm_w, inv_widths,
+                                    log_inv_widths)
+    return _linear_logs_primal(common, norm_w, log_norm_w, inv_widths, None,
+                               False)[0]
 
 
 def logistic_mixture_log_quantities(x, means, log_widths, log_norms,

@@ -27,15 +27,51 @@ def _as_like(v, ref):
     return torch.as_tensor(v, dtype=ref.dtype, device=ref.device)
 
 
-def logaddexp(a, b):
-    """log(exp(a) + exp(b)) in JAX's formulation (jnp.logaddexp)."""
-    if not isinstance(a, torch.Tensor):
-        a = _as_like(a, b)
-    b = _as_like(b, a)
+def _logaddexp_value(a, b):
     amax = torch.maximum(a, b)
     delta = a - b
     return torch.where(torch.isnan(delta), a + b,
                        amax + torch.log1p(torch.exp(-torch.abs(delta))))
+
+
+def _replace_inf(x):
+    return torch.where(x == math.inf, 0.0, x)
+
+
+def sum_to(g, shape):
+    """A broadcast gradient summed back to its input's shape."""
+    return g if g.shape == shape else g.sum_to_size(shape)
+
+
+class _LogAddExp(torch.autograd.Function):
+    """jnp.logaddexp with JAX's tangent rule
+    t_a exp(a - out) + t_b exp(b - out) (+inf replaced by 0), rather than the
+    derivative of the max/log1p formulation."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        out = _logaddexp_value(a, b)
+        ctx.save_for_backward(a, b, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b, out = ctx.saved_tensors
+        o = _replace_inf(out)
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = sum_to(g * torch.exp(_replace_inf(a) - o), a.shape)
+        if ctx.needs_input_grad[1]:
+            gb = sum_to(g * torch.exp(_replace_inf(b) - o), b.shape)
+        return ga, gb
+
+
+def logaddexp(a, b):
+    """log(exp(a) + exp(b)) in JAX's formulation (jnp.logaddexp), values
+    and gradients."""
+    if not isinstance(a, torch.Tensor):
+        a = _as_like(a, b)
+    return _LogAddExp.apply(a, _as_like(b, a))
 
 
 def softplus(x):

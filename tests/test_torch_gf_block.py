@@ -127,5 +127,5 @@ def test_wrapper_checks_inputs():
         tblk._check("x", x, (4, 3), x.device)
     with pytest.raises(ValueError):
         tblk._check("x", torch.zeros((4, 8))[:, ::2], (4, 4), x.device)
-    with pytest.raises(RuntimeError):
-        tblk._check("x", x.clone().requires_grad_(), (4, 4), x.device)
+    # the kernels have a backward: a tensor that requires grad is taken
+    tblk._check("x", x.clone().requires_grad_(), (4, 4), x.device)
