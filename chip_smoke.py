@@ -2,16 +2,22 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA block kernels from jammy_flows_tpu_torch/csrc
-(forward and backward sources compiled in parallel), then drives the
-flagship ``pdf("e4+s2+e4", "gggg+f+gggg")``:
+Builds the hand-written CUDA kernels from jammy_flows_tpu_torch/csrc (the
+block and the per-layer sources, forward and backward, all nvcc processes
+in parallel), then drives the flagship ``pdf("e4+s2+e4", "gggg+f+gggg")``:
 
 * serving, twice, unconditional (1,048,576 rows) and conditional_input_dim=3
   (262,144 rows): ``sample``, then ``log_prob`` of the samples;
 * training, for both configurations at 262,144 rows sampled from the model:
   the fused ``nll_value_and_grad`` (T3 per block), autograd of
   ``-log_prob(...).mean()`` (T1 + T2) and of a sample objective (T1 + the
-  T2 sample body), then ``train.fit`` for 20 full-batch Adam steps.
+  T2 sample body), then ``train.fit`` for 20 full-batch Adam steps;
+* the per-layer route (T4-T7), on the flagship with
+  ``{"g": {"add_skewness": 1}}`` (raw and lazy interfaces) and with
+  ``{"g": {"center_mean": 1}}`` (prepared interface), each unconditional and
+  conditional: serving at the same row counts, the skewed models' training
+  paths as above (T4 / T5 and both T7 bodies per layer), and the centred
+  models' gradients at the cross-check size.
 
 Each path has its own launch counts, which must be exactly the kernels that
 path runs.  Every kernel call of every path is recorded and held against the
@@ -48,6 +54,7 @@ TOL_SAMPLE = 3e-3
 TOL_ROUNDTRIP_Q999 = 1e-3        # tests/test_tpu_kernels.py
 TOL_CROSS = 1e-3
 TIMING_REPS = 20
+PLAIN_REPS = 5                   # the plain versions of the per-layer kernels
 ENTRY_POINTS = ("density_perm", "sample_perm", "density_lazy2",
                 "sample_lazy2")
 BWD_KERNELS = ("density_bwd_perm", "density_bwd_lazy2", "sample_bwd_perm",
@@ -92,6 +99,55 @@ EXPECTED_TRAIN_LAUNCHES = {
         "sample_grad": {"sample_lazy2": 2, "sample_bwd_lazy2": 2},
         "fit": {"nll_lazy2": 2 * TRAIN_STEPS}},
 }
+# the per-layer route: the flagship with one GF option, per configuration
+SKEW = {"g": {"add_skewness": 1}}
+CENTRE = {"g": {"center_mean": 1}}
+LAYER_MODELS = (("skewed unconditional", SKEW, None),
+                ("skewed conditional", SKEW, 3),
+                ("centred unconditional", CENTRE, None),
+                ("centred conditional", CENTRE, 3))
+LAYER_ENTRY = ("forward_prepared", "inverse_prepared", "forward_raw",
+               "sample_raw", "forward_lazy", "sample_lazy")
+LAYER_BWD = ("forward_bwd_raw", "sample_bwd_raw", "forward_bwd_lazy",
+             "sample_bwd_lazy")
+# the centred models' g-layer means are scaled by this before serving: at
+# init_params(seed=0) the centring mean (minus the weighted sum of the nine
+# others) lies ~10 widths off the bulk, where the 4-step Newton solve of the
+# JAX package does not converge (its own f32 sample -> log_prob roundtrip
+# there: q999 11.7 on 8,192 rows, interpret mode on the CPU), so the
+# roundtrip would measure the reference's solve, not the port
+CENTRE_MEAN_SCALE = 1.0 / 3.0
+# launches of one sample + log_prob: 4 g layers per block; the skewed
+# unconditional block 0 takes raw broadcast parameters, every amortized
+# block lazy rows; the centred blocks the prepared interface (solve, then
+# the density pass at the root, then log_prob's density pass)
+SKEW_U = {"sample_raw": 4, "sample_lazy": 4, "forward_raw": 4,
+          "forward_lazy": 4}
+CENTRED = {"inverse_prepared": 8, "forward_prepared": 16}
+EXPECTED_LAUNCHES.update({
+    "skewed unconditional": SKEW_U,
+    "skewed conditional": {"sample_lazy": 8, "forward_lazy": 8},
+    "centred unconditional": CENTRED, "centred conditional": CENTRED})
+# training: nll_value_and_grad takes autograd per sub-pdf when no block is
+# eligible, so it launches what autograd of log_prob launches
+_LP_U = {"forward_raw": 4, "forward_lazy": 4, "forward_bwd_raw": 4,
+         "forward_bwd_lazy": 4}
+_LP_C = {"forward_lazy": 8, "forward_bwd_lazy": 8}
+EXPECTED_TRAIN_LAUNCHES.update({
+    "skewed unconditional": {
+        "nll": _LP_U, "log_prob_grad": _LP_U,
+        "sample_grad": {"sample_raw": 4, "sample_lazy": 4,
+                        "sample_bwd_raw": 4, "sample_bwd_lazy": 4},
+        "fit": {k: v * TRAIN_STEPS for k, v in _LP_U.items()}},
+    "skewed conditional": {
+        "nll": _LP_C, "log_prob_grad": _LP_C,
+        "sample_grad": {"sample_lazy": 8, "sample_bwd_lazy": 8},
+        "fit": {k: v * TRAIN_STEPS for k, v in _LP_C.items()}}})
+# the centred models' gradients (prepared interface: no backward kernel, the
+# plain VJP; the sample direction's solve by make_inverse_fn's implicit rule)
+EXPECTED_CENTRED_GRAD = {"log_prob_grad": {"forward_prepared": 8},
+                         "sample_grad": {"inverse_prepared": 8,
+                                         "forward_prepared": 8}}
 # H100 SXM peaks (NVIDIA data sheet): FP32 on the CUDA cores, HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -101,10 +157,22 @@ def log(msg):
     print(msg, flush=True)
 
 
+def counts():
+    """Every kernel's launch count: the block (gf_block) and the per-layer
+    (gf_layer) wrappers' counters, whose names do not overlap."""
+    from jammy_flows_tpu_torch.ops import gf_block as gb, gf_layer as gl
+    return {**gb.LAUNCHES, **gl.LAUNCHES}
+
+
+def reset_counts():
+    from jammy_flows_tpu_torch.ops import gf_block as gb, gf_layer as gl
+    gb.reset_launch_counts()
+    gl.reset_launch_counts()
+
+
 def all_counts(expected):
     """An expected launch dict with every other kernel at 0."""
-    from jammy_flows_tpu_torch.ops import gf_block as gb
-    return {k: expected.get(k, 0) for k in gb.LAUNCHES}
+    return {k: expected.get(k, 0) for k in counts()}
 
 
 def card_line():
@@ -332,30 +400,31 @@ def roundtrip(p, params, n, ci, seed):
 def serve(label, p, params, n, ci, seed):
     """One serving path (sample, then log_prob of the samples) with the
     launch counts set to 0 just before it and read just after; returns
-    (samples, launches, recorded entry-point calls)."""
-    from jammy_flows_tpu_torch.ops import gf_block as gb
-    calls = []
-    gb.reset_launch_counts()
-    with recording(calls):
+    (samples, launches, recorded block calls, recorded per-layer calls)."""
+    calls, layer_calls = [], []
+    reset_counts()
+    with recording(calls), recording_layer(layer_calls):
         x, d = roundtrip(p, params, n, ci, seed)
     torch.cuda.synchronize()
-    launches = dict(gb.LAUNCHES)
-    log(f"{label} ({n} rows): launches {launches}")
+    launches = counts()
+    log(f"{label} ({n} rows): launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
     if launches != all_counts(EXPECTED_LAUNCHES[label]):
         raise AssertionError(f"{label}: launches {launches}, expected "
                              f"{EXPECTED_LAUNCHES[label]}")
-    if len(calls) != sum(launches.values()):
-        raise AssertionError(f"{label}: {len(calls)} entry-point calls for "
+    if len(calls) + len(layer_calls) != sum(launches.values()):
+        raise AssertionError(f"{label}: {len(calls) + len(layer_calls)} "
+                             f"entry-point calls for "
                              f"{sum(launches.values())} launches")
     q999 = torch.quantile(d.float(), 0.999).item()
     log(f"{label}: sample->log_prob |dlogp| q999 {q999:.3e} max "
         f"{d.max().item():.3e} (limit q999 < {TOL_ROUNDTRIP_Q999:g})")
     if not q999 < TOL_ROUNDTRIP_Q999:
         raise AssertionError(f"{label}: roundtrip q999 {q999:.3e}")
-    return x, launches, calls
+    return x, launches, calls, layer_calls
 
 
-def cross_check(label, p, params, x, ci):
+def cross_check(label, p, params, x, ci, opts=None):
     """The card's f32 log_prob of N_CROSS samples against the port's f64
     CPU path."""
     from jammy_flows_tpu_torch import pdf
@@ -363,8 +432,8 @@ def cross_check(label, p, params, x, ci):
     xs = x[:N_CROSS]
     cis = None if ci is None else ci[:N_CROSS]
     lp_gpu = p.log_prob(params, xs, conditional_input=cis)[0].double().cpu()
-    p_cpu = pdf(*FLAGSHIP, conditional_input_dim=p.conditional_input_dim,
-                device="cpu")
+    p_cpu = pdf(*FLAGSHIP, options_overwrite=opts,
+                conditional_input_dim=p.conditional_input_dim, device="cpu")
     par64 = params_from_jax({k: v.cpu().numpy() for k, v in params.items()},
                             dtype=torch.float64)
     lp_cpu = p_cpu.log_prob(par64, xs.double().cpu(), conditional_input=(
@@ -415,19 +484,23 @@ def recording_bwd(calls):
         gb._run_bwd, gb._run_nll = run_bwd, run_nll
 
 
-def grad_errors(got, ref):
+def grad_errors(got, ref, per_row=None):
     """(largest relative error, largest absolute difference, the output with
     the largest relative error) over a call's gradients (gx, then the
-    parameters' in the wrapper's order): per-row ones (gx, gsummary) as
-    max|diff| / max|ref|, broadcast ones as relative norms."""
+    parameters' in the wrapper's order): per-row ones (``per_row``; by
+    default gx and a block's gsummary) as max|diff| / max|ref|, broadcast
+    ones as relative norms."""
     rel, absd, worst = 0.0, 0.0, 0
     for i, (a, b) in enumerate(zip(got, ref)):
         if not torch.isfinite(a).all():
             return float("inf"), float("inf"), i
         d = (a.double() - b.double())
         absd = max(absd, d.abs().max().item() if d.numel() else 0.0)
-        per_row = i == 0 or (len(got) == 6 and i == 1)
-        if per_row:
+        if per_row is not None:
+            row_wise = per_row[i]
+        else:
+            row_wise = i == 0 or (len(got) == 6 and i == 1)
+        if row_wise:
             scale = b.abs().max().item() if b.numel() else 0.0
             e = d.abs().max().item() / scale if scale > 0 else 0.0
         else:
@@ -477,23 +550,26 @@ def check_bwd_calls(label, calls):
     return errs
 
 
-def train_path(label, what, p, fn):
+def train_path(label, what, p, fn, record=True):
     """One training path with the launch counts set to 0 just before it and
-    read just after; returns (result, launches, recorded T2 / T3 calls)."""
-    from jammy_flows_tpu_torch.ops import gf_block as gb
-    calls = []
-    gb.reset_launch_counts()
-    with recording_bwd(calls):
+    read just after; returns (result, launches, recorded T2 / T3 calls,
+    recorded per-layer calls; none without ``record``)."""
+    calls, layer_calls = [], []
+    reset_counts()
+    with contextlib.ExitStack() as stack:
+        if record:
+            stack.enter_context(recording_bwd(calls))
+            stack.enter_context(recording_layer(layer_calls))
         out = fn()
     torch.cuda.synchronize()
-    launches = dict(gb.LAUNCHES)
+    launches = counts()
     want = all_counts(EXPECTED_TRAIN_LAUNCHES[label][what])
     log(f"{label} training path {what}: launches "
         f"{ {k: v for k, v in launches.items() if v} }")
     if launches != want:
         raise AssertionError(f"{label} {what}: launches {launches}, expected "
                              f"{want}")
-    return out, launches, calls
+    return out, launches, calls, layer_calls
 
 
 def sample_objective(p, pp, z, ci):
@@ -510,12 +586,92 @@ def rel_norm(a, b):
     return (a - b).norm().item() / max(b.norm().item(), 1e-300)
 
 
-def train(label, p, params, seed):
-    """The training phase of one configuration; returns (launches per path,
-    errors per kernel, recorded calls of the unconditional paths, step
-    times)."""
-    from jammy_flows_tpu_torch import pdf, train as ttrain
+def card_vs_f64_grads(label, p, params, xs, zs, cis, opts, sample_f32=False):
+    """The card's f32 gradients of the NLL and of the sample objective on
+    N_CROSS rows against the port's f64 CPU path, as relative norms.  With
+    ``sample_f32`` the sample objective's gradient is held against the
+    port's f32 CPU path instead, and its distance to f64 only printed (the
+    centred models: there the JAX package's own f32 path lies up to 1.0e-3
+    from its f64 path, PERF.md)."""
+    from jammy_flows_tpu_torch import pdf
     from jammy_flows_tpu_torch.utils.convert import params_from_jax
+    p_cpu = pdf(*FLAGSHIP, options_overwrite=opts,
+                conditional_input_dim=p.conditional_input_dim, device="cpu")
+    par64 = params_from_jax({k: v.cpu().numpy() for k, v in params.items()},
+                            dtype=torch.float64)
+    cis64 = None if cis is None else cis.double().cpu()
+    _, gn_card = p.nll_value_and_grad(params, xs, cis)
+    _, gn_cpu = p_cpu.nll_value_and_grad(par64, xs.double().cpu(), cis64)
+    _, gs_card = p._value_and_grad(
+        lambda pp: sample_objective(p, pp, zs, cis), params)
+    _, gs_cpu = p_cpu._value_and_grad(
+        lambda pp: sample_objective(p_cpu, pp, zs.double().cpu(), cis64),
+        par64)
+    checks = [("NLL", "f64", gn_card, gn_cpu, True),
+              ("sample", "f64", gs_card, gs_cpu, not sample_f32)]
+    if sample_f32:
+        par32 = {k: v.cpu() for k, v in params.items()}
+        _, gs_32 = p_cpu._value_and_grad(
+            lambda pp: sample_objective(p_cpu, pp, zs.cpu(), None if cis is None
+                                        else cis.cpu()), par32)
+        checks.append(("sample", "f32", gs_card, gs_32, True))
+    for what, ref, a, b, held in checks:
+        rels = {k: rel_norm(a[k], b[k]) for k in a}
+        log(f"{label}: card f32 vs CPU {ref} {what} gradient on "
+            f"{xs.shape[0]} rows: relative norms "
+            f"{', '.join(f'{k} {v:.3e}' for k, v in rels.items())}"
+            + (f" (limit {TOL_CROSS_GRAD:g})" if held else " (printed)"))
+        if held and not max(rels.values()) < TOL_CROSS_GRAD:
+            raise AssertionError(f"{label}: card vs CPU {ref} {what} "
+                                 "gradient")
+
+
+def ragged_layer_check(label, layer_calls):
+    """A ragged batch (N_RAGGED rows) through T4 and the T7 density body on
+    the inputs of the first recorded forward call of each interface, against
+    the plain versions."""
+    from jammy_flows_tpu_torch.ops import gf_layer as gl
+    errs = {}
+    done = set()
+    for name, mode, iface, kept, ift, prep, kd, _ in layer_calls:
+        if mode != "forward" or iface in done:
+            continue
+        done.add(iface)
+        x, params = kept
+        x = x[:N_RAGGED]
+        params = (params[0][:N_RAGGED].contiguous(),) + params[1:] \
+            if iface == "lazy" else tuple(
+                t[..., :N_RAGGED].contiguous() if t.ndim == 3 else t
+                for t in params)
+        g = torch.Generator(device=x.device).manual_seed(9)
+        g1 = torch.randn(x.shape, generator=g, device=x.device)
+        g2 = torch.randn(x.shape, generator=g, device=x.device)
+        out = gl._run("forward", iface, x, params, ift, prep, kd)
+        ref = gl.layer_plain("forward", iface, x, params, ift, prep, kd)
+        e_fwd = max((a - b).abs().max().item() for a, b in zip(out, ref))
+        gx, gp = gl._launch_bwd("forward", iface, x, params, g1, g2, ift,
+                                prep, kd)
+        rgx, rgp = gl.layer_bwd_plain("forward", iface, x, params, g1, g2,
+                                      ift, prep, kd)
+        torch.cuda.synchronize()
+        rel, absd, _ = grad_errors((gx, *gp), (rgx, *rgp),
+                                   per_row=layer_per_row(iface, params))
+        log(f"{label} forward_{iface} ragged ({N_RAGGED} rows): T4 max|diff| "
+            f"{e_fwd:.3e} (limit {TOL_DENSITY:g}); T7 largest relative error "
+            f"{rel:.3e}, max|diff| {absd:.3e} (limit {TOL_GRAD['density']:g})")
+        if not (e_fwd < TOL_DENSITY and rel < TOL_GRAD["density"]):
+            raise AssertionError(f"{label} forward_{iface}: ragged batch "
+                                 "disagrees")
+        errs[f"forward_{iface}"] = e_fwd
+        errs[f"forward_bwd_{iface}"] = absd
+    return errs
+
+
+def train(label, p, params, seed, opts=None):
+    """The training phase of one configuration; returns (launches per path,
+    errors per kernel, recorded block calls, recorded per-layer calls, step
+    times)."""
+    from jammy_flows_tpu_torch import train as ttrain
     dev = p.device
     g = torch.Generator(device=dev).manual_seed(seed)
     ci = None if p.conditional_input_dim is None else torch.randn(
@@ -529,23 +685,25 @@ def train(label, p, params, seed):
                      generator=g)[0]
     z = torch.randn((N_TRAIN, p.total_base_dim), generator=g, device=dev)
 
-    (l_f, g_f), l_nll, c_nll = train_path(
+    (l_f, g_f), l_nll, c_nll, lc_nll = train_path(
         label, "nll", p, lambda: p.nll_value_and_grad(params, x, ci))
-    (l_a, g_a), l_lp, c_lp = train_path(
+    (l_a, g_a), l_lp, c_lp, lc_lp = train_path(
         label, "log_prob_grad", p, lambda: p._value_and_grad(
             lambda pp: -p.log_prob(pp, x, ci)[0].mean(), params))
-    (l_s, g_s), l_sg, c_sg = train_path(
+    (l_s, g_s), l_sg, c_sg, lc_sg = train_path(
         label, "sample_grad", p, lambda: p._value_and_grad(
             lambda pp: sample_objective(p, pp, z, ci), params))
 
     d_loss = abs(l_f.item() - l_a.item())
     rels = {k: rel_norm(g_f[k], g_a[k]) for k in g_f}
-    log(f"{label}: fused NLL {l_f.item():.6f} vs autograd {l_a.item():.6f} "
-        f"(|diff| {d_loss:.3e}, limit {TOL_NLL_LOSS:g}); gradient relative "
-        f"norms {', '.join(f'{k} {v:.3e}' for k, v in rels.items())} "
+    log(f"{label}: nll_value_and_grad {l_f.item():.6f} vs autograd "
+        f"{l_a.item():.6f} (|diff| {d_loss:.3e}, limit {TOL_NLL_LOSS:g}); "
+        f"gradient relative norms "
+        f"{', '.join(f'{k} {v:.3e}' for k, v in rels.items())} "
         f"(limit {TOL_GRAD['nll']:g})")
     if not (d_loss < TOL_NLL_LOSS and max(rels.values()) < TOL_GRAD["nll"]):
-        raise AssertionError(f"{label}: fused NLL disagrees with autograd")
+        raise AssertionError(f"{label}: nll_value_and_grad disagrees with "
+                             "autograd")
     for k, v in list(g_f.items()) + list(g_s.items()):
         if not torch.isfinite(v).all():
             raise AssertionError(f"{label}: non-finite gradient {k}")
@@ -553,11 +711,12 @@ def train(label, p, params, seed):
         f"{', '.join(f'{k} {v.norm().item():.4g}' for k, v in g_s.items())}")
 
     errs = {}
-    for calls in (c_nll, c_lp, c_sg):
-        for k, v in check_bwd_calls(label, calls).items():
-            errs[k] = max(errs.get(k, 0.0), v)
+    for k, v in list(check_bwd_calls(label, c_nll + c_lp + c_sg).items()) + \
+            list(check_layer_calls(label, lc_nll + lc_lp + lc_sg).items()):
+        errs[k] = max(errs.get(k, 0.0), v)
 
-    # a ragged batch through T3, against the plain version
+    # a ragged batch through T3 (blocks) and through T4 / T7 (layers),
+    # against the plain versions
     from jammy_flows_tpu_torch.ops import gf_block as gb
     for name, _, kept, prep, meta, lazy, _ in c_nll:
         xr, params_r, wv, wl = kept
@@ -573,29 +732,14 @@ def train(label, p, params, seed):
         if not rel < TOL_GRAD["nll"]:
             raise AssertionError(f"{label} {name}: ragged batch disagrees")
         errs[name] = max(errs.get(name, 0.0), absd)
+    for k, v in ragged_layer_check(label, lc_lp).items():
+        errs[k] = max(errs.get(k, 0.0), v)
+    lc_calls = first_calls(lc_nll + lc_lp + lc_sg)
+    del lc_nll, lc_lp, lc_sg
 
     # card f32 against the port's f64 CPU path, N_CROSS rows
-    p_cpu = pdf(*FLAGSHIP, conditional_input_dim=p.conditional_input_dim,
-                device="cpu")
-    par64 = params_from_jax({k: v.cpu().numpy() for k, v in params.items()},
-                            dtype=torch.float64)
-    xs, zs = x[:N_CROSS], z[:N_CROSS]
-    cis = None if ci is None else ci[:N_CROSS]
-    cis64 = None if cis is None else cis.double().cpu()
-    _, gn_card = p.nll_value_and_grad(params, xs, cis)
-    _, gn_cpu = p_cpu.nll_value_and_grad(par64, xs.double().cpu(), cis64)
-    _, gs_card = p._value_and_grad(
-        lambda pp: sample_objective(p, pp, zs, cis), params)
-    _, gs_cpu = p_cpu._value_and_grad(
-        lambda pp: sample_objective(p_cpu, pp, zs.double().cpu(), cis64),
-        par64)
-    for what, a, b in (("NLL", gn_card, gn_cpu), ("sample", gs_card, gs_cpu)):
-        rels = {k: rel_norm(a[k], b[k]) for k in a}
-        log(f"{label}: card f32 vs CPU f64 {what} gradient on {N_CROSS} rows: "
-            f"relative norms {', '.join(f'{k} {v:.3e}' for k, v in rels.items())}"
-            f" (limit {TOL_CROSS_GRAD:g})")
-        if not max(rels.values()) < TOL_CROSS_GRAD:
-            raise AssertionError(f"{label}: card vs CPU f64 {what} gradient")
+    card_vs_f64_grads(label, p, params, x[:N_CROSS], z[:N_CROSS],
+                      None if ci is None else ci[:N_CROSS], opts)
 
     # train.fit: TRAIN_STEPS full-batch Adam steps from init_params(seed=0)
     # on the rows sampled from the jittered model
@@ -606,10 +750,11 @@ def train(label, p, params, seed):
                else ci[:4096], num_steps=1, learning_rate=TRAIN_LR)
     torch.cuda.synchronize()
     t0 = time.time()
-    (_, losses), l_fit, _ = train_path(
+    (_, losses), l_fit, _, _ = train_path(
         label, "fit", p, lambda: ttrain.fit(p, init, x, conditional_input=ci,
                                             num_steps=TRAIN_STEPS,
-                                            learning_rate=TRAIN_LR))
+                                            learning_rate=TRAIN_LR),
+        record=False)
     torch.cuda.synchronize()
     fit_s = time.time() - t0
     log(f"{label}: train.fit {TRAIN_STEPS} Adam steps (lr {TRAIN_LR:g}, "
@@ -625,11 +770,12 @@ def train(label, p, params, seed):
     step_fused = cuda_ms(lambda: p.nll_value_and_grad(params, x, ci), 10)
     step_auto = cuda_ms(lambda: p._value_and_grad(
         lambda pp: -p.log_prob(pp, x, ci)[0].mean(), params), 10)
-    log(f"{label} value-and-grad step at {N_TRAIN} rows: fused "
+    log(f"{label} value-and-grad step at {N_TRAIN} rows: nll_value_and_grad "
         f"{step_fused:.3f} ms, autograd {step_auto:.3f} ms (median of 10)")
     launches = {"nll": l_nll, "log_prob_grad": l_lp, "sample_grad": l_sg,
                 "fit": l_fit}
-    return launches, errs, c_nll + c_lp + c_sg, (step_fused, step_auto)
+    return (launches, errs, c_nll + c_lp + c_sg, lc_calls,
+            (step_fused, step_auto))
 
 
 def time_bwd_kernels(calls, launches_by_path, errs, card):
@@ -677,6 +823,368 @@ def time_bwd_kernels(calls, launches_by_path, errs, card):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the per-layer route (T4-T7), held against the plain versions
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def recording_layer(calls):
+    """Wrap the per-layer kernel calls (every entry point and the T7 bodies
+    go through ``gf_layer._run`` / ``_run_bwd``) so that each appends (name,
+    mode or body, interface, inputs, ift, prep, kd, outputs) to ``calls``,
+    as copies; the wrapped call still launches, and counts, its kernel
+    once."""
+    from jammy_flows_tpu_torch.ops import gf_layer as gl
+    run, run_bwd = gl._run, gl._run_bwd
+
+    def fwd(mode, iface, x, params, ift, prep, kd):
+        kept = (x.clone(), tuple(t.clone() for t in params))
+        out = run(mode, iface, x, params, ift, prep, kd)
+        outs = out if isinstance(out, tuple) else (out,)
+        calls.append((f"{mode}_{iface}", mode, iface, kept, ift, prep, kd,
+                      tuple(o.clone() for o in outs)))
+        return out
+
+    def bwd(body, iface, x, params, g1, g2, ift, prep, kd):
+        kept = (x.clone(), tuple(t.clone() for t in params),
+                g1.contiguous().clone(), g2.contiguous().clone())
+        gx, grads = run_bwd(body, iface, x, params, g1, g2, ift, prep, kd)
+        calls.append((f"{body}_bwd_{iface}", body, iface, kept, ift, prep, kd,
+                      (gx.clone(), *(g.clone() for g in grads))))
+        return gx, grads
+
+    gl._run, gl._run_bwd = fwd, bwd
+    try:
+        yield
+    finally:
+        gl._run, gl._run_bwd = run, run_bwd
+
+
+def first_calls(calls):
+    """The first recorded per-layer call of each name, broadcast and per row
+    (the ones timed); the others are dropped to free the card's memory."""
+    kept, seen = [], set()
+    for c in calls:
+        key = (c[0], c[2] != "lazy" and c[3][1][0].ndim == 3)
+        if key not in seen:
+            seen.add(key)
+            kept.append(c)
+    return kept
+
+
+def layer_per_row(iface, params):
+    """Which outputs of a T7 call are per row: gx, then the parameters'
+    gradients (lazy: hidden per row, w and b summed; raw: the slabs)."""
+    if iface == "lazy":
+        return (True, True, False, False)
+    return (True,) + tuple(t.ndim == 3 for t in params)
+
+
+def check_layer_calls(label, calls):
+    """Each recorded per-layer call against its plain version on the same
+    inputs; returns the largest |diff| per entry point / body."""
+    from jammy_flows_tpu_torch.ops import gf_layer as gl
+    errs = {}
+    for name, mode, iface, kept, ift, prep, kd, outs in calls:
+        if "_bwd_" in name:
+            x, params, g1, g2 = kept
+            rgx, rgp = gl.layer_bwd_plain(mode, iface, x, params, g1, g2,
+                                          ift, prep, kd)
+            torch.cuda.synchronize()
+            rel, absd, worst = grad_errors(outs, (rgx, *rgp),
+                                           layer_per_row(iface, params))
+            tol = TOL_GRAD["density" if mode == "forward" else "sample"]
+            ok = rel < tol
+            err, what = absd, f"largest relative error {rel:.3e} (output " \
+                f"{worst}), max|diff| {absd:.3e}"
+        else:
+            x, params = kept
+            ref = gl.layer_plain(mode, iface, x, params, ift, prep, kd)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            torch.cuda.synchronize()
+            err = max((a - b).abs().max().item() for a, b in zip(outs, ref))
+            tol = TOL_DENSITY if mode == "forward" else TOL_SAMPLE
+            ok = err < tol and all(torch.isfinite(o).all() for o in outs)
+            what = f"max|diff| {err:.3e}"
+        log(f"kernel vs plain {label} {name} {ift} ({x.shape[0]} rows): "
+            f"{what} (limit {tol:g})")
+        if not ok:
+            raise AssertionError(f"{label} {name}: kernel disagrees with its "
+                                 f"plain version")
+        errs[name] = max(errs.get(name, 0.0), err)
+    return errs
+
+
+def centred_params(p, params):
+    """``params`` with the means of every g layer (in flow_0, or in the final
+    bias of an MLP) scaled by CENTRE_MEAN_SCALE."""
+    out = dict(params)
+    for k, layers in enumerate(p.layer_list):
+        key = "flow_0" if f"mlp_{k}" not in params else f"mlp_{k}"
+        if key not in params:
+            continue
+        vec = out[key].clone()
+        row = vec.shape[0] - sum(p.num_parameter_list[k])
+        for lay in layers:
+            if getattr(lay, "center_mean", 0):
+                lo = row + lay.model_offset * lay.dimension \
+                    + lay.num_rotation_params
+                vec[lo:lo + lay.num_mean_params] *= CENTRE_MEAN_SCALE
+            row += lay.num_params
+        out[key] = vec
+    return out
+
+
+# FP32 operations of the per-layer kernels, counted from their expressions
+# as work() counts the block kernels' (an FMA as 2, every other operation
+# as 1; each function's minimum once; a data-dependent branch counted as a
+# row in the bulk takes it).  The plain mixture and the iCDF constants are
+# work()'s.
+SKEW_OPS = 63       # per component: c, two softplus, the selected branch's
+                    # logs with the series of log((1+e^u)^a - 1), three
+                    # logsumexp terms
+SKEW_VAL_OPS = 53   # the same without log_pdf (solve-side value)
+SKEW_DIM_OPS = 6    # per dimension: the three logsumexps' log and add
+SKEW_PREP_OPS = 23  # per component: log iw, the exponent regulator, exp
+SKEW_BRACKET_OPS = 22   # per component: the skewed component quantile
+SKEW_BRACKET_DIM_OPS = 23   # per dimension: log q, log(1-q), the margin
+SKEW_ADJ_OPS = 129  # per component: partials, softmax weights, the
+                    # cotangents of c, ls, lnw, and the three regulators'
+                    # derivatives
+SKEW_JVP_OPS = 9    # sample body, per component: the tangent along dx
+LOGIT_PHI_OPS = 25  # per dimension, inormal solves
+
+
+def layer_work(name, n, k, d, ift, skew, per_row, n_groups, hid):
+    """(flops, bytes) of one per-layer kernel call on n rows, name as in
+    gf_layer.LAUNCHES.  Per row and dimension: the mixture pass (plain:
+    MIX_OPS per component; skewed: SKEW_OPS), its iCDF pieces, and for a
+    solve the bracket, the start (two value passes unless the plain
+    isigmoid start), four Newton steps and, for the sample mode, the
+    log-derivative at the root; T7 adds the adjoint (and the JVP of the
+    sample body).  Preparation (regulators, log-softmax, exponents) counts
+    per row for per-row and lazy parameters, once for broadcast ones; the
+    lazy interface adds 2 P H + P per row for the parameter rows and, in
+    T7, dh = w^T dp and gw = sum_rows dp x hidden (2 P H each) and gb (P),
+    P = n_groups K d.  Bytes: each input read once, each output written
+    once."""
+    parts = name.split("_")
+    mode, iface, bwd = parts[0], parts[-1], parts[1] == "bwd"
+    p_rows = n_groups * k * d
+    mix_v = k * SKEW_VAL_OPS + SKEW_DIM_OPS
+    mix_p = k * (SKEW_OPS if skew else MIX_OPS) + \
+        (SKEW_DIM_OPS if skew else MIX_DIM_OPS)
+    icdf = ICDF_OPS.get(ift, ICDF_OPS["inormal_partly_precise"])
+    row = 0
+    n_eval = 4 + (mode == "sample")     # Newton steps (+ the root's ld)
+    if mode == "forward" or bwd:
+        row += d * (mix_p + icdf)
+    elif not skew:                      # as work()'s block solve
+        start = 3 * k if ift == "isigmoid" else 2 * (12 * k + 15)
+        row += d * (4 * k + start + n_eval * (16 * k + 30))
+    else:
+        bracket = k * SKEW_BRACKET_OPS + SKEW_BRACKET_DIM_OPS + (
+            0 if ift == "isigmoid" else LOGIT_PHI_OPS)
+        start = 2 * (mix_v + icdf // 2) + 15
+        row += d * (bracket + start + n_eval * (mix_p + icdf + 8))
+    if bwd:
+        adj = SKEW_ADJ_OPS if skew else ADJ_OPS + PREP_ADJ_OPS
+        row += d * (k * adj + ADJ_DIM_OPS + ICDF_ADJ_OPS.get(
+            ift, ICDF_ADJ_OPS["inormal_partly_precise"]))
+        if mode == "sample":
+            row += d * (k * (SKEW_JVP_OPS if skew else JVP_OPS) + JVP_DIM_OPS
+                        + ICDF_JVP_OPS.get(
+                            ift, ICDF_JVP_OPS["inormal_partly_precise"]))
+    prep = d * (k * (1 if iface == "prepared" else PREP_OPS
+                     + (SKEW_PREP_OPS if skew else 0)) + PREP_DIM_OPS)
+    n_io = 4 if bwd else (2 if mode == "inverse" else 3)
+    byts = n_io * n * d * 4
+    if iface == "lazy":
+        row += prep + 2 * p_rows * hid + p_rows
+        if bwd:
+            row += 4 * p_rows * hid + p_rows
+        weights = p_rows * (hid + 1)
+        byts += 4 * (n * hid + weights) * (2 if bwd else 1)
+        return row * n, byts
+    if per_row:
+        row += prep
+        byts += 4 * n * p_rows * (2 if bwd else 1)
+        return row * n, byts
+    byts += 4 * p_rows * (2 if bwd else 1)
+    return row * n + prep + (p_rows * n if bwd else 0), byts
+
+
+def layer_model(opts, cond, dev, seed):
+    """The flagship with one GF option; its weights are init_params(seed=0)
+    with every MLP weight and the permanent flow_0 (skew exponents included)
+    moved by 0.02 N(0, 1); a centred model's means then scaled."""
+    from jammy_flows_tpu_torch import pdf
+    p = pdf(*FLAGSHIP, options_overwrite=opts, conditional_input_dim=cond,
+            device=dev)
+    params = jittered_params(p, seed, flow_scale=0.02)
+    if opts is CENTRE:
+        params = centred_params(p, params)
+    return p, params
+
+
+def centred_grads(label, p, params, opts, seed):
+    """The centred model's gradients of log_prob and of the sample objective
+    on N_CROSS rows, each path with its own launch counts and recorded calls,
+    against the port's f64 CPU path; returns (launches, recorded calls)."""
+    dev = p.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ci = None if p.conditional_input_dim is None else torch.randn(
+        (N_CROSS, p.conditional_input_dim), generator=g, device=dev)
+    with torch.no_grad():
+        x = p.sample(params, samplesize=N_CROSS, conditional_input=ci,
+                     generator=g)[0]
+    z = torch.randn((N_CROSS, p.total_base_dim), generator=g, device=dev)
+    launches, calls = {}, []
+    for what, fn in (("log_prob_grad", lambda: p._value_and_grad(
+            lambda pp: -p.log_prob(pp, x, ci)[0].mean(), params)),
+                     ("sample_grad", lambda: p._value_and_grad(
+            lambda pp: sample_objective(p, pp, z, ci), params))):
+        got = []
+        reset_counts()
+        with recording_layer(got):
+            _, grads = fn()
+        torch.cuda.synchronize()
+        launches[what] = counts()
+        log(f"{label} {what} ({N_CROSS} rows): launches "
+            f"{ {k: v for k, v in launches[what].items() if v} }")
+        if launches[what] != all_counts(EXPECTED_CENTRED_GRAD[what]):
+            raise AssertionError(f"{label} {what}: launches {launches[what]}")
+        for k, v in grads.items():
+            if not torch.isfinite(v).all():
+                raise AssertionError(f"{label}: non-finite gradient {k}")
+        calls += got
+    card_vs_f64_grads(label, p, params, x, z, ci, opts, sample_f32=True)
+    return launches, calls
+
+
+def time_layer_call(call, card):
+    """Kernel, plain version and bound of one recorded per-layer call, on its
+    own inputs; logs them and returns (ms, plain_ms, bound_ms, bound_by)."""
+    from jammy_flows_tpu_torch.ops import gf_layer as gl
+    name, mode, iface, kept, ift, prep, kd, _ = call
+    if "_bwd_" in name:
+        x, params, g1, g2 = kept
+        fn = lambda: gl._launch_bwd(mode, iface, x, params, g1, g2, ift,
+                                    prep, kd)
+        plain = lambda: gl.layer_bwd_plain(mode, iface, x, params, g1, g2,
+                                           ift, prep, kd)
+    else:
+        x, params = kept
+        fn = lambda: gl._launch(mode, iface, x, params, ift, prep, kd)
+        plain = lambda: gl.layer_plain(mode, iface, x, params, ift, prep, kd)
+    ms = cuda_ms(fn, TIMING_REPS)
+    plain_ms = cuda_ms(plain, PLAIN_REPS)
+    skew = iface != "prepared" and prep[3] is not None
+    k, d = kd if iface == "lazy" else params[0].shape[:2]
+    n_groups = 3 if iface == "prepared" else 2 + int(prep[2]) + skew
+    hid = params[0].shape[1] if iface == "lazy" else 0
+    per_row = iface != "lazy" and params[0].ndim == 3
+    flops, byts = layer_work(name, x.shape[0], k, d, ift, skew, per_row,
+                             n_groups, hid)
+    b_ms, b_by = bound_ms(flops, byts)
+    log(f"{name} ({ift}, {'per-row' if per_row else 'broadcast'}"
+        f"{', skewed' if skew else ''}) at {x.shape[0]} rows on {card}: "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of "
+        f"{PLAIN_REPS}), bound {b_ms:.4f} ms ({b_by}: {flops:.4g} flop, "
+        f"{byts:.4g} B)")
+    return ms, plain_ms, b_ms, b_by
+
+
+def time_layer_kernels(calls, launches, errs, card):
+    """Each per-layer entry point and T7 body on its first recorded call's
+    inputs (the unconditional serving or training paths): kernel, plain
+    version, bound; returns the JSON rows.  A per-row prepared call (the
+    centred amortized block) is timed too, for the log."""
+    rows = []
+    for name in LAYER_ENTRY + LAYER_BWD:
+        ms, plain_ms, b_ms, b_by = time_layer_call(
+            next(c for c in calls if c[0] == name), card)
+        by_path = {f"{cfg} {what}": n[name]
+                   for cfg, paths in launches.items()
+                   for what, n in paths.items() if n[name]}
+        source, replaces = ("gf_layer_bwd.cu", "730") if "_bwd_" in name \
+            else ("gf_layer.cu", {"forward": "754", "sample": "761",
+                                  "inverse": "767"}[name.split("_")[0]])
+        rows.append({"name": f"gf_{name}", "route": "cuda",
+                     "source": f"jammy_flows_tpu_torch/csrc/{source}",
+                     "replaces": f"jammy_flows_tpu/ops/pallas_gf.py:{replaces}",
+                     "launches": sum(by_path.values()),
+                     "launches_by_path": by_path,
+                     "max_abs_err": errs[name],
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": None})
+    for name in ("forward_prepared", "inverse_prepared"):
+        time_layer_call(next(c for c in calls if c[0] == name
+                             and c[3][1][0].ndim == 3), card)
+    return rows
+
+
+def layer_phase(dev, card):
+    """The per-layer route: serving of the four models, training of the
+    skewed ones, gradients of the centred ones, kernel times; returns the
+    kernels' JSON rows."""
+    t_phase = time.time()
+    launches, errs, calls = {}, {}, []
+
+    def merge(e):
+        for k, v in e.items():
+            errs[k] = max(errs.get(k, 0.0), v)
+
+    models = {}
+    for i, (label, opts, cond) in enumerate(LAYER_MODELS):
+        p, params = layer_model(opts, cond, dev, seed=20 + i)
+        models[label] = (p, params, opts)
+        n = N_SAMPLE_UNCOND if cond is None else N_COND
+        ci = None if cond is None else torch.randn(
+            (n, cond), generator=torch.Generator(device=dev).manual_seed(30 + i),
+            device=dev)
+        x, launch, block_calls, layer_calls = serve(label, p, params, n, ci,
+                                                    seed=40 + i)
+        if block_calls:
+            raise AssertionError(f"{label}: a block kernel ran")
+        merge(check_layer_calls(label, layer_calls))
+        cross_check(label, p, params, x, ci, opts)
+        launches[label] = {"serving": launch}
+        if cond is None:
+            # whole-call times on this path's own inputs
+            g = torch.Generator(device=dev).manual_seed(50 + i)
+            sample_ms = cuda_ms(lambda: p.sample(params, samplesize=n,
+                                                 generator=g), 5)
+            log_prob_ms = cuda_ms(lambda: p.log_prob(params, x), 5)
+            for what, ms in (("sample", sample_ms), ("log_prob", log_prob_ms)):
+                log(f"{label} {what} on {card}: {ms:.3f} ms per {n} rows = "
+                    f"{n / ms * 1e3:.6g} rows/s (median of 5)")
+            calls += first_calls(layer_calls)
+        del layer_calls, x
+        torch.cuda.empty_cache()
+    for i, (label, (p, params, opts)) in enumerate(models.items()):
+        if opts is SKEW:
+            l_t, e, _, layer_calls, (step_nll, step_auto) = train(
+                label, p, params, seed=60 + i, opts=opts)
+            launches[label].update(l_t)
+            merge(e)
+            log(f"{label} training step on {card}: nll_value_and_grad "
+                f"{step_nll:.3f} ms, autograd of -log_prob().mean() "
+                f"{step_auto:.3f} ms per {N_TRAIN} rows")
+            if p.conditional_input_dim is None:
+                calls += layer_calls
+            del layer_calls
+            torch.cuda.empty_cache()
+        else:
+            l_g, layer_calls = centred_grads(label, p, params, opts,
+                                             seed=60 + i)
+            launches[label].update(l_g)
+            merge(check_layer_calls(label, layer_calls))
+    rows = time_layer_kernels(calls, launches, errs, card)
+    log(f"per-layer phase {time.time() - t_phase:.1f} s")
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -689,8 +1197,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.time()
     ptxas = []
-    built = cuda_build.build_all(["gf_block", "gf_block_bwd"],
-                                 log=ptxas.append)
+    built = cuda_build.build_all(["gf_block", "gf_block_bwd", "gf_layer",
+                                  "gf_layer_bwd"], log=ptxas.append)
     for name, (lib, compiled) in built.items():
         log(f"built {name}.cu (nvcc processes in parallel, "
             f"{time.time() - t0:.1f} s in all)" if compiled
@@ -708,10 +1216,10 @@ def main():
 
     # the serving paths, each with its own launch counts; every kernel call
     # they made is then held against the plain version on its inputs
-    x_u, launch_u, calls_u = serve("unconditional", p_u, par_u,
-                                   N_SAMPLE_UNCOND, None, seed=4)
-    x_c, launch_c, calls_c = serve("conditional", p_c, par_c, N_COND, ci,
-                                   seed=5)
+    x_u, launch_u, calls_u, _ = serve("unconditional", p_u, par_u,
+                                      N_SAMPLE_UNCOND, None, seed=4)
+    x_c, launch_c, calls_c, _ = serve("conditional", p_c, par_c, N_COND, ci,
+                                      seed=5)
     errs_u = check_calls("unconditional", calls_u)
     errs_c = check_calls("conditional", calls_c)
     del calls_c
@@ -761,7 +1269,7 @@ def main():
     launch_t, errs_t, calls_t, steps = {}, {}, {}, {}
     for label, p, par, seed in (("unconditional", p_u, par_u, 7),
                                 ("conditional", p_c, par_c, 8)):
-        launch_t[label], e, calls_t[label], steps[label] = train(
+        launch_t[label], e, calls_t[label], _, steps[label] = train(
             label, p, par, seed)
         for k, v in e.items():
             errs_t[k] = max(errs_t.get(k, 0.0), v)
@@ -773,6 +1281,9 @@ def main():
             f"{fused:.3f} ms, autograd of -log_prob().mean() {auto:.3f} ms "
             f"per {N_TRAIN} rows")
     log(f"training phase {time.time() - t_train:.1f} s")
+    del p_u, p_c, par_u, par_c, x_u, x_c
+
+    rows += layer_phase(dev, card)
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

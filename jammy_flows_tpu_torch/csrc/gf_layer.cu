@@ -1,0 +1,185 @@
+// Per-layer Gaussianization-flow kernels for Hopper (sm_90a).
+//
+// Replaces the TPU kernel jammy_flows_tpu/ops/pallas_gf.py `_gf_kernel_call`
+// in its three modes:
+//   T4 forward (`_make_forward_kernel`): (val, log|dval/dx|) of one layer's
+//      mixture iCDF pass, the density direction;
+//   T5 sample (`_make_sample_kernel`): the Newton solve of the pass at the
+//      target, then the log-derivative at the root, in one launch;
+//   T6 inverse (`_make_inverse_kernel`): the solve alone.
+// Parameters in the prepared, raw or lazy interface, broadcast or per row,
+// skewed or not (gf_layer_src.cuh); the iCDF type is a runtime argument.
+//
+// What bounds it on an H100: arithmetic, except the prepared and raw
+// per-row calls of the forward, which read K*D*3-4 floats per row for ~30
+// FP32 operations each.  Each mixture evaluation costs ~K transcendental-heavy
+// terms per dimension (the skewed chain ~2.5x the plain one); the sample
+// mode evaluates it ~7 times per dimension; the lazy interface adds
+// 2 * n_groups * K * D * H flops per row for the parameter rows (the
+// skewed flagship: 41 kflop per row and layer).  All in f32 on the CUDA
+// cores.
+//
+// Design, simple first: one thread per row, looping over the dimensions
+// (the mixture of one dimension in registers for K = 10, local memory
+// otherwise), 128 rows per block, one block per 128-row tile.  The density
+// and sample kernels call the same __device__ functions and the library is
+// built without fast-math, so the f32 sample -> log_prob roundtrip cancels.
+#include <cuda_runtime.h>
+
+#include "gf_layer_src.cuh"
+
+using namespace gf;
+
+namespace {
+
+constexpr int FORWARD = 0, SAMPLE = 1, INVERSE = 2;
+constexpr int SMEM_LIMIT = 227 * 1024;
+
+template <bool LAZY, bool SKEW, int MODE, int KT>
+__global__ void __launch_bounds__(128) gf_layer_kernel(const LayerArgs a) {
+  constexpr int N = KT > 0 ? KT : KMAX;
+  extern __shared__ float smem[];
+  const int row0 = blockIdx.x * blockDim.x;
+  const int row = row0 + threadIdx.x;
+  const LayerSrc<LAZY, SKEW, N, KT> src(a, smem, row0);
+  if (row >= a.B) return;
+  const int K = KT > 0 ? KT : a.K;
+  for (int dd = 0; dd < a.D; ++dd) {
+    MixT<SKEW, N> mx;
+    float lw[N], ln[N], se[N];
+    src.load(a, row, dd, mx, lw, ln, se);
+    const size_t i = (size_t)row * a.D + dd;
+    const float xv = a.x[i];
+    if (MODE == FORWARD) {
+      float lg;
+      float val;
+      if constexpr (SKEW)
+        val = skew_density_pass<N, KT>(xv, mx, K, a.n_pos, a.ift, lg);
+      else
+        val = density_pass<N, KT>(xv, mx, K, a.ift, lg);
+      a.out[i] = val;
+      a.ld[i] = lg;
+    } else {
+      float root;
+      if constexpr (SKEW)
+        root = skew_solve<N, KT>(xv, mx, K, a.n_pos, a.ift);
+      else
+        root = solve<N, KT>(xv, mx, K, a.ift);
+      a.out[i] = root;
+      if (MODE == SAMPLE) {
+        float lg;
+        if constexpr (SKEW)
+          skew_density_pass<N, KT>(root, mx, K, a.n_pos, a.ift, lg);
+        else
+          lg = solve_log_deriv<N, KT>(root, mx, K, a.ift);
+        a.ld[i] = lg;
+      }
+    }
+  }
+}
+
+template <bool LAZY, bool SKEW, int MODE, int KT>
+cudaError_t launch(const LayerArgs& a, int threads, size_t smem,
+                   cudaStream_t stream) {
+  auto kernel = gf_layer_kernel<LAZY, SKEW, MODE, KT>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const int blocks = (a.B + threads - 1) / threads;
+  kernel<<<blocks, threads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <bool LAZY, bool SKEW, int MODE>
+cudaError_t dispatch_k(const LayerArgs& a, int threads, size_t smem,
+                       cudaStream_t s) {
+  if (a.K == 10) return launch<LAZY, SKEW, MODE, 10>(a, threads, smem, s);
+  return launch<LAZY, SKEW, MODE, 0>(a, threads, smem, s);
+}
+
+template <bool LAZY, bool SKEW>
+cudaError_t dispatch_mode(int mode, const LayerArgs& a, int threads,
+                          size_t smem, cudaStream_t s) {
+  if (mode == FORWARD) return dispatch_k<LAZY, SKEW, FORWARD>(a, threads, smem, s);
+  if (mode == SAMPLE) return dispatch_k<LAZY, SKEW, SAMPLE>(a, threads, smem, s);
+  if constexpr (LAZY) {
+    return cudaErrorInvalidValue;  // the lazy interface has no solve-alone
+  } else {
+    return dispatch_k<LAZY, SKEW, INVERSE>(a, threads, smem, s);
+  }
+}
+
+}  // namespace
+
+// meta: [mode (0 forward, 1 sample, 2 inverse), lazy, skew, prepared,
+//        per_row, B, K, D, H, fit_norm, n_pos, ift, wreg kind, nreg kind,
+//        ereg kind]
+// regs: [wreg a, b, c, lo, hi, nreg ..., ereg ...]
+// p0..p3: the slabs in group order (prepared: means, inverse widths, log
+// weights; raw: means, raw log-widths, [raw log-norms], [raw exponents]);
+// hidden, w, b: the lazy interface.  ld may be null for mode 2.  Returns 0
+// or a cudaError_t; launches on `stream` and does not synchronize.
+extern "C" int gf_layer_launch(const int* meta, const float* regs,
+                               const float* x, float* out, float* ld,
+                               const float* p0, const float* p1,
+                               const float* p2, const float* p3,
+                               const float* hidden, const float* w,
+                               const float* b, void* stream) {
+  const int mode = meta[0], lazy = meta[1], skew = meta[2];
+  LayerArgs a{};
+  a.x = x;
+  a.out = out;
+  a.ld = ld;
+  a.p[0] = p0;
+  a.p[1] = p1;
+  a.p[2] = p2;
+  a.p[3] = p3;
+  a.hidden = hidden;
+  a.w = w;
+  a.b = b;
+  a.prepared = meta[3];
+  a.per_row = meta[4];
+  a.B = meta[5];
+  a.K = meta[6];
+  a.D = meta[7];
+  a.H = meta[8];
+  a.fit_norm = meta[9];
+  a.n_pos = meta[10];
+  a.ift = meta[11];
+  a.wreg = Reg{meta[12], regs[0], regs[1], regs[2], regs[3], regs[4]};
+  a.nreg = Reg{meta[13], regs[5], regs[6], regs[7], regs[8], regs[9]};
+  a.ereg = Reg{meta[14], regs[10], regs[11], regs[12], regs[13], regs[14]};
+  a.n_groups = a.prepared ? 3 : 2 + a.fit_norm + skew;
+  if (mode < 0 || mode > 2 || a.K < 1 || a.K > KMAX || a.D < 1 ||
+      a.D > DMAX || a.B < 0 || a.ift < 0 || a.ift > 3 ||
+      a.n_pos < 0 || a.n_pos > a.K || (a.prepared && (skew || lazy)) ||
+      (lazy && (a.H < 1 || hidden == nullptr || w == nullptr || b == nullptr)) ||
+      (mode != 2 && ld == nullptr) || (lazy && mode == 2))
+    return (int)cudaErrorInvalidValue;
+  if (!lazy)
+    for (int g = 0; g < a.n_groups; ++g)
+      if (a.p[g] == nullptr) return (int)cudaErrorInvalidValue;
+  if (a.B == 0) return 0;
+
+  int threads = 128;
+  if (lazy)
+    while (threads > 32 && layer_src_floats(lazy, a, threads) * 4 > SMEM_LIMIT)
+      threads /= 2;
+  const size_t smem = layer_src_floats(lazy, a, threads) * 4;
+  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e;
+  if (lazy)
+    e = skew ? dispatch_mode<true, true>(mode, a, threads, smem, s)
+             : dispatch_mode<true, false>(mode, a, threads, smem, s);
+  else
+    e = skew ? dispatch_mode<false, true>(mode, a, threads, smem, s)
+             : dispatch_mode<false, false>(mode, a, threads, smem, s);
+  return (int)e;
+}
+
+extern "C" const char* gf_layer_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

@@ -1,0 +1,339 @@
+// Backward of the per-layer Gaussianization-flow kernels for Hopper
+// (sm_90a).
+//
+// Replaces the TPU kernel jammy_flows_tpu/ops/pallas_gf.py `_gf_bwd_call`
+// (T7) with its two bodies:
+//   * density (`_forward_bwd_body`): the VJP of one layer's density pass
+//     (val, ld) at x for the cotangents (g1, g2), back to x and to the raw
+//     parameters;
+//   * sample (`_sample_bwd_body`): the implicit-function VJP at the root x
+//     of the sample pass: with fp = dval/dx and lx = dld/dx,
+//     c = (g1 + g2 lx) / fp is the target's cotangent and the parameters take
+//     the VJP of (val, ld) for (-c, g2).
+// Raw (broadcast or per row) and lazy parameters, skewed or not.  Gradients
+// of per-row slabs and of the lazy hidden activations are written per row;
+// broadcast slabs and the lazy w / b are summed over rows.
+//
+// What bounds it on an H100: arithmetic.  Per row and dimension it
+// recomputes the forward's mixture (gf_layer_src.cuh, the forward's own
+// code) and runs its adjoint: the plain mixture by the transposed JAX
+// tangent rule (gf_common.cuh mix_adjoint), the skewed one by its AD
+// written out (skew_adjoint).  The lazy interface adds, per row, the
+// parameter rows (2 P H flops), dh = w^T dp (2 P H) and its share of
+// gw = sum_rows dp (x) hidden (2 P H), P = n_groups * K * D.
+//
+// Design, simple first (the block backward's, csrc/gf_block_bwd.cu): one
+// thread per row, 128-row tiles walked by a fixed grid of persistent
+// blocks; the parameter-row cotangents of one dimension are staged for the
+// tile's rows in shared memory, STAGE rows at a time, and added to the
+// block's private partial of the summed gradients; a second kernel sums the
+// partials in block order.  Deterministic, no atomics.
+#include <cuda_runtime.h>
+
+#include "gf_layer_src.cuh"
+
+using namespace gf;
+
+namespace {
+
+constexpr int STAGE = 32;  // parameter rows staged per flush (<= threads)
+constexpr int SMEM_LIMIT = 227 * 1024;
+
+struct LayerBwdArgs {
+  LayerArgs a;     // a.x: x (density body) or the root (sample body)
+  const float* g1;  // (B, D) cotangent of val, or of the root
+  const float* g2;  // (B, D) cotangent of ld
+  float* gx;        // (B, D)
+  float* gslab;     // per row: (n_groups, K, D, B)
+  float* gh;        // lazy: (B, H)
+  float* partials;  // (gridDim.x, G)
+  int G;            // broadcast: n_groups*K*D; lazy: P*H + P; per row: 0
+};
+
+struct Stage {
+  float* hid;  // lazy: (H, hs), the source's tile
+  float* dh;   // lazy: (H, hs)
+  float* dp;   // (STAGE, blockDim.x)
+  int* prow;   // (STAGE,)
+  int hs;
+};
+
+// Add the staged cotangents of cnt parameter rows to the block's partials
+// (and, lazy, each row's w^T dp to its dh column).
+template <bool LAZY>
+__device__ void flush(const LayerBwdArgs& A, const Stage& st, int cnt) {
+  const LayerArgs& a = A.a;
+  const int T = blockDim.x, tid = threadIdx.x;
+  float* part = A.partials + (size_t)blockIdx.x * A.G;
+  if (LAZY) {
+    const int P = a.n_groups * a.K * a.D;
+    float* pb = part + (size_t)P * a.H;
+    for (int idx = tid; idx < cnt * a.H; idx += T) {
+      const int j = idx / a.H, h = idx - j * a.H;
+      const float* dp = st.dp + j * T;
+      const float* hv = st.hid + h * st.hs;
+      float acc = 0.0f;
+      for (int t = 0; t < T; ++t) acc += dp[t] * hv[t];
+      part[(size_t)st.prow[j] * a.H + h] += acc;
+    }
+    for (int j = tid; j < cnt; j += T) {
+      float acc = 0.0f;
+      for (int t = 0; t < T; ++t) acc += st.dp[j * T + t];
+      pb[st.prow[j]] += acc;
+    }
+    float* dcol = st.dh + tid;
+    for (int h = 0; h < a.H; ++h) {
+      float acc = 0.0f;
+      for (int j = 0; j < cnt; ++j)
+        acc += st.dp[j * T + tid] * __ldg(a.w + (size_t)st.prow[j] * a.H + h);
+      dcol[h * st.hs] += acc;
+    }
+  } else {
+    for (int j = tid; j < cnt; j += T) {
+      float acc = 0.0f;
+      for (int t = 0; t < T; ++t) acc += st.dp[j * T + t];
+      part[st.prow[j]] += acc;
+    }
+  }
+}
+
+// Stage this thread's n cotangents of dimension dd's parameter rows
+// (vals[g*K + k] for row g*K*D + k*D + dd) and flush them, STAGE at a time.
+// Every thread of the block calls it.
+template <bool LAZY>
+__device__ void stage_flush(const LayerBwdArgs& A, const Stage& st,
+                            const float* vals, int n, int dd) {
+  const LayerArgs& a = A.a;
+  const int T = blockDim.x, tid = threadIdx.x;
+  for (int c0 = 0; c0 < n; c0 += STAGE) {
+    const int cnt = min(STAGE, n - c0);
+    for (int j = 0; j < cnt; ++j) st.dp[j * T + tid] = vals[c0 + j];
+    if (tid < cnt) {
+      const int jj = c0 + tid, g = jj / a.K, k = jj - g * a.K;
+      st.prow[tid] = (g * a.K + k) * a.D + dd;
+    }
+    __syncthreads();
+    flush<LAZY>(A, st, cnt);
+    __syncthreads();
+  }
+}
+
+template <bool LAZY, bool SKEW, bool SAMPLE, int KT>
+__global__ void __launch_bounds__(128) gf_layer_bwd_kernel(const LayerBwdArgs A) {
+  constexpr int N = KT > 0 ? KT : KMAX;
+  const LayerArgs& a = A.a;
+  const int T = blockDim.x, tid = threadIdx.x;
+  const int K = KT > 0 ? KT : a.K;
+  const int n_tiles = (a.B + T - 1) / T;
+  const int n_mix = a.n_groups * K;
+  extern __shared__ float smem[];
+  Stage st;
+  st.hs = T + 1;
+  float* rest = smem + layer_src_floats(LAZY, a, T);
+  st.hid = smem;
+  st.dh = rest;
+  st.dp = LAZY ? rest + (size_t)a.H * st.hs : rest;
+  st.prow = reinterpret_cast<int*>(st.dp + STAGE * T);
+  LayerSrc<LAZY, SKEW, N, KT> src(a, smem, blockIdx.x * T);
+
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int row0 = tile * T, row = row0 + tid;
+    const bool valid = row < a.B;
+    if (LAZY) {
+      if (tile != (int)blockIdx.x) src.load_tile(a, row0);
+      for (int h = 0; h < a.H; ++h) st.dh[h * st.hs + tid] = 0.0f;
+    }
+    const int r_ld = valid ? row : a.B - 1;  // a row to read for idle threads
+    for (int dd = 0; dd < a.D; ++dd) {
+      MixT<SKEW, N> mx;
+      float lw[N], ln[N], se[N], vals[4 * N];
+      src.load(a, r_ld, dd, mx, lw, ln, se);
+      const size_t i = (size_t)row * a.D + dd;
+      const float xv = valid ? a.x[i] : 0.0f;
+      const float g1 = valid ? A.g1[i] : 0.0f;
+      const float g2 = valid ? A.g2[i] : 0.0f;
+      for (int j = 0; j < n_mix; ++j) vals[j] = 0.0f;
+      float r;
+      if constexpr (SKEW)
+        r = skew_adjoint<N, KT, SAMPLE>(
+            xv, mx, lw, ln, se, K, a.n_pos, a.fit_norm, a.wreg, a.nreg, a.ereg,
+            a.ift, g1, g2, vals, vals + K, vals + 2 * K,
+            vals + (2 + a.fit_norm) * K);
+      else
+        r = mix_adjoint<N, KT, SAMPLE>(xv, mx, lw, ln, K, a.fit_norm, a.wreg,
+                                       a.nreg, a.ift, g1, g2, vals, vals + K,
+                                       vals + 2 * K);
+      if (valid) A.gx[i] = r;
+      if (!LAZY && a.per_row) {
+        if (valid)
+          for (int j = 0; j < n_mix; ++j) {
+            const int g = j / K, k = j - g * K;
+            A.gslab[((size_t)(g * K + k) * a.D + dd) * a.B + row] = vals[j];
+          }
+      } else {
+        if (!valid)
+          for (int j = 0; j < n_mix; ++j) vals[j] = 0.0f;
+        stage_flush<LAZY>(A, st, vals, n_mix, dd);
+      }
+    }
+    if (LAZY) {
+      __syncthreads();
+      const int n = min(T, a.B - row0) * a.H;
+      for (int idx = tid; idx < n; idx += T) {
+        const int r2 = idx / a.H, h = idx - r2 * a.H;
+        A.gh[(size_t)row0 * a.H + idx] = st.dh[h * st.hs + r2];
+      }
+    }
+  }
+}
+
+// second stage: out[j] = sum over blocks of partials[b][j], in block order
+__global__ void reduce_partials(const float* partials, int n_blocks, int G,
+                                float* out) {
+  for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < G;
+       j += gridDim.x * blockDim.x) {
+    float acc = 0.0f;
+    for (int b = 0; b < n_blocks; ++b) acc += partials[(size_t)b * G + j];
+    out[j] = acc;
+  }
+}
+
+template <bool LAZY, bool SKEW, bool SAMPLE, int KT>
+cudaError_t launch(const LayerBwdArgs& A, int blocks, int threads, size_t smem,
+                   cudaStream_t stream) {
+  auto kernel = gf_layer_bwd_kernel<LAZY, SKEW, SAMPLE, KT>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  kernel<<<blocks, threads, smem, stream>>>(A);
+  return cudaGetLastError();
+}
+
+template <bool LAZY, bool SKEW, bool SAMPLE>
+cudaError_t dispatch_k(const LayerBwdArgs& A, int blocks, int threads,
+                       size_t smem, cudaStream_t s) {
+  if (A.a.K == 10) return launch<LAZY, SKEW, SAMPLE, 10>(A, blocks, threads, smem, s);
+  return launch<LAZY, SKEW, SAMPLE, 0>(A, blocks, threads, smem, s);
+}
+
+template <bool LAZY, bool SKEW>
+cudaError_t dispatch_body(bool sample, const LayerBwdArgs& A, int blocks,
+                          int threads, size_t smem, cudaStream_t s) {
+  return sample ? dispatch_k<LAZY, SKEW, true>(A, blocks, threads, smem, s)
+                : dispatch_k<LAZY, SKEW, false>(A, blocks, threads, smem, s);
+}
+
+// The tile: 128 rows, halved while the lazy hidden and dh columns would
+// exceed the shared memory.  Returns the block's dynamic shared memory.
+size_t tile_shape(const LayerArgs& a, int lazy, int& threads) {
+  auto need = [&](int t) {
+    return (layer_src_floats(lazy, a, t) + (lazy ? (size_t)a.H * (t + 1) : 0) +
+            (size_t)STAGE * t + STAGE) * 4;
+  };
+  threads = 128;
+  while (threads > STAGE && need(threads) > SMEM_LIMIT) threads /= 2;
+  return need(threads);
+}
+
+}  // namespace
+
+// The grid of a call: a fixed number of persistent blocks, two per
+// streaming multiprocessor and at most one per tile.  Each block
+// accumulates a private partial of the summed gradients, so the caller
+// allocates (blocks, G) zeros for gf_layer_bwd_launch.
+extern "C" int gf_layer_bwd_blocks(int lazy, int B, int H, int n_sm) {
+  LayerArgs a{};
+  a.H = H;
+  a.per_row = 1;
+  int threads;
+  tile_shape(a, lazy, threads);
+  const int n_tiles = (B + threads - 1) / threads;
+  const int blocks = n_tiles < 2 * n_sm ? n_tiles : 2 * n_sm;
+  return blocks > 1 ? blocks : 1;
+}
+
+// meta: [body (0 density, 1 sample), lazy, skew, prepared (must be 0),
+//        per_row, B, K, D, H, fit_norm, n_pos, ift, wreg kind, nreg kind,
+//        ereg kind]; regs as gf_layer_launch.  x: the density input (body 0)
+// or the root (body 1); g1, g2: cotangents of (val or root, ld).  gslab:
+// per row, (n_groups, K, D, B) zeros; gh: lazy, (B, H); partials:
+// (n_blocks, G) zeros, G = n_groups*K*D (broadcast) or P*H + P (lazy,
+// P = n_groups*K*D); grads (G,): the sums over rows, packed [g slabs] or
+// [gw (P, H) | gb (P)].  Returns 0 or a cudaError_t; launches on `stream`
+// and does not synchronize.
+extern "C" int gf_layer_bwd_launch(const int* meta, const float* regs,
+                                   const float* x, const float* g1,
+                                   const float* g2, float* gx, const float* p0,
+                                   const float* p1, const float* p2,
+                                   const float* p3, const float* hidden,
+                                   const float* w, const float* b,
+                                   float* gslab, float* gh, float* partials,
+                                   int n_blocks, float* grads, void* stream) {
+  const int body = meta[0], lazy = meta[1], skew = meta[2];
+  LayerBwdArgs A{};
+  LayerArgs& a = A.a;
+  a.x = x;
+  a.p[0] = p0;
+  a.p[1] = p1;
+  a.p[2] = p2;
+  a.p[3] = p3;
+  a.hidden = hidden;
+  a.w = w;
+  a.b = b;
+  a.prepared = meta[3];
+  a.per_row = lazy ? 0 : meta[4];
+  a.B = meta[5];
+  a.K = meta[6];
+  a.D = meta[7];
+  a.H = meta[8];
+  a.fit_norm = meta[9];
+  a.n_pos = meta[10];
+  a.ift = meta[11];
+  a.wreg = Reg{meta[12], regs[0], regs[1], regs[2], regs[3], regs[4]};
+  a.nreg = Reg{meta[13], regs[5], regs[6], regs[7], regs[8], regs[9]};
+  a.ereg = Reg{meta[14], regs[10], regs[11], regs[12], regs[13], regs[14]};
+  a.n_groups = 2 + a.fit_norm + skew;
+  A.g1 = g1;
+  A.g2 = g2;
+  A.gx = gx;
+  A.gslab = gslab;
+  A.gh = gh;
+  A.partials = partials;
+  const int P = a.n_groups * a.K * a.D;
+  A.G = lazy ? P * a.H + P : (a.per_row ? 0 : P);
+  if (body < 0 || body > 1 || a.prepared || a.K < 1 || a.K > KMAX ||
+      a.D < 1 || a.D > DMAX || a.B < 0 || a.ift < 0 || a.ift > 3 ||
+      a.n_pos < 0 || a.n_pos > a.K || n_blocks < 1 || g1 == nullptr ||
+      g2 == nullptr || gx == nullptr ||
+      (lazy && (a.H < 1 || hidden == nullptr || w == nullptr ||
+                b == nullptr || gh == nullptr)) ||
+      (!lazy && a.per_row && gslab == nullptr) ||
+      (A.G > 0 && (partials == nullptr || grads == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  if (!lazy)
+    for (int g = 0; g < a.n_groups; ++g)
+      if (a.p[g] == nullptr) return (int)cudaErrorInvalidValue;
+  if (a.B == 0) return 0;
+
+  int threads;
+  const size_t smem = tile_shape(a, lazy, threads);
+  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e;
+  if (lazy)
+    e = skew ? dispatch_body<true, true>(body, A, n_blocks, threads, smem, s)
+             : dispatch_body<true, false>(body, A, n_blocks, threads, smem, s);
+  else
+    e = skew ? dispatch_body<false, true>(body, A, n_blocks, threads, smem, s)
+             : dispatch_body<false, false>(body, A, n_blocks, threads, smem, s);
+  if (e != cudaSuccess || A.G == 0) return (int)e;
+  reduce_partials<<<(A.G + 255) / 256, 256, 0, s>>>(partials, n_blocks, A.G,
+                                                    grads);
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* gf_layer_bwd_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

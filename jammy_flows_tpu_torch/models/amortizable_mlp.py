@@ -128,12 +128,35 @@ class AmortizableMLP:
 
     __call__ = apply
 
+    def supports_penultimate(self):
+        """True when ``apply`` factorizes as ``hidden(x) @ w.T + b`` with a
+        full-rank final matrix and a final bias: the per-layer kernels' lazy
+        interface then runs the final product itself
+        (``amortizable_mlp.py:237-254`` of the JAX package)."""
+        return self.block["full_flags"][-1] and self.block["num_b"][-1] > 0
+
     def supports_full_fusion(self):
         """True for a plain one-hidden-layer full-rank tanh MLP with both
         biases: the whole-block kernel then runs both matmuls itself."""
         blk = self.block
         return (len(blk["inputs"]) == 2 and all(blk["full_flags"])
                 and blk["num_b"][0] > 0 and blk["num_b"][-1] > 0)
+
+    def apply_penultimate(self, flat_params, x):
+        """hidden (B, H) with ``apply(flat_params, x) == hidden @ w.T + b``
+        for (w, b) = :meth:`final_layer_weights`: every map but the last,
+        as ``torch.matmul`` (the JAX package leaves it to XLA); x itself when
+        the MLP has no hidden layer."""
+        if flat_params.ndim == 1:
+            flat_params = flat_params[None, :]
+        blk = self.block
+        n = len(blk["inputs"])
+        if n == 1:
+            return x
+        sub = {key: (val[:-1] if isinstance(val, list) else val)
+               for key, val in blk.items()}
+        hidden = self._apply_block(sub, x, flat_params)
+        return torch.tanh(hidden)
 
     def first_layer_weights(self, flat_params):
         """(w1 (H, In), b1 (H,)) with hidden = tanh(x @ w1.T + b1)."""

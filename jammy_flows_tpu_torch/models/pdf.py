@@ -14,8 +14,10 @@ Routing per sub-manifold, as in the JAX package: a float32 stack of `g`
 layers that ops/gf_block.block_meta accepts runs as one whole-block op (the
 CUDA kernel on the card, its plain version on the CPU) with permanent
 parameters ("perm") or a fused one-hidden-layer MLP ("lazy2"); an s2 stack
-runs on the (z, phi) column path; other Euclidean stacks (float64, or a
-materialized per-row slab) run layer by layer.
+runs on the (z, phi) column path; other Euclidean stacks run layer by layer
+(float32 `g` layers through the per-layer kernels of ops/gf_layer.py, with
+the amortization MLP's final product in the kernel when its rows stay
+factored as LazyParams).
 
 Entry points run on the card unless the caller passes ``device="cpu"``; with
 no device given and no CUDA, the constructor raises.
@@ -27,7 +29,7 @@ import torch
 
 from .. import registry
 from ..ops import gf_block, manifold
-from ..ops.lazy_params import LazyParams
+from ..ops.lazy_params import LazyParams, for_layer
 from ..ops.special import LOG_SQRT_2PI, std_normal_log_prob
 from .amortizable_mlp import AmortizableMLP, list_from_str
 
@@ -223,9 +225,12 @@ class PDF:
     # ------------------------------------------------------------------
     def _predict_extra_params(self, params, k, data_summary_parts,
                               conditional_input):
-        """Sub-pdf k's parameters: a (1, P) permanent slab, LazyParams for a
-        fusable MLP in float32, a materialized (B, P) slab otherwise, or
-        None."""
+        """Sub-pdf k's parameters: a (1, P) permanent slab; in float32,
+        LazyParams when the MLP splits at its final matrix (the per-layer
+        kernels get the hidden activations, made once here; the whole-block
+        op gets the fused MLP's summary and first layer instead); a
+        materialized (B, P) slab otherwise; or None
+        (``pdf.py:446-455`` of the JAX package)."""
         mlp = self.mlp_predictors[k]
         if mlp is None:
             if sum(self.num_parameter_list[k]) == 0:
@@ -237,10 +242,14 @@ class PDF:
             raise ValueError("autoregressive conditioning input required")
         summary = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
         flat = params[f"mlp_{k}"]
-        if summary.dtype == torch.float32 and mlp.supports_full_fusion():
-            w1, b1 = mlp.first_layer_weights(flat)
+        if summary.dtype == torch.float32 and mlp.supports_penultimate():
             w, b = mlp.final_layer_weights(flat)
-            return LazyParams(summary.contiguous(), w1, b1, w, b)
+            if mlp.supports_full_fusion() and self._block_meta[k] is not None:
+                w1, b1 = mlp.first_layer_weights(flat)
+                return LazyParams(w, b, summary=summary.contiguous(), w1=w1,
+                                  b1=b1)
+            return LazyParams(w, b, hidden=mlp.apply_penultimate(flat,
+                                                                 summary))
         return mlp.apply(flat, summary)
 
     # ------------------------------------------------------------------
@@ -255,6 +264,8 @@ class PDF:
         prep, meta = info
         target = target.contiguous()
         if isinstance(extra, LazyParams):
+            if extra.summary is None:
+                return None
             fn = gf_block.gf_block_density_lazy2 if direction == "density" \
                 else gf_block.gf_block_sample_lazy2
             out, ld = fn(target, extra.summary, extra.w1, extra.b1, extra.w,
@@ -305,12 +316,14 @@ class PDF:
         return torch.stack(cols, dim=1), log_det
 
     @staticmethod
-    def _layer_slab(extra, lo, hi, target):
+    def _layer_slab(extra, lo, hi, target, layer):
+        """Layer columns lo:hi: LazyParams rows for a layer that takes them
+        (``pdf.py:636-648`` of the JAX package), else a tensor."""
         if extra is None or hi == lo:
             return torch.zeros((target.shape[0], 0), dtype=target.dtype,
                                device=target.device)
         if isinstance(extra, LazyParams):
-            return extra.rows(lo, hi).materialize()
+            return for_layer(extra.rows(lo, hi), layer)
         return extra[:, lo:hi]
 
     def _apply_stack(self, k, extra, target, log_det, direction):
@@ -330,13 +343,13 @@ class PDF:
             for layer in reversed(layers):
                 p = layer.num_params
                 sl = self._layer_slab(extra, total - cnt - p, total - cnt,
-                                      target)
+                                      target, layer)
                 target, log_det = layer.inverse(sl, target, log_det)
                 cnt += p
         else:
             for layer in layers:
                 p = layer.num_params
-                sl = self._layer_slab(extra, cnt, cnt + p, target)
+                sl = self._layer_slab(extra, cnt, cnt + p, target, layer)
                 target, log_det = layer.forward(sl, target, log_det)
                 cnt += p
         return target, log_det
@@ -455,12 +468,13 @@ class PDF:
             if info is not None and extra is not None:
                 prep, meta = info
                 if isinstance(extra, LazyParams):
-                    val, ld, _, (_, gw1, gb1, gw, gb) = \
-                        gf_block.gf_block_nll_lazy2(
-                            target, extra.summary, extra.w1, extra.b1,
-                            extra.w, extra.b, prep, meta, wv, wl)
-                    fused = (f"mlp_{k}", self.mlp_predictors[k]
-                             .fused_grads_to_flat(gw1, gb1, gw, gb))
+                    if extra.summary is not None:
+                        val, ld, _, (_, gw1, gb1, gw, gb) = \
+                            gf_block.gf_block_nll_lazy2(
+                                target, extra.summary, extra.w1, extra.b1,
+                                extra.w, extra.b, prep, meta, wv, wl)
+                        fused = (f"mlp_{k}", self.mlp_predictors[k]
+                                 .fused_grads_to_flat(gw1, gb1, gw, gb))
                 elif extra.shape[0] == 1:
                     val, ld, _, (gpvec,) = gf_block.gf_block_nll_perm(
                         target, extra[0], prep, meta, wv, wl)

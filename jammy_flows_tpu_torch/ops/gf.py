@@ -8,8 +8,9 @@ backward (reconstruction and implicit step).  The CUDA block kernels
 implement the same expressions in csrc/gf_common.cuh; the TPU layout
 (sublane fold, Mosaic workarounds, block sizes) is not carried over.
 
-Layout: x is (D, C); a mixture is (means, inv_widths, log_norm_w), each
-(K, D, 1|C), already regulated and normalized over K (axis 0).
+Layout: x is (D, C); a mixture is (means, inv_widths, log_norm_w[,
+log_skew, signs]), each (K, D, 1|C) (signs (K, 1, 1)), already regulated
+and normalized over K (axis 0); log_skew None for the plain mixture.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import math
 import torch
 
 from . import logistic_kde
-from .special import logaddexp
+from .special import logaddexp, softplus
 
 N_NEWTON = 4       # no bisection phase (N_BISECT = 0 in the JAX package)
 LO, HI = -1e5, 1e5
@@ -87,16 +88,36 @@ def icdf_log_deriv_kernel(log_cdf, log_sf, log_pdf, ift):
     return torch.where(good, middle, total_factor + log_pdf)
 
 
+def _unpack_mix(mix):
+    """(means, inv_widths, log_norm_w, log_skew|None, signs|None) of a
+    3-tuple (plain) or 5-tuple (skewed or not) mixture."""
+    if len(mix) == 3:
+        return (*mix, None, None)
+    return mix
+
+
+def _skew_logs(x, mix, need_pdf):
+    means, inv_widths, log_norm_w, log_skew, signs = mix
+    common = (x[None, :, :] - means) * inv_widths
+    return logistic_kde.skew_mixture_logs(common, torch.log(inv_widths),
+                                          log_norm_w, log_skew, signs,
+                                          need_pdf)
+
+
 def mixture_value_deriv(x, mix, deriv_mode, ift):
     """Gaussianization value (iCDF pass of the mixture CDF) and derivative,
-    density-direction form (with the far-tail fallback lanes).
-    x: (D, C); deriv_mode: None | "exp" | "log"."""
-    means, inv_widths, log_norm_w = mix
-    common = (x[None, :, :] - means) * inv_widths
+    density-direction form (with the far-tail fallback lanes; the skewed
+    mixture's log-space chain).  x: (D, C); deriv_mode: None | "exp" |
+    "log"."""
+    means, inv_widths, log_norm_w, log_skew, _ = _unpack_mix(mix)
     need_pdf = deriv_mode is not None
-    log_cdf, log_sf, log_pdf = logistic_kde.mixture_linear_logs(
-        common, torch.exp(log_norm_w), log_norm_w, inv_widths,
-        torch.log(inv_widths) if need_pdf else None, need_pdf)
+    if log_skew is not None:
+        log_cdf, log_sf, log_pdf = _skew_logs(x, _unpack_mix(mix), need_pdf)
+    else:
+        common = (x[None, :, :] - means) * inv_widths
+        log_cdf, log_sf, log_pdf = logistic_kde.mixture_linear_logs(
+            common, torch.exp(log_norm_w), log_norm_w, inv_widths,
+            torch.log(inv_widths) if need_pdf else None, need_pdf)
     val = icdf_pass_kernel(log_cdf, log_sf, ift)
     if deriv_mode is None:
         return val, None
@@ -109,8 +130,22 @@ def mixture_value_deriv(x, mix, deriv_mode, ift):
 def mixture_value_deriv_solve(x, mix, deriv_mode, ift):
     """Lean solve-side twin of :func:`mixture_value_deriv`: the same
     expressions as its non-fallback branch (bracketed iterates never reach
-    the fallback), plus the isigmoid Newton shortcut pdf/(F*SF)."""
-    means, inv_widths, log_norm_w = mix
+    the fallback), plus the isigmoid Newton shortcut pdf/(F*SF).  The skewed
+    mixture has no lean twin: it evaluates the density-direction chain (the
+    isigmoid shortcut then in log space)."""
+    mix = _unpack_mix(mix)
+    means, inv_widths, log_norm_w, log_skew, _ = mix
+    if log_skew is not None:
+        log_cdf, log_sf, log_pdf = _skew_logs(x, mix, deriv_mode is not None)
+        val = icdf_pass_kernel(log_cdf, log_sf, ift)
+        if deriv_mode is None:
+            return val, None
+        if deriv_mode == "exp" and ift == "isigmoid":
+            return val, torch.exp(log_pdf - log_cdf - log_sf)
+        log_deriv = icdf_log_deriv_kernel(log_cdf, log_sf, log_pdf, ift)
+        if deriv_mode == "log":
+            return val, log_deriv
+        return val, torch.exp(log_deriv)
     tiny = 1e-37
     common = (x[None, :, :] - means) * inv_widths
     norm_w = torch.exp(log_norm_w)
@@ -168,16 +203,37 @@ def logit_phi(x):
     return torch.where(x >= 0.0, log_head - log_tail, log_tail - log_head)
 
 
+def _log1m_exp_series(u):
+    """log(1 - e^u) for u < 0: the series log(-u) + log1p(u/2 + u^2/6 +
+    u^3/24) above u = -0.1, else log1p(-e^u)."""
+    us = torch.where(u > -0.1, u, -0.1)
+    series = torch.log(-us) + torch.log1p(us * (0.5 + us * (
+        1.0 / 6.0 + us * (1.0 / 24.0))))
+    ul = torch.where(u > -0.1, -0.1, u)
+    return torch.where(u > -0.1, series, torch.log1p(-torch.exp(ul)))
+
+
 def component_bracket(target, mix, ift):
     """Exact initial bracket from the mixture-quantile bound: F^-1(q) lies
-    between the smallest and largest component quantiles
-    m_k + s_k * logit(q).  Returns (lo, hi, q_k)."""
-    means, inv_widths, _ = mix
+    between the smallest and largest component quantiles, m_k + s_k *
+    logit(q) for a plain logistic component and m_k +- s_k * logit(p),
+    p = q^(1/a) resp. (1-q)^(1/a), for a skewed one.  Returns (lo, hi,
+    q_k)."""
+    means, inv_widths, _, log_skew, signs = _unpack_mix(mix)
     t = target if ift == "isigmoid" else logit_phi(target)
-    q_k = means + t[None, :, :] / inv_widths
+    if log_skew is None:
+        q_k = means + t[None, :, :] / inv_widths
+    else:
+        pos = signs > 0.0
+        log_q = -softplus(-t)[None, :, :]
+        log_1mq = -softplus(t)[None, :, :]
+        log_p = torch.where(pos, log_q, log_1mq) / torch.exp(log_skew)
+        u = torch.clamp(log_p, max=-torch.finfo(log_p.dtype).tiny)
+        logit_p = log_p - _log1m_exp_series(u)
+        q_k = means + torch.where(pos, logit_p, -logit_p) / inv_widths
     lo = torch.amin(q_k, dim=0)
     hi = torch.amax(q_k, dim=0)
-    if ift == "isigmoid":
+    if ift == "isigmoid" and log_skew is None:
         margin = 1e-4 * (hi - lo) + 1e-5
     else:
         margin = 0.05 * (hi - lo) + 0.5
@@ -187,32 +243,52 @@ def component_bracket(target, mix, ift):
 def prep_raw_params(slabs, prep):
     """Regulators + mixture-weight normalization on raw (K, D, 1|C) slabs.
 
-    slabs = (means, lw_raw[, ln_raw]); prep = (width_regulator,
-    norm_regulator_or_None, fit_normalization).  Returns the mixture
-    (means, inv_widths, log_norm_w)."""
-    width_reg, norm_reg, fit_norm = prep
+    slabs = (means, lw_raw[, ln_raw][, se_raw]); prep = (width_regulator,
+    norm_regulator_or_None, fit_normalization[, exponent_regulator_or_None,
+    skew_signs_or_None]).  Returns the 5-tuple mixture (means, inv_widths,
+    log_norm_w, log_skew|None, signs|None); the signs (K, 1, 1) follow the
+    +1-prefix pattern of the skew signs, made from their count of +1."""
+    width_reg, norm_reg, fit_norm = prep[:3]
+    exp_reg = prep[3] if len(prep) > 3 else None
     means, lw_raw = slabs[0], slabs[1]
+    idx = 2
     lw = width_reg(lw_raw)
     inv_widths = torch.exp(-lw)
     if fit_norm:
-        ln_raw = slabs[2]
+        ln_raw = slabs[idx]
+        idx += 1
         ln = norm_reg(ln_raw) if norm_reg is not None else ln_raw
         m = torch.amax(ln, dim=0, keepdim=True)
         log_norm_w = ln - (m + torch.log(torch.sum(torch.exp(ln - m), dim=0,
                                                    keepdim=True)))
     else:
         log_norm_w = torch.full_like(lw, -math.log(lw.shape[0]))
-    return means, inv_widths, log_norm_w
+    if exp_reg is None:
+        return means, inv_widths, log_norm_w, None, None
+    log_skew = exp_reg(slabs[idx])
+    n_pos = skew_n_pos(prep[4])
+    signs = torch.where(torch.arange(len(prep[4]), device=lw.device) < n_pos,
+                        1.0, -1.0).to(lw.dtype).reshape(-1, 1, 1)
+    return means, inv_widths, log_norm_w, log_skew, signs
+
+
+def skew_n_pos(signs):
+    """The count of +1 skew signs; they must form a +1-prefix pattern."""
+    n_pos = sum(1 for s in signs if s > 0)
+    if not all((s > 0) == (i < n_pos) for i, s in enumerate(signs)):
+        raise ValueError("skew signs must be a +1-prefix pattern")
+    return n_pos
 
 
 def solve(target, mix, ift):
     """Bracket-safeguarded Newton solve: component-quantile bracket, then a
-    weighted-quantile start (isigmoid) or a regula-falsi start from two
-    bracket-validity evaluations (inormal_*), then N_NEWTON Newton steps
+    weighted-quantile start (plain isigmoid) or a regula-falsi start from
+    two bracket-validity evaluations (inormal_*, and every skewed mixture),
+    then N_NEWTON Newton steps
     that fall back to the bisection midpoint when they leave the bracket."""
     log_norm_w = mix[2]
     lo, hi, q_k = component_bracket(target, mix, ift)
-    if ift == "isigmoid":
+    if ift == "isigmoid" and _unpack_mix(mix)[3] is None:
         x = torch.sum(torch.exp(log_norm_w) * q_k, dim=0)
         x = torch.minimum(torch.maximum(x, lo), hi)
     else:

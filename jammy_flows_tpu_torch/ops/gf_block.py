@@ -103,10 +103,12 @@ def _slice_layer(rows2d, k, d, lm):
 
 def block_meta(layers_objs):
     """(prep, meta) when a sub-manifold's layer list runs as one block, else
-    None.  Every layer must be a GaussianizationFlow (the port's takes only
-    the classic stretch with householder or no rotation) with shared
-    (num_kde, dimension, regulators); the iCDF type may differ per layer.
-    meta = (k, d, per-layer layer_meta tuples)."""
+    None (``pallas_gf_block.py:757-796``).  Every layer must be a
+    GaussianizationFlow with the classic stretch, no skewness, no
+    center_mean, no tail Newton refinement, householder or no rotation and
+    a known iCDF type, all with the same (num_kde, dimension, regulators);
+    the iCDF type may differ per layer.  prep = (width_reg, norm_reg|None,
+    fit_norm); meta = (k, d, per-layer layer_meta tuples)."""
     from ..layers.euclidean import GaussianizationFlow
     if not layers_objs:
         return None
@@ -115,13 +117,19 @@ def block_meta(layers_objs):
     for lay in layers_objs:
         if type(lay) is not GaussianizationFlow:
             return None
+        if (lay.nonlinear_stretch_type != "classic" or lay.add_skewness
+                or lay.center_mean or getattr(lay, "hp_tail_newton", 0)
+                or lay.inverse_function_type not in IFT_CODES
+                or lay.rotation_mode not in ("householder", "none")):
+            return None
         if (lay.num_kde != first.num_kde or lay.dimension != first.dimension
                 or lay._kernel_prep != first._kernel_prep):
             return None
         metas.append(layer_meta(lay.model_offset, lay.householder_iter,
                                 bool(lay.fit_normalization),
                                 lay.inverse_function_type))
-    return first._kernel_prep, (first.num_kde, first.dimension, tuple(metas))
+    return first._kernel_prep[:3], (first.num_kde, first.dimension,
+                                    tuple(metas))
 
 
 # ---------------------------------------------------------------------------

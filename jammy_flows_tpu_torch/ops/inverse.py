@@ -66,13 +66,18 @@ class _ImplicitInverse(torch.autograd.Function):
 
 
 def make_inverse_fn(value_fn, value_and_grad_fn, lo=-1e5, hi=1e5,
-                    num_bisection_iter=25, num_newton_iter=20):
+                    num_bisection_iter=25, num_newton_iter=20, solver=None):
     """Build ``inv(target, params) -> x`` for a strictly increasing
     elementwise ``value_fn(x, params)``; ``value_and_grad_fn`` returns
-    (value, d value / dx); ``params`` is a tuple of tensors.  The result is
-    differentiable in the target and the parameters (implicit function)."""
+    (value, d value / dx); ``params`` is a tuple of tensors.  ``solver(target,
+    params) -> x`` optionally replaces the bisection + Newton solve (e.g. the
+    per-layer inverse kernel); the implicit-function backward through
+    ``value_and_grad_fn`` is the same either way.  The result is
+    differentiable in the target and the parameters."""
     def solve(target, params):
         with torch.no_grad():
+            if solver is not None:
+                return solver(target, params)
             return _bisection_newton_solve(value_fn, target, params, lo, hi,
                                            num_bisection_iter,
                                            num_newton_iter,

@@ -1,10 +1,17 @@
 """MLP-predicted parameter slabs kept as their factors.
 
-PyTorch counterpart of ``jammy_flows_tpu/ops/lazy_params.py`` for the
-fused-MLP ("lazy2") mode: the (B, P) slab is ``tanh(summary @ w1.T + b1)
-@ w.T + b`` and is never formed on the block-kernel path, where the CUDA
-kernel runs both matmuls itself.  Layers without a kernel materialize the
-rows they need.
+PyTorch counterpart of ``jammy_flows_tpu/ops/lazy_params.py``: the (B, P)
+slab ``hidden @ w.T + b`` is never formed where a kernel takes its factors.
+
+* The whole-block kernel's fused-MLP ("lazy2") mode reads ``summary``, ``w1``
+  and ``b1`` and makes ``hidden = tanh(summary @ w1.T + b1)`` itself.
+* The per-layer kernels' lazy interface (``ops/gf_layer.py``) reads the
+  precomputed ``hidden`` (B, H), made once per sub-pdf by
+  ``AmortizableMLP.apply_penultimate``, and the rows of ``w`` / ``b`` of the
+  layer's mixture groups.
+
+Column slices (the per-layer splits of the orchestrator) slice rows of ``w``
+and ``b``.  Layers without a lazy interface materialize the rows they need.
 """
 from __future__ import annotations
 
@@ -15,14 +22,19 @@ import torch
 
 @dataclasses.dataclass
 class LazyParams:
-    """summary (B, In), w1 (H, In), b1 (H,), w (P, H), b (P,)."""
-    summary: torch.Tensor
-    w1: torch.Tensor
-    b1: torch.Tensor
+    """w (P, H), b (P,); hidden (B, H), or the fused one-hidden-layer MLP
+    that makes it: summary (B, In), w1 (H, In), b1 (H,)."""
     w: torch.Tensor
     b: torch.Tensor
+    hidden: torch.Tensor | None = None
+    summary: torch.Tensor | None = None
+    w1: torch.Tensor | None = None
+    b1: torch.Tensor | None = None
 
-    def hidden(self):
+    def hidden_act(self):
+        """(B, H): the precomputed hidden, else tanh(summary @ w1.T + b1)."""
+        if self.hidden is not None:
+            return self.hidden
         return torch.tanh(torch.matmul(self.summary, self.w1.T) + self.b1)
 
     def rows(self, lo, hi):
@@ -31,9 +43,22 @@ class LazyParams:
 
     def materialize(self):
         """(B, P) = hidden @ w.T + b."""
-        return torch.matmul(self.hidden(), self.w.T) + self.b
+        return torch.matmul(self.hidden_act(), self.w.T) + self.b
 
     def materialize_T(self):
         """(P, B) = w @ hidden.T + b[:, None]: param-major for the column
         path."""
-        return torch.matmul(self.w, self.hidden().T) + self.b[:, None]
+        return torch.matmul(self.w, self.hidden_act().T) + self.b[:, None]
+
+
+def materialize_if_lazy(p):
+    return p.materialize() if isinstance(p, LazyParams) else p
+
+
+def for_layer(sl, layer):
+    """A layer's parameter columns: kept factored for a layer that takes
+    lazy rows (``accepts_lazy_params``), materialized otherwise."""
+    if isinstance(sl, LazyParams) and \
+            not getattr(layer, "accepts_lazy_params", False):
+        return sl.materialize()
+    return sl

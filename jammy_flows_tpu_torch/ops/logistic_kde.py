@@ -3,7 +3,10 @@
 PyTorch counterpart of ``jammy_flows_tpu/ops/logistic_kde.py``.
 
   * log CDF / log SF / log PDF of a normalized logistic mixture, with the
-    JAX package's hand-written tangent rule when the pdf is asked for;
+    JAX package's hand-written tangent rule when the pdf is asked for, and
+    of the skewed mixture (per-component exponents and +-1 signs: the f32
+    ``skew_mixture_logs`` the per-layer kernels share, the f64 log-space
+    chain; plain autograd, as the JAX package differentiates it);
   * the four inverse-Gaussian-CDF passes (isigmoid, inormal_partly_precise,
     inormal_partly_crude, inormal_full_pade) and their log-derivatives, each
     with the f64 branch (exact ndtri / erfinv) and the f32 branch (the
@@ -19,7 +22,8 @@ import math
 
 import torch
 
-from .special import logaddexp, softplus, sum_to
+from .special import (log_one_plus_exp_x_to_a_minus_1, logaddexp, softplus,
+                      sum_to)
 
 PADE_BOUND = 0.5e-7
 PADE_A = 0.147
@@ -129,14 +133,53 @@ def mixture_linear_logs(common, norm_w, log_norm_w, inv_widths,
                                False)[0]
 
 
+def _lse0(v):
+    """Max-shifted logsumexp over axis 0 in primitive ops, as the JAX
+    package's ``_lse0`` (the skewed chain shared with the kernels)."""
+    m = torch.amax(v, dim=0)
+    return m + torch.log(torch.sum(torch.exp(v - m[None]), dim=0))
+
+
+def skew_mixture_logs(common, log_inv_widths, log_norm_w, log_skew, signs,
+                      need_pdf):
+    """(log_cdf, log_sf, log_pdf|None) of a normalized skewed-logistic
+    mixture: exponents a_k = exp(log_skew) and +-1 ``signs`` (K, 1, 1).  The
+    float32 formulation the CUDA per-layer kernels share
+    (csrc/gf_common.cuh ``skew_eval``); its gradient is plain autograd, as in
+    the JAX package.  common (K, D, B); the others (K, D, 1|B)."""
+    a = torch.exp(log_skew)
+    sc = signs * common
+    pos = signs > 0.0
+    sp_nc = softplus(-common)
+    sp_c = softplus(common)
+    log_pdf = None
+    if need_pdf:
+        log_pdfs = (-sc + log_inv_widths + log_skew
+                    - (a + 1.0) * softplus(-sc) + log_norm_w)
+        log_pdf = _lse0(log_pdfs)
+    log_cdfs = torch.where(
+        pos, -a * sp_nc,
+        log_one_plus_exp_x_to_a_minus_1(common, a) - a * sp_c) + log_norm_w
+    log_sfs = torch.where(
+        pos, log_one_plus_exp_x_to_a_minus_1(-common, a) - a * sp_nc,
+        -a * sp_c) + log_norm_w
+    return _lse0(log_cdfs), _lse0(log_sfs), log_pdf
+
+
 def logistic_mixture_log_quantities(x, means, log_widths, log_norms,
-                                    calculate_pdf=True):
-    """(log_cdf, log_sf, log_pdf) of the (unskewed) logistic mixture at
-    x (B, D); params (K, D, Bp); outputs (B, D)."""
+                                    calculate_pdf=True, log_skew=None,
+                                    skew_signs=None):
+    """(log_cdf, log_sf, log_pdf) of the logistic mixture at x (B, D);
+    params (K, D, Bp); outputs (B, D).  With ``log_skew`` (K, D, Bp) and
+    ``skew_signs`` (K, 1, 1) the mixture is skewed (float32: the kernels'
+    :func:`skew_mixture_logs`; float64: the log-space chain)."""
     xT = x.T[None, :, :]
     common = (xT - means) * torch.exp(-log_widths)
     individual_normalizers = log_norms - torch.logsumexp(log_norms, dim=0,
                                                          keepdim=True)
+    if log_skew is not None:
+        return _skew_log_quantities(common, log_widths, individual_normalizers,
+                                    log_skew, skew_signs, calculate_pdf)
     if x.dtype == torch.float32:
         log_cdf, log_sf, log_pdf = mixture_linear_logs(
             common, torch.exp(individual_normalizers), individual_normalizers,
@@ -150,6 +193,33 @@ def logistic_mixture_log_quantities(x, means, log_widths, log_norms,
         log_pdf = torch.logsumexp(log_pdfs, dim=0).T
     log_cdfs = -sp_neg + individual_normalizers
     log_sfs = -common - sp_neg + individual_normalizers
+    return (torch.logsumexp(log_cdfs, dim=0).T,
+            torch.logsumexp(log_sfs, dim=0).T, log_pdf)
+
+
+def _skew_log_quantities(common, log_widths, lnw, log_skew, signs,
+                         calculate_pdf):
+    """The skewed branch of :func:`logistic_mixture_log_quantities`
+    (``logistic_kde.py:277-303`` of the JAX package); outputs (B, D)."""
+    if common.dtype == torch.float32:
+        log_cdf, log_sf, log_pdf = skew_mixture_logs(
+            common, -log_widths, lnw, log_skew, signs, calculate_pdf)
+        return log_cdf.T, log_sf.T, (log_pdf.T if log_pdf is not None
+                                     else None)
+    a = torch.exp(log_skew)
+    log_pdf = None
+    if calculate_pdf:
+        log_pdfs = (-signs * common - log_widths + log_skew
+                    - (a + 1.0) * softplus(-signs * common) + lnw)
+        log_pdf = torch.logsumexp(log_pdfs, dim=0).T
+    pos = signs > 0
+    log_cdfs = torch.where(
+        pos, -a * softplus(-common),
+        log_one_plus_exp_x_to_a_minus_1(common, a) - a * softplus(common)) \
+        + lnw
+    log_sfs = torch.where(
+        pos, log_one_plus_exp_x_to_a_minus_1(-common, a)
+        - a * softplus(-common), -a * softplus(common)) + lnw
     return (torch.logsumexp(log_cdfs, dim=0).T,
             torch.logsumexp(log_sfs, dim=0).T, log_pdf)
 
@@ -322,10 +392,12 @@ def icdf_log_derivative(log_cdf, log_sf, log_pdf, inverse_function_type):
 
 
 def gaussianize_forward(x, means, log_widths, log_norms,
-                        inverse_function_type):
-    """x -> (icdf_pass(x), log|d/dx|): the analytic (density) direction."""
+                        inverse_function_type, log_skew=None,
+                        skew_signs=None):
+    """x -> (icdf_pass(x), log|d/dx|): the analytic (density) direction;
+    skewed when ``log_skew`` / ``skew_signs`` are given."""
     log_cdf, log_sf, log_pdf = logistic_mixture_log_quantities(
-        x, means, log_widths, log_norms, calculate_pdf=True)
+        x, means, log_widths, log_norms, True, log_skew, skew_signs)
     val = icdf_pass(log_cdf, log_sf, inverse_function_type)
     log_deriv = icdf_log_derivative(log_cdf, log_sf, log_pdf,
                                     inverse_function_type)
@@ -333,8 +405,8 @@ def gaussianize_forward(x, means, log_widths, log_norms,
 
 
 def gaussianize_value(x, means, log_widths, log_norms,
-                      inverse_function_type):
+                      inverse_function_type, log_skew=None, skew_signs=None):
     """Value-only variant (used inside the Newton iteration)."""
     log_cdf, log_sf, _ = logistic_mixture_log_quantities(
-        x, means, log_widths, log_norms, calculate_pdf=False)
+        x, means, log_widths, log_norms, False, log_skew, skew_signs)
     return icdf_pass(log_cdf, log_sf, inverse_function_type)

@@ -251,3 +251,183 @@ def test_fused_nll_matches_autograd_on_card(dev):
     assert abs(float(l1) - float(l2)) < 1e-4
     for key in g1:
         assert _rel(g1[key], g2[key]) < 1e-4, key
+
+
+# ---------------------------------------------------------------------------
+# the per-layer kernels (csrc/gf_layer.cu T4-T6, csrc/gf_layer_bwd.cu T7)
+# ---------------------------------------------------------------------------
+
+from jammy_flows_tpu_torch.ops import gf_layer as gl  # noqa: E402
+from jammy_flows_tpu_torch.ops.special import (  # noqa: E402
+    log_bounded_exp_fn, width_regulator_fn)
+
+IFTS = ("isigmoid", "inormal_partly_precise", "inormal_partly_crude",
+        "inormal_full_pade")
+
+
+def _layer_case(iface, per_row, skew, k, d, n, dev, seed=0, fit=1):
+    """(params, prep, kd) of one per-layer call with parameters drawn from a
+    seed: prepared (means, inverse widths, log weights), raw slabs or lazy
+    (hidden, wcat, bcat)."""
+    rng = np.random.default_rng(seed)
+    signs = tuple([1.0] * (k // 2) + [-1.0] * (k - k // 2))
+    prep = (width_regulator_fn(0, 1, 0.01, 100, 0), None, bool(fit),
+            log_bounded_exp_fn(0.1, 9.0, center=True) if skew else None,
+            signs if skew else None)
+    shp = (k, d, n) if per_row else (k, d)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    if iface == "prepared":
+        ln = rng.normal(size=shp)
+        return (t(rng.normal(size=shp)), t(1.0 / (0.3 + rng.uniform(size=shp))),
+                t(ln - np.log(np.exp(ln).sum(0, keepdims=True)))), prep, None
+    groups = [rng.normal(size=shp), -1.0 + 0.5 * rng.normal(size=shp)] + \
+        [rng.normal(size=shp)] * fit + [0.8 * rng.normal(size=shp)] * skew
+    if iface == "raw":
+        return tuple(t(g) for g in groups), prep, None
+    hid = 24
+    w = 0.2 * rng.normal(size=(len(groups) * k * d, hid))
+    b = np.concatenate([g.reshape(-1) for g in groups])
+    return (t(np.tanh(rng.normal(size=(n, hid)))), t(w), t(b)), prep, (k, d)
+
+
+LAYER_CASES = [("prepared", False, 0), ("prepared", True, 0),
+               ("raw", False, 0), ("raw", True, 0), ("raw", False, 1),
+               ("raw", True, 1), ("lazy", False, 0), ("lazy", False, 1)]
+
+
+@pytest.mark.parametrize("kd", [(10, 4), (7, 3)])
+@pytest.mark.parametrize("iface,per_row,skew", LAYER_CASES)
+def test_layer_kernels_match_plain(dev, iface, per_row, skew, kd):
+    """T4-T6 against the plain versions: every interface, broadcast and per
+    row, skewed and not, all four iCDF types, a ragged batch (K=10 takes the
+    compile-time instantiation, K=7 the generic one)."""
+    k, d = kd
+    n = 1000
+    params, prep, lkd = _layer_case(iface, per_row, skew, k, d, n, dev)
+    x = torch.as_tensor(np.random.default_rng(1).normal(size=(n, d)),
+                        dtype=torch.float32, device=dev)
+    modes = {"prepared": ("forward", "inverse"), "lazy": ("forward", "sample"),
+             "raw": ("forward", "sample", "inverse")}[iface]
+    for ift in IFTS:
+        for mode in modes:
+            before = gl.LAUNCHES[f"{mode}_{iface}"]
+            got = gl._run(mode, iface, x, params, ift, prep, lkd)
+            assert gl.LAUNCHES[f"{mode}_{iface}"] == before + 1
+            ref = gl.layer_plain(mode, iface, x, params, ift, prep, lkd)
+            torch.cuda.synchronize()
+            tol = TOL["density" if mode == "forward" else "sample"]
+            for a, b in zip(got if isinstance(got, tuple) else (got,),
+                            ref if isinstance(ref, tuple) else (ref,)):
+                assert torch.isfinite(a).all()
+                assert float((a - b).abs().max()) < tol, (mode, ift)
+
+
+@pytest.mark.parametrize("kd", [(10, 4), (7, 3)])
+@pytest.mark.parametrize("iface,per_row,skew", [c for c in LAYER_CASES
+                                                if c[0] != "prepared"])
+def test_layer_bwd_kernels_match_plain(dev, iface, per_row, skew, kd):
+    """T7, both bodies, against layer_bwd_plain: relative norm of every
+    gradient (x or the target, the slabs or hidden / w / b)."""
+    k, d = kd
+    n = 1000
+    params, prep, lkd = _layer_case(iface, per_row, skew, k, d, n, dev)
+    rng = np.random.default_rng(2)
+    x, g1, g2 = (torch.as_tensor(rng.normal(size=(n, d)), dtype=torch.float32,
+                                 device=dev) for _ in range(3))
+    for ift in IFTS:
+        for body in ("forward", "sample"):
+            res = x if body == "forward" else gl._run(
+                "sample", iface, x, params, ift, prep, lkd)[0]
+            name = f"{body}_bwd_{iface}"
+            before = gl.LAUNCHES[name]
+            gx, gp = gl._launch_bwd(body, iface, res, params, g1, g2, ift,
+                                    prep, lkd)
+            assert gl.LAUNCHES[name] == before + 1
+            rgx, rgp = gl.layer_bwd_plain(body, iface, res, params, g1, g2,
+                                          ift, prep, lkd)
+            torch.cuda.synchronize()
+            for got, ref in zip((gx, *gp), (rgx, *rgp)):
+                assert got.shape == ref.shape and torch.isfinite(got).all()
+                tol = TOL_GRAD["density" if body == "forward" else "sample"]
+                assert _rel(got, ref) < tol, (name, ift, _rel(got, ref))
+
+
+def test_gradients_through_layer_entry_points(dev):
+    """autograd through gf_forward_raw / gf_sample_raw / gf_forward_lazy /
+    gf_sample_lazy (T7) and gf_forward_pallas (the plain VJP) on the card
+    agrees with the same calls on the CPU."""
+    n, k, d = 512, 10, 4
+    x = torch.randn((n, d), generator=torch.Generator().manual_seed(0))
+    for iface, per_row, skew in (("raw", False, 1), ("raw", True, 0),
+                                 ("lazy", False, 1), ("prepared", True, 0)):
+        params, prep, lkd = _layer_case(iface, per_row, skew, k, d, n, "cpu")
+        grads = []
+        for device in (dev, torch.device("cpu")):
+            ps = [p.to(device).requires_grad_() for p in params]
+            xx = x.to(device).requires_grad_()
+            if iface == "prepared":
+                outs = [gl.gf_forward_pallas(xx, ps[0], -torch.log(ps[1]),
+                                             ps[2], "isigmoid")]
+            elif iface == "raw":
+                outs = [gl.gf_forward_raw(xx, ps, "isigmoid", prep),
+                        gl.gf_sample_raw(xx, ps, "isigmoid", prep)]
+            else:
+                ws = [ps[1][i * k * d:(i + 1) * k * d] for i in range(4)]
+                bs = [ps[2][i * k * d:(i + 1) * k * d] for i in range(4)]
+                outs = [gl.gf_forward_lazy(xx, ps[0], ws, bs, "isigmoid",
+                                           prep, lkd),
+                        gl.gf_sample_lazy(xx, ps[0], ws, bs, "isigmoid",
+                                          prep, lkd)]
+            loss = sum((o[0]**2).mean() + o[1].mean() for o in outs)
+            grads.append(torch.autograd.grad(loss, [xx, *ps]))
+        for a, b in zip(*grads):
+            assert torch.isfinite(a).all()
+            assert _rel(a.cpu(), b) < 1e-3, iface
+
+
+def test_layer_wrapper_refuses(dev):
+    params, prep, _ = _layer_case("raw", False, 1, 10, 4, 8, dev)
+    x = torch.zeros((8, 4), device=dev)
+    with pytest.raises(TypeError):
+        gl.gf_forward_raw(x.double(), params, "isigmoid", prep)
+    with pytest.raises(ValueError):
+        gl.gf_forward_raw(x, (params[0].cpu(),) + params[1:], "isigmoid",
+                          prep)
+    with pytest.raises(ValueError):
+        gl.gf_forward_raw(x[:, :3], params, "isigmoid", prep)
+    with pytest.raises(ValueError):
+        gl._run("forward", "raw", x, (params[0].t(),) + params[1:],
+                "isigmoid", prep, None)
+    # more components than the kernel's register arrays hold: it raises, it
+    # does not fall back to the plain version
+    wide, prep_w, _ = _layer_case("raw", False, 0, 65, 4, 8, dev)
+    with pytest.raises(ValueError):
+        gl.gf_forward_raw(x, wide, "isigmoid", prep_w)
+
+
+@pytest.mark.parametrize("opts", [{"g": {"add_skewness": 1}},
+                                  {"g": {"center_mean": 1}}])
+def test_per_layer_flagship_on_card(dev, opts):
+    """The skewed / mean-centred flagship runs layer by layer on the card
+    (no block kernel) and its log_prob agrees with the port's f64 CPU
+    path."""
+    p = pdf(*FLAGSHIP, options_overwrite=opts, device=dev)
+    assert p._block_meta[0] is None and p._block_meta[2] is None
+    par = p.init_params(seed=0)
+    x = p.sample(par, samplesize=4096,
+                 generator=torch.Generator(device=dev).manual_seed(0))[0]
+    gb.reset_launch_counts()
+    gl.reset_launch_counts()
+    lp = p.log_prob(par, x)[0]
+    torch.cuda.synchronize()
+    assert not any(gb.LAUNCHES.values())
+    fwd = ("forward_raw", "forward_lazy") if "add_skewness" in opts["g"] \
+        else ("forward_prepared",)
+    assert sum(gl.LAUNCHES[k] for k in fwd) == 8, dict(gl.LAUNCHES)
+    p_cpu = pdf(*FLAGSHIP, options_overwrite=opts, device="cpu")
+    par64 = {k: v.double().cpu() for k, v in par.items()}
+    lp64 = p_cpu.log_prob(par64, x.double().cpu())[0]
+    assert float((lp.double().cpu() - lp64).abs().max()) < 1e-3

@@ -5,7 +5,8 @@
   f64 CPU path (per-layer bisection/Newton and the s2 column path);
 * float32: the block route (plain block op on the CPU) matches the JAX
   package with its whole-block Pallas kernels in interpret mode;
-* the frozen torch-reference fixtures parity_e1_g and parity_s2_f_default.
+* the frozen torch-reference fixtures parity_e1_g, parity_s2_f_default and
+  parity_e2_gg_skew.
 
 Inputs are made with numpy from a seed and handed to both packages."""
 import json
@@ -153,7 +154,7 @@ def test_f32_wide_summary_takes_the_block_op(interpret_mode, monkeypatch,
     assert float(np.abs(got.numpy() - np.asarray(ref)).max()) < tol
 
 
-@pytest.mark.parametrize("name", ["e1_g", "s2_f_default"])
+@pytest.mark.parametrize("name", ["e1_g", "s2_f_default", "e2_gg_skew"])
 def test_frozen_reference_fixture(name):
     with np.load(FIXTURES / f"parity_{name}.npz", allow_pickle=False) as f:
         data = {k: f[k] for k in f.files}
@@ -198,7 +199,7 @@ def test_f32_sample_roundtrip_on_cpu(cond):
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
-        tpdf("e2", "gg", options_overwrite={"g": {"add_skewness": 1}},
+        tpdf("e2", "gg", options_overwrite={"g": {"rotation_mode": "angles"}},
              device="cpu")
     with pytest.raises(NotImplementedError):
         tpdf("s2", "f", options_overwrite={
