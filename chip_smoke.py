@@ -17,7 +17,18 @@ in parallel), then drives the flagship ``pdf("e4+s2+e4", "gggg+f+gggg")``:
   ``{"g": {"center_mean": 1}}`` (prepared interface), each unconditional and
   conditional: serving at the same row counts, the skewed models' training
   paths as above (T4 / T5 and both T7 bodies per layer), and the centred
-  models' gradients at the cross-check size.
+  models' gradients at the cross-check size;
+* the block's lazy mode (precomputed hidden activations, T1 / T2), on the
+  flagship with two-hidden-layer ``amortization_mlp_dims="64-64"`` MLPs,
+  unconditional and conditional, serving and training as the flagship;
+  then the routing by MLP shape: ``conditional_input_dim=200`` (a summary
+  wider than 128 takes the lazy mode; serving at 262,144 rows) and
+  ``amortization_mlp_dims="1024"`` (the widest hidden layer the kernels
+  take; ``nll_value_and_grad`` and a sample-objective gradient at 4,096
+  rows);
+* the chain-rate probe (T8): the measured per-step rate of exp, log,
+  softplus, sin, arccos and a multiply-add on 1,048,576 elements, beside
+  the data-sheet FP32 rate the bounds assume.
 
 Each path has its own launch counts, which must be exactly the kernels that
 path runs.  Every kernel call of every path is recorded and held against the
@@ -55,10 +66,13 @@ TOL_ROUNDTRIP_Q999 = 1e-3        # tests/test_tpu_kernels.py
 TOL_CROSS = 1e-3
 TIMING_REPS = 20
 PLAIN_REPS = 5                   # the plain versions of the per-layer kernels
+# the block entry points, as gf_block.gf_block_<name>; the lazy mode's
+# counters are density_lazyh / sample_lazyh (gf_block._COUNTER)
 ENTRY_POINTS = ("density_perm", "sample_perm", "density_lazy2",
-                "sample_lazy2")
+                "sample_lazy2", "density_lazy", "sample_lazy")
 BWD_KERNELS = ("density_bwd_perm", "density_bwd_lazy2", "sample_bwd_perm",
                "sample_bwd_lazy2", "nll_perm", "nll_lazy2")
+LAZYH_BWD = ("density_bwd_lazyh", "sample_bwd_lazyh")
 # launches of one sample + log_prob: the unconditional flagship's block 0
 # has permanent parameters (perm) and block 2 a fused MLP (lazy2); the
 # conditional one amortizes both blocks (lazy2, 3- and 10-wide summaries)
@@ -148,6 +162,45 @@ EXPECTED_TRAIN_LAUNCHES.update({
 EXPECTED_CENTRED_GRAD = {"log_prob_grad": {"forward_prepared": 8},
                          "sample_grad": {"inverse_prepared": 8,
                                          "forward_prepared": 8}}
+# the block's lazy mode: the flagship with two-hidden-layer MLPs (the JAX
+# package's own test of the mode, tests/test_tpu_kernels.py:90-91); the
+# unconditional block 0 stays perm, every amortized block takes "lazy"
+DIMS_LAZY = "64-64"
+LAZY_MODELS = (("64-64 unconditional", None), ("64-64 conditional", 3))
+EXPECTED_LAUNCHES.update({
+    "64-64 unconditional": {"density_perm": 1, "sample_perm": 1,
+                            "density_lazyh": 1, "sample_lazyh": 1},
+    "64-64 conditional": {"density_lazyh": 2, "sample_lazyh": 2},
+    # routing: a 200-wide summary takes the lazy mode (pdf.py:502-503)
+    "wide summary": {"density_lazyh": 2, "sample_lazyh": 2}})
+# no fused NLL for a lazy-mode block (as in the JAX package): autograd of
+# its term runs the T1 density and T2 density kernels
+EXPECTED_TRAIN_LAUNCHES.update({
+    "64-64 unconditional": {
+        "nll": {"nll_perm": 1, "density_lazyh": 1, "density_bwd_lazyh": 1},
+        "log_prob_grad": {"density_perm": 1, "density_lazyh": 1,
+                          "density_bwd_perm": 1, "density_bwd_lazyh": 1},
+        "sample_grad": {"sample_perm": 1, "sample_lazyh": 1,
+                        "sample_bwd_perm": 1, "sample_bwd_lazyh": 1},
+        "fit": {"nll_perm": TRAIN_STEPS, "density_lazyh": TRAIN_STEPS,
+                "density_bwd_lazyh": TRAIN_STEPS}},
+    "64-64 conditional": {
+        "nll": {"density_lazyh": 2, "density_bwd_lazyh": 2},
+        "log_prob_grad": {"density_lazyh": 2, "density_bwd_lazyh": 2},
+        "sample_grad": {"sample_lazyh": 2, "sample_bwd_lazyh": 2},
+        "fit": {"density_lazyh": 2 * TRAIN_STEPS,
+                "density_bwd_lazyh": 2 * TRAIN_STEPS}},
+    # the widest hidden layer the kernels take (gf_block.MAX_KERNEL_H):
+    # the lazy2 backward kernels keep dh in a global scratch there
+    "H=1024": {"nll": {"nll_lazy2": 2},
+               "sample_grad": {"sample_lazy2": 2, "sample_bwd_lazy2": 2}}})
+WIDE_SUMMARY = 200
+# the chain-rate probe (T8): FP32 operations of one step of each chain, as
+# work() counts (an FMA as 2; exp, log, log1p, sin, acos as 1 each)
+CHAIN_OPS = {"exp": 2, "log": 3, "softplus": 7, "sin": 2, "arccos": 3,
+             "fma": 2}
+CHAIN_CHECK_STEPS = 16
+TOL_CHAIN = 1e-5                 # f32 library differences over 16 steps
 # H100 SXM peaks (NVIDIA data sheet): FP32 on the CUDA cores, HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -158,16 +211,20 @@ def log(msg):
 
 
 def counts():
-    """Every kernel's launch count: the block (gf_block) and the per-layer
-    (gf_layer) wrappers' counters, whose names do not overlap."""
+    """Every kernel's launch count: the block (gf_block), the per-layer
+    (gf_layer) and the chain-probe wrappers' counters, whose names do not
+    overlap."""
     from jammy_flows_tpu_torch.ops import gf_block as gb, gf_layer as gl
-    return {**gb.LAUNCHES, **gl.LAUNCHES}
+    from jammy_flows_tpu_torch.tools import transcendental_peak as tp
+    return {**gb.LAUNCHES, **gl.LAUNCHES, **tp.LAUNCHES}
 
 
 def reset_counts():
     from jammy_flows_tpu_torch.ops import gf_block as gb, gf_layer as gl
+    from jammy_flows_tpu_torch.tools import transcendental_peak as tp
     gb.reset_launch_counts()
     gl.reset_launch_counts()
+    tp.reset_launch_counts()
 
 
 def all_counts(expected):
@@ -221,7 +278,7 @@ def cuda_ms(fn, reps):
 
 @contextlib.contextmanager
 def recording(calls):
-    """Wrap the four block entry points so that every call the serving path
+    """Wrap the block entry points so that every call the serving path
     makes appends (name, inputs, out, ld) to ``calls``, as copies.  The
     wrapped entry point still launches, and counts, its kernel once."""
     from jammy_flows_tpu_torch.ops import gf_block as gb
@@ -246,10 +303,18 @@ def recording(calls):
 
 
 def split_args(name, args):
-    """(direction, lazy, x, params, prep, meta) of an entry point's args."""
+    """(direction, mode, x, params, prep, meta) of an entry point's args."""
     direction, mode = name.split("_")
     *tensors, prep, meta = args
-    return direction, mode == "lazy2", tensors[0], tuple(tensors[1:]), prep, meta
+    return direction, mode, tensors[0], tuple(tensors[1:]), prep, meta
+
+
+def counter(name):
+    """The launch counter of entry point ``name`` (density_lazy ->
+    density_lazyh)."""
+    from jammy_flows_tpu_torch.ops import gf_block as gb
+    direction, mode = name.split("_")
+    return f"{direction}_{gb._COUNTER[mode]}"
 
 
 def check_calls(label, calls):
@@ -258,14 +323,15 @@ def check_calls(label, calls):
     from jammy_flows_tpu_torch.ops import gf_block as gb
     errs = {}
     for name, args, out_k, ld_k in calls:
-        direction, lazy, x, params, prep, meta = split_args(name, args)
-        out_p, ld_p = gb.block_plain(direction, x, params, prep, meta, lazy)
+        direction, mode, x, params, prep, meta = split_args(name, args)
+        out_p, ld_p = gb.block_plain(direction, x, params, prep, meta, mode)
         torch.cuda.synchronize()
         e_out = (out_k - out_p).abs().max().item()
         e_ld = (ld_k - ld_p).abs().max().item()
         tol = TOL_DENSITY if direction == "density" else TOL_SAMPLE
         what = f"{label} {name} ({x.shape[0]} rows" + (
-            f", {params[0].shape[1]}-wide summary)" if lazy else ")")
+            ")" if mode == "perm" else f", {params[0].shape[1]}-wide "
+            f"{'summary' if mode == 'lazy2' else 'hidden'})")
         log(f"kernel vs plain {what}: max|diff| out {e_out:.3e} ld "
             f"{e_ld:.3e} (limit {tol:g})")
         if not (max(e_out, e_ld) < tol and torch.isfinite(out_k).all()
@@ -317,12 +383,18 @@ def work(name, n, meta, n_in=0, hid=0):
     layer, 2 P H + P for the parameter rows; its backward dh = w^T dp and gw
     = sum_rows dp x hidden (2 P H each), gb (P) and the hidden layer's
     backward (4 H In + 4 H); perm's backward sums dp over rows (P).  The
+    lazy mode (lazyh) reads the hidden row (H floats) instead of the
+    summary and adds only the parameter rows (no hidden-layer flops); its
+    backward adds dh and gw (2 P H each) and gb, and writes ghidden.  The
     loops have fixed trip counts, so this is what every run needs.  Bytes:
     each input read once, each output written once."""
     from jammy_flows_tpu_torch.ops.gf_block import block_rows
     k, d, layers = meta
     parts = name.split("_")
-    kind, lazy = parts[0], parts[-1] == "lazy2"
+    kind, mode = parts[0], parts[-1]
+    lazy = mode in ("lazy2", "lazyh")
+    if mode == "lazyh":            # the per-row input is the hidden row
+        n_in = hid
     bwd = kind == "nll" or parts[1] == "bwd"
     p = block_rows(k, d, layers)
     row = prep = 0
@@ -347,12 +419,13 @@ def work(name, n, meta, n_in=0, hid=0):
     n_io = 4 if bwd else 3         # x, out, ld (+ the cotangents, gx)
     byts = n_io * n * d * 4
     if lazy:
-        row += prep + 2 * hid * n_in + 2 * hid + 2 * p * hid + p
-        weights = hid * n_in + hid + p * hid + p
+        mlp = mode == "lazy2"      # the hidden layer runs in the kernel
+        row += prep + 2 * p * hid + p + mlp * (2 * hid * n_in + 2 * hid)
+        weights = p * hid + p + mlp * (hid * n_in + hid)
         byts += 4 * (n * n_in + weights)
         if bwd:
-            row += 4 * p * hid + p + 4 * hid * n_in + 4 * hid
-            byts += 4 * (n * n_in + weights)   # gsummary, the gradients
+            row += 4 * p * hid + p + mlp * (4 * hid * n_in + 4 * hid)
+            byts += 4 * (n * n_in + weights)   # gsummary / ghidden, grads
         return row * n, byts
     row += p if bwd else 0
     byts += 4 * p * (2 if bwd else 1)
@@ -363,6 +436,29 @@ def bound_ms(flops, byts):
     t_ops = flops / PEAK_F32_FLOPS * 1e3
     t_bytes = byts / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def entry_row(name, args, by_path, err, card):
+    """Time block entry point ``name`` (T1) on one recorded call's own
+    inputs: kernel, plain version, bound; returns its JSON row."""
+    from jammy_flows_tpu_torch.ops import gf_block as gb
+    fn = getattr(gb, f"gf_block_{name}")
+    direction, mode, x, params, prep, meta = split_args(name, args)
+    ms = cuda_ms(lambda: fn(*args), TIMING_REPS)
+    plain_ms = cuda_ms(lambda: gb.block_plain(direction, x, params, prep,
+                                              meta, mode), TIMING_REPS)
+    n_in, hid = mlp_widths(mode, params)
+    flops, byts = work(counter(name), x.shape[0], meta, n_in, hid)
+    b_ms, b_by = bound_ms(flops, byts)
+    log(f"{name} at {x.shape[0]} rows on {card}: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+        f"{flops:.4g} flop, {byts:.4g} B)")
+    return {"name": f"gf_block_{name}", "route": "cuda",
+            "source": "jammy_flows_tpu_torch/csrc/gf_block.cu",
+            "replaces": "jammy_flows_tpu/ops/pallas_gf_block.py:489",
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
 # ---------------------------------------------------------------------------
@@ -424,16 +520,23 @@ def serve(label, p, params, n, ci, seed):
     return x, launches, calls, layer_calls
 
 
+def cpu_twin(p, opts=None):
+    """The flagship of p's configuration (options, conditional input, MLP
+    widths) on the CPU."""
+    from jammy_flows_tpu_torch import pdf
+    return pdf(*FLAGSHIP, options_overwrite=opts,
+               conditional_input_dim=p.conditional_input_dim,
+               amortization_mlp_dims=p.amortization_mlp_dims, device="cpu")
+
+
 def cross_check(label, p, params, x, ci, opts=None):
     """The card's f32 log_prob of N_CROSS samples against the port's f64
     CPU path."""
-    from jammy_flows_tpu_torch import pdf
     from jammy_flows_tpu_torch.utils.convert import params_from_jax
     xs = x[:N_CROSS]
     cis = None if ci is None else ci[:N_CROSS]
     lp_gpu = p.log_prob(params, xs, conditional_input=cis)[0].double().cpu()
-    p_cpu = pdf(*FLAGSHIP, options_overwrite=opts,
-                conditional_input_dim=p.conditional_input_dim, device="cpu")
+    p_cpu = cpu_twin(p, opts)
     par64 = params_from_jax({k: v.cpu().numpy() for k, v in params.items()},
                             dtype=torch.float64)
     lp_cpu = p_cpu.log_prob(par64, xs.double().cpu(), conditional_input=(
@@ -459,22 +562,22 @@ def recording_bwd(calls):
     from jammy_flows_tpu_torch.ops import gf_block as gb
     run_bwd, run_nll = gb._run_bwd, gb._run_nll
 
-    def bwd(direction, res, params, g_out, g_ld, prep, meta, lazy):
+    def bwd(direction, res, params, g_out, g_ld, prep, meta, mode):
         kept = (res.clone(), tuple(p.clone() for p in params),
                 g_out.contiguous().clone(), g_ld.contiguous().clone())
         gx, grads = run_bwd(direction, res, params, g_out, g_ld, prep, meta,
-                            lazy)
-        calls.append((f"{direction}_bwd_{gb._mode(lazy)}", direction, kept,
-                      prep, meta, lazy, (gx.clone(),
-                                         tuple(g.clone() for g in grads))))
+                            mode)
+        calls.append((f"{direction}_bwd_{gb._COUNTER[mode]}", direction,
+                      kept, prep, meta, mode,
+                      (gx.clone(), tuple(g.clone() for g in grads))))
         return gx, grads
 
-    def nll(x, params, prep, meta, lazy, wv, wl):
+    def nll(x, params, prep, meta, mode, wv, wl):
         kept = (x.clone(), tuple(p.clone() for p in params), wv, wl)
-        val, ld, gx, grads = run_nll(x, params, prep, meta, lazy, wv, wl)
-        calls.append((f"nll_{gb._mode(lazy)}", "nll", kept, prep, meta, lazy,
-                      (val.clone(), ld.clone(), gx.clone(),
-                       tuple(g.clone() for g in grads))))
+        val, ld, gx, grads = run_nll(x, params, prep, meta, mode, wv, wl)
+        calls.append((f"nll_{gb._COUNTER[mode]}", "nll", kept, prep, meta,
+                      mode, (val.clone(), ld.clone(), gx.clone(),
+                             tuple(g.clone() for g in grads))))
         return val, ld, gx, grads
 
     gb._run_bwd, gb._run_nll = bwd, nll
@@ -488,8 +591,8 @@ def grad_errors(got, ref, per_row=None):
     """(largest relative error, largest absolute difference, the output with
     the largest relative error) over a call's gradients (gx, then the
     parameters' in the wrapper's order): per-row ones (``per_row``; by
-    default gx and a block's gsummary) as max|diff| / max|ref|, broadcast
-    ones as relative norms."""
+    default gx and a block's gsummary or ghidden) as max|diff| / max|ref|,
+    broadcast ones as relative norms."""
     rel, absd, worst = 0.0, 0.0, 0
     for i, (a, b) in enumerate(zip(got, ref)):
         if not torch.isfinite(a).all():
@@ -499,7 +602,7 @@ def grad_errors(got, ref, per_row=None):
         if per_row is not None:
             row_wise = per_row[i]
         else:
-            row_wise = i == 0 or (len(got) == 6 and i == 1)
+            row_wise = i == 0 or (i == 1 and len(got) > 2)
         if row_wise:
             scale = b.abs().max().item() if b.numel() else 0.0
             e = d.abs().max().item() / scale if scale > 0 else 0.0
@@ -517,13 +620,13 @@ def check_bwd_calls(label, calls):
     the largest |diff| per kernel."""
     from jammy_flows_tpu_torch.ops import gf_block as gb
     errs = {}
-    for name, kind, kept, prep, meta, lazy, outs in calls:
+    for name, kind, kept, prep, meta, mode, outs in calls:
         if kind == "nll":
             x, params, wv, wl = kept
             val, ld, gx, grads = outs
-            ref = gb.block_nll_plain(x, params, prep, meta, lazy, wv, wl)
+            ref = gb.block_nll_plain(x, params, prep, meta, mode, wv, wl)
             got, want = (gx, *grads), (ref[2], *ref[3])
-            t1_out, t1_ld = gb._run(x, params, prep, meta, lazy, "density")
+            t1_out, t1_ld = gb._run(x, params, prep, meta, mode, "density")
             t13 = max((val - t1_out).abs().max().item(),
                       (ld - t1_ld).abs().max().item())
             log(f"{label} {name}: T3 val/ld vs T1 max|diff| {t13:.3e} "
@@ -535,7 +638,7 @@ def check_bwd_calls(label, calls):
             res, params, g_out, g_ld = kept
             gx, grads = outs
             ref = gb.block_bwd_plain(kind, res, params, g_out, g_ld, prep,
-                                     meta, lazy)
+                                     meta, mode)
             got, want = (gx, *grads), (ref[0], *ref[1])
         torch.cuda.synchronize()
         rel, absd, worst = grad_errors(got, want)
@@ -593,10 +696,8 @@ def card_vs_f64_grads(label, p, params, xs, zs, cis, opts, sample_f32=False):
     port's f32 CPU path instead, and its distance to f64 only printed (the
     centred models: there the JAX package's own f32 path lies up to 1.0e-3
     from its f64 path, PERF.md)."""
-    from jammy_flows_tpu_torch import pdf
     from jammy_flows_tpu_torch.utils.convert import params_from_jax
-    p_cpu = pdf(*FLAGSHIP, options_overwrite=opts,
-                conditional_input_dim=p.conditional_input_dim, device="cpu")
+    p_cpu = cpu_twin(p, opts)
     par64 = params_from_jax({k: v.cpu().numpy() for k, v in params.items()},
                             dtype=torch.float64)
     cis64 = None if cis is None else cis.double().cpu()
@@ -718,13 +819,15 @@ def train(label, p, params, seed, opts=None):
     # a ragged batch through T3 (blocks) and through T4 / T7 (layers),
     # against the plain versions
     from jammy_flows_tpu_torch.ops import gf_block as gb
-    for name, _, kept, prep, meta, lazy, _ in c_nll:
+    for name, kind, kept, prep, meta, mode, _ in c_nll:
+        if kind != "nll":
+            continue
         xr, params_r, wv, wl = kept
         xr = xr[:N_RAGGED]
         params_r = (params_r[0][:N_RAGGED].contiguous(),) + params_r[1:] \
-            if lazy else params_r
-        out = gb._run_nll(xr, params_r, prep, meta, lazy, wv, wl)
-        ref = gb.block_nll_plain(xr, params_r, prep, meta, lazy, wv, wl)
+            if mode != "perm" else params_r
+        out = gb._run_nll(xr, params_r, prep, meta, mode, wv, wl)
+        ref = gb.block_nll_plain(xr, params_r, prep, meta, mode, wv, wl)
         rel, absd, _ = grad_errors((out[2], *out[3]), (ref[2], *ref[3]))
         log(f"{label} {name} ragged ({N_RAGGED} rows): largest relative "
             f"error {rel:.3e}, max|diff| {absd:.3e} (limit "
@@ -778,30 +881,39 @@ def train(label, p, params, seed, opts=None):
             (step_fused, step_auto))
 
 
-def time_bwd_kernels(calls, launches_by_path, errs, card):
-    """Each new kernel on the unconditional training path's own inputs:
-    kernel, plain version, bound; returns the JSON rows."""
+def mlp_widths(mode, params):
+    """(n_in, hid) of a block call's parameters."""
+    if mode == "lazy2":
+        return params[0].shape[1], params[1].shape[0]
+    if mode == "lazy":
+        return 0, params[0].shape[1]
+    return 0, 0
+
+
+def time_bwd_kernels(names, calls, launches_by_path, errs, card):
+    """Each backward kernel in ``names`` on the first recorded call's own
+    inputs (an unconditional training path): kernel, plain version, bound;
+    returns the JSON rows."""
     from jammy_flows_tpu_torch.ops import gf_block as gb
     rows = []
-    for name in BWD_KERNELS:
-        _, kind, kept, prep, meta, lazy, _ = next(c for c in calls
+    for name in names:
+        _, kind, kept, prep, meta, mode, _ = next(c for c in calls
                                                   if c[0] == name)
         if kind == "nll":
             x, params, wv, wl = kept
             fn = lambda: gb._launch_bwd("nll", x, params, None, None, prep,
-                                        meta, lazy, wv, wl)
-            plain = lambda: gb.block_nll_plain(x, params, prep, meta, lazy,
+                                        meta, mode, wv, wl)
+            plain = lambda: gb.block_nll_plain(x, params, prep, meta, mode,
                                                wv, wl)
         else:
             x, params, g_out, g_ld = kept
             fn = lambda: gb._launch_bwd(kind, x, params, g_out, g_ld, prep,
-                                        meta, lazy)
+                                        meta, mode)
             plain = lambda: gb.block_bwd_plain(kind, x, params, g_out, g_ld,
-                                               prep, meta, lazy)
+                                               prep, meta, mode)
         ms = cuda_ms(fn, TIMING_REPS)
         plain_ms = cuda_ms(plain, TIMING_REPS)
-        n_in, hid = (params[0].shape[1], params[1].shape[0]) if lazy \
-            else (0, 0)
+        n_in, hid = mlp_widths(mode, params)
         flops, byts = work(name, x.shape[0], meta, n_in, hid)
         b_ms, b_by = bound_ms(flops, byts)
         log(f"{name} at {x.shape[0]} rows on {card}: kernel {ms:.4f} "
@@ -1185,12 +1297,199 @@ def layer_phase(dev, card):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the block's lazy mode (precomputed hidden, T1 / T2) and the routing by MLP
+# shape
+# ---------------------------------------------------------------------------
+
+def wide_summary_check(dev):
+    """The flagship with a 200-wide conditional input and the default
+    128-wide MLP: both blocks take the lazy mode (a summary wider than 128
+    is not fused), serving at N_COND rows; returns (launches, errors)."""
+    from jammy_flows_tpu_torch import pdf
+    label = "wide summary"
+    p = pdf(*FLAGSHIP, conditional_input_dim=WIDE_SUMMARY, device=dev)
+    params = jittered_params(p, seed=80)
+    ci = torch.randn((N_COND, WIDE_SUMMARY), generator=torch.Generator(
+        device=dev).manual_seed(81), device=dev)
+    x, launch, calls, _ = serve(label, p, params, N_COND, ci, seed=82)
+    errs = check_calls(label, calls)
+    cross_check(label, p, params, x, ci)
+    return launch, errs
+
+
+def h1024_check(dev):
+    """The conditional flagship with amortization_mlp_dims="1024", the
+    widest hidden layer the kernels take: nll_value_and_grad (T3 lazy2) and
+    a sample-objective gradient (T1 / T2 lazy2 sample) at N_CROSS rows,
+    each with its own launch counts, every T2 / T3 call against its plain
+    version, the gradients against the port's f64 CPU path; returns
+    (launches, errors)."""
+    from jammy_flows_tpu_torch import pdf
+    label = "H=1024"
+    p = pdf(*FLAGSHIP, conditional_input_dim=3, amortization_mlp_dims="1024",
+            device=dev)
+    params = jittered_params(p, seed=83)
+    g = torch.Generator(device=dev).manual_seed(84)
+    ci = torch.randn((N_CROSS, 3), generator=g, device=dev)
+    with torch.no_grad():
+        x = p.sample(jittered_params(p, seed=85, flow_scale=0.1),
+                     conditional_input=ci, generator=g)[0]
+    z = torch.randn((N_CROSS, p.total_base_dim), generator=g, device=dev)
+    _, l_nll, c_nll, _ = train_path(
+        label, "nll", p, lambda: p.nll_value_and_grad(params, x, ci))
+    _, l_sg, c_sg, _ = train_path(
+        label, "sample_grad", p, lambda: p._value_and_grad(
+            lambda pp: sample_objective(p, pp, z, ci), params))
+    errs = check_bwd_calls(label, c_nll + c_sg)
+    # the sample-objective gradient against the port's f32 CPU path (its
+    # distance to f64 printed): the `f` layer's MLP carries the f32 path's
+    # own deviation (PERF.md, section 7)
+    card_vs_f64_grads(label, p, params, x, z, ci, None, sample_f32=True)
+    return {"nll": l_nll, "sample_grad": l_sg}, errs
+
+
+def lazy_phase(dev, card):
+    """The "64-64" flagships (block 2 of the unconditional one and both
+    blocks of the conditional one in the lazy mode): serving at 1,048,576 /
+    262,144 rows and training at 262,144 as the flagship's; the lazy-mode
+    kernels' times on the unconditional paths' own inputs; then the routing
+    checks (wide summary, H = 1024).  Returns the kernels' JSON rows."""
+    from jammy_flows_tpu_torch import pdf
+    t_phase = time.time()
+    launches, errs = {}, {}
+
+    def merge(e):
+        for k, v in e.items():
+            errs[k] = max(errs.get(k, 0.0), v)
+
+    for i, (label, cond) in enumerate(LAZY_MODELS):
+        p = pdf(*FLAGSHIP, conditional_input_dim=cond,
+                amortization_mlp_dims=DIMS_LAZY, device=dev)
+        params = jittered_params(p, seed=70 + i)
+        n = N_SAMPLE_UNCOND if cond is None else N_COND
+        ci = None if cond is None else torch.randn(
+            (n, cond), generator=torch.Generator(device=dev).manual_seed(
+                72 + i), device=dev)
+        x, launch, calls, layer_calls = serve(label, p, params, n, ci,
+                                              seed=74 + i)
+        if layer_calls:
+            raise AssertionError(f"{label}: a per-layer kernel ran")
+        merge(check_calls(label, calls))
+        cross_check(label, p, params, x, ci)
+        launches[label] = {"serving": launch}
+        if cond is None:
+            serve_calls = [c for c in calls if c[0].endswith("_lazy")]
+            g = torch.Generator(device=dev).manual_seed(76)
+            sample_ms = cuda_ms(lambda: p.sample(params, samplesize=n,
+                                                 generator=g), 5)
+            log_prob_ms = cuda_ms(lambda: p.log_prob(params, x), 5)
+            for what, ms in (("sample", sample_ms), ("log_prob", log_prob_ms)):
+                log(f"{label} {what} on {card}: {ms:.3f} ms per {n} rows = "
+                    f"{n / ms * 1e3:.6g} rows/s (median of 5)")
+        del calls, x
+        l_t, e, c_t, _, (step_nll, step_auto) = train(label, p, params,
+                                                      seed=77 + i)
+        launches[label].update(l_t)
+        merge(e)
+        log(f"{label} training step on {card}: nll_value_and_grad "
+            f"{step_nll:.3f} ms, autograd of -log_prob().mean() "
+            f"{step_auto:.3f} ms per {N_TRAIN} rows")
+        if cond is None:
+            train_calls = [c for c in c_t if c[0] in LAZYH_BWD]
+        del c_t
+        torch.cuda.empty_cache()
+
+    rows = []
+    for name in ("density_lazy", "sample_lazy"):
+        args = next(a for nm, a, _, _ in serve_calls if nm == name)
+        by_path = {f"{cfg} {what}": v[counter(name)]
+                   for cfg, paths in launches.items()
+                   for what, v in paths.items() if v[counter(name)]}
+        rows.append(entry_row(name, args, by_path, errs[name], card))
+    rows += time_bwd_kernels(LAZYH_BWD, train_calls, launches, errs, card)
+    del serve_calls, train_calls
+    torch.cuda.empty_cache()
+
+    launch_w, errs_w = wide_summary_check(dev)
+    launch_h, errs_h = h1024_check(dev)
+    log(f"routing: wide summary launches "
+        f"{ {k: v for k, v in launch_w.items() if v} }, errors {errs_w}; "
+        f"H=1024 launches "
+        f"{ {w: {k: v for k, v in n.items() if v} for w, n in launch_h.items()} }"
+        f", errors {errs_h}")
+    log(f"lazy-mode phase {time.time() - t_phase:.1f} s")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# the chain-rate probe (T8)
+# ---------------------------------------------------------------------------
+
+def chain_phase(dev, card):
+    """The probe's own entry point, measure_peak, for every op with the
+    launch counts set to 0 before and read after; then each op's kernel
+    against its plain chain on a short chain, and the plain chain's time at
+    the long length.  Logs the measured rates beside the data-sheet FP32
+    rate the bounds assume; returns the JSON rows."""
+    from jammy_flows_tpu_torch.tools import transcendental_peak as tp
+    reset_counts()
+    peaks = {op: tp.measure_peak(op, dev) for op in tp.OPS}
+    torch.cuda.synchronize()
+    launches = counts()
+    per_op = 2 * (1 + 3 * tp.TIMED_LAUNCHES)
+    want = all_counts({f"chain_{op}": per_op for op in tp.OPS})
+    log(f"chain probe: launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    if launches != want:
+        raise AssertionError(f"chain probe: launches {launches}, expected "
+                             f"{want}")
+    rows = []
+    for op in tp.OPS:
+        rate, t_lo, t_hi = peaks[op]
+        x0 = tp.initial(op, dev)
+        g = torch.Generator(device=x0.device).manual_seed(tp.OPS.index(op))
+        x = x0 + 0.1 * torch.rand(x0.shape, generator=g, device=x0.device)
+        got = tp.chain(x, op, CHAIN_CHECK_STEPS)
+        ref = tp.chain_plain(x, op, CHAIN_CHECK_STEPS)
+        err = (got - ref).abs().max().item()
+        log(f"kernel vs plain chain_{op} ({CHAIN_CHECK_STEPS} steps, "
+            f"{x.numel()} elements): max|diff| {err:.3e} (limit "
+            f"{TOL_CHAIN:g})")
+        if not (err < TOL_CHAIN and torch.isfinite(got).all()):
+            raise AssertionError(f"chain_{op}: kernel disagrees with its "
+                                 f"plain version ({err:.3e})")
+        plain_ms = cuda_ms(lambda: tp.chain_plain(x0, op, tp.CHAIN_HI), 3)
+        flops = CHAIN_OPS[op] * tp.CHAIN_HI * x0.numel()
+        b_ms, b_by = bound_ms(flops, 8 * x0.numel())
+        counted = CHAIN_OPS[op] * rate
+        log(f"chain_{op} on {card}: {rate:.6g} steps/s ({x0.numel()} "
+            f"elements, chains of {tp.CHAIN_LO} and {tp.CHAIN_HI} steps: "
+            f"{t_lo:.4f} / {t_hi:.4f} ms); {counted:.6g} FP32 op/s as work() "
+            f"counts a step ({CHAIN_OPS[op]}), {counted / PEAK_F32_FLOPS:.4f}"
+            f" of the {PEAK_F32_FLOPS:.3g} FLOP/s data-sheet rate; plain "
+            f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        rows.append({"name": f"chain_{op}", "route": "cuda",
+                     "source": "jammy_flows_tpu_torch/csrc/chain_peak.cu",
+                     "replaces": "tools/transcendental_peak.py:89",
+                     "launches": launches[f"chain_{op}"],
+                     "max_abs_err": err, "ms": t_hi, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                     "steps_per_s": rate})
+    fma = 2 * peaks["fma"][0]
+    log(f"measured rates on {card}: FMA {fma:.6g} FLOP/s "
+        f"({fma / PEAK_F32_FLOPS:.4f} of the {PEAK_F32_FLOPS:.3g} FLOP/s "
+        f"FP32 data-sheet rate bound_ms assumes); per step: "
+        + ", ".join(f"{op} {peaks[op][0]:.6g}/s" for op in tp.OPS))
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     from jammy_flows_tpu_torch import pdf
-    from jammy_flows_tpu_torch.ops import cuda_build, gf_block as gb
+    from jammy_flows_tpu_torch.ops import cuda_build
 
     card = card_line()
     log(card)
@@ -1198,7 +1497,8 @@ def main():
     t0 = time.time()
     ptxas = []
     built = cuda_build.build_all(["gf_block", "gf_block_bwd", "gf_layer",
-                                  "gf_layer_bwd"], log=ptxas.append)
+                                  "gf_layer_bwd", "chain_peak"],
+                                 log=ptxas.append)
     for name, (lib, compiled) in built.items():
         log(f"built {name}.cu (nvcc processes in parallel, "
             f"{time.time() - t0:.1f} s in all)" if compiled
@@ -1231,29 +1531,11 @@ def main():
 
     # times on the unconditional serving path's own inputs (1M rows)
     rows = []
-    for name in ENTRY_POINTS:
+    for name in ENTRY_POINTS[:4]:
         args = next(a for n, a, _, _ in calls_u if n == name)
-        fn = getattr(gb, f"gf_block_{name}")
-        direction, lazy, x, params, prep, meta = split_args(name, args)
-        ms = cuda_ms(lambda: fn(*args), TIMING_REPS)
-        plain_ms = cuda_ms(lambda: gb.block_plain(direction, x, params, prep,
-                                                  meta, lazy), TIMING_REPS)
-        n_in, hid = (params[0].shape[1], params[1].shape[0]) if lazy \
-            else (0, 0)
-        flops, byts = work(name, x.shape[0], meta, n_in, hid)
-        b_ms, b_by = bound_ms(flops, byts)
-        log(f"{name} at {x.shape[0]} rows on {card}: kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
-            f"{flops:.4g} flop, {byts:.4g} B)")
-        rows.append({"name": f"gf_block_{name}", "route": "cuda",
-                     "source": "jammy_flows_tpu_torch/csrc/gf_block.cu",
-                     "replaces": "jammy_flows_tpu/ops/pallas_gf_block.py:489",
-                     "launches": launch_u[name] + launch_c[name],
-                     "launches_by_path": {"unconditional": launch_u[name],
-                                          "conditional": launch_c[name]},
-                     "max_abs_err": errs[name],
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": None})
+        rows.append(entry_row(name, args, {"unconditional": launch_u[name],
+                                           "conditional": launch_c[name]},
+                              errs[name], card))
     del calls_u
 
     g = torch.Generator(device=dev).manual_seed(6)
@@ -1274,7 +1556,8 @@ def main():
         for k, v in e.items():
             errs_t[k] = max(errs_t.get(k, 0.0), v)
     del calls_t["conditional"]
-    rows += time_bwd_kernels(calls_t["unconditional"], launch_t, errs_t, card)
+    rows += time_bwd_kernels(BWD_KERNELS, calls_t["unconditional"],
+                             launch_t, errs_t, card)
     del calls_t
     for label, (fused, auto) in steps.items():
         log(f"{label} training step on {card}: fused nll_value_and_grad "
@@ -1284,6 +1567,8 @@ def main():
     del p_u, p_c, par_u, par_c, x_u, x_c
 
     rows += layer_phase(dev, card)
+    rows += lazy_phase(dev, card)
+    rows += chain_phase(dev, card)
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -3,18 +3,22 @@
 // Replaces the TPU kernel jammy_flows_tpu/ops/pallas_gf_block.py
 // `_block_call` (body `_make_block_kernel`, `_block_density_local` and
 // `_block_sample_local`): a whole `gggg` stack of one sub-manifold in one
-// launch per direction, with the parameters either broadcast from one
-// permanent vector ("perm") or predicted per row by the fused
-// one-hidden-layer tanh amortization MLP inside the kernel ("lazy2").
+// launch per direction, with the parameters broadcast from one permanent
+// vector ("perm"), predicted per row by the fused one-hidden-layer tanh
+// amortization MLP inside the kernel ("lazy2"), or made per row from the
+// MLP's precomputed hidden activations by its final product inside the
+// kernel ("lazy", `gf_block_density_lazy` / `gf_block_sample_lazy`, for an
+// MLP of more than one hidden layer or a summary wider than 128).
 //
 //   density (log_prob), layers in reverse:
 //       x -= offset;  x = R_l^T x;  (x, ld_l) = mixture iCDF pass of x
 //   sample, layers in order:
 //       x = Newton solve;  ld += ld_l(x);  x = R_l x;  x += offset
 //
-// What bounds it on an H100: not memory.  A row reads d + In floats and
-// writes 2d; everything else is arithmetic.  lazy2 spends ~2*P*H flops per
-// row on the MLP (P = 548, H = 128 on the flagship: 140 kflop per row) and
+// What bounds it on an H100: not memory.  A row reads d + In floats (lazy:
+// d + H) and writes 2d; everything else is arithmetic.  lazy2 and lazy
+// spend ~2*P*H flops per row on the final MLP product (P = 548, H = 128 on
+// the flagship: 140 kflop per row) and
 // each mixture evaluation ~K transcendental-heavy terms per dimension (the
 // sample direction evaluates it ~6 times per layer and dimension), all in
 // f32 on the CUDA cores: the kernel is bound by FP32 and SFU throughput.
@@ -22,9 +26,10 @@
 // Design, simple first:
 //   * one thread per batch row, 128 rows per block;
 //   * the parameter sources of gf_block_src.cuh: perm prepared once per
-//     block in shared memory; lazy2 with each row's hidden column in shared
-//     memory (H x 128 floats, conflict-free) and the parameter rows made on
-//     demand from w (280 KB on the flagship) through L1/L2;
+//     block in shared memory; lazy2 and lazy with each row's hidden column
+//     in shared memory (H x 128 floats, conflict-free; 64 or 32 rows per
+//     block above H = 454) and the parameter rows made on demand from
+//     w (280 KB on the flagship) through L1/L2;
 //   * a mixture of one dimension (K means, inverse widths, weights) lives in
 //     registers; K = 10, d = 4 (the flagship) is a compile-time
 //     instantiation, other shapes use the generic one (local arrays).
@@ -37,7 +42,7 @@ using namespace gf;
 
 namespace {
 
-template <bool LAZY, int KT, int DT>
+template <int MODE, int KT, int DT>
 __global__ void __launch_bounds__(128)
 gf_block_density_kernel(const BlockArgs a) {
   constexpr int N = KT > 0 ? KT : KMAX;
@@ -46,7 +51,7 @@ gf_block_density_kernel(const BlockArgs a) {
   const int D = DT > 0 ? DT : a.D;
   extern __shared__ float smem[];
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  const auto src = make_src<LAZY, KT, DT>(a, smem, row);
+  const auto src = make_src<MODE, KT, DT>(a, smem, row);
   if (row >= a.B) return;
 
   float x[DN], ld[DN];
@@ -76,7 +81,7 @@ gf_block_density_kernel(const BlockArgs a) {
   }
 }
 
-template <bool LAZY, int KT, int DT>
+template <int MODE, int KT, int DT>
 __global__ void __launch_bounds__(128)
 gf_block_sample_kernel(const BlockArgs a) {
   constexpr int N = KT > 0 ? KT : KMAX;
@@ -85,7 +90,7 @@ gf_block_sample_kernel(const BlockArgs a) {
   const int D = DT > 0 ? DT : a.D;
   extern __shared__ float smem[];
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  const auto src = make_src<LAZY, KT, DT>(a, smem, row);
+  const auto src = make_src<MODE, KT, DT>(a, smem, row);
   if (row >= a.B) return;
 
   float x[DN], ld[DN];
@@ -114,11 +119,11 @@ gf_block_sample_kernel(const BlockArgs a) {
 
 constexpr int SMEM_LIMIT = 227 * 1024;
 
-template <bool LAZY, int KT, int DT>
+template <int MODE, int KT, int DT>
 cudaError_t launch(bool sample, const BlockArgs& a, int threads, size_t smem,
                    cudaStream_t stream) {
-  auto kernel = sample ? gf_block_sample_kernel<LAZY, KT, DT>
-                       : gf_block_density_kernel<LAZY, KT, DT>;
+  auto kernel = sample ? gf_block_sample_kernel<MODE, KT, DT>
+                       : gf_block_density_kernel<MODE, KT, DT>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -129,26 +134,28 @@ cudaError_t launch(bool sample, const BlockArgs& a, int threads, size_t smem,
   return cudaGetLastError();
 }
 
-template <bool LAZY>
+template <int MODE>
 cudaError_t dispatch(bool sample, const BlockArgs& a, int threads, size_t smem,
                      cudaStream_t stream) {
   if (a.K == 10 && a.D == 4)
-    return launch<LAZY, 10, 4>(sample, a, threads, smem, stream);
-  return launch<LAZY, 0, 0>(sample, a, threads, smem, stream);
+    return launch<MODE, 10, 4>(sample, a, threads, smem, stream);
+  return launch<MODE, 0, 0>(sample, a, threads, smem, stream);
 }
 
 }  // namespace
 
-// meta: [K, D, n_layers, fit_norm, wreg kind, nreg kind,
+// mode: 0 perm (pvec), 1 lazy2 (summary, w1, b1, w, b), 2 lazy (hidden,
+// w, b).  meta: [K, D, n_layers, fit_norm, wreg kind, nreg kind,
 //        then per layer: has_off, rot_it, has_ln, ift]
 // regs: [wreg a, b, c, lo, hi, nreg a, b, c, lo, hi]
 // Returns 0 or a cudaError_t; launches on `stream` and does not synchronize.
-extern "C" int gf_block_launch(int sample, int lazy, const float* x, float* out,
-                               float* ld, int B, const float* pvec,
+extern "C" int gf_block_launch(int sample, int mode, const float* x,
+                               float* out, float* ld, int B, const float* pvec,
                                const float* summary, const float* w1,
                                const float* b1, const float* w, const float* b,
-                               int n_in, int H, int P, const int* meta,
-                               const float* regs, void* stream) {
+                               const float* hidden, int n_in, int H, int P,
+                               const int* meta, const float* regs,
+                               void* stream) {
   BlockArgs a{};
   a.x = x;
   a.out = out;
@@ -160,6 +167,7 @@ extern "C" int gf_block_launch(int sample, int lazy, const float* x, float* out,
   a.b1 = b1;
   a.w = w;
   a.b = b;
+  a.hidden = hidden;
   a.n_in = n_in;
   a.H = H;
   a.P = P;
@@ -169,8 +177,8 @@ extern "C" int gf_block_launch(int sample, int lazy, const float* x, float* out,
   a.fit_norm = meta[3];
   a.wreg = Reg{meta[4], regs[0], regs[1], regs[2], regs[3], regs[4]};
   a.nreg = Reg{meta[5], regs[5], regs[6], regs[7], regs[8], regs[9]};
-  if (a.K < 1 || a.K > KMAX || a.D < 1 || a.D > DMAX || a.n_layers < 1 ||
-      a.n_layers > MAX_LAYERS || B < 0)
+  if (mode < PERM || mode > LAZYH || a.K < 1 || a.K > KMAX || a.D < 1 ||
+      a.D > DMAX || a.n_layers < 1 || a.n_layers > MAX_LAYERS || B < 0)
     return (int)cudaErrorInvalidValue;
   int row = 0;
   for (int l = 0; l < a.n_layers; ++l) {
@@ -184,8 +192,11 @@ extern "C" int gf_block_launch(int sample, int lazy, const float* x, float* out,
 
   int threads = 128;
   size_t smem;
-  if (lazy) {
-    if (H < 1 || n_in < 1) return (int)cudaErrorInvalidValue;
+  if (mode != PERM) {
+    if (H < 1 || w == nullptr || b == nullptr ||
+        (mode == LAZY2 && (n_in < 1 || summary == nullptr)) ||
+        (mode == LAZYH && hidden == nullptr))
+      return (int)cudaErrorInvalidValue;
     while (threads > 32 && (size_t)H * threads * 4 > SMEM_LIMIT) threads /= 2;
     smem = (size_t)H * threads * 4;
   } else {
@@ -193,8 +204,13 @@ extern "C" int gf_block_launch(int sample, int lazy, const float* x, float* out,
   }
   if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const cudaError_t e = lazy ? dispatch<true>(sample, a, threads, smem, s)
-                             : dispatch<false>(sample, a, threads, smem, s);
+  cudaError_t e;
+  if (mode == LAZY2)
+    e = dispatch<LAZY2>(sample, a, threads, smem, s);
+  else if (mode == LAZYH)
+    e = dispatch<LAZYH>(sample, a, threads, smem, s);
+  else
+    e = dispatch<PERM>(sample, a, threads, smem, s);
   return (int)e;
 }
 

@@ -12,18 +12,20 @@
 //   * `_block_fused_call` (T3, `_make_block_density_fused`): the density
 //     forward and its VJP in one launch with the cotangents (wv * val, wl)
 //     known in advance; val and ld are the forward kernel's (same code).
-// perm (one broadcast (P,) vector) and lazy2 (the fused one-hidden-layer
-// tanh MLP) modes, as the forward kernels (gf_block.cu).
+// perm (one broadcast (P,) vector), lazy2 (the fused one-hidden-layer
+// tanh MLP) and lazy (precomputed hidden) modes, as the forward kernels
+// (gf_block.cu); T3 takes perm and lazy2 only, as the JAX package's.
 //
 // What bounds it on an H100: arithmetic, as the forward.  Per row it
 // recomputes the forward (the density chain, or one value pass per layer
 // for the sample body), runs the adjoint of every mixture (the iCDF
-// partials by a three-tangent dual number, gf_common.cuh), and in lazy2
-// spends 2*P*H flops on the parameter rows, 2*P*H on the hidden cotangent
-// dh = w^T dp and 2*P*H on gw = sum_rows dp (x) hidden: ~3x the forward's
-// MLP work, on the CUDA cores in f32.  Bytes: x, the cotangents, the
-// summary and gx per row, plus each block's partial gradients (P*H floats
-// in lazy2), read and written once per staged row group through L2.
+// partials by a three-tangent dual number, gf_common.cuh), and in lazy2 /
+// lazy spends 2*P*H flops on the parameter rows, 2*P*H on the hidden
+// cotangent dh = w^T dp and 2*P*H on gw = sum_rows dp (x) hidden: ~3x the
+// forward's MLP work, on the CUDA cores in f32.  Bytes: x, the cotangents,
+// the summary (lazy: hidden and ghidden) and gx per row, plus each block's
+// partial gradients (P*H floats), read and written once per staged row
+// group through L2.
 //
 // Design, simple first:
 //   * one thread per batch row, 128-row tiles; a fixed grid of persistent
@@ -33,11 +35,18 @@
 //   * parameter-row cotangents dp (one mixture's 3K rows, one reflection's
 //     or offset's d rows) are staged for the block's 128 rows in shared
 //     memory; the block then adds sum_rows dp to its private partial of
-//     gb / gpvec and (lazy2) sum_rows dp * hidden[h] to its partial of gw,
-//     thread h owning column h (hidden and dh columns padded to 129 floats,
-//     conflict-free), and each thread adds w^T dp to its row's dh column;
+//     gb / gpvec and (lazy2, lazy) sum_rows dp * hidden[h] to its partial
+//     of gw, thread h owning column h (hidden and dh columns padded to 129
+//     floats, conflict-free), and each thread adds w^T dp to its row's dh
+//     column;
+//   * the tile shrinks to 64 or 32 rows while both columns do not fit in
+//     shared memory; where they do not fit at 32 rows (H > 864) the dh
+//     columns move to a per-block scratch in global memory (the same
+//     layout, each thread still on its own column), so every H the routing
+//     sends here (<= 1024, models/pdf.py) launches;
 //   * lazy2 ends each tile with dh * (1 - hidden^2) -> gsummary per row and
-//     the block's gb1 / gw1 partials;
+//     the block's gb1 / gw1 partials; lazy ends it with dh -> ghidden per
+//     row (coalesced: consecutive threads write consecutive h);
 //   * a second small kernel sums the blocks' partials in block order
 //     (two-stage reduction, no atomics).
 // Tensor cores for the three MLP products are later work.
@@ -58,16 +67,17 @@ struct BwdArgs {
   const float* gld;   // (B, D) cotangent of ld
   float wv, wl;       // nll cotangents: wv * val, wl
   float* gx;          // (B, D)
-  float* gsummary;    // lazy2: (B, n_in)
+  float* gsummary;    // lazy2: (B, n_in); lazy: ghidden (B, H)
   float* partials;    // (gridDim.x, G)
-  int G;              // perm: P; lazy2: H*n_in + H + P*H + P
-  int hs;             // stride of a hidden / dh row in shared memory
+  float* scratch;     // dh in global memory: (gridDim.x, H, hs), or null
+  int G;              // perm: P; lazy2: H*n_in + H + P*H + P; lazy: P*H + P
+  int hs;             // stride of a hidden / dh row
 };
 
-// shared memory of one block
+// shared memory of one block (dh: shared, or the block's global scratch)
 struct Stage {
-  float* hid;  // lazy2: (H, hs)
-  float* dh;   // lazy2: (H, hs)
+  float* hid;  // lazy2, lazy: (H, hs)
+  float* dh;   // lazy2, lazy: (H, hs)
   float* dp;   // (STAGE, blockDim.x)
   int* prow;   // (STAGE,)
 };
@@ -89,13 +99,13 @@ struct SpanRows {
 
 // Add the staged rows' cotangents (cnt rows, one per block row in each)
 // to the block's partials.
-template <bool LAZY>
+template <int MODE>
 __device__ void flush(const BwdArgs& A, const Stage& st, int cnt) {
   const BlockArgs& a = A.a;
   const int T = blockDim.x, tid = threadIdx.x;
   float* part = A.partials + (size_t)blockIdx.x * A.G;
-  if (LAZY) {
-    float* pw = part + a.H * a.n_in + a.H;
+  if (MODE != PERM) {
+    float* pw = part + (MODE == LAZY2 ? a.H * a.n_in + a.H : 0);
     float* pb = pw + (size_t)a.P * a.H;
     for (int idx = tid; idx < cnt * a.H; idx += T) {
       const int j = idx / a.H, h = idx - j * a.H;
@@ -129,7 +139,7 @@ __device__ void flush(const BwdArgs& A, const Stage& st, int cnt) {
 // Stage this thread's n row cotangents vals (rows given by `rows`) and
 // flush them, STAGE rows at a time.  Every thread of the block calls it
 // with the same n.
-template <bool LAZY, class Rows>
+template <int MODE, class Rows>
 __device__ void stage_flush(const BwdArgs& A, const Stage& st,
                             const float* vals, int n, const Rows& rows) {
   const int T = blockDim.x, tid = threadIdx.x;
@@ -138,7 +148,7 @@ __device__ void stage_flush(const BwdArgs& A, const Stage& st,
     for (int j = 0; j < cnt; ++j) st.dp[j * T + tid] = vals[c0 + j];
     if (tid < cnt) st.prow[tid] = rows(c0 + tid);
     __syncthreads();
-    flush<LAZY>(A, st, cnt);
+    flush<MODE>(A, st, cnt);
     __syncthreads();
   }
 }
@@ -175,7 +185,7 @@ __device__ __forceinline__ void reflect_bwd(const Src& src, int r0, int D,
 }
 
 // ---- density body (T2 density, T3) ----------------------------------------
-template <bool LAZY, bool NLL, int KT, int DT, class Src>
+template <int MODE, bool NLL, int KT, int DT, class Src>
 __device__ void density_tile(const BwdArgs& A, const Stage& st, const Src& src,
                              int row) {
   constexpr int N = KT > 0 ? KT : KMAX;
@@ -249,7 +259,7 @@ __device__ void density_tile(const BwdArgs& A, const Stage& st, const Src& src,
                                         vals + 2 * K);
       if (!valid)
         for (int j = 0; j < n_mix; ++j) vals[j] = 0.0f;
-      stage_flush<LAZY>(A, st, vals, n_mix, MixRows{m0, lw0, ln0, K, D, dd});
+      stage_flush<MODE>(A, st, vals, n_mix, MixRows{m0, lw0, ln0, K, D, dd});
     }
     // reflections were applied i = 0 .. it-1: undo them last-first
     for (int i = lm.rot_it - 1; i >= 0; --i) {
@@ -257,12 +267,12 @@ __device__ void density_tile(const BwdArgs& A, const Stage& st, const Src& src,
       reflect_bwd<DN>(src, rot0 + i * D, D, s, g, gu, true);
       if (!valid)
         for (int j = 0; j < D; ++j) gu[j] = 0.0f;
-      stage_flush<LAZY>(A, st, gu, D, SpanRows{rot0 + i * D});
+      stage_flush<MODE>(A, st, gu, D, SpanRows{rot0 + i * D});
     }
     if (lm.has_off) {
       float go[DN];
       for (int j = 0; j < D; ++j) go[j] = valid ? -g[j] : 0.0f;
-      stage_flush<LAZY>(A, st, go, D, SpanRows{lm.row0});
+      stage_flush<MODE>(A, st, go, D, SpanRows{lm.row0});
     }
   }
   if (valid)
@@ -270,7 +280,7 @@ __device__ void density_tile(const BwdArgs& A, const Stage& st, const Src& src,
 }
 
 // ---- sample body (T2 sample) ----------------------------------------------
-template <bool LAZY, int KT, int DT, class Src>
+template <int MODE, int KT, int DT, class Src>
 __device__ void sample_tile(const BwdArgs& A, const Stage& st, const Src& src,
                             int row) {
   constexpr int N = KT > 0 ? KT : KMAX;
@@ -317,7 +327,7 @@ __device__ void sample_tile(const BwdArgs& A, const Stage& st, const Src& src,
     if (lm.has_off) {
       float go[DN];
       for (int j = 0; j < D; ++j) go[j] = valid ? g[j] : 0.0f;
-      stage_flush<LAZY>(A, st, go, D, SpanRows{lm.row0});
+      stage_flush<MODE>(A, st, go, D, SpanRows{lm.row0});
     }
     float xr[DN];
     for (int j = 0; j < D; ++j) xr[j] = sl[l][j];
@@ -327,7 +337,7 @@ __device__ void sample_tile(const BwdArgs& A, const Stage& st, const Src& src,
       reflect_bwd<DN>(src, rot0 + i * D, D, xr, g, gu, true);
       if (!valid)
         for (int j = 0; j < D; ++j) gu[j] = 0.0f;
-      stage_flush<LAZY>(A, st, gu, D, SpanRows{rot0 + i * D});
+      stage_flush<MODE>(A, st, gu, D, SpanRows{rot0 + i * D});
     }
     // implicit steps through the solve and its log-derivative
     int m0, lw0, ln0;
@@ -344,24 +354,28 @@ __device__ void sample_tile(const BwdArgs& A, const Stage& st, const Src& src,
                                        vals + 2 * K);
       if (!valid)
         for (int j = 0; j < n_mix; ++j) vals[j] = 0.0f;
-      stage_flush<LAZY>(A, st, vals, n_mix, MixRows{m0, lw0, ln0, K, D, dd});
+      stage_flush<MODE>(A, st, vals, n_mix, MixRows{m0, lw0, ln0, K, D, dd});
     }
   }
   if (valid)
     for (int j = 0; j < D; ++j) A.gx[(size_t)row * D + j] = g[j];
 }
 
-template <int MODE, bool LAZY, int KT, int DT, class Src>
+template <int KIND, int MODE, int KT, int DT, class Src>
 __device__ __forceinline__ void run_tile(const BwdArgs& A, const Stage& st,
                                          const Src& src, int row) {
-  if constexpr (MODE == 1)
-    sample_tile<LAZY, KT, DT>(A, st, src, row);
+  if constexpr (KIND == 1)
+    sample_tile<MODE, KT, DT>(A, st, src, row);
   else
-    density_tile<LAZY, MODE == 2, KT, DT>(A, st, src, row);
+    density_tile<MODE, KIND == 2, KT, DT>(A, st, src, row);
 }
 
-// MODE 0: T2 density, 1: T2 sample, 2: T3 (fused NLL)
-template <int MODE, bool LAZY, int KT, int DT>
+// KIND 0: T2 density, 1: T2 sample, 2: T3 (fused NLL); MODE as the source;
+// DHG: dh in the block's global scratch.  A compile-time choice, so that
+// below the scratch width the hidden, dh and staged rows stay shared-space
+// loads and stores (a pointer that may be shared or global would make every
+// access to them a generic one)
+template <int KIND, int MODE, bool DHG, int KT, int DT>
 __global__ void __launch_bounds__(128) gf_block_bwd_kernel(const BwdArgs A) {
   constexpr int N = KT > 0 ? KT : KMAX;
   constexpr int DN = DT > 0 ? DT : DMAX;
@@ -370,29 +384,48 @@ __global__ void __launch_bounds__(128) gf_block_bwd_kernel(const BwdArgs A) {
   const int n_tiles = (a.B + T - 1) / T;
   extern __shared__ float smem[];
   Stage st;
-  if (LAZY) {
+  if (MODE != PERM) {
+    const size_t cols = (size_t)a.H * A.hs;
     st.hid = smem;
-    st.dh = st.hid + (size_t)a.H * A.hs;
-    st.dp = st.dh + (size_t)a.H * A.hs;
+    st.dh = DHG ? A.scratch + (size_t)blockIdx.x * cols : st.hid + cols;
+    st.dp = DHG ? st.hid + cols : st.dh + cols;
   } else {
     st.hid = st.dh = nullptr;
     st.dp = smem + 4 * a.P;  // after PermSrc's 4P floats
   }
   st.prow = reinterpret_cast<int*>(st.dp + STAGE * T);
-  float* part = A.partials + (size_t)blockIdx.x * A.G;
 
-  if constexpr (LAZY) {
-    float* pw1 = part;
-    float* pb1 = part + a.H * a.n_in;
+  if constexpr (MODE == LAZYH) {
     for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
       const int row = tile * T + tid;
       const bool valid = row < a.B;
-      const LazySrc<N, KT, DN> src(a, st.hid, row, A.hs);
+      const LazySrc<N, KT, DN, false> src(a, st.hid, row, A.hs);
       for (int h = 0; h < a.H; ++h) {
         st.dh[h * A.hs + tid] = 0.0f;
         if (!valid) st.hid[h * A.hs + tid] = 0.0f;
       }
-      run_tile<MODE, LAZY, KT, DT>(A, st, src, row);
+      run_tile<KIND, MODE, KT, DT>(A, st, src, row);
+      // ghidden = dh, the tile's rows written h-fastest
+      __syncthreads();
+      const int n = min(T, a.B - tile * T) * a.H;
+      for (int idx = tid; idx < n; idx += T) {
+        const int r = idx / a.H, h = idx - r * a.H;
+        A.gsummary[(size_t)tile * T * a.H + idx] = st.dh[h * A.hs + r];
+      }
+      __syncthreads();
+    }
+  } else if constexpr (MODE == LAZY2) {
+    float* pw1 = A.partials + (size_t)blockIdx.x * A.G;
+    float* pb1 = pw1 + a.H * a.n_in;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const int row = tile * T + tid;
+      const bool valid = row < a.B;
+      const LazySrc<N, KT, DN, true> src(a, st.hid, row, A.hs);
+      for (int h = 0; h < a.H; ++h) {
+        st.dh[h * A.hs + tid] = 0.0f;
+        if (!valid) st.hid[h * A.hs + tid] = 0.0f;
+      }
+      run_tile<KIND, MODE, KT, DT>(A, st, src, row);
       // hidden layer: dpre = dh * (1 - hidden^2); gsummary = w1^T dpre
       for (int h = 0; h < a.H; ++h) {
         const float hv = st.hid[h * A.hs + tid];
@@ -426,7 +459,7 @@ __global__ void __launch_bounds__(128) gf_block_bwd_kernel(const BwdArgs A) {
   } else {
     const PermSrc<N, KT, DN> src(a, smem);
     for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x)
-      run_tile<MODE, LAZY, KT, DT>(A, st, src, tile * T + tid);
+      run_tile<KIND, MODE, KT, DT>(A, st, src, tile * T + tid);
   }
 }
 
@@ -441,10 +474,10 @@ __global__ void reduce_partials(const float* partials, int n_blocks, int G,
   }
 }
 
-template <int MODE, bool LAZY, int KT, int DT>
+template <int KIND, int MODE, bool DHG, int KT, int DT>
 cudaError_t launch(const BwdArgs& A, int blocks, int threads, size_t smem,
                    cudaStream_t stream) {
-  auto kernel = gf_block_bwd_kernel<MODE, LAZY, KT, DT>;
+  auto kernel = gf_block_bwd_kernel<KIND, MODE, DHG, KT, DT>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -454,33 +487,51 @@ cudaError_t launch(const BwdArgs& A, int blocks, int threads, size_t smem,
   return cudaGetLastError();
 }
 
-template <int MODE, bool LAZY>
+template <int KIND, int MODE>
 cudaError_t dispatch_shape(const BwdArgs& A, int blocks, int threads,
                            size_t smem, cudaStream_t stream) {
-  if (A.a.K == 10 && A.a.D == 4)
-    return launch<MODE, LAZY, 10, 4>(A, blocks, threads, smem, stream);
-  return launch<MODE, LAZY, 0, 0>(A, blocks, threads, smem, stream);
+  const bool k10 = A.a.K == 10 && A.a.D == 4;
+  if constexpr (MODE != PERM) {
+    if (A.scratch)
+      return k10 ? launch<KIND, MODE, true, 10, 4>(A, blocks, threads, smem, stream)
+                 : launch<KIND, MODE, true, 0, 0>(A, blocks, threads, smem, stream);
+  }
+  return k10 ? launch<KIND, MODE, false, 10, 4>(A, blocks, threads, smem, stream)
+             : launch<KIND, MODE, false, 0, 0>(A, blocks, threads, smem, stream);
 }
 
-template <bool LAZY>
-cudaError_t dispatch(int mode, const BwdArgs& A, int blocks, int threads,
+template <int MODE>
+cudaError_t dispatch(int kind, const BwdArgs& A, int blocks, int threads,
                      size_t smem, cudaStream_t stream) {
-  if (mode == 0) return dispatch_shape<0, LAZY>(A, blocks, threads, smem, stream);
-  if (mode == 1) return dispatch_shape<1, LAZY>(A, blocks, threads, smem, stream);
-  return dispatch_shape<2, LAZY>(A, blocks, threads, smem, stream);
+  if (kind == 0) return dispatch_shape<0, MODE>(A, blocks, threads, smem, stream);
+  if (kind == 1) return dispatch_shape<1, MODE>(A, blocks, threads, smem, stream);
+  if constexpr (MODE == LAZYH)
+    return cudaErrorInvalidValue;  // no fused NLL on precomputed hidden
+  else
+    return dispatch_shape<2, MODE>(A, blocks, threads, smem, stream);
 }
 
-// The tile: 128 rows, one per thread, halved while lazy2's hidden and dh
-// columns (H x (threads + 1) floats each) would exceed the shared memory.
-// Writes the tile's rows and its dynamic shared memory.
-void tile_shape(int lazy, int H, int P, int& threads, size_t& smem) {
+// The tile: 128 rows, one per thread, halved while the hidden and dh
+// columns (H x (threads + 1) floats each) would exceed the shared memory;
+// where both do not fit even at STAGE rows, dh goes to a global scratch
+// (dh_global) and the tile is sized for the hidden columns alone.  Writes
+// the tile's rows and its dynamic shared memory.
+void tile_shape(int mode, int H, int P, int& threads, size_t& smem,
+                bool& dh_global) {
   threads = 128;
-  if (lazy) {
-    auto need = [&](int t) {
-      return (size_t)2 * H * (t + 1) * 4 + (size_t)STAGE * t * 4 + STAGE * 4;
+  dh_global = false;
+  if (mode != PERM) {
+    auto need = [&](int t, int cols) {
+      return (size_t)cols * H * (t + 1) * 4 + (size_t)STAGE * t * 4 +
+             STAGE * 4;
     };
-    while (threads > STAGE && need(threads) > SMEM_LIMIT) threads /= 2;
-    smem = need(threads);
+    while (threads > STAGE && need(threads, 2) > SMEM_LIMIT) threads /= 2;
+    if (need(threads, 2) > SMEM_LIMIT) {
+      dh_global = true;
+      threads = 128;
+      while (threads > STAGE && need(threads, 1) > SMEM_LIMIT) threads /= 2;
+    }
+    smem = need(threads, dh_global ? 1 : 2);
   } else {
     smem = (size_t)4 * P * 4 + (size_t)STAGE * threads * 4 + STAGE * 4;
   }
@@ -492,32 +543,48 @@ void tile_shape(int lazy, int H, int P, int& threads, size_t& smem) {
 // streaming multiprocessor and at most one per tile.  Each block
 // accumulates a private partial of the broadcast gradients, so the caller
 // allocates (blocks, G) zeros for gf_block_bwd_launch.
-extern "C" int gf_block_bwd_blocks(int lazy, int B, int H, int P, int n_sm) {
+extern "C" int gf_block_bwd_blocks(int mode, int B, int H, int P, int n_sm) {
   int threads;
   size_t smem;
-  tile_shape(lazy, H, P, threads, smem);
+  bool dh_global;
+  tile_shape(mode, H, P, threads, smem, dh_global);
   const int n_tiles = (B + threads - 1) / threads;
   const int blocks = n_tiles < 2 * n_sm ? n_tiles : 2 * n_sm;
   return blocks > 1 ? blocks : 1;
 }
 
-// mode: 0 T2 density (x, gout, gld), 1 T2 sample (x = the sample output y,
-// gout, gld), 2 T3 (x; writes val, ld; cotangents wv * val, wl).
-// meta / regs as gf_block_launch.  partials: (n_blocks, G) zeros, G = P
-// (perm) or H*n_in + H + P*H + P (lazy2); grads (G,): the sums over rows,
-// packed [gpvec] or [gw1 (H, n_in) | gb1 | gw (P, H) | gb]; gsummary
-// (B, n_in) in lazy2.  Returns 0 or a cudaError_t; launches on `stream`
-// and does not synchronize.
-extern "C" int gf_block_bwd_launch(int mode, int lazy, const float* x,
+// Floats of global dh scratch a call needs per block: 0 while the dh
+// columns fit in shared memory.
+extern "C" int gf_block_bwd_scratch(int mode, int H, int P) {
+  int threads;
+  size_t smem;
+  bool dh_global;
+  tile_shape(mode, H, P, threads, smem, dh_global);
+  return dh_global ? H * (threads + 1) : 0;
+}
+
+// kind: 0 T2 density (x, gout, gld), 1 T2 sample (x = the sample output y,
+// gout, gld), 2 T3 (x; writes val, ld; cotangents wv * val, wl; perm and
+// lazy2 only).  mode and meta / regs as gf_block_launch.  partials:
+// (n_blocks, G) zeros, G = P (perm), H*n_in + H + P*H + P (lazy2) or
+// P*H + P (lazy); grads (G,): the sums over rows, packed [gpvec],
+// [gw1 (H, n_in) | gb1 | gw (P, H) | gb] or [gw | gb]; grow: the per-row
+// gradient, gsummary (B, n_in) in lazy2, ghidden (B, H) in lazy.  scratch:
+// n_blocks * gf_block_bwd_scratch(...) floats, or null when that is 0.
+// Returns 0 or a cudaError_t; launches on `stream` and does not
+// synchronize.
+extern "C" int gf_block_bwd_launch(int kind, int mode, const float* x,
                                    const float* gout, const float* gld,
                                    float wv, float wl, float* val, float* ld,
                                    float* gx, int B, const float* pvec,
                                    const float* summary, const float* w1,
                                    const float* b1, const float* w,
-                                   const float* b, int n_in, int H, int P,
-                                   const int* meta, const float* regs,
-                                   float* gsummary, float* partials,
-                                   int n_blocks, float* grads, void* stream) {
+                                   const float* b, const float* hidden,
+                                   int n_in, int H, int P, const int* meta,
+                                   const float* regs, float* grow,
+                                   float* partials, int n_blocks,
+                                   float* scratch, float* grads,
+                                   void* stream) {
   BwdArgs A{};
   BlockArgs& a = A.a;
   a.x = x;
@@ -530,6 +597,7 @@ extern "C" int gf_block_bwd_launch(int mode, int lazy, const float* x,
   a.b1 = b1;
   a.w = w;
   a.b = b;
+  a.hidden = hidden;
   a.n_in = n_in;
   a.H = H;
   a.P = P;
@@ -544,14 +612,16 @@ extern "C" int gf_block_bwd_launch(int mode, int lazy, const float* x,
   A.wv = wv;
   A.wl = wl;
   A.gx = gx;
-  A.gsummary = gsummary;
+  A.gsummary = grow;
   A.partials = partials;
-  if (mode < 0 || mode > 2 || a.K < 1 || a.K > KMAX || a.D < 1 ||
-      a.D > DMAX || a.n_layers < 1 || a.n_layers > MAX_LAYERS || B < 0 ||
-      n_blocks < 1)
+  A.scratch = scratch;
+  if (kind < 0 || kind > 2 || mode < PERM || mode > LAZYH || a.K < 1 ||
+      a.K > KMAX || a.D < 1 || a.D > DMAX || a.n_layers < 1 ||
+      a.n_layers > MAX_LAYERS || B < 0 || n_blocks < 1 ||
+      (kind == 2 && mode == LAZYH))
     return (int)cudaErrorInvalidValue;
-  if ((mode == 2 && (val == nullptr || ld == nullptr)) ||
-      (mode != 2 && (gout == nullptr || gld == nullptr)))
+  if ((kind == 2 && (val == nullptr || ld == nullptr)) ||
+      (kind != 2 && (gout == nullptr || gld == nullptr)))
     return (int)cudaErrorInvalidValue;
   int row = 0;
   for (int l = 0; l < a.n_layers; ++l) {
@@ -565,19 +635,30 @@ extern "C" int gf_block_bwd_launch(int mode, int lazy, const float* x,
 
   int threads;
   size_t smem;
-  tile_shape(lazy, H, P, threads, smem);
-  if (lazy) {
-    if (H < 1 || n_in < 1 || gsummary == nullptr) return (int)cudaErrorInvalidValue;
-    A.G = H * n_in + H + P * H + P;
+  bool dh_global;
+  tile_shape(mode, H, P, threads, smem, dh_global);
+  if (mode != PERM) {
+    if (H < 1 || w == nullptr || b == nullptr || grow == nullptr ||
+        (mode == LAZY2 && (n_in < 1 || summary == nullptr)) ||
+        (mode == LAZYH && hidden == nullptr) ||
+        (dh_global && scratch == nullptr))
+      return (int)cudaErrorInvalidValue;
+    A.G = (mode == LAZY2 ? H * n_in + H : 0) + P * H + P;
     A.hs = threads + 1;
   } else {
     A.G = P;
     A.hs = 0;
   }
+  if (!dh_global) A.scratch = nullptr;
   if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e = lazy ? dispatch<true>(mode, A, n_blocks, threads, smem, s)
-                       : dispatch<false>(mode, A, n_blocks, threads, smem, s);
+  cudaError_t e;
+  if (mode == LAZY2)
+    e = dispatch<LAZY2>(kind, A, n_blocks, threads, smem, s);
+  else if (mode == LAZYH)
+    e = dispatch<LAZYH>(kind, A, n_blocks, threads, smem, s);
+  else
+    e = dispatch<PERM>(kind, A, n_blocks, threads, smem, s);
   if (e != cudaSuccess) return (int)e;
   reduce_partials<<<(A.G + 255) / 256, 256, 0, s>>>(partials, n_blocks, A.G,
                                                     grads);

@@ -8,7 +8,10 @@
 //     column of shared memory (H rows of `stride` floats), then produces
 //     each parameter row b_j + w_j . hidden when it needs it, one layer and
 //     dimension at a time (3K rows per mixture), reading w by broadcast
-//     through L1/L2.
+//     through L1/L2;
+//   * lazy (precomputed hidden): each thread copies its row of the (B, H)
+//     hidden activations, made outside by the MLP, into its column; the
+//     parameter rows are then made exactly as in lazy2 (the same code).
 #pragma once
 
 #include <type_traits>
@@ -16,6 +19,11 @@
 #include "gf_common.cuh"
 
 namespace gf {
+
+// parameter modes (the C interfaces' `mode` argument)
+constexpr int PERM = 0;   // one broadcast (P,) vector
+constexpr int LAZY2 = 1;  // the fused one-hidden-layer tanh MLP
+constexpr int LAZYH = 2;  // precomputed hidden (B, H) and the final w, b
 
 struct LayerMeta {
   int has_off, rot_it, has_ln, ift, row0;
@@ -32,6 +40,7 @@ struct BlockArgs {
   const float* b1;       // (H,)
   const float* w;        // (P, H)
   const float* b;        // (P,)
+  const float* hidden;   // lazy: (B, H)
   int n_in, H, P, K, D, n_layers, fit_norm;
   Reg wreg, nreg;
   LayerMeta layers[MAX_LAYERS];
@@ -145,8 +154,11 @@ struct PermSrc {
   }
 };
 
-// ---- fused MLP: hidden in shared memory, parameter rows on demand --------
-template <int N, int KT, int DN>
+// ---- amortized: hidden in shared memory, parameter rows on demand ---------
+// FUSED: the hidden column made from the summary (lazy2); else copied from
+// the precomputed (B, H) hidden (lazy).  Rows past B keep an unwritten
+// column; their threads produce nothing.
+template <int N, int KT, int DN, bool FUSED>
 struct LazySrc {
   const float* hid;  // this thread's column: hid[h * stride]
   int stride, H;
@@ -157,13 +169,18 @@ struct LazySrc {
       : hid(smem + threadIdx.x), stride(stride_), H(a.H), w(a.w), b(a.b) {
     if (row >= a.B) return;
     float* col = smem + threadIdx.x;
-    for (int h = 0; h < a.H; ++h) col[h * stride] = 0.0f;
-    const float* s = a.summary + (size_t)row * a.n_in;
-    for (int i = 0; i < a.n_in; ++i) {
-      const float si = s[i];
-      for (int h = 0; h < a.H; ++h) col[h * stride] += a.w1[h * a.n_in + i] * si;
+    if constexpr (FUSED) {
+      for (int h = 0; h < a.H; ++h) col[h * stride] = 0.0f;
+      const float* s = a.summary + (size_t)row * a.n_in;
+      for (int i = 0; i < a.n_in; ++i) {
+        const float si = s[i];
+        for (int h = 0; h < a.H; ++h) col[h * stride] += a.w1[h * a.n_in + i] * si;
+      }
+      for (int h = 0; h < a.H; ++h) col[h * stride] = tanhf(col[h * stride] + a.b1[h]);
+    } else {
+      const float* hr = a.hidden + (size_t)row * a.H;
+      for (int h = 0; h < a.H; ++h) col[h * stride] = __ldg(hr + h);
     }
-    for (int h = 0; h < a.H; ++h) col[h * stride] = tanhf(col[h * stride] + a.b1[h]);
   }
 
   __device__ float param(int j) const {
@@ -234,20 +251,20 @@ __device__ __forceinline__ void reflect(const Src& src, int r0, float* x, int D)
   for (int j = 0; j < D; ++j) x[j] = x[j] - (2.0f * v[j]) * dot;
 }
 
-template <bool LAZY, int N, int KT, int DN>
-using SrcT = typename std::conditional<LAZY, LazySrc<N, KT, DN>,
-                                       PermSrc<N, KT, DN>>::type;
+template <int MODE, int N, int KT, int DN>
+using SrcT = typename std::conditional<MODE == PERM, PermSrc<N, KT, DN>,
+                                       LazySrc<N, KT, DN, MODE == LAZY2>>::type;
 
-// the forward kernels' source: lazy2 hidden columns at stride blockDim.x
-template <bool LAZY, int KT, int DT>
-__device__ __forceinline__ SrcT<LAZY, (KT > 0 ? KT : KMAX), KT,
+// the forward kernels' source: hidden columns at stride blockDim.x
+template <int MODE, int KT, int DT>
+__device__ __forceinline__ SrcT<MODE, (KT > 0 ? KT : KMAX), KT,
                                 (DT > 0 ? DT : DMAX)>
 make_src(const BlockArgs& a, float* smem, int row) {
-  if constexpr (LAZY)
-    return SrcT<LAZY, (KT > 0 ? KT : KMAX), KT, (DT > 0 ? DT : DMAX)>(
-        a, smem, row, blockDim.x);
+  if constexpr (MODE == PERM)
+    return SrcT<MODE, (KT > 0 ? KT : KMAX), KT, (DT > 0 ? DT : DMAX)>(a, smem);
   else
-    return SrcT<LAZY, (KT > 0 ? KT : KMAX), KT, (DT > 0 ? DT : DMAX)>(a, smem);
+    return SrcT<MODE, (KT > 0 ? KT : KMAX), KT, (DT > 0 ? DT : DMAX)>(
+        a, smem, row, blockDim.x);
 }
 
 }  // namespace gf

@@ -27,7 +27,10 @@
 // blocks; the parameter-row cotangents of one dimension are staged for the
 // tile's rows in shared memory, STAGE rows at a time, and added to the
 // block's private partial of the summed gradients; a second kernel sums the
-// partials in block order.  Deterministic, no atomics.
+// partials in block order.  Deterministic, no atomics.  Where the lazy
+// hidden and dh columns do not fit in shared memory even at 32 rows
+// (H > 864), dh moves to a per-block scratch in global memory, so every
+// H <= 1024 (the routing limit, layers/euclidean.py) launches.
 #include <cuda_runtime.h>
 
 #include "gf_layer_src.cuh"
@@ -47,12 +50,13 @@ struct LayerBwdArgs {
   float* gslab;     // per row: (n_groups, K, D, B)
   float* gh;        // lazy: (B, H)
   float* partials;  // (gridDim.x, G)
+  float* scratch;   // lazy dh in global memory: (gridDim.x, H, T + 1), or null
   int G;            // broadcast: n_groups*K*D; lazy: P*H + P; per row: 0
 };
 
 struct Stage {
   float* hid;  // lazy: (H, hs), the source's tile
-  float* dh;   // lazy: (H, hs)
+  float* dh;   // lazy: (H, hs), shared or the block's global scratch
   float* dp;   // (STAGE, blockDim.x)
   int* prow;   // (STAGE,)
   int hs;
@@ -131,8 +135,8 @@ __global__ void __launch_bounds__(128) gf_layer_bwd_kernel(const LayerBwdArgs A)
   st.hs = T + 1;
   float* rest = smem + layer_src_floats(LAZY, a, T);
   st.hid = smem;
-  st.dh = rest;
-  st.dp = LAZY ? rest + (size_t)a.H * st.hs : rest;
+  st.dh = A.scratch ? A.scratch + (size_t)blockIdx.x * a.H * st.hs : rest;
+  st.dp = LAZY && !A.scratch ? rest + (size_t)a.H * st.hs : rest;
   st.prow = reinterpret_cast<int*>(st.dp + STAGE * T);
   LayerSrc<LAZY, SKEW, N, KT> src(a, smem, blockIdx.x * T);
 
@@ -226,15 +230,24 @@ cudaError_t dispatch_body(bool sample, const LayerBwdArgs& A, int blocks,
 }
 
 // The tile: 128 rows, halved while the lazy hidden and dh columns would
-// exceed the shared memory.  Returns the block's dynamic shared memory.
-size_t tile_shape(const LayerArgs& a, int lazy, int& threads) {
-  auto need = [&](int t) {
-    return (layer_src_floats(lazy, a, t) + (lazy ? (size_t)a.H * (t + 1) : 0) +
+// exceed the shared memory; where both do not fit even at STAGE rows, dh
+// goes to a global scratch (dh_global) and the tile is sized for the
+// hidden columns alone.  Returns the block's dynamic shared memory.
+size_t tile_shape(const LayerArgs& a, int lazy, int& threads,
+                  bool& dh_global) {
+  auto need = [&](int t, bool dh_shared) {
+    return (layer_src_floats(lazy, a, t) +
+            (lazy && dh_shared ? (size_t)a.H * (t + 1) : 0) +
             (size_t)STAGE * t + STAGE) * 4;
   };
   threads = 128;
-  while (threads > STAGE && need(threads) > SMEM_LIMIT) threads /= 2;
-  return need(threads);
+  while (threads > STAGE && need(threads, true) > SMEM_LIMIT) threads /= 2;
+  dh_global = lazy && need(threads, true) > SMEM_LIMIT;
+  if (dh_global) {
+    threads = 128;
+    while (threads > STAGE && need(threads, false) > SMEM_LIMIT) threads /= 2;
+  }
+  return need(threads, !dh_global);
 }
 
 }  // namespace
@@ -248,10 +261,23 @@ extern "C" int gf_layer_bwd_blocks(int lazy, int B, int H, int n_sm) {
   a.H = H;
   a.per_row = 1;
   int threads;
-  tile_shape(a, lazy, threads);
+  bool dh_global;
+  tile_shape(a, lazy, threads, dh_global);
   const int n_tiles = (B + threads - 1) / threads;
   const int blocks = n_tiles < 2 * n_sm ? n_tiles : 2 * n_sm;
   return blocks > 1 ? blocks : 1;
+}
+
+// Floats of global dh scratch a lazy call needs per block: 0 while the dh
+// columns fit in shared memory.
+extern "C" int gf_layer_bwd_scratch(int lazy, int H) {
+  LayerArgs a{};
+  a.H = H;
+  a.per_row = 1;
+  int threads;
+  bool dh_global;
+  tile_shape(a, lazy, threads, dh_global);
+  return dh_global ? H * (threads + 1) : 0;
 }
 
 // meta: [body (0 density, 1 sample), lazy, skew, prepared (must be 0),
@@ -261,8 +287,9 @@ extern "C" int gf_layer_bwd_blocks(int lazy, int B, int H, int n_sm) {
 // per row, (n_groups, K, D, B) zeros; gh: lazy, (B, H); partials:
 // (n_blocks, G) zeros, G = n_groups*K*D (broadcast) or P*H + P (lazy,
 // P = n_groups*K*D); grads (G,): the sums over rows, packed [g slabs] or
-// [gw (P, H) | gb (P)].  Returns 0 or a cudaError_t; launches on `stream`
-// and does not synchronize.
+// [gw (P, H) | gb (P)]; scratch: n_blocks * gf_layer_bwd_scratch(...)
+// floats, or null when that is 0.  Returns 0 or a cudaError_t; launches on
+// `stream` and does not synchronize.
 extern "C" int gf_layer_bwd_launch(const int* meta, const float* regs,
                                    const float* x, const float* g1,
                                    const float* g2, float* gx, const float* p0,
@@ -270,7 +297,8 @@ extern "C" int gf_layer_bwd_launch(const int* meta, const float* regs,
                                    const float* p3, const float* hidden,
                                    const float* w, const float* b,
                                    float* gslab, float* gh, float* partials,
-                                   int n_blocks, float* grads, void* stream) {
+                                   int n_blocks, float* scratch, float* grads,
+                                   void* stream) {
   const int body = meta[0], lazy = meta[1], skew = meta[2];
   LayerBwdArgs A{};
   LayerArgs& a = A.a;
@@ -301,6 +329,7 @@ extern "C" int gf_layer_bwd_launch(const int* meta, const float* regs,
   A.gslab = gslab;
   A.gh = gh;
   A.partials = partials;
+  A.scratch = scratch;
   const int P = a.n_groups * a.K * a.D;
   A.G = lazy ? P * a.H + P : (a.per_row ? 0 : P);
   if (body < 0 || body > 1 || a.prepared || a.K < 1 || a.K > KMAX ||
@@ -318,8 +347,11 @@ extern "C" int gf_layer_bwd_launch(const int* meta, const float* regs,
   if (a.B == 0) return 0;
 
   int threads;
-  const size_t smem = tile_shape(a, lazy, threads);
-  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  bool dh_global;
+  const size_t smem = tile_shape(a, lazy, threads, dh_global);
+  if (smem > SMEM_LIMIT || (dh_global && scratch == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (!dh_global) A.scratch = nullptr;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e;
   if (lazy)

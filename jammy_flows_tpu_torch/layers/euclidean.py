@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from .base import FlowLayer, split_params
-from ..ops import gf_layer, logistic_kde, rotations
+from ..ops import gf_block, gf_layer, logistic_kde, rotations
 from ..ops.inverse import make_inverse_fn
 from ..ops.lazy_params import LazyParams, materialize_if_lazy
 from ..ops.special import log_bounded_exp_fn, width_regulator_fn
@@ -214,8 +214,10 @@ class GaussianizationFlow(EuclideanLayer):
     def _unpack_lazy(self, params):
         """Lazy rows: the rotation rows materialized (``torch.matmul``), the
         mixture groups kept as (hidden, w rows, b rows) for the kernels; None
-        when the layer needs materialized parameters (center_mean)."""
-        if self.center_mean:
+        when the layer needs materialized parameters: center_mean, or a
+        final hidden width above MAX_KERNEL_H (``euclidean.py:284-290`` of
+        the JAX package)."""
+        if self.center_mean or params.w.shape[1] > gf_block.MAX_KERNEL_H:
             return None
         nr = self.num_rotation_params
         hidden = params.hidden_act()

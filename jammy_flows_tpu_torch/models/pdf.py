@@ -10,14 +10,18 @@ dict loads 1:1 (utils/convert.params_from_jax):
     "flow_0"  : (P0,)  permanent parameters of sub-pdf 0 (unconditional pdfs)
     "mlp_<k>" : (Pk,)  packed AmortizableMLP predicting sub-pdf k
 
-Routing per sub-manifold, as in the JAX package: a float32 stack of `g`
-layers that ops/gf_block.block_meta accepts runs as one whole-block op (the
-CUDA kernel on the card, its plain version on the CPU) with permanent
-parameters ("perm") or a fused one-hidden-layer MLP ("lazy2"); an s2 stack
-runs on the (z, phi) column path; other Euclidean stacks run layer by layer
-(float32 `g` layers through the per-layer kernels of ops/gf_layer.py, with
-the amortization MLP's final product in the kernel when its rows stay
-factored as LazyParams).
+Routing per sub-manifold, as in the JAX package (``pdf.py:488-524``): a
+float32 stack of `g` layers that ops/gf_block.block_meta accepts runs as one
+whole-block op (the CUDA kernel on the card, its plain version on the CPU)
+with permanent parameters ("perm"), the fused one-hidden-layer tanh MLP
+("lazy2", when the summary is at most 128 wide) or the precomputed hidden
+activations of any other MLP that splits at its final matrix ("lazy"); an
+amortizing MLP whose final hidden width exceeds gf_block.MAX_KERNEL_H (1024)
+sends its block layer by layer, with materialized rows.  An s2 stack runs on
+the (z, phi) column path; other Euclidean stacks run layer by layer (float32
+`g` layers through the per-layer kernels of ops/gf_layer.py, with the
+amortization MLP's final product in the kernel when its rows stay factored
+as LazyParams).
 
 Entry points run on the card unless the caller passes ``device="cpu"``; with
 no device given and no CUDA, the constructor raises.
@@ -226,11 +230,13 @@ class PDF:
     def _predict_extra_params(self, params, k, data_summary_parts,
                               conditional_input):
         """Sub-pdf k's parameters: a (1, P) permanent slab; in float32,
-        LazyParams when the MLP splits at its final matrix (the per-layer
-        kernels get the hidden activations, made once here; the whole-block
-        op gets the fused MLP's summary and first layer instead); a
-        materialized (B, P) slab otherwise; or None
-        (``pdf.py:446-455`` of the JAX package)."""
+        LazyParams when the MLP splits at its final matrix: the fused MLP's
+        summary and first layer for a block the fused mode takes (a
+        one-hidden-layer tanh MLP, a summary at most 128 wide, H at most
+        MAX_KERNEL_H: ``pdf.py:499-503`` of the JAX package), else the
+        hidden activations, made once here for the block's lazy mode or the
+        per-layer kernels; a materialized (B, P) slab otherwise; or None
+        (``pdf.py:446-455``)."""
         mlp = self.mlp_predictors[k]
         if mlp is None:
             if sum(self.num_parameter_list[k]) == 0:
@@ -244,7 +250,9 @@ class PDF:
         flat = params[f"mlp_{k}"]
         if summary.dtype == torch.float32 and mlp.supports_penultimate():
             w, b = mlp.final_layer_weights(flat)
-            if mlp.supports_full_fusion() and self._block_meta[k] is not None:
+            if (mlp.supports_full_fusion() and self._block_meta[k] is not None
+                    and summary.shape[1] <= gf_block.MAX_FUSED_SUMMARY
+                    and w.shape[1] <= gf_block.MAX_KERNEL_H):
                 w1, b1 = mlp.first_layer_weights(flat)
                 return LazyParams(w, b, summary=summary.contiguous(), w1=w1,
                                   b1=b1)
@@ -256,20 +264,27 @@ class PDF:
     # core mappings
     # ------------------------------------------------------------------
     def _try_block(self, k, extra, target, direction):
-        """Sub-manifold k's whole gggg stack as one block op, or None.
-        Returns (out, ld summed over dims)."""
+        """Sub-manifold k's whole gggg stack as one block op, or None
+        (``pdf.py:488-524`` of the JAX package).  Returns (out, ld summed
+        over dims)."""
         info = self._block_meta[k]
         if target.dtype != torch.float32 or info is None or extra is None:
             return None
         prep, meta = info
         target = target.contiguous()
         if isinstance(extra, LazyParams):
-            if extra.summary is None:
+            if extra.w.shape[1] > gf_block.MAX_KERNEL_H:
                 return None
-            fn = gf_block.gf_block_density_lazy2 if direction == "density" \
-                else gf_block.gf_block_sample_lazy2
-            out, ld = fn(target, extra.summary, extra.w1, extra.b1, extra.w,
-                         extra.b, prep, meta)
+            if extra.summary is not None:
+                fn = (gf_block.gf_block_density_lazy2 if direction == "density"
+                      else gf_block.gf_block_sample_lazy2)
+                out, ld = fn(target, extra.summary, extra.w1, extra.b1,
+                             extra.w, extra.b, prep, meta)
+            else:
+                fn = (gf_block.gf_block_density_lazy if direction == "density"
+                      else gf_block.gf_block_sample_lazy)
+                out, ld = fn(target, extra.hidden.contiguous(), extra.w,
+                             extra.b, prep, meta)
         elif extra.shape[0] == 1:
             fn = gf_block.gf_block_density_perm if direction == "density" \
                 else gf_block.gf_block_sample_perm
@@ -434,11 +449,12 @@ class PDF:
         data, never a computed output, so each sub-pdf's NLL term decouples
         and the cotangents of a block's outputs are known before the loss:
         1/B times its base position and -1/B for its log-det.  Each float32
-        sub-manifold that runs as one block op therefore takes one fused
-        call (``gf_block_nll_perm`` / ``gf_block_nll_lazy2``: forward and
-        backward together); any other sub-pdf (the s2 `f` layer) takes
-        autograd of its own NLL term; float64 takes autograd of the whole
-        objective."""
+        sub-manifold that runs as one perm or lazy2 block op therefore takes
+        one fused call (``gf_block_nll_perm`` / ``gf_block_nll_lazy2``:
+        forward and backward together); any other sub-pdf (a block in the
+        lazy mode: the block forward and backward kernels; the s2 `f` layer)
+        takes autograd of its own NLL term; float64 takes autograd of the
+        whole objective."""
         x = self._input(x, "x")
         if conditional_input is not None:
             conditional_input = self._input(conditional_input,

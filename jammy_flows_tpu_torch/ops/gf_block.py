@@ -14,19 +14,23 @@ or subtracts (sample) its sum over d.
 
 Parameters per layer, in the rows of one (P,) vector or of the final MLP
 weight: [offset (d, last layer)] + [householder vs (it*d)] + [means (k*d)] +
-[log_width raw (k*d)] + [log_norm raw (k*d, fit_normalization)].  Two
-parameter modes:
-  perm:  one broadcast (P,) vector (permanent parameters);
-  lazy2: the fused amortization MLP ``w @ tanh(w1 @ summary + b1) + b``
-         evaluated inside the kernel, so the (B, P) slab is never stored.
+[log_width raw (k*d)] + [log_norm raw (k*d, fit_normalization)].  Three
+parameter modes (``mode``, the JAX ``_make_slabs``' ``lazy`` flag):
+  "perm":  one broadcast (P,) vector (permanent parameters);
+  "lazy2": the fused amortization MLP ``w @ tanh(w1 @ summary + b1) + b``
+           evaluated inside the kernel, so the (B, P) slab is never stored;
+  "lazy":  the MLP's hidden activations (B, H), made outside (any MLP that
+           splits at its final matrix), and the final ``w``, ``b``: the
+           kernel makes each row's parameters ``w @ hidden + b`` itself.
 
 Gradients: the four forward entry points are ``torch.autograd.Function``s
 whose backward is the block backward, as the JAX package's custom VJPs are.
 The density backward differentiates the whole chain (saving x); the sample
 backward saves the output y, reconstructs each layer's solve output from it
 and chains per-layer implicit-function steps (no re-solve).  The fused NLL
-entry points run the density forward and its backward in one call with the
-cotangents (wv * val, wl) known in advance.
+entry points (perm and lazy2, as in the JAX package) run the density forward
+and its backward in one call with the cotangents (wv * val, wl) known in
+advance.
 
 Every public entry point takes (B, d) rows.  On a CUDA tensor it launches the
 hand-written kernel (csrc/gf_block.cu forward, csrc/gf_block_bwd.cu backward
@@ -51,11 +55,27 @@ IFT_CODES = {"isigmoid": 0, "inormal_partly_precise": 1,
 KERNEL_MAX_K = 64
 KERNEL_MAX_D = 32
 KERNEL_MAX_LAYERS = 16
+# routing, as the JAX package routes (ops/pallas_gf.py:1067, there a VMEM
+# guard for the in-kernel final product): an MLP whose final hidden width
+# exceeds it takes materialized rows instead of the lazy interfaces
+# (models/pdf.py, layers/euclidean.py).  Every H up to it launches.
+MAX_KERNEL_H = 1024
+# the widest conditional summary the fused MLP (lazy2) takes
+# (models/pdf.py:502-503 of the JAX package); wider ones take "lazy"
+MAX_FUSED_SUMMARY = 128
+
+MODES = {"perm": 0, "lazy2": 1, "lazy": 2}      # the C interfaces' codes
+# launch-counter suffix per mode ("lazyh": precomputed hidden, a name apart
+# from the per-layer counters of ops/gf_layer.py)
+_COUNTER = {"perm": "perm", "lazy2": "lazy2", "lazy": "lazyh"}
 
 LAUNCHES = {"density_perm": 0, "sample_perm": 0,
             "density_lazy2": 0, "sample_lazy2": 0,
+            "density_lazyh": 0, "sample_lazyh": 0,
             "density_bwd_perm": 0, "density_bwd_lazy2": 0,
+            "density_bwd_lazyh": 0,
             "sample_bwd_perm": 0, "sample_bwd_lazy2": 0,
+            "sample_bwd_lazyh": 0,
             "nll_perm": 0, "nll_lazy2": 0}
 
 
@@ -149,14 +169,18 @@ def _hh_rotate(x, rot, it, d, inverse):
     return x
 
 
-def _make_slabs(param_arrays, k, d, layers, lazy):
+def _make_slabs(param_arrays, k, d, layers, mode):
     """Per-layer (off, rot, (means, lw, ln)) slabs with (rows, 1|B) columns.
 
-    lazy=False: [pvec (P, 1)].  lazy=True (fused MLP): [summary (In, B),
-    w1 (H, In), b1 (H, 1), w (P, H), b (P, 1)]."""
-    if lazy:
+    "perm": [pvec (P, 1)].  "lazy": [hidden (H, B), w (P, H), b (P, 1)].
+    "lazy2" (fused MLP): [summary (In, B), w1 (H, In), b1 (H, 1), w (P, H),
+    b (P, 1)]."""
+    if mode == "lazy2":
         summary, w1, b1, w, b = param_arrays
         hidden = torch.tanh(torch.matmul(w1, summary) + b1)
+        p = torch.matmul(w, hidden) + b
+    elif mode == "lazy":
+        hidden, w, b = param_arrays
         p = torch.matmul(w, hidden) + b
     else:
         p = param_arrays[0]
@@ -179,10 +203,10 @@ def _prep_mix(raw, prep):
     return gf.prep_raw_params(slabs, prep)
 
 
-def block_density_plain(x, param_arrays, prep, meta, lazy):
+def block_density_plain(x, param_arrays, prep, meta, mode):
     """(x (d, B), params) -> (base (d, B), ld_sum (d, B))."""
     k, d, layers = meta
-    slabs = _make_slabs(param_arrays, k, d, layers, lazy)
+    slabs = _make_slabs(param_arrays, k, d, layers, mode)
     ld_sum = torch.zeros_like(x)
     for li in reversed(range(len(layers))):
         off, rot, raw = slabs[li]
@@ -196,11 +220,11 @@ def block_density_plain(x, param_arrays, prep, meta, lazy):
     return x, ld_sum
 
 
-def block_sample_plain(z, param_arrays, prep, meta, lazy):
+def block_sample_plain(z, param_arrays, prep, meta, mode):
     """(z (d, B), params) -> (target (d, B), ld_sum (d, B)); ld_sum is
     sum_l log|d gauss_l/dx| at the solutions (the caller subtracts it)."""
     k, d, layers = meta
-    slabs = _make_slabs(param_arrays, k, d, layers, lazy)
+    slabs = _make_slabs(param_arrays, k, d, layers, mode)
     x = z
     ld_sum = torch.zeros_like(z)
     for li in range(len(layers)):
@@ -227,18 +251,18 @@ def _grads(out, inputs, cts):
             for i, g in zip(inputs, got)]
 
 
-def block_density_bwd_plain(x, param_arrays, g_out, g_ld, prep, meta, lazy):
+def block_density_bwd_plain(x, param_arrays, g_out, g_ld, prep, meta, mode):
     """VJP of :func:`block_density_plain` (d, B layout): the whole chain
     differentiated, as ``_make_block_density_bwd`` does.  Returns (gx,
     [grads of param_arrays])."""
     with torch.enable_grad():
         xs, *ps = _leaves([x, *param_arrays])
-        out, ld = block_density_plain(xs, ps, prep, meta, lazy)
+        out, ld = block_density_plain(xs, ps, prep, meta, mode)
         gx, *gp = _grads((out, ld), [xs, *ps], (g_out, g_ld))
     return gx, gp
 
 
-def block_sample_bwd_plain(y, param_arrays, g_out, g_ld, prep, meta, lazy):
+def block_sample_bwd_plain(y, param_arrays, g_out, g_ld, prep, meta, mode):
     """VJP of :func:`block_sample_plain` from its output y (d, B), as
     ``_make_block_sample_bwd`` computes it: each layer's solve output is
     reconstructed from y (s_l = R_l^T (out_l - off_l), out_{l-1} =
@@ -248,7 +272,7 @@ def block_sample_bwd_plain(y, param_arrays, g_out, g_ld, prep, meta, lazy):
     k, d, layers = meta
     with torch.enable_grad():
         ps = _leaves(param_arrays)
-        slabs = _make_slabs(ps, k, d, layers, lazy)
+        slabs = _make_slabs(ps, k, d, layers, mode)
         with torch.no_grad():
             s_list = [None] * len(layers)
             out = y
@@ -284,51 +308,57 @@ def block_sample_bwd_plain(y, param_arrays, g_out, g_ld, prep, meta, lazy):
     return g, gp
 
 
-def _to_cols(params, lazy):
+def _to_cols(params, mode):
     """Wrapper layout -> the plain versions' (d, B) layout."""
-    if lazy:
+    if mode == "lazy2":
         summary, w1, b1, w, b = params
         return (summary.T, w1, b1[:, None], w, b[:, None])
+    if mode == "lazy":
+        hidden, w, b = params
+        return (hidden.T, w, b[:, None])
     return (params[0][:, None],)
 
 
-def _from_cols(grads, lazy):
-    if lazy:
+def _from_cols(grads, mode):
+    if mode == "lazy2":
         gs, gw1, gb1, gw, gb = grads
         return (gs.T.contiguous(), gw1, gb1[:, 0], gw, gb[:, 0])
+    if mode == "lazy":
+        gh, gw, gb = grads
+        return (gh.T.contiguous(), gw, gb[:, 0])
     return (grads[0][:, 0],)
 
 
-def block_plain(direction, x, params, prep, meta, lazy):
+def block_plain(direction, x, params, prep, meta, mode):
     """The plain PyTorch version of an entry point, in the wrapper's own
-    layout: x (B, d); params (pvec,) or (summary (B, In), w1, b1 (H,), w,
-    b (P,)).  Returns (out (B, d), ld (B, d))."""
+    layout: x (B, d); params (pvec,), (summary (B, In), w1, b1 (H,), w,
+    b (P,)) or (hidden (B, H), w, b).  Returns (out (B, d), ld (B, d))."""
     fn = block_density_plain if direction == "density" else block_sample_plain
-    out, ld = fn(x.T, _to_cols(params, lazy), prep, meta, lazy)
+    out, ld = fn(x.T, _to_cols(params, mode), prep, meta, mode)
     return out.T.contiguous(), ld.T.contiguous()
 
 
 def block_bwd_plain(direction, x_or_y, params, g_out, g_ld, prep, meta,
-                    lazy):
+                    mode):
     """The plain version of the block backward, in the wrapper's layout:
     x_or_y is the density input x or the sample output y (B, d); g_out,
     g_ld (B, d) the cotangents of (out, ld).  Returns (gx (B, d), grads of
-    params in their own shapes: (gpvec,) or (gsummary (B, In), gw1, gb1,
-    gw, gb))."""
+    params in their own shapes: (gpvec,), (gsummary (B, In), gw1, gb1, gw,
+    gb) or (ghidden (B, H), gw, gb))."""
     fn = block_density_bwd_plain if direction == "density" \
         else block_sample_bwd_plain
-    gx, gp = fn(x_or_y.T, _to_cols(params, lazy), g_out.T, g_ld.T, prep,
-                meta, lazy)
-    return gx.T.contiguous(), _from_cols(gp, lazy)
+    gx, gp = fn(x_or_y.T, _to_cols(params, mode), g_out.T, g_ld.T, prep,
+                meta, mode)
+    return gx.T.contiguous(), _from_cols(gp, mode)
 
 
-def block_nll_plain(x, params, prep, meta, lazy, wv, wl):
+def block_nll_plain(x, params, prep, meta, mode, wv, wl):
     """The plain version of the fused NLL call: the density forward, then
     its backward with the cotangents (wv * val, wl).  Returns (val, ld, gx,
     grads) in the wrapper's layout."""
-    val, ld = block_plain("density", x, params, prep, meta, lazy)
+    val, ld = block_plain("density", x, params, prep, meta, mode)
     gx, gp = block_bwd_plain("density", x, params, wv * val,
-                             torch.full_like(ld, wl), prep, meta, lazy)
+                             torch.full_like(ld, wl), prep, meta, mode)
     return val, ld, gx, gp
 
 
@@ -338,7 +368,7 @@ def block_nll_plain(x, params, prep, meta, lazy, wv, wl):
 
 def _declare(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.gf_block_launch.argtypes = [i, i, p, p, p, i, p, p, p, p, p, p,
+    lib.gf_block_launch.argtypes = [i, i, p, p, p, i, p, p, p, p, p, p, p,
                                     i, i, i, p, p, p]
     lib.gf_block_launch.restype = i
     lib.gf_block_error_string.argtypes = [i]
@@ -348,11 +378,13 @@ def _declare(lib):
 def _declare_bwd(lib):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.gf_block_bwd_launch.argtypes = [i, i, p, p, p, f, f, p, p, p, i,
-                                        p, p, p, p, p, p, i, i, i, p, p,
-                                        p, p, i, p, p]
+                                        p, p, p, p, p, p, p, i, i, i, p, p,
+                                        p, p, i, p, p, p]
     lib.gf_block_bwd_launch.restype = i
     lib.gf_block_bwd_blocks.argtypes = [i, i, i, i, i]
     lib.gf_block_bwd_blocks.restype = i
+    lib.gf_block_bwd_scratch.argtypes = [i, i, i]
+    lib.gf_block_bwd_scratch.restype = i
     lib.gf_block_bwd_error_string.argtypes = [i]
     lib.gf_block_bwd_error_string.restype = ctypes.c_char_p
 
@@ -372,7 +404,7 @@ def _check(name, t, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _kernel_args(x, params, prep, meta, lazy):
+def _kernel_args(x, params, prep, meta, mode):
     """Check a call's tensors against what the kernels take; returns
     (parameter pointers, n_in, hid, n_params, meta ints, regulator
     floats) in the order of the C interfaces."""
@@ -384,7 +416,7 @@ def _kernel_args(x, params, prep, meta, lazy):
     if k > KERNEL_MAX_K or d > KERNEL_MAX_D or len(layers) > KERNEL_MAX_LAYERS:
         raise ValueError(f"block (k={k}, d={d}, {len(layers)} layers) exceeds "
                          "the CUDA kernel's limits")
-    if lazy:
+    if mode == "lazy2":
         summary, w1, b1, w, b = params
         n_in, hid = summary.shape[1], w1.shape[0]
         for name, t, shape in (("summary", summary, (b_rows, n_in)),
@@ -393,12 +425,20 @@ def _kernel_args(x, params, prep, meta, lazy):
                                ("b", b, (n_params,))):
             _check(name, t, shape, dev)
         ptrs = [0, summary.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                w.data_ptr(), b.data_ptr()]
+                w.data_ptr(), b.data_ptr(), 0]
+    elif mode == "lazy":
+        hidden, w, b = params
+        n_in, hid = 0, hidden.shape[1]
+        for name, t, shape in (("hidden", hidden, (b_rows, hid)),
+                               ("w", w, (n_params, hid)),
+                               ("b", b, (n_params,))):
+            _check(name, t, shape, dev)
+        ptrs = [0, 0, 0, 0, w.data_ptr(), b.data_ptr(), hidden.data_ptr()]
     else:
         (pvec,) = params
         _check("pvec", pvec, (n_params,), dev)
         n_in = hid = 0
-        ptrs = [pvec.data_ptr(), 0, 0, 0, 0, 0]
+        ptrs = [pvec.data_ptr(), 0, 0, 0, 0, 0, 0]
     width_reg, norm_reg, fit_norm = prep
     norm_reg = norm_reg if norm_reg is not None else IDENTITY
     ints = [k, d, len(layers), int(bool(fit_norm)),
@@ -412,13 +452,9 @@ def _kernel_args(x, params, prep, meta, lazy):
     return ptrs, n_in, hid, n_params, c_ints, c_floats
 
 
-def _mode(lazy):
-    return "lazy2" if lazy else "perm"
-
-
-def _launch(x, params, prep, meta, lazy, direction):
+def _launch(x, params, prep, meta, mode, direction):
     ptrs, n_in, hid, n_params, c_ints, c_floats = _kernel_args(
-        x, params, prep, meta, lazy)
+        x, params, prep, meta, mode)
     b_rows = x.shape[0]
     out = torch.empty_like(x)
     ld = torch.empty_like(x)
@@ -428,28 +464,30 @@ def _launch(x, params, prep, meta, lazy, direction):
     lib = cuda_build.load("gf_block", _declare)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.gf_block_launch(int(direction == "sample"), int(lazy),
+        rc = lib.gf_block_launch(int(direction == "sample"), MODES[mode],
                                  x.data_ptr(), out.data_ptr(), ld.data_ptr(),
                                  b_rows, *ptrs, n_in, hid, n_params,
                                  c_ints, c_floats, stream)
     if rc != 0:
         msg = lib.gf_block_error_string(rc).decode()
         raise RuntimeError(f"gf_block kernel launch failed ({rc}): {msg}")
-    LAUNCHES[f"{direction}_{_mode(lazy)}"] += 1
+    LAUNCHES[f"{direction}_{_COUNTER[mode]}"] += 1
     return out, ld
 
 
 _BWD_MODES = {"density": 0, "sample": 1, "nll": 2}
 
 
-def _launch_bwd(kind, x, params, g_out, g_ld, prep, meta, lazy, wv=0.0,
+def _launch_bwd(kind, x, params, g_out, g_ld, prep, meta, mode, wv=0.0,
                 wl=0.0):
     """T2 (kind "density" / "sample": x is the density input or the sample
-    output) or T3 (kind "nll": the density forward with cotangents (wv *
-    val, wl)).  Returns (val, ld, gx, grads) with val, ld None unless T3;
-    grads in the wrapper's layout."""
+    output) or T3 (kind "nll", perm and lazy2: the density forward with
+    cotangents (wv * val, wl)).  Returns (val, ld, gx, grads) with val, ld
+    None unless T3; grads in the wrapper's layout."""
+    if kind == "nll" and mode == "lazy":
+        raise ValueError("no fused NLL on precomputed hidden activations")
     ptrs, n_in, hid, n_params, c_ints, c_floats = _kernel_args(
-        x, params, prep, meta, lazy)
+        x, params, prep, meta, mode)
     b_rows, d = x.shape
     dev = x.device
     if kind != "nll":
@@ -460,125 +498,148 @@ def _launch_bwd(kind, x, params, g_out, g_ld, prep, meta, lazy, wv=0.0,
         val = torch.empty_like(x)
         ld = torch.empty_like(x)
     gx = torch.empty_like(x)
-    n_flat = hid * n_in + hid + n_params * hid + n_params if lazy \
-        else n_params
-    flat = torch.zeros(n_flat, dtype=torch.float32, device=dev)
-    gsummary = torch.zeros((b_rows, n_in), dtype=torch.float32,
-                           device=dev) if lazy else None
+    f32 = dict(dtype=torch.float32, device=dev)
+    n_mlp = n_params * hid + n_params
+    n_flat = {"perm": n_params, "lazy": n_mlp,
+              "lazy2": hid * n_in + hid + n_mlp}[mode]
+    flat = torch.zeros(n_flat, **f32)
+    # the per-row gradient: gsummary (lazy2) or ghidden (lazy)
+    grow = None if mode == "perm" else torch.zeros(
+        (b_rows, n_in if mode == "lazy2" else hid), **f32)
     if b_rows > 0:
         from . import cuda_build
         lib = cuda_build.load("gf_block_bwd", _declare_bwd)
         # the kernel's grid, chosen by the library: persistent blocks, each
-        # with a private partial of the broadcast gradients
+        # with a private partial of the broadcast gradients (and, where the
+        # dh columns do not fit in shared memory, a scratch for them)
         n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-        n_blocks = lib.gf_block_bwd_blocks(int(lazy), b_rows, hid, n_params,
-                                           n_sm)
-        partials = torch.zeros((n_blocks, n_flat), dtype=torch.float32,
-                               device=dev)
+        code = MODES[mode]
+        n_blocks = lib.gf_block_bwd_blocks(code, b_rows, hid, n_params, n_sm)
+        partials = torch.zeros((n_blocks, n_flat), **f32)
+        n_scratch = n_blocks * lib.gf_block_bwd_scratch(code, hid, n_params)
+        scratch = torch.empty(n_scratch, **f32) if n_scratch else None
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = lib.gf_block_bwd_launch(
-                _BWD_MODES[kind], int(lazy), x.data_ptr(),
+                _BWD_MODES[kind], code, x.data_ptr(),
                 0 if g_out is None else g_out.data_ptr(),
                 0 if g_ld is None else g_ld.data_ptr(), float(wv), float(wl),
                 0 if val is None else val.data_ptr(),
                 0 if ld is None else ld.data_ptr(), gx.data_ptr(), b_rows,
                 *ptrs, n_in, hid, n_params, c_ints, c_floats,
-                0 if gsummary is None else gsummary.data_ptr(),
-                partials.data_ptr(), n_blocks, flat.data_ptr(), stream)
+                0 if grow is None else grow.data_ptr(),
+                partials.data_ptr(), n_blocks,
+                0 if scratch is None else scratch.data_ptr(),
+                flat.data_ptr(), stream)
         if rc != 0:
             msg = lib.gf_block_bwd_error_string(rc).decode()
             raise RuntimeError(f"gf_block_bwd kernel launch failed ({rc}): "
                                f"{msg}")
         LAUNCHES[f"{'nll' if kind == 'nll' else kind + '_bwd'}_"
-                 f"{_mode(lazy)}"] += 1
-    if lazy:
-        o1 = hid * n_in
-        o2 = o1 + hid
-        o3 = o2 + n_params * hid
-        grads = (gsummary, flat[:o1].view(hid, n_in), flat[o1:o2],
-                 flat[o2:o3].view(n_params, hid), flat[o3:])
-    else:
-        grads = (flat,)
-    return val, ld, gx, grads
+                 f"{_COUNTER[mode]}"] += 1
+    if mode == "perm":
+        return val, ld, gx, (flat,)
+    gw = flat[n_flat - n_mlp:n_flat - n_params].view(n_params, hid)
+    gb = flat[n_flat - n_params:]
+    if mode == "lazy":
+        return val, ld, gx, (grow, gw, gb)
+    o1 = hid * n_in
+    return val, ld, gx, (grow, flat[:o1].view(hid, n_in), flat[o1:o1 + hid],
+                         gw, gb)
 
 
-def _run(x, params, prep, meta, lazy, direction):
+def _run(x, params, prep, meta, mode, direction):
     if x.is_cuda:
-        return _launch(x, params, prep, meta, lazy, direction)
-    return block_plain(direction, x, params, prep, meta, lazy)
+        return _launch(x, params, prep, meta, mode, direction)
+    return block_plain(direction, x, params, prep, meta, mode)
 
 
-def _run_bwd(direction, res, params, g_out, g_ld, prep, meta, lazy):
+def _run_bwd(direction, res, params, g_out, g_ld, prep, meta, mode):
     if res.is_cuda:
         _, _, gx, grads = _launch_bwd(direction, res, params,
                                       g_out.contiguous(), g_ld.contiguous(),
-                                      prep, meta, lazy)
+                                      prep, meta, mode)
         return gx, grads
     return block_bwd_plain(direction, res, params, g_out, g_ld, prep, meta,
-                           lazy)
+                           mode)
 
 
 class _Block(torch.autograd.Function):
     """One forward entry point with the block backward: the density
     direction saves its input x, the sample direction its output y (as
-    ``_bdl2_fwd`` / ``_bsl2_fwd`` / ``_bdp_fwd`` / ``_bsp_fwd``)."""
+    ``_bdl_fwd`` / ``_bsl_fwd`` / ``_bdl2_fwd`` / ``_bsl2_fwd`` /
+    ``_bdp_fwd`` / ``_bsp_fwd``)."""
 
     @staticmethod
-    def forward(ctx, direction, lazy, prep, meta, x, *params):
-        out, ld = _run(x, params, prep, meta, lazy, direction)
-        ctx.setup = (direction, lazy, prep, meta)
+    def forward(ctx, direction, mode, prep, meta, x, *params):
+        out, ld = _run(x, params, prep, meta, mode, direction)
+        ctx.setup = (direction, mode, prep, meta)
         ctx.save_for_backward(x if direction == "density" else out, *params)
         return out, ld
 
     @staticmethod
     def backward(ctx, g_out, g_ld):
-        direction, lazy, prep, meta = ctx.setup
+        direction, mode, prep, meta = ctx.setup
         res, *params = ctx.saved_tensors
         g_out = torch.zeros_like(res) if g_out is None else g_out
         g_ld = torch.zeros_like(res) if g_ld is None else g_ld
         gx, grads = _run_bwd(direction, res, tuple(params), g_out, g_ld,
-                             prep, meta, lazy)
+                             prep, meta, mode)
         return (None, None, None, None, gx, *grads)
 
 
 def gf_block_density_perm(x, pvec, prep, meta):
     """x (B, d), pvec (P,) -> (base (B, d), ld (B, d))."""
-    return _Block.apply("density", False, prep, meta, x, pvec)
+    return _Block.apply("density", "perm", prep, meta, x, pvec)
 
 
 def gf_block_sample_perm(z, pvec, prep, meta):
     """z (B, d) base draws, pvec (P,) -> (target (B, d), ld (B, d))."""
-    return _Block.apply("sample", False, prep, meta, z, pvec)
+    return _Block.apply("sample", "perm", prep, meta, z, pvec)
+
+
+def gf_block_density_lazy(x, hidden, w, b, prep, meta):
+    """Amortized density block on precomputed hidden activations: x (B, d),
+    hidden (B, H), w (P, H), b (P,) -> (base (B, d), ld (B, d))
+    (``pallas_gf_block.py:625``, whose b is (P, 1))."""
+    return _Block.apply("density", "lazy", prep, meta, x, hidden, w, b)
+
+
+def gf_block_sample_lazy(z, hidden, w, b, prep, meta):
+    """Amortized sampling block on precomputed hidden activations (shapes as
+    gf_block_density_lazy; ``pallas_gf_block.py:647``)."""
+    return _Block.apply("sample", "lazy", prep, meta, z, hidden, w, b)
 
 
 def gf_block_density_lazy2(x, summary, w1, b1, w, b, prep, meta):
     """Fused-MLP density block: x (B, d), summary (B, In), w1 (H, In),
     b1 (H,), w (P, H), b (P,) -> (base (B, d), ld (B, d))."""
-    return _Block.apply("density", True, prep, meta, x, summary, w1, b1, w, b)
+    return _Block.apply("density", "lazy2", prep, meta, x, summary, w1, b1,
+                        w, b)
 
 
 def gf_block_sample_lazy2(z, summary, w1, b1, w, b, prep, meta):
     """Fused-MLP sampling block (see gf_block_density_lazy2)."""
-    return _Block.apply("sample", True, prep, meta, z, summary, w1, b1, w, b)
+    return _Block.apply("sample", "lazy2", prep, meta, z, summary, w1, b1,
+                        w, b)
 
 
-def _run_nll(x, params, prep, meta, lazy, wv, wl):
+def _run_nll(x, params, prep, meta, mode, wv, wl):
     if x.is_cuda:
-        return _launch_bwd("nll", x, params, None, None, prep, meta, lazy,
+        return _launch_bwd("nll", x, params, None, None, prep, meta, mode,
                            wv, wl)
-    return block_nll_plain(x, params, prep, meta, lazy, wv, wl)
+    return block_nll_plain(x, params, prep, meta, mode, wv, wl)
 
 
 def gf_block_nll_perm(x, pvec, prep, meta, wv, wl):
     """Fused NLL value and gradient, permanent parameters: the density
     forward and its VJP for the cotangents (wv * base, wl) in one call.
     Returns (base (B, d), ld (B, d), gx (B, d), (gpvec (P,),))."""
-    return _run_nll(x, (pvec,), prep, meta, False, wv, wl)
+    return _run_nll(x, (pvec,), prep, meta, "perm", wv, wl)
 
 
 def gf_block_nll_lazy2(x, summary, w1, b1, w, b, prep, meta, wv, wl):
     """Fused NLL value and gradient, fused-MLP parameters (shapes as
     gf_block_density_lazy2).  Returns (base, ld, gx, (gsummary (B, In),
     gw1 (H, In), gb1 (H,), gw (P, H), gb (P,)))."""
-    return _run_nll(x, (summary, w1, b1, w, b), prep, meta, True, wv, wl)
+    return _run_nll(x, (summary, w1, b1, w, b), prep, meta, "lazy2", wv, wl)

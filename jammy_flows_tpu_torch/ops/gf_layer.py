@@ -36,9 +36,11 @@ Every entry point takes (B, D) rows.  On a CUDA tensor it launches the
 hand-written kernel (csrc/gf_layer.cu: T4 forward, T5 sample, T6 inverse;
 csrc/gf_layer_bwd.cu: T7) and counts the launch in ``LAUNCHES``; on a CPU
 tensor it runs the plain PyTorch version below.  It never falls back from
-the kernel to the plain version.  The TPU's VMEM guards (``MAX_KERNEL_KD``,
-``MAX_KERNEL_H``) are not ported: beyond the kernel's own limits the wrapper
-raises.
+the kernel to the plain version.  The lazy interface takes every hidden
+width up to ``gf_block.MAX_KERNEL_H`` (1024); ``layers/euclidean.py`` routes
+a wider MLP to materialized rows, as the JAX package's ``lazy_kernel_eligible``
+does.  ``MAX_KERNEL_KD`` is not ported: beyond the kernel's own limits the
+wrapper raises.
 """
 from __future__ import annotations
 
@@ -145,10 +147,12 @@ def _declare(lib):
 def _declare_bwd(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.gf_layer_bwd_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p,
-                                        p, p, p, p, i, p, p]
+                                        p, p, p, p, i, p, p, p]
     lib.gf_layer_bwd_launch.restype = i
     lib.gf_layer_bwd_blocks.argtypes = [i, i, i, i]
     lib.gf_layer_bwd_blocks.restype = i
+    lib.gf_layer_bwd_scratch.argtypes = [i, i]
+    lib.gf_layer_bwd_scratch.restype = i
     lib.gf_layer_bwd_error_string.argtypes = [i]
     lib.gf_layer_bwd_error_string.restype = ctypes.c_char_p
 
@@ -257,9 +261,12 @@ def _launch_bwd(body, iface, x, params, g1, g2, ift, prep, kd):
         from . import cuda_build
         lib = cuda_build.load("gf_layer_bwd", _declare_bwd)
         n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-        n_blocks = lib.gf_layer_bwd_blocks(int(iface == "lazy"), b_rows, hid,
-                                           n_sm)
+        lazy = int(iface == "lazy")
+        n_blocks = lib.gf_layer_bwd_blocks(lazy, b_rows, hid, n_sm)
         partials = torch.zeros((n_blocks, n_flat), **f32)
+        # where the lazy dh columns do not fit in shared memory
+        n_scratch = n_blocks * lib.gf_layer_bwd_scratch(lazy, hid)
+        scratch = torch.empty(n_scratch, **f32) if n_scratch else None
         c_ints, c_floats = _c_arrays([int(body == "sample")] + ints, floats)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
@@ -268,7 +275,8 @@ def _launch_bwd(body, iface, x, params, g1, g2, ift, prep, kd):
                 gx.data_ptr(), *ptrs,
                 0 if gslab is None else gslab.data_ptr(),
                 0 if gh is None else gh.data_ptr(), partials.data_ptr(),
-                n_blocks, flat.data_ptr(), stream)
+                n_blocks, 0 if scratch is None else scratch.data_ptr(),
+                flat.data_ptr(), stream)
         if rc != 0:
             msg = lib.gf_layer_bwd_error_string(rc).decode()
             raise RuntimeError(f"gf_layer_bwd kernel launch failed ({rc}): "

@@ -5,10 +5,11 @@ slab ``hidden @ w.T + b`` is never formed where a kernel takes its factors.
 
 * The whole-block kernel's fused-MLP ("lazy2") mode reads ``summary``, ``w1``
   and ``b1`` and makes ``hidden = tanh(summary @ w1.T + b1)`` itself.
-* The per-layer kernels' lazy interface (``ops/gf_layer.py``) reads the
-  precomputed ``hidden`` (B, H), made once per sub-pdf by
-  ``AmortizableMLP.apply_penultimate``, and the rows of ``w`` / ``b`` of the
-  layer's mixture groups.
+* The whole-block kernel's "lazy" mode (``ops/gf_block.py``, for an MLP of
+  more hidden layers or a summary wider than 128) and the per-layer kernels'
+  lazy interface (``ops/gf_layer.py``) read the precomputed ``hidden``
+  (B, H), made once per sub-pdf by ``AmortizableMLP.apply_penultimate``, and
+  the rows of ``w`` / ``b`` (the block's all, a layer's its mixture groups').
 
 Column slices (the per-layer splits of the orchestrator) slice rows of ``w``
 and ``b``.  Layers without a lazy interface materialize the rows they need.

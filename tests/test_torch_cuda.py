@@ -1,6 +1,9 @@
-"""The CUDA block kernels on the card, held against their plain PyTorch
-versions: the forward (csrc/gf_block.cu), the backward and the fused NLL
-(csrc/gf_block_bwd.cu), and gradients through every entry point.
+"""The CUDA kernels on the card, held against their plain PyTorch versions:
+the block forward (csrc/gf_block.cu), its backward and the fused NLL
+(csrc/gf_block_bwd.cu) in every parameter mode, gradients through every
+entry point, the per-layer kernels (csrc/gf_layer*.cu), every backward
+kernel at the widest hidden layer the routing sends to it (H = 1024), and
+the chain-rate probe (csrc/chain_peak.cu).
 
 Every test here needs a CUDA device and skips without one.  The file imports
 no JAX, so on a machine with the card it runs without the JAX package:
@@ -60,8 +63,7 @@ def _check_block(p, k, dev, direction, n=4096, seed=0):
     before = gb.LAUNCHES[name]
     out, ld = getattr(gb, f"gf_block_{name}")(x, *params, prep, meta)
     assert gb.LAUNCHES[name] == before + 1
-    ref_out, ref_ld = gb.block_plain(direction, x, params, prep, meta,
-                                     mode == "lazy2")
+    ref_out, ref_ld = gb.block_plain(direction, x, params, prep, meta, mode)
     torch.cuda.synchronize()
     assert torch.isfinite(out).all() and torch.isfinite(ld).all()
     assert float((out - ref_out).abs().max()) < TOL[direction]
@@ -144,31 +146,15 @@ def _check_bwd(p, k, dev, n, seed=0):
     equal the forward kernel's."""
     prep, meta = p._block_meta[k]
     mode, x, params = _block_args(p, k, n, seed, dev)
-    lazy = mode == "lazy2"
-    g = torch.Generator(device=dev).manual_seed(seed + 1)
-    g_out = torch.randn(x.shape, generator=g, device=dev)
-    g_ld = torch.randn(x.shape, generator=g, device=dev)
-    for direction in ("density", "sample"):
-        res = x if direction == "density" else getattr(
-            gb, f"gf_block_sample_{mode}")(x, *params, prep, meta)[0]
-        name = f"{direction}_bwd_{mode}"
-        before = gb.LAUNCHES[name]
-        _, _, gx, gp = gb._launch_bwd(direction, res, params, g_out, g_ld,
-                                      prep, meta, lazy)
-        assert gb.LAUNCHES[name] == before + 1
-        ref_gx, ref_gp = gb.block_bwd_plain(direction, res, params, g_out,
-                                            g_ld, prep, meta, lazy)
-        torch.cuda.synchronize()
-        for got, ref in zip((gx, *gp), (ref_gx, *ref_gp)):
-            assert got.shape == ref.shape and torch.isfinite(got).all()
-            assert _rel(got, ref) < TOL_GRAD[direction], (name, _rel(got, ref))
+    _check_bwd_mode(x, params, prep, meta, mode, dev, ("density", "sample"),
+                    seed=seed + 1)
     wv, wl = 1.0 / n, -1.0 / n
     before = gb.LAUNCHES[f"nll_{mode}"]
     val, ld, gx, gp = getattr(gb, f"gf_block_nll_{mode}")(
         x, *params, prep, meta, wv, wl)
     assert gb.LAUNCHES[f"nll_{mode}"] == before + 1
     out, ld1 = getattr(gb, f"gf_block_density_{mode}")(x, *params, prep, meta)
-    ref = gb.block_nll_plain(x, params, prep, meta, lazy, wv, wl)
+    ref = gb.block_nll_plain(x, params, prep, meta, mode, wv, wl)
     torch.cuda.synchronize()
     assert torch.equal(val, out) and torch.equal(ld, ld1)
     for got, r in zip((gx, *gp), (ref[2], *ref[3])):
@@ -265,10 +251,11 @@ IFTS = ("isigmoid", "inormal_partly_precise", "inormal_partly_crude",
         "inormal_full_pade")
 
 
-def _layer_case(iface, per_row, skew, k, d, n, dev, seed=0, fit=1):
+def _layer_case(iface, per_row, skew, k, d, n, dev, seed=0, fit=1, hid=24):
     """(params, prep, kd) of one per-layer call with parameters drawn from a
     seed: prepared (means, inverse widths, log weights), raw slabs or lazy
-    (hidden, wcat, bcat)."""
+    (hidden, wcat, bcat; w scaled so that a row's parameters keep their
+    spread at any hidden width)."""
     rng = np.random.default_rng(seed)
     signs = tuple([1.0] * (k // 2) + [-1.0] * (k - k // 2))
     prep = (width_regulator_fn(0, 1, 0.01, 100, 0), None, bool(fit),
@@ -287,8 +274,7 @@ def _layer_case(iface, per_row, skew, k, d, n, dev, seed=0, fit=1):
         [rng.normal(size=shp)] * fit + [0.8 * rng.normal(size=shp)] * skew
     if iface == "raw":
         return tuple(t(g) for g in groups), prep, None
-    hid = 24
-    w = 0.2 * rng.normal(size=(len(groups) * k * d, hid))
+    w = 0.2 * np.sqrt(24 / hid) * rng.normal(size=(len(groups) * k * d, hid))
     b = np.concatenate([g.reshape(-1) for g in groups])
     return (t(np.tanh(rng.normal(size=(n, hid)))), t(w), t(b)), prep, (k, d)
 
@@ -431,3 +417,152 @@ def test_per_layer_flagship_on_card(dev, opts):
     par64 = {k: v.double().cpu() for k, v in par.items()}
     lp64 = p_cpu.log_prob(par64, x.double().cpu())[0]
     assert float((lp.double().cpu() - lp64).abs().max()) < 1e-3
+
+
+# ---------------------------------------------------------------------------
+# the block's lazy mode (precomputed hidden), every backward kernel at the
+# widest hidden layer the routing sends to it, the chain-rate probe (T8)
+# ---------------------------------------------------------------------------
+
+def _lazy_args(p, k, n, seed, dev):
+    """Inputs of sub-manifold k's block in the lazy mode: x and (hidden, w,
+    b), the hidden activations made by the block's own (jittered) MLP from a
+    random summary."""
+    rng = np.random.default_rng(seed)
+    d = p._block_meta[k][1][1]
+    x = torch.as_tensor(0.8 * rng.normal(size=(n, d)), dtype=torch.float32,
+                        device=dev)
+    mlp = p.mlp_predictors[k]
+    flat = p.init_params(seed=0)[f"mlp_{k}"]
+    flat = flat + 0.02 * torch.randn(flat.shape, device=dev)
+    summary = torch.randn((n, mlp.input_dim), device=dev)
+    hidden = mlp.apply_penultimate(flat, summary).contiguous()
+    w, b = mlp.final_layer_weights(flat)
+    return x, (hidden, w.contiguous(), b.contiguous())
+
+
+def _check_bwd_mode(x, params, prep, meta, mode, dev, directions, seed=1):
+    """T2 in ``directions`` (the sample body at the forward kernel's output)
+    against block_bwd_plain, one counted launch each."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    g_out = torch.randn(x.shape, generator=g, device=dev)
+    g_ld = torch.randn(x.shape, generator=g, device=dev)
+    suffix = gb._COUNTER[mode]
+    for direction in directions:
+        res = x if direction == "density" else gb._launch(
+            x, params, prep, meta, mode, "sample")[0]
+        name = f"{direction}_bwd_{suffix}"
+        before = gb.LAUNCHES[name]
+        _, _, gx, gp = gb._launch_bwd(direction, res, params, g_out, g_ld,
+                                      prep, meta, mode)
+        assert gb.LAUNCHES[name] == before + 1
+        ref_gx, ref_gp = gb.block_bwd_plain(direction, res, params, g_out,
+                                            g_ld, prep, meta, mode)
+        torch.cuda.synchronize()
+        for got, ref in zip((gx, *gp), (ref_gx, *ref_gp)):
+            assert got.shape == ref.shape and torch.isfinite(got).all()
+            assert _rel(got, ref) < TOL_GRAD[direction], (name, _rel(got, ref))
+
+
+def test_lazy_mode_kernels_match_plain(dev):
+    """The lazy mode on the "64-64" flagship's block 2 (a 10-wide summary,
+    64-wide hidden), a ragged batch: both forward kernels and both backward
+    bodies against the plain versions; no fused NLL in this mode."""
+    p = pdf(*FLAGSHIP, conditional_input_dim=3, amortization_mlp_dims="64-64",
+            device=dev)
+    prep, meta = p._block_meta[2]
+    x, params = _lazy_args(p, 2, 4099, 0, dev)
+    for direction in ("density", "sample"):
+        name = f"{direction}_lazyh"
+        before = gb.LAUNCHES[name]
+        out, ld = getattr(gb, f"gf_block_{direction}_lazy")(x, *params, prep,
+                                                            meta)
+        assert gb.LAUNCHES[name] == before + 1
+        ref_out, ref_ld = gb.block_plain(direction, x, params, prep, meta,
+                                         "lazy")
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all() and torch.isfinite(ld).all()
+        assert float((out - ref_out).abs().max()) < TOL[direction]
+        assert float((ld - ref_ld).abs().max()) < TOL[direction]
+    _check_bwd_mode(x, params, prep, meta, "lazy", dev, ("density", "sample"))
+    with pytest.raises(ValueError):
+        gb._launch_bwd("nll", x, params, None, None, prep, meta, "lazy",
+                       1.0, -1.0)
+
+
+@pytest.mark.parametrize("kernel", ["t2_lazy2", "t3_lazy2", "t2_lazy",
+                                    "t7_lazy"])
+def test_backward_kernels_at_the_widest_hidden_layer(dev, kernel):
+    """H = 1024 (MAX_KERNEL_H): the hidden and dh columns no longer fit in
+    shared memory together, so dh goes to a global scratch; every backward
+    kernel the routing sends such an MLP to launches and matches its plain
+    version on 4,096 rows (T2 lazy2 and lazy both bodies, T3 lazy2, T7 lazy
+    both bodies)."""
+    n = 4096
+    if kernel == "t7_lazy":
+        params, prep, lkd = _layer_case("lazy", False, 0, 10, 4, n, dev,
+                                        hid=1024)
+        rng = np.random.default_rng(3)
+        x, g1, g2 = (torch.as_tensor(rng.normal(size=(n, 4)),
+                                     dtype=torch.float32, device=dev)
+                     for _ in range(3))
+        for body in ("forward", "sample"):
+            res = x if body == "forward" else gl._run(
+                "sample", "lazy", x, params, "isigmoid", prep, lkd)[0]
+            name = f"{body}_bwd_lazy"
+            before = gl.LAUNCHES[name]
+            gx, gp = gl._launch_bwd(body, "lazy", res, params, g1, g2,
+                                    "isigmoid", prep, lkd)
+            assert gl.LAUNCHES[name] == before + 1
+            rgx, rgp = gl.layer_bwd_plain(body, "lazy", res, params, g1, g2,
+                                          "isigmoid", prep, lkd)
+            torch.cuda.synchronize()
+            for got, ref in zip((gx, *gp), (rgx, *rgp)):
+                assert got.shape == ref.shape and torch.isfinite(got).all()
+                tol = TOL_GRAD["density" if body == "forward" else "sample"]
+                assert _rel(got, ref) < tol, (name, _rel(got, ref))
+        return
+    p = pdf("e4", "gggg", conditional_input_dim=3,
+            amortization_mlp_dims="1024", device=dev)
+    prep, meta = p._block_meta[0]
+    if kernel == "t2_lazy":
+        x, params = _lazy_args(p, 0, n, 0, dev)
+        assert params[0].shape == (n, 1024)
+        _check_bwd_mode(x, params, prep, meta, "lazy", dev,
+                        ("density", "sample"))
+        return
+    mode, x, params = _block_args(p, 0, n, 0, dev)
+    assert mode == "lazy2" and params[1].shape[0] == 1024
+    if kernel == "t2_lazy2":
+        _check_bwd_mode(x, params, prep, meta, mode, dev,
+                        ("density", "sample"))
+        return
+    wv, wl = 1.0 / n, -1.0 / n
+    before = gb.LAUNCHES["nll_lazy2"]
+    val, ld, gx, gp = gb.gf_block_nll_lazy2(x, *params, prep, meta, wv, wl)
+    assert gb.LAUNCHES["nll_lazy2"] == before + 1
+    ref = gb.block_nll_plain(x, params, prep, meta, mode, wv, wl)
+    torch.cuda.synchronize()
+    assert float((val - ref[0]).abs().max()) < TOL["density"]
+    for got, r in zip((gx, *gp), (ref[2], *ref[3])):
+        assert torch.isfinite(got).all()
+        assert _rel(got, r) < TOL_GRAD["nll"]
+
+
+def test_chain_probe_kernels_match_plain(dev):
+    """T8: each op's chain kernel against the plain chain (16 steps on the
+    probe's 1,048,576 elements, spread over [start, start + 0.1]), one
+    counted launch each; the probe's slope gives a positive rate."""
+    from jammy_flows_tpu_torch.tools import transcendental_peak as tp
+    for op in tp.OPS:
+        x0 = tp.initial(op, dev)
+        x = x0 + 0.1 * torch.rand(x0.shape, device=dev)
+        before = tp.LAUNCHES[f"chain_{op}"]
+        got = tp.chain(x, op, 16)
+        assert tp.LAUNCHES[f"chain_{op}"] == before + 1
+        ref = tp.chain_plain(x, op, 16)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        assert float((got - ref).abs().max()) < 1e-5, op
+    rate, t_lo, t_hi = tp.measure_peak("fma", dev)
+    assert rate > 0 and t_hi > t_lo

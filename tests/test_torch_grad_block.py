@@ -109,12 +109,13 @@ def test_block_bwd_plain_matches_interpret_kernel(blocks, direction, lazy):
     (jprep, jmeta), (tprep, tmeta) = blocks
     a = _inputs(tmeta, seed=5)
     params = _params(a, lazy)
+    mode = "lazy2" if lazy else "perm"
     res = torch.as_tensor(a["x"])
     if direction == "sample":
-        res = tblk.block_plain("sample", res, params, tprep, tmeta, lazy)[0]
+        res = tblk.block_plain("sample", res, params, tprep, tmeta, mode)[0]
     g_out, g_ld = torch.as_tensor(a["g_out"]), torch.as_tensor(a["g_ld"])
     gx, gp = tblk.block_bwd_plain(direction, res, params, g_out, g_ld, tprep,
-                                  tmeta, lazy)
+                                  tmeta, mode)
     jgx, jgp = jblk._run_block_bwd(
         jnp.asarray(res.numpy()), _jax_cols(a, lazy), jnp.asarray(a["g_out"]),
         jnp.asarray(a["g_ld"]), jprep, jmeta, "lazy2" if lazy else False,
@@ -157,7 +158,8 @@ def test_block_nll_plain_matches_interpret_kernel(blocks, lazy):
         else:
             assert _rel(got.numpy(), ref) < TOL["nll"]
     # the fused call's values are the forward entry point's
-    fwd = tblk.block_plain("density", x, params, tprep, tmeta, lazy)
+    fwd = tblk.block_plain("density", x, params, tprep, tmeta,
+                           "lazy2" if lazy else "perm")
     assert float((val - fwd[0]).abs().max()) < TOL_VALUES
     assert float((ld - fwd[1]).abs().max()) < TOL_VALUES
 
@@ -176,6 +178,6 @@ def test_entry_points_take_gradients_through_the_block(blocks, direction):
     got = torch.autograd.grad((out, ld), [x, *params], (g_out, g_ld))
     res = x.detach() if direction == "density" else out.detach()
     ref_gx, ref_gp = tblk.block_bwd_plain(direction, res, tuple(
-        p.detach() for p in params), g_out, g_ld, tprep, tmeta, True)
+        p.detach() for p in params), g_out, g_ld, tprep, tmeta, "lazy2")
     for g, r in zip(got, (ref_gx, *ref_gp)):
         assert torch.equal(g, r)

@@ -125,11 +125,12 @@ def test_f32_block_route_matches_interpret_kernels(interpret_mode, cond):
 @pytest.mark.parametrize("direction", ["density", "sample"])
 def test_f32_wide_summary_takes_the_block_op(interpret_mode, monkeypatch,
                                              direction):
-    """A 200-wide conditional input still takes the fused lazy2 block op (the
-    kernel has no summary-width limit) and matches the JAX package's f32
-    path, its Pallas kernels in interpret mode."""
+    """A 200-wide conditional input takes the block op's lazy mode
+    (precomputed hidden), not the fused lazy2 one, as the JAX package
+    routes a summary wider than 128 (``pdf.py:502-503``), and matches the
+    JAX package's f32 path, its Pallas kernels in interpret mode."""
     from jammy_flows_tpu_torch.ops import gf_block as tblk
-    name = f"gf_block_{direction}_lazy2"
+    name = f"gf_block_{direction}_lazy"
     calls = []
     fn = getattr(tblk, name)
     monkeypatch.setattr(tblk, name, lambda *a: calls.append(1) or fn(*a))
