@@ -201,9 +201,16 @@ CHAIN_OPS = {"exp": 2, "log": 3, "softplus": 7, "sin": 2, "arccos": 3,
              "fma": 2}
 CHAIN_CHECK_STEPS = 16
 TOL_CHAIN = 1e-5                 # f32 library differences over 16 steps
-# H100 SXM peaks (NVIDIA data sheet): FP32 on the CUDA cores, HBM3
+# H100 SXM peaks (NVIDIA data sheet): FP32 on the CUDA cores, HBM3, and
+# dense TF32 on the tensor cores, of which a 3xTF32 product takes three
+# passes
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+PEAK_3XTF32_FLOPS = 495e12 / 3
+# the kernels whose parameter rows are 3xTF32 tile products
+# (csrc/gf_block_src.cuh TileSrc): lazy2 forward and backward
+TILE_KERNELS = ("density_lazy2", "sample_lazy2", "density_bwd_lazy2",
+                "sample_bwd_lazy2", "nll_lazy2")
 
 
 def log(msg):
@@ -438,6 +445,97 @@ def bound_ms(flops, byts):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def product_flops(name, n, p_rows, hid):
+    """The P x H parameter-row products inside a lazy kernel call's work()
+    / layer_work() count on n rows: the rows w . hidden (2 P H per row) and,
+    in a backward, dh = w^T dp and gw = sum_rows dp x hidden (4 P H more).
+    The part of the work the tensor cores can take."""
+    bwd = name.startswith("nll") or "_bwd_" in name
+    return (2 + 4 * bwd) * p_rows * hid * n
+
+
+def tc_bound_ms(flops, byts, products):
+    """The bound with the P x H products on the tensor cores in 3xTF32
+    (495 / 3 TFLOP/s) and the rest of the operations at the FP32 rate: the
+    least the card could take for the same work now that the products can
+    run there."""
+    t_ops = ((flops - products) / PEAK_F32_FLOPS
+             + products / PEAK_3XTF32_FLOPS) * 1e3
+    return max(t_ops, byts / PEAK_BYTES * 1e3)
+
+
+def products_matmul_ms(name, n, p_rows, hid, dev):
+    """A yardstick the port never calls: the P x H products of a lazy2 call
+    alone, as torch.matmul in float32 at "highest" precision (no TF32) at
+    the kernel's shapes: the rows (n, H) @ (H, P) and, in a backward,
+    dh = (n, P) @ (P, H) and gw = (P, n) @ (n, H).  Median of 5."""
+    torch.set_float32_matmul_precision("highest")
+    g = torch.Generator(device=dev).manual_seed(90)
+    hidden = torch.randn((n, hid), generator=g, device=dev)
+    w = torch.randn((p_rows, hid), generator=g, device=dev)
+    dp = torch.randn((n, p_rows), generator=g, device=dev)
+    bwd = name.startswith("nll") or "_bwd_" in name
+
+    def run():
+        torch.matmul(hidden, w.T)
+        if bwd:
+            torch.matmul(dp, w)
+            torch.matmul(dp.T, hidden)
+
+    ms = cuda_ms(run, 5)
+    del hidden, w, dp
+    torch.cuda.empty_cache()
+    return ms
+
+
+def cuobjdump_path():
+    from jammy_flows_tpu_torch.ops import cuda_build
+    import pathlib
+    return str(pathlib.Path(cuda_build.nvcc_path()).parent / "cuobjdump")
+
+
+def tile_kernel_report(built, card):
+    """After the build: each lazy2 kernel's TF32 HMMA instructions in the
+    SASS of its built library (cuobjdump -sass), and its blocks per SM at
+    the flagship's H = 128 (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+    Fails when a lazy2 kernel has no TF32 HMMA."""
+    from jammy_flows_tpu_torch import pdf
+    from jammy_flows_tpu_torch.ops import gf_block as gb
+    # gf_block_density_kernel<MODE, KT, DT>, gf_block_bwd_kernel<KIND,
+    # MODE, DHG, KT, DT>: MODE 1 is lazy2
+    pats = {"gf_block": (r"gf_block_(density|sample)_kernelILi1ELi(\d+)ELi",
+                         lambda m: f"{m.group(1)}_lazy2"),
+            "gf_block_bwd": (r"gf_block_bwd_kernelILi(\d)ELi1ELb\dELi(\d+)ELi",
+                             lambda m: ("density_bwd_lazy2",
+                                        "sample_bwd_lazy2",
+                                        "nll_lazy2")[int(m.group(1))])}
+    found = {}
+    for lib_name, (pat, kernel) in pats.items():
+        sass = subprocess.run([cuobjdump_path(), "-sass",
+                               str(built[lib_name][0])], capture_output=True,
+                              text=True, check=True, timeout=600).stdout
+        for fn, body in re.findall(r"Function : (\S+)\n(.*?)(?=Function : |\Z)",
+                                   sass, re.S):
+            m = re.search(pat, fn)
+            if m:
+                n = len(re.findall(r"HMMA\.\S*TF32", body))
+                shape = "K=10, d=4" if m.group(2) == "10" else "generic"
+                log(f"SASS {kernel(m)} ({shape}): {n} TF32 HMMA "
+                    f"instructions")
+                found[(kernel(m), shape)] = n
+    missing = [k for k in TILE_KERNELS for shape in ("K=10, d=4", "generic")
+               if not found.get((k, shape))]
+    if missing:
+        raise AssertionError(f"no TF32 HMMA in the SASS of {missing}")
+    p = pdf(*FLAGSHIP, device="cpu")
+    prep, meta = p._block_meta[2]
+    for name in TILE_KERNELS:
+        blocks, threads, smem = gb.kernel_occupancy(name, prep, meta, 128)
+        log(f"occupancy {name} (H = 128) on {card}: {blocks} blocks of "
+            f"{threads} threads = {blocks * threads // 32} warps per SM, "
+            f"{smem} B of shared memory a block")
+
+
 def entry_row(name, args, by_path, err, card):
     """Time block entry point ``name`` (T1) on one recorded call's own
     inputs: kernel, plain version, bound; returns its JSON row."""
@@ -450,15 +548,25 @@ def entry_row(name, args, by_path, err, card):
     n_in, hid = mlp_widths(mode, params)
     flops, byts = work(counter(name), x.shape[0], meta, n_in, hid)
     b_ms, b_by = bound_ms(flops, byts)
+    p_rows = gb.block_rows(*meta)
+    tc_ms = tc_bound_ms(flops, byts, product_flops(name, x.shape[0], p_rows,
+                                                   hid))
     log(f"{name} at {x.shape[0]} rows on {card}: kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
-        f"{flops:.4g} flop, {byts:.4g} B)")
-    return {"name": f"gf_block_{name}", "route": "cuda",
-            "source": "jammy_flows_tpu_torch/csrc/gf_block.cu",
-            "replaces": "jammy_flows_tpu/ops/pallas_gf_block.py:489",
-            "launches": sum(by_path.values()), "launches_by_path": by_path,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        f"{flops:.4g} flop, {byts:.4g} B), tensor-core bound {tc_ms:.4f} ms")
+    row = {"name": f"gf_block_{name}", "route": "cuda",
+           "source": "jammy_flows_tpu_torch/csrc/gf_block.cu",
+           "replaces": "jammy_flows_tpu/ops/pallas_gf_block.py:489",
+           "launches": sum(by_path.values()), "launches_by_path": by_path,
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "tc_bound_ms": tc_ms,
+           "library_ms": None}
+    if counter(name) in TILE_KERNELS:
+        row["products_matmul_ms"] = products_matmul_ms(name, x.shape[0],
+                                                       p_rows, hid, x.device)
+        log(f"{name}: its P x H products alone as torch.matmul (f32, "
+            f"highest) {row['products_matmul_ms']:.4f} ms (a yardstick)")
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -916,9 +1024,13 @@ def time_bwd_kernels(names, calls, launches_by_path, errs, card):
         n_in, hid = mlp_widths(mode, params)
         flops, byts = work(name, x.shape[0], meta, n_in, hid)
         b_ms, b_by = bound_ms(flops, byts)
+        p_rows = gb.block_rows(*meta)
+        tc_ms = tc_bound_ms(flops, byts, product_flops(name, x.shape[0],
+                                                       p_rows, hid))
         log(f"{name} at {x.shape[0]} rows on {card}: kernel {ms:.4f} "
             f"ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
-            f"{flops:.4g} flop, {byts:.4g} B)")
+            f"{flops:.4g} flop, {byts:.4g} B), tensor-core bound "
+            f"{tc_ms:.4f} ms")
         by_path = {f"{cfg} {what}": n[name]
                    for cfg, paths in launches_by_path.items()
                    for what, n in paths.items() if n[name]}
@@ -931,7 +1043,14 @@ def time_bwd_kernels(names, calls, launches_by_path, errs, card):
                      "launches_by_path": by_path,
                      "max_abs_err": errs[name],
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": None})
+                     "bound_by": b_by, "tc_bound_ms": tc_ms,
+                     "library_ms": None})
+        if name in TILE_KERNELS:
+            rows[-1]["products_matmul_ms"] = products_matmul_ms(
+                name, x.shape[0], p_rows, hid, x.device)
+            log(f"{name}: its P x H products alone as torch.matmul (f32, "
+                f"highest) {rows[-1]['products_matmul_ms']:.4f} ms (a "
+                f"yardstick)")
     return rows
 
 
@@ -1199,12 +1318,14 @@ def time_layer_call(call, card):
     flops, byts = layer_work(name, x.shape[0], k, d, ift, skew, per_row,
                              n_groups, hid)
     b_ms, b_by = bound_ms(flops, byts)
+    tc_ms = tc_bound_ms(flops, byts, product_flops(name, x.shape[0],
+                                                   n_groups * k * d, hid))
     log(f"{name} ({ift}, {'per-row' if per_row else 'broadcast'}"
         f"{', skewed' if skew else ''}) at {x.shape[0]} rows on {card}: "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of "
         f"{PLAIN_REPS}), bound {b_ms:.4f} ms ({b_by}: {flops:.4g} flop, "
-        f"{byts:.4g} B)")
-    return ms, plain_ms, b_ms, b_by
+        f"{byts:.4g} B), tensor-core bound {tc_ms:.4f} ms")
+    return ms, plain_ms, b_ms, b_by, tc_ms
 
 
 def time_layer_kernels(calls, launches, errs, card):
@@ -1214,7 +1335,7 @@ def time_layer_kernels(calls, launches, errs, card):
     centred amortized block) is timed too, for the log."""
     rows = []
     for name in LAYER_ENTRY + LAYER_BWD:
-        ms, plain_ms, b_ms, b_by = time_layer_call(
+        ms, plain_ms, b_ms, b_by, tc_ms = time_layer_call(
             next(c for c in calls if c[0] == name), card)
         by_path = {f"{cfg} {what}": n[name]
                    for cfg, paths in launches.items()
@@ -1229,10 +1350,19 @@ def time_layer_kernels(calls, launches, errs, card):
                      "launches_by_path": by_path,
                      "max_abs_err": errs[name],
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": None})
+                     "bound_by": b_by, "tc_bound_ms": tc_ms,
+                     "library_ms": None})
     for name in ("forward_prepared", "inverse_prepared"):
         time_layer_call(next(c for c in calls if c[0] == name
                              and c[3][1][0].ndim == 3), card)
+    # T6's raw interface has no caller in either package: its bound from
+    # the shapes of one flagship layer (K = 10, d = 4, broadcast raw means,
+    # log-widths and log-norms) at the serving batch
+    flops, byts = layer_work("inverse_raw", N_SAMPLE_UNCOND, 10, 4,
+                             "inormal_partly_precise", False, False, 3, 0)
+    b_ms, b_by = bound_ms(flops, byts)
+    log(f"inverse_raw (never called) at {N_SAMPLE_UNCOND} rows: bound "
+        f"{b_ms:.4f} ms ({b_by}: {flops:.4g} flop, {byts:.4g} B)")
     return rows
 
 
@@ -1474,8 +1604,8 @@ def chain_phase(dev, card):
                      "replaces": "tools/transcendental_peak.py:89",
                      "launches": launches[f"chain_{op}"],
                      "max_abs_err": err, "ms": t_hi, "plain_ms": plain_ms,
-                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                     "steps_per_s": rate})
+                     "bound_ms": b_ms, "bound_by": b_by, "tc_bound_ms": b_ms,
+                     "library_ms": None, "steps_per_s": rate})
     fma = 2 * peaks["fma"][0]
     log(f"measured rates on {card}: FMA {fma:.6g} FLOP/s "
         f"({fma / PEAK_F32_FLOPS:.4f} of the {PEAK_F32_FLOPS:.3g} FLOP/s "
@@ -1505,6 +1635,7 @@ def main():
             else f"loaded cached library {lib.name} (not rebuilt)")
     for line in ptxas_summary("".join(ptxas)):
         log(line)
+    tile_kernel_report(built, card)
     dev = torch.device("cuda", torch.cuda.current_device())
 
     p_u = pdf(*FLAGSHIP, device=dev)

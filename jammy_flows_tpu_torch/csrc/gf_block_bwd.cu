@@ -22,34 +22,38 @@
 // partials by a three-tangent dual number, gf_common.cuh), and in lazy2 /
 // lazy spends 2*P*H flops on the parameter rows, 2*P*H on the hidden
 // cotangent dh = w^T dp and 2*P*H on gw = sum_rows dp (x) hidden: ~3x the
-// forward's MLP work, on the CUDA cores in f32.  Bytes: x, the cotangents,
-// the summary (lazy: hidden and ghidden) and gx per row, plus each block's
-// partial gradients (P*H floats), read and written once per staged row
-// group through L2.
+// forward's MLP work.  Bytes: x, the cotangents, the summary (lazy: hidden
+// and ghidden) and gx per row, plus each block's partial gradients (P*H
+// floats), read and written once per tile through L2.
 //
-// Design, simple first:
-//   * one thread per batch row, 128-row tiles; a fixed grid of persistent
-//     blocks walks the tiles in a fixed order, so the run is deterministic;
+// Design:
+//   * one thread per batch row; a fixed grid of persistent blocks (two per
+//     SM) walks the tiles in a fixed order, so the run is deterministic;
 //   * per row, the forward's per-layer inputs (L*d floats) are kept and the
 //     layers swept in reverse;
-//   * parameter-row cotangents dp (one mixture's 3K rows, one reflection's
-//     or offset's d rows) are staged for the block's 128 rows in shared
-//     memory; the block then adds sum_rows dp to its private partial of
-//     gb / gpvec and (lazy2, lazy) sum_rows dp * hidden[h] to its partial
-//     of gw, thread h owning column h (hidden and dh columns padded to 129
-//     floats, conflict-free), and each thread adds w^T dp to its row's dh
-//     column;
-//   * the tile shrinks to 64 or 32 rows while both columns do not fit in
-//     shared memory; where they do not fit at 32 rows (H > 864) the dh
-//     columns move to a per-block scratch in global memory (the same
-//     layout, each thread still on its own column), so every H the routing
-//     sends here (<= 1024, models/pdf.py) launches;
+//   * lazy2 (TileSrc, gf_block_src.cuh): the parameter rows come from the
+//     forward's own tile stage (3xTF32 tensor-core products into shared
+//     slabs), in the recomputation and again in the reverse sweep; each
+//     row writes its cotangents over its own slab entries, then the block
+//     adds the piece to dh (dh += dp . w_piece) and to its partial gw
+//     (gw_piece += dp^T . hidden), both 3xTF32 mma.sync products, and to
+//     gb (sum over the tile's rows).  dh lives in the block's global
+//     scratch (L2), so that two 128-row blocks (8 warps) share an SM at
+//     H = 128; the tile shrinks to 64 or 32 rows above H = 454;
+//   * perm and lazy: parameter-row cotangents dp (one mixture's 3K rows,
+//     one reflection's or offset's d rows) are staged for the block's rows
+//     in shared memory; the block then adds sum_rows dp to its private
+//     partial of gb / gpvec and (lazy) sum_rows dp * hidden[h] to its
+//     partial of gw, thread h owning column h (hidden and dh columns
+//     padded to 129 floats, conflict-free), and each thread adds w^T dp to
+//     its row's dh column; the lazy tile shrinks to 64 or 32 rows while
+//     both columns do not fit in shared memory, and where they do not fit
+//     at 32 rows (H > 864) the dh columns move to the block's scratch;
 //   * lazy2 ends each tile with dh * (1 - hidden^2) -> gsummary per row and
 //     the block's gb1 / gw1 partials; lazy ends it with dh -> ghidden per
 //     row (coalesced: consecutive threads write consecutive h);
 //   * a second small kernel sums the blocks' partials in block order
 //     (two-stage reduction, no atomics).
-// Tensor cores for the three MLP products are later work.
 #include <cuda_runtime.h>
 
 #include "gf_block_src.cuh"
@@ -74,38 +78,25 @@ struct BwdArgs {
   int hs;             // stride of a hidden / dh row
 };
 
-// shared memory of one block (dh: shared, or the block's global scratch)
+// a block's working memory: the hidden and dh columns (lazy: shared, dh
+// possibly the block's global scratch; lazy2: TileSrc's hidden and the
+// scratch) and the staged row cotangents (perm, lazy)
 struct Stage {
-  float* hid;  // lazy2, lazy: (H, hs)
-  float* dh;   // lazy2, lazy: (H, hs)
-  float* dp;   // (STAGE, blockDim.x)
-  int* prow;   // (STAGE,)
-};
-
-// rows of one mixture group: [means | raw log-widths | raw log-norms]
-struct MixRows {
-  int m0, lw0, ln0, K, D, dd;
-  __device__ int operator()(int j) const {
-    const int g = j / K, k = j - g * K;
-    return (g == 0 ? m0 : (g == 1 ? lw0 : ln0)) + k * D + dd;
-  }
-};
-
-// a contiguous span of rows (one offset, one householder vector)
-struct SpanRows {
-  int r0;
-  __device__ int operator()(int j) const { return r0 + j; }
+  float* hid;  // lazy2, lazy: (H or Hp, hs)
+  float* dh;   // lazy2, lazy: (H or Hp, hs)
+  float* dp;   // perm, lazy: (STAGE, blockDim.x)
+  int* prow;   // perm, lazy: (STAGE,)
 };
 
 // Add the staged rows' cotangents (cnt rows, one per block row in each)
-// to the block's partials.
+// to the block's partials (perm: gpvec; lazy: [gw | gb]).
 template <int MODE>
 __device__ void flush(const BwdArgs& A, const Stage& st, int cnt) {
   const BlockArgs& a = A.a;
   const int T = blockDim.x, tid = threadIdx.x;
   float* part = A.partials + (size_t)blockIdx.x * A.G;
-  if (MODE != PERM) {
-    float* pw = part + (MODE == LAZY2 ? a.H * a.n_in + a.H : 0);
+  if (MODE == LAZYH) {
+    float* pw = part;
     float* pb = pw + (size_t)a.P * a.H;
     for (int idx = tid; idx < cnt * a.H; idx += T) {
       const int j = idx / a.H, h = idx - j * a.H;
@@ -153,6 +144,197 @@ __device__ void stage_flush(const BwdArgs& A, const Stage& st,
   }
 }
 
+// ---- lazy2: a piece's cotangents into the gradients, on the tensor cores --
+
+// dh[t][h] += sum_c dp[t][c] w[rows(c)][h] (3xTF32): warp w takes rows
+// 32w .. 32w + 31 (two m16 tiles), the piece's columns are the k axis, in
+// chunks of 32 rows of w by 32 hidden columns streamed through the chunk
+// buffers (row stride TILE_KC + 8: conflict-free B fragments), and each
+// chunk's hidden columns are taken 16 at a time (two n8 tiles: 16
+// accumulators a lane, so that the products keep to registers beside the
+// body's live state).  dh (Hp, hs) is the block's global scratch; the
+// warp's own entries are the accumulators' start.
+template <class Rows>
+__device__ void dh_product(const Tile& tl, const float* dp, float* dh,
+                           const float* w, const Rows& rows, int n) {
+  constexpr int WS = TILE_KC + 8;
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const int t0 = (threadIdx.x >> 5) * 32;
+  const int n_cc = (n + TILE_NC - 1) / TILE_NC;
+  const int n_steps = (tl.Hp + TILE_KC - 1) / TILE_KC * n_cc;
+  const int n8 = (n + 7) / 8 * 8;
+  load_w_chunk(tl, tl.wc, WS, w, rows, n, 0, 0);
+  for (int s = 0; s < n_steps; ++s) {
+    const int hc = s / n_cc, cc = s - hc * n_cc;
+    if (s + 1 < n_steps) {
+      const int hc1 = (s + 1) / n_cc;
+      load_w_chunk(tl, tl.wc + ((s + 1) & 1) * TILE_NC * TILE_WS, WS, w,
+                   rows, n, (s + 1 - hc1 * n_cc) * TILE_NC, hc1 * TILE_KC);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* wb = tl.wc + (s & 1) * TILE_NC * TILE_WS;
+    const int k_steps = min(TILE_NC, n8 - cc * TILE_NC) / 8;
+    for (int h0 = hc * TILE_KC; h0 < min(tl.Hp, hc * TILE_KC + TILE_KC);
+         h0 += 16) {
+      const int n_tiles = min(2, (tl.Hp - h0) / 8);
+      float acc[2][2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const float* o =
+              dh + (size_t)(h0 + nt * 8 + 2 * q) * tl.hs + t0 + mt * 16 + g;
+          const bool in = nt < n_tiles;
+          acc[mt][nt][0] = in ? o[0] : 0.0f;
+          acc[mt][nt][1] = in ? o[tl.hs] : 0.0f;
+          acc[mt][nt][2] = in ? o[8] : 0.0f;
+          acc[mt][nt][3] = in ? o[tl.hs + 8] : 0.0f;
+        }
+#pragma unroll
+      for (int ks = 0; ks < TILE_NC / 8; ++ks) {
+        if (ks < k_steps) {
+          const float* ak =
+              dp + (size_t)(cc * TILE_NC + ks * 8 + q) * tl.ts + t0 + g;
+          uint32_t ahi[2][4], alo[2][4], bhi[2][2], blo[2][2];
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            const float* a0 = ak + mt * 16;
+            split_tf32(a0[0], ahi[mt][0], alo[mt][0]);
+            split_tf32(a0[8], ahi[mt][1], alo[mt][1]);
+            split_tf32(a0[4 * tl.ts], ahi[mt][2], alo[mt][2]);
+            split_tf32(a0[4 * tl.ts + 8], ahi[mt][3], alo[mt][3]);
+          }
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            const float* wk = wb + (ks * 8 + q) * WS + (h0 & (TILE_KC - 1)) +
+                              nt * 8 + g;
+            split_tf32(wk[0], bhi[nt][0], blo[nt][0]);
+            split_tf32(wk[4 * WS], bhi[nt][1], blo[nt][1]);
+          }
+          mma3_tile(acc, ahi, alo, bhi, blo, 2, n_tiles);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        if (nt < n_tiles) {
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            float* o =
+                dh + (size_t)(h0 + nt * 8 + 2 * q) * tl.hs + t0 + mt * 16 + g;
+            o[0] = acc[mt][nt][0];
+            o[tl.hs] = acc[mt][nt][1];
+            o[8] = acc[mt][nt][2];
+            o[tl.hs + 8] = acc[mt][nt][3];
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// gw[rows(c)][h] += sum_t dp[t][c] hid[t][h] (3xTF32) into the block's
+// partial: an item is 32 piece columns (two m16 tiles) by 16 hidden
+// columns (two n8 tiles), the items dealt to the warps in turn, the tile's
+// rows the k axis; the partial's entries are the accumulators' start.  A
+// column past n reads what the slab holds there and feeds only rows that
+// are not stored.
+template <class Rows>
+__device__ void gw_product(const Tile& tl, const float* dp, float* gw,
+                           const Rows& rows, int n) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const int T = blockDim.x, n_warps = T >> 5;
+  const int n_hc = (tl.Hp + 15) / 16, n_items = (n + 31) / 32 * n_hc;
+  for (int item = threadIdx.x >> 5; item < n_items; item += n_warps) {
+    const int c0 = item / n_hc * 32, h0 = (item % n_hc) * 16;
+    const int m_tiles = min(2, (n - c0 + 15) / 16);
+    const int n_tiles = min(2, (tl.Hp - h0) / 8);
+    float acc[2][2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = c0 + mt * 16 + g + (e >= 2 ? 8 : 0);
+          const int h = h0 + nt * 8 + 2 * q + (e & 1);
+          acc[mt][nt][e] = mt < m_tiles && nt < n_tiles && c < n && h < tl.H
+                               ? gw[(size_t)rows(c) * tl.H + h]
+                               : 0.0f;
+        }
+    for (int k0 = 0; k0 < T; k0 += 8) {
+      uint32_t ahi[2][4], alo[2][4], bhi[2][2], blo[2][2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        if (mt < m_tiles) {
+          const float* a0 = dp + (size_t)(c0 + mt * 16 + g) * tl.ts + k0 + q;
+          split_tf32(a0[0], ahi[mt][0], alo[mt][0]);
+          split_tf32(a0[8 * tl.ts], ahi[mt][1], alo[mt][1]);
+          split_tf32(a0[4], ahi[mt][2], alo[mt][2]);
+          split_tf32(a0[8 * tl.ts + 4], ahi[mt][3], alo[mt][3]);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        if (nt < n_tiles) {
+          const float* bk = tl.hid + (size_t)(h0 + nt * 8 + g) * tl.hs + k0 + q;
+          split_tf32(bk[0], bhi[nt][0], blo[nt][0]);
+          split_tf32(bk[4], bhi[nt][1], blo[nt][1]);
+        }
+      }
+      mma3_tile(acc, ahi, alo, bhi, blo, m_tiles, n_tiles);
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = c0 + mt * 16 + g + (e >= 2 ? 8 : 0);
+          const int h = h0 + nt * 8 + 2 * q + (e & 1);
+          if (mt < m_tiles && nt < n_tiles && c < n && h < tl.H)
+            gw[(size_t)rows(c) * tl.H + h] = acc[mt][nt][e];
+        }
+  }
+}
+
+// One piece's cotangents dp (its slab: each row's thread has written its
+// own) into dh, the block's partial gw (3xTF32 tile products) and gb (the
+// sum over the tile's rows, in a fixed order).  Block-synchronous.
+template <class Rows>
+__device__ void flush_piece(const BwdArgs& A, const Stage& st, const Tile& tl,
+                            const float* dp, const Rows& rows, int n) {
+  if (n <= 0) return;
+  const BlockArgs& a = A.a;
+  float* pw = A.partials + (size_t)blockIdx.x * A.G + a.H * a.n_in + a.H;
+  float* pb = pw + (size_t)a.P * a.H;
+  __syncthreads();
+  dh_product(tl, dp, st.dh, a.w, rows, n);
+  gw_product(tl, dp, pw, rows, n);
+  // gb: warp w sums rows 32w .. 32w + 31 of 32 columns (one a lane), then
+  // warp 0 adds the warps' sums in warp order (through the chunk buffers,
+  // free once dh_product is done)
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int c0 = 0; c0 < n; c0 += 32) {
+    const int c = c0 + lane;
+    float acc = 0.0f;
+    if (c < n)
+      for (int t = 32 * warp; t < 32 * warp + 32; ++t)
+        acc += dp[(size_t)c * tl.ts + t];
+    tl.wc[threadIdx.x] = acc;
+    __syncthreads();
+    if (warp == 0 && c < n) {
+      float sum = 0.0f;
+      for (int v = 0; v < (int)blockDim.x / 32; ++v) sum += tl.wc[v * 32 + lane];
+      pb[rows(c)] += sum;
+    }
+    __syncthreads();
+  }
+}
+
 // Reflection i's backward: x_out = x_in - 2 v (v . x_in), v = u / |u|.
 // On entry x holds x_out (reflected back in place to x_in: a reflection is
 // its own inverse) and g the cotangent of x_out; on exit g is the cotangent
@@ -184,6 +366,43 @@ __device__ __forceinline__ void reflect_bwd(const Src& src, int r0, int D,
   }
 }
 
+// A row's cotangents of one dimension's mixture rows: lazy2 writes them
+// over its row of the staged slab and flushes the piece on the tensor
+// cores; perm and lazy stage them for flush, STAGE rows at a time.
+template <int MODE, class Src>
+__device__ __forceinline__ void emit(const BwdArgs& A, const Stage& st,
+                                     const Src& src, const float* vals, int n,
+                                     const MixRows& rows) {
+  if constexpr (MODE == LAZY2) {
+    src.put_mix(vals, n);
+    flush_piece(A, st, src.tl, src.tl.sm, rows, n);
+  } else {
+    stage_flush<MODE>(A, st, vals, n, rows);
+  }
+}
+
+// A row's cotangents of the n offset or reflection rows from r0: lazy2
+// writes them over its row of the staged `sa`, flushed by flush_a once the
+// layer's are all there; perm and lazy stage them for flush.
+template <int MODE, class Src>
+__device__ __forceinline__ void emit_a(const BwdArgs& A, const Stage& st,
+                                       const Src& src, const float* vals,
+                                       int n, int r0) {
+  if constexpr (MODE == LAZY2) {
+    for (int j = 0; j < n; ++j) *src.a_col(r0 + j) = vals[j];
+  } else {
+    stage_flush<MODE>(A, st, vals, n, SpanRows{r0});
+  }
+}
+
+template <int MODE, class Src>
+__device__ __forceinline__ void flush_a(const BwdArgs& A, const Stage& st,
+                                        const Src& src, const LayerMeta& lm) {
+  if constexpr (MODE == LAZY2)
+    flush_piece(A, st, src.tl, src.tl.sa, SpanRows{lm.row0},
+                (lm.has_off ? A.a.D : 0) + lm.rot_it * A.a.D);
+}
+
 // ---- density body (T2 density, T3) ----------------------------------------
 template <int MODE, bool NLL, int KT, int DT, class Src>
 __device__ void density_tile(const BwdArgs& A, const Stage& st, const Src& src,
@@ -205,6 +424,7 @@ __device__ void density_tile(const BwdArgs& A, const Stage& st, const Src& src,
   for (int l = a.n_layers - 1; l >= 0; --l) {
     const LayerMeta& lm = a.layers[l];
     for (int j = 0; j < D; ++j) xin[l][j] = x[j];
+    src.stage_rot(a, lm);
     int r = lm.row0;
     if (lm.has_off) {
       for (int j = 0; j < D; ++j) x[j] = x[j] - src.param(r + j);
@@ -212,6 +432,7 @@ __device__ void density_tile(const BwdArgs& A, const Stage& st, const Src& src,
     }
     for (int i = 0; i < lm.rot_it; ++i) reflect<DN>(src, r + i * D, x, D);
     for (int dd = 0; dd < D; ++dd) {
+      src.stage_mix(a, lm, dd);
       Mix<N> mx;
       src.load_mix(mx, lm, K, D, dd, a);
       float lg;
@@ -236,6 +457,7 @@ __device__ void density_tile(const BwdArgs& A, const Stage& st, const Src& src,
   // reverse sweep: layer 0 first (the density direction ran it last)
   for (int l = 0; l < a.n_layers; ++l) {
     const LayerMeta& lm = a.layers[l];
+    src.stage_rot(a, lm);
     float s[DN];
     for (int j = 0; j < D; ++j) s[j] = xin[l][j];
     int r = lm.row0;
@@ -249,6 +471,7 @@ __device__ void density_tile(const BwdArgs& A, const Stage& st, const Src& src,
     mix_rows(lm, K, D, m0, lw0, ln0);
     const int n_mix = (2 + lm.has_ln) * K;
     for (int dd = 0; dd < D; ++dd) {
+      src.stage_mix(a, lm, dd);
       Mix<N> mx;
       float lw[N], ln[N], vals[3 * N];
       src.load_mix_raw(mx, lw, ln, lm, K, D, dd, a);
@@ -259,7 +482,7 @@ __device__ void density_tile(const BwdArgs& A, const Stage& st, const Src& src,
                                         vals + 2 * K);
       if (!valid)
         for (int j = 0; j < n_mix; ++j) vals[j] = 0.0f;
-      stage_flush<MODE>(A, st, vals, n_mix, MixRows{m0, lw0, ln0, K, D, dd});
+      emit<MODE>(A, st, src, vals, n_mix, MixRows{m0, lw0, ln0, K, D, dd});
     }
     // reflections were applied i = 0 .. it-1: undo them last-first
     for (int i = lm.rot_it - 1; i >= 0; --i) {
@@ -267,13 +490,14 @@ __device__ void density_tile(const BwdArgs& A, const Stage& st, const Src& src,
       reflect_bwd<DN>(src, rot0 + i * D, D, s, g, gu, true);
       if (!valid)
         for (int j = 0; j < D; ++j) gu[j] = 0.0f;
-      stage_flush<MODE>(A, st, gu, D, SpanRows{rot0 + i * D});
+      emit_a<MODE>(A, st, src, gu, D, rot0 + i * D);
     }
     if (lm.has_off) {
       float go[DN];
       for (int j = 0; j < D; ++j) go[j] = valid ? -g[j] : 0.0f;
-      stage_flush<MODE>(A, st, go, D, SpanRows{lm.row0});
+      emit_a<MODE>(A, st, src, go, D, lm.row0);
     }
+    flush_a<MODE>(A, st, src, lm);
   }
   if (valid)
     for (int j = 0; j < D; ++j) A.gx[(size_t)row * D + j] = g[j];
@@ -297,6 +521,7 @@ __device__ void sample_tile(const BwdArgs& A, const Stage& st, const Src& src,
   for (int j = 0; j < D; ++j) out[j] = valid ? a.x[(size_t)row * D + j] : 0.0f;
   for (int l = a.n_layers - 1; l >= 0; --l) {
     const LayerMeta& lm = a.layers[l];
+    src.stage_rot(a, lm);
     float s[DN];
     for (int j = 0; j < D; ++j) s[j] = out[j];
     int r = lm.row0;
@@ -308,6 +533,7 @@ __device__ void sample_tile(const BwdArgs& A, const Stage& st, const Src& src,
     for (int j = 0; j < D; ++j) sl[l][j] = s[j];
     if (l > 0) {
       for (int dd = 0; dd < D; ++dd) {
+        src.stage_mix(a, lm, dd);
         Mix<N> mx;
         src.load_mix(mx, lm, K, D, dd, a);
         const MixOut o = mixture_eval<N, KT, true, false>(s[dd], mx, K);
@@ -323,11 +549,12 @@ __device__ void sample_tile(const BwdArgs& A, const Stage& st, const Src& src,
   for (int l = a.n_layers - 1; l >= 0; --l) {
     const LayerMeta& lm = a.layers[l];
     const int rot0 = lm.row0 + (lm.has_off ? D : 0);
+    src.stage_rot(a, lm);
     // out-ops y_l = R_l s_l + off_l, R_l applying reflections it-1 .. 0
     if (lm.has_off) {
       float go[DN];
       for (int j = 0; j < D; ++j) go[j] = valid ? g[j] : 0.0f;
-      stage_flush<MODE>(A, st, go, D, SpanRows{lm.row0});
+      emit_a<MODE>(A, st, src, go, D, lm.row0);
     }
     float xr[DN];
     for (int j = 0; j < D; ++j) xr[j] = sl[l][j];
@@ -337,13 +564,15 @@ __device__ void sample_tile(const BwdArgs& A, const Stage& st, const Src& src,
       reflect_bwd<DN>(src, rot0 + i * D, D, xr, g, gu, true);
       if (!valid)
         for (int j = 0; j < D; ++j) gu[j] = 0.0f;
-      stage_flush<MODE>(A, st, gu, D, SpanRows{rot0 + i * D});
+      emit_a<MODE>(A, st, src, gu, D, rot0 + i * D);
     }
+    flush_a<MODE>(A, st, src, lm);
     // implicit steps through the solve and its log-derivative
     int m0, lw0, ln0;
     mix_rows(lm, K, D, m0, lw0, ln0);
     const int n_mix = (2 + lm.has_ln) * K;
     for (int dd = 0; dd < D; ++dd) {
+      src.stage_mix(a, lm, dd);
       Mix<N> mx;
       float lw[N], ln[N], vals[3 * N];
       src.load_mix_raw(mx, lw, ln, lm, K, D, dd, a);
@@ -354,7 +583,7 @@ __device__ void sample_tile(const BwdArgs& A, const Stage& st, const Src& src,
                                        vals + 2 * K);
       if (!valid)
         for (int j = 0; j < n_mix; ++j) vals[j] = 0.0f;
-      stage_flush<MODE>(A, st, vals, n_mix, MixRows{m0, lw0, ln0, K, D, dd});
+      emit<MODE>(A, st, src, vals, n_mix, MixRows{m0, lw0, ln0, K, D, dd});
     }
   }
   if (valid)
@@ -382,24 +611,32 @@ __global__ void __launch_bounds__(128) gf_block_bwd_kernel(const BwdArgs A) {
   const BlockArgs& a = A.a;
   const int T = blockDim.x, tid = threadIdx.x;
   const int n_tiles = (a.B + T - 1) / T;
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   Stage st;
-  if (MODE != PERM) {
-    const size_t cols = (size_t)a.H * A.hs;
-    st.hid = smem;
-    st.dh = DHG ? A.scratch + (size_t)blockIdx.x * cols : st.hid + cols;
-    st.dp = DHG ? st.hid + cols : st.dh + cols;
+  if (MODE == LAZY2) {
+    // the tile's shared memory is TileSrc's; dh is the block's scratch
+    st.hid = nullptr;
+    st.dh = A.scratch + (size_t)blockIdx.x * a.tile.Hp * A.hs;
+    st.dp = nullptr;
+    st.prow = nullptr;
   } else {
-    st.hid = st.dh = nullptr;
-    st.dp = smem + 4 * a.P;  // after PermSrc's 4P floats
+    if (MODE == LAZYH) {
+      const size_t cols = (size_t)a.H * A.hs;
+      st.hid = smem;
+      st.dh = DHG ? A.scratch + (size_t)blockIdx.x * cols : st.hid + cols;
+      st.dp = DHG ? st.hid + cols : st.dh + cols;
+    } else {
+      st.hid = st.dh = nullptr;
+      st.dp = smem + 4 * a.P;  // after PermSrc's 4P floats
+    }
+    st.prow = reinterpret_cast<int*>(st.dp + STAGE * T);
   }
-  st.prow = reinterpret_cast<int*>(st.dp + STAGE * T);
 
   if constexpr (MODE == LAZYH) {
     for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
       const int row = tile * T + tid;
       const bool valid = row < a.B;
-      const LazySrc<N, KT, DN, false> src(a, st.hid, row, A.hs);
+      const LazySrc<N, KT, DN> src(a, st.hid, row, A.hs);
       for (int h = 0; h < a.H; ++h) {
         st.dh[h * A.hs + tid] = 0.0f;
         if (!valid) st.hid[h * A.hs + tid] = 0.0f;
@@ -420,11 +657,9 @@ __global__ void __launch_bounds__(128) gf_block_bwd_kernel(const BwdArgs A) {
     for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
       const int row = tile * T + tid;
       const bool valid = row < a.B;
-      const LazySrc<N, KT, DN, true> src(a, st.hid, row, A.hs);
-      for (int h = 0; h < a.H; ++h) {
-        st.dh[h * A.hs + tid] = 0.0f;
-        if (!valid) st.hid[h * A.hs + tid] = 0.0f;
-      }
+      const TileSrc<N, KT, DN, true> src(a, smem, row);
+      st.hid = src.tl.hid;
+      for (int h = 0; h < a.tile.Hp; ++h) st.dh[h * A.hs + tid] = 0.0f;
       run_tile<KIND, MODE, KT, DT>(A, st, src, row);
       // hidden layer: dpre = dh * (1 - hidden^2); gsummary = w1^T dpre
       for (int h = 0; h < a.H; ++h) {
@@ -476,53 +711,92 @@ __global__ void reduce_partials(const float* partials, int n_blocks, int G,
 
 template <int KIND, int MODE, bool DHG, int KT, int DT>
 cudaError_t launch(const BwdArgs& A, int blocks, int threads, size_t smem,
-                   cudaStream_t stream) {
+                   cudaStream_t stream, int* occupancy) {
   auto kernel = gf_block_bwd_kernel<KIND, MODE, DHG, KT, DT>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
+  if (occupancy)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(occupancy, kernel,
+                                                         threads, smem);
   kernel<<<blocks, threads, smem, stream>>>(A);
   return cudaGetLastError();
 }
 
+// lazy2 keeps dh in the block's scratch at every H (DHG)
 template <int KIND, int MODE>
 cudaError_t dispatch_shape(const BwdArgs& A, int blocks, int threads,
-                           size_t smem, cudaStream_t stream) {
+                           size_t smem, cudaStream_t stream, int* occupancy) {
   const bool k10 = A.a.K == 10 && A.a.D == 4;
-  if constexpr (MODE != PERM) {
-    if (A.scratch)
-      return k10 ? launch<KIND, MODE, true, 10, 4>(A, blocks, threads, smem, stream)
-                 : launch<KIND, MODE, true, 0, 0>(A, blocks, threads, smem, stream);
+  if constexpr (MODE == LAZY2) {
+    return k10 ? launch<KIND, MODE, true, 10, 4>(A, blocks, threads, smem,
+                                                 stream, occupancy)
+               : launch<KIND, MODE, true, 0, 0>(A, blocks, threads, smem,
+                                                stream, occupancy);
+  } else {
+    if constexpr (MODE != PERM) {
+      if (A.scratch)
+        return k10 ? launch<KIND, MODE, true, 10, 4>(A, blocks, threads, smem,
+                                                     stream, occupancy)
+                   : launch<KIND, MODE, true, 0, 0>(A, blocks, threads, smem,
+                                                    stream, occupancy);
+    }
+    return k10 ? launch<KIND, MODE, false, 10, 4>(A, blocks, threads, smem,
+                                                  stream, occupancy)
+               : launch<KIND, MODE, false, 0, 0>(A, blocks, threads, smem,
+                                                 stream, occupancy);
   }
-  return k10 ? launch<KIND, MODE, false, 10, 4>(A, blocks, threads, smem, stream)
-             : launch<KIND, MODE, false, 0, 0>(A, blocks, threads, smem, stream);
 }
 
 template <int MODE>
 cudaError_t dispatch(int kind, const BwdArgs& A, int blocks, int threads,
-                     size_t smem, cudaStream_t stream) {
-  if (kind == 0) return dispatch_shape<0, MODE>(A, blocks, threads, smem, stream);
-  if (kind == 1) return dispatch_shape<1, MODE>(A, blocks, threads, smem, stream);
+                     size_t smem, cudaStream_t stream, int* occupancy) {
+  if (kind == 0)
+    return dispatch_shape<0, MODE>(A, blocks, threads, smem, stream, occupancy);
+  if (kind == 1)
+    return dispatch_shape<1, MODE>(A, blocks, threads, smem, stream, occupancy);
   if constexpr (MODE == LAZYH)
     return cudaErrorInvalidValue;  // no fused NLL on precomputed hidden
   else
-    return dispatch_shape<2, MODE>(A, blocks, threads, smem, stream);
+    return dispatch_shape<2, MODE>(A, blocks, threads, smem, stream, occupancy);
 }
 
-// The tile: 128 rows, one per thread, halved while the hidden and dh
-// columns (H x (threads + 1) floats each) would exceed the shared memory;
-// where both do not fit even at STAGE rows, dh goes to a global scratch
-// (dh_global) and the tile is sized for the hidden columns alone.  Writes
-// the tile's rows and its dynamic shared memory.
-void tile_shape(int mode, int H, int P, int& threads, size_t& smem,
-                bool& dh_global) {
+cudaError_t dispatch_mode(int kind, int mode, const BwdArgs& A, int blocks,
+                          int threads, size_t smem, cudaStream_t stream,
+                          int* occupancy) {
+  if (mode == LAZY2)
+    return dispatch<LAZY2>(kind, A, blocks, threads, smem, stream, occupancy);
+  if (mode == LAZYH)
+    return dispatch<LAZYH>(kind, A, blocks, threads, smem, stream, occupancy);
+  return dispatch<PERM>(kind, A, blocks, threads, smem, stream, occupancy);
+}
+
+// The tile of a call: its rows (threads) per block, dynamic shared memory,
+// whether dh lives in the block's global scratch, and the stride of a
+// hidden / dh row.  lazy2 takes lazy2_tile (sets a.tile) and always keeps
+// dh in the scratch: with it in shared memory too, a block of 128 rows at
+// H = 128 would fill the SM alone.  lazy: 128 rows, halved while the hidden
+// and dh columns (H x (threads + 1) floats each) and the staged rows would
+// exceed the shared memory; where they do not fit even at STAGE rows, dh
+// goes to the scratch and the tile is sized for the hidden columns alone.
+// 0 or cudaErrorInvalidValue.
+int tile_shape(int mode, BlockArgs& a, int& threads, size_t& smem,
+               bool& dh_global, int& hs) {
   threads = 128;
   dh_global = false;
-  if (mode != PERM) {
+  hs = 0;
+  if (mode == LAZY2) {
+    a.tile = lazy2_tile(a);
+    if (a.tile.T == 0) return (int)cudaErrorInvalidValue;
+    threads = a.tile.T;
+    smem = a.tile.floats() * 4;
+    dh_global = true;
+    hs = a.tile.hs;
+  } else if (mode == LAZYH) {
     auto need = [&](int t, int cols) {
-      return (size_t)cols * H * (t + 1) * 4 + (size_t)STAGE * t * 4 +
+      return (size_t)cols * a.H * (t + 1) * 4 + (size_t)STAGE * t * 4 +
              STAGE * 4;
     };
     while (threads > STAGE && need(threads, 2) > SMEM_LIMIT) threads /= 2;
@@ -532,9 +806,17 @@ void tile_shape(int mode, int H, int P, int& threads, size_t& smem,
       while (threads > STAGE && need(threads, 1) > SMEM_LIMIT) threads /= 2;
     }
     smem = need(threads, dh_global ? 1 : 2);
+    hs = threads + 1;
   } else {
-    smem = (size_t)4 * P * 4 + (size_t)STAGE * threads * 4 + STAGE * 4;
+    smem = (size_t)4 * a.P * 4 + (size_t)STAGE * threads * 4 + STAGE * 4;
   }
+  return smem > SMEM_LIMIT ? (int)cudaErrorInvalidValue : 0;
+}
+
+// floats of dh scratch per block (0: dh in shared memory)
+int scratch_floats(int mode, const BlockArgs& a, bool dh_global, int hs) {
+  if (!dh_global) return 0;
+  return mode == LAZY2 ? a.tile.Hp * hs : a.H * hs;
 }
 
 }  // namespace
@@ -542,25 +824,64 @@ void tile_shape(int mode, int H, int P, int& threads, size_t& smem,
 // The grid of a call: a fixed number of persistent blocks, two per
 // streaming multiprocessor and at most one per tile.  Each block
 // accumulates a private partial of the broadcast gradients, so the caller
-// allocates (blocks, G) zeros for gf_block_bwd_launch.
-extern "C" int gf_block_bwd_blocks(int mode, int B, int H, int P, int n_sm) {
-  int threads;
+// allocates (blocks, G) zeros for gf_block_bwd_launch.  meta as
+// gf_block_bwd_launch; 0 when the call is not one the kernels take.
+extern "C" int gf_block_bwd_blocks(int mode, int B, int H, int P, int n_sm,
+                                   const int* meta) {
+  BlockArgs a{};
+  a.H = H;
+  a.P = P;
+  int threads, hs;
   size_t smem;
   bool dh_global;
-  tile_shape(mode, H, P, threads, smem, dh_global);
+  if (parse_meta(a, mode, meta, P) != 0 ||
+      tile_shape(mode, a, threads, smem, dh_global, hs) != 0)
+    return 0;
   const int n_tiles = (B + threads - 1) / threads;
   const int blocks = n_tiles < 2 * n_sm ? n_tiles : 2 * n_sm;
   return blocks > 1 ? blocks : 1;
 }
 
 // Floats of global dh scratch a call needs per block: 0 while the dh
-// columns fit in shared memory.
-extern "C" int gf_block_bwd_scratch(int mode, int H, int P) {
-  int threads;
+// columns fit in shared memory (perm, lazy below H = 865).
+extern "C" int gf_block_bwd_scratch(int mode, int H, int P, const int* meta) {
+  BlockArgs a{};
+  a.H = H;
+  a.P = P;
+  int threads, hs;
   size_t smem;
   bool dh_global;
-  tile_shape(mode, H, P, threads, smem, dh_global);
-  return dh_global ? H * (threads + 1) : 0;
+  if (parse_meta(a, mode, meta, P) != 0 ||
+      tile_shape(mode, a, threads, smem, dh_global, hs) != 0)
+    return 0;
+  return scratch_floats(mode, a, dh_global, hs);
+}
+
+// Resident blocks per SM of the kernel a call of this (kind, mode, H, P,
+// meta) launches, by cudaOccupancyMaxActiveBlocksPerMultiprocessor; writes
+// [blocks per SM, threads per block, dynamic shared memory bytes] to out.
+extern "C" int gf_block_bwd_occupancy(int kind, int mode, int H, int P,
+                                      const int* meta, int* out) {
+  BwdArgs A{};
+  BlockArgs& a = A.a;
+  a.H = H;
+  a.P = P;
+  int threads, hs;
+  size_t smem;
+  bool dh_global;
+  if (kind < 0 || kind > 2 || parse_meta(a, mode, meta, P) != 0 ||
+      tile_shape(mode, a, threads, smem, dh_global, hs) != 0)
+    return (int)cudaErrorInvalidValue;
+  // a non-null scratch selects the kernel that keeps dh in global memory
+  float dummy;
+  A.scratch = dh_global ? &dummy : nullptr;
+  int n = 0;
+  const cudaError_t e =
+      dispatch_mode(kind, mode, A, 1, threads, smem, nullptr, &n);
+  out[0] = n;
+  out[1] = threads;
+  out[2] = (int)smem;
+  return (int)e;
 }
 
 // kind: 0 T2 density (x, gout, gld), 1 T2 sample (x = the sample output y,
@@ -601,10 +922,6 @@ extern "C" int gf_block_bwd_launch(int kind, int mode, const float* x,
   a.n_in = n_in;
   a.H = H;
   a.P = P;
-  a.K = meta[0];
-  a.D = meta[1];
-  a.n_layers = meta[2];
-  a.fit_norm = meta[3];
   a.wreg = Reg{meta[4], regs[0], regs[1], regs[2], regs[3], regs[4]};
   a.nreg = Reg{meta[5], regs[5], regs[6], regs[7], regs[8], regs[9]};
   A.gout = gout;
@@ -615,28 +932,19 @@ extern "C" int gf_block_bwd_launch(int kind, int mode, const float* x,
   A.gsummary = grow;
   A.partials = partials;
   A.scratch = scratch;
-  if (kind < 0 || kind > 2 || mode < PERM || mode > LAZYH || a.K < 1 ||
-      a.K > KMAX || a.D < 1 || a.D > DMAX || a.n_layers < 1 ||
-      a.n_layers > MAX_LAYERS || B < 0 || n_blocks < 1 ||
-      (kind == 2 && mode == LAZYH))
+  if (kind < 0 || kind > 2 || parse_meta(a, mode, meta, P) != 0 || B < 0 ||
+      n_blocks < 1 || (kind == 2 && mode == LAZYH))
     return (int)cudaErrorInvalidValue;
   if ((kind == 2 && (val == nullptr || ld == nullptr)) ||
       (kind != 2 && (gout == nullptr || gld == nullptr)))
     return (int)cudaErrorInvalidValue;
-  int row = 0;
-  for (int l = 0; l < a.n_layers; ++l) {
-    const int* m = meta + 6 + 4 * l;
-    a.layers[l] = LayerMeta{m[0], m[1], m[2], m[3], row};
-    if (m[3] < 0 || m[3] > 3 || m[1] < 0) return (int)cudaErrorInvalidValue;
-    row += (m[0] ? a.D : 0) + m[1] * a.D + (2 + m[2]) * a.K * a.D;
-  }
-  if (row != P) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
 
-  int threads;
+  int threads, hs;
   size_t smem;
   bool dh_global;
-  tile_shape(mode, H, P, threads, smem, dh_global);
+  if (tile_shape(mode, a, threads, smem, dh_global, hs) != 0)
+    return (int)cudaErrorInvalidValue;
   if (mode != PERM) {
     if (H < 1 || w == nullptr || b == nullptr || grow == nullptr ||
         (mode == LAZY2 && (n_in < 1 || summary == nullptr)) ||
@@ -644,21 +952,14 @@ extern "C" int gf_block_bwd_launch(int kind, int mode, const float* x,
         (dh_global && scratch == nullptr))
       return (int)cudaErrorInvalidValue;
     A.G = (mode == LAZY2 ? H * n_in + H : 0) + P * H + P;
-    A.hs = threads + 1;
   } else {
     A.G = P;
-    A.hs = 0;
   }
+  A.hs = hs;
   if (!dh_global) A.scratch = nullptr;
-  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e;
-  if (mode == LAZY2)
-    e = dispatch<LAZY2>(kind, A, n_blocks, threads, smem, s);
-  else if (mode == LAZYH)
-    e = dispatch<LAZYH>(kind, A, n_blocks, threads, smem, s);
-  else
-    e = dispatch<PERM>(kind, A, n_blocks, threads, smem, s);
+  cudaError_t e =
+      dispatch_mode(kind, mode, A, n_blocks, threads, smem, s, nullptr);
   if (e != cudaSuccess) return (int)e;
   reduce_partials<<<(A.G + 255) / 256, 256, 0, s>>>(partials, n_blocks, A.G,
                                                     grads);

@@ -169,19 +169,55 @@ def _hh_rotate(x, rot, it, d, inverse):
     return x
 
 
-def _make_slabs(param_arrays, k, d, layers, mode):
+def round_tf32(x):
+    """float32 -> TF32 as ``cvt.rna.tf32.f32`` rounds (csrc/mma_tf32.cuh):
+    to nearest with ties away from zero, 10 mantissa bits kept and the low
+    13 bits of the float32 zero.  Adding half a TF32 ulp to the bit pattern
+    and truncating does it, the sign being a bit of its own."""
+    u = x.contiguous().view(torch.int32)
+    r = torch.bitwise_and(u + 0x1000, -0x2000).view(torch.float32)
+    return torch.where(torch.isfinite(x), r, x)
+
+
+def matmul_3xtf32(a, b, passes=3):
+    """The float32 product a (M, K) @ b (K, N) as the lazy2 kernels' tile
+    products make it on the tensor cores (csrc/mma_tf32.cuh), emulated:
+    each factor split into TF32 parts hi = round_tf32(x), lo =
+    round_tf32(x - hi); per k step of 8 (one m16n8k8 instruction) the
+    products lo*hi, hi*lo, hi*hi, each added to the float32 accumulator in
+    that order (the step's 8 products summed exactly, then rounded once);
+    lo*lo is dropped.  ``passes=1`` is a single TF32 product (hi*hi only),
+    which keeps about 3 decimal digits.  A plain version of the numerics
+    for the tests; the kernels never call it."""
+    a_hi = round_tf32(a)
+    b_hi = round_tf32(b)
+    a_lo = round_tf32(a - a_hi)
+    b_lo = round_tf32(b - b_hi)
+    terms = ((a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi))[3 - passes:]
+    acc = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32,
+                      device=a.device)
+    for k0 in range(0, a.shape[1], 8):
+        for fa, fb in terms:
+            step = torch.matmul(fa[:, k0:k0 + 8].double(),
+                                fb[k0:k0 + 8].double())
+            acc = (acc.double() + step).float()
+    return acc
+
+
+def _make_slabs(param_arrays, k, d, layers, mode, matmul=torch.matmul):
     """Per-layer (off, rot, (means, lw, ln)) slabs with (rows, 1|B) columns.
 
     "perm": [pvec (P, 1)].  "lazy": [hidden (H, B), w (P, H), b (P, 1)].
     "lazy2" (fused MLP): [summary (In, B), w1 (H, In), b1 (H, 1), w (P, H),
-    b (P, 1)]."""
+    b (P, 1)].  ``matmul`` makes the parameter rows w @ hidden (e.g.
+    :func:`matmul_3xtf32`, the kernels' own numerics)."""
     if mode == "lazy2":
         summary, w1, b1, w, b = param_arrays
         hidden = torch.tanh(torch.matmul(w1, summary) + b1)
-        p = torch.matmul(w, hidden) + b
+        p = matmul(w, hidden) + b
     elif mode == "lazy":
         hidden, w, b = param_arrays
-        p = torch.matmul(w, hidden) + b
+        p = matmul(w, hidden) + b
     else:
         p = param_arrays[0]
     out = []
@@ -203,10 +239,11 @@ def _prep_mix(raw, prep):
     return gf.prep_raw_params(slabs, prep)
 
 
-def block_density_plain(x, param_arrays, prep, meta, mode):
+def block_density_plain(x, param_arrays, prep, meta, mode,
+                        matmul=torch.matmul):
     """(x (d, B), params) -> (base (d, B), ld_sum (d, B))."""
     k, d, layers = meta
-    slabs = _make_slabs(param_arrays, k, d, layers, mode)
+    slabs = _make_slabs(param_arrays, k, d, layers, mode, matmul)
     ld_sum = torch.zeros_like(x)
     for li in reversed(range(len(layers))):
         off, rot, raw = slabs[li]
@@ -220,11 +257,12 @@ def block_density_plain(x, param_arrays, prep, meta, mode):
     return x, ld_sum
 
 
-def block_sample_plain(z, param_arrays, prep, meta, mode):
+def block_sample_plain(z, param_arrays, prep, meta, mode,
+                       matmul=torch.matmul):
     """(z (d, B), params) -> (target (d, B), ld_sum (d, B)); ld_sum is
     sum_l log|d gauss_l/dx| at the solutions (the caller subtracts it)."""
     k, d, layers = meta
-    slabs = _make_slabs(param_arrays, k, d, layers, mode)
+    slabs = _make_slabs(param_arrays, k, d, layers, mode, matmul)
     x = z
     ld_sum = torch.zeros_like(z)
     for li in range(len(layers)):
@@ -329,12 +367,13 @@ def _from_cols(grads, mode):
     return (grads[0][:, 0],)
 
 
-def block_plain(direction, x, params, prep, meta, mode):
+def block_plain(direction, x, params, prep, meta, mode, matmul=torch.matmul):
     """The plain PyTorch version of an entry point, in the wrapper's own
     layout: x (B, d); params (pvec,), (summary (B, In), w1, b1 (H,), w,
-    b (P,)) or (hidden (B, H), w, b).  Returns (out (B, d), ld (B, d))."""
+    b (P,)) or (hidden (B, H), w, b).  Returns (out (B, d), ld (B, d)).
+    ``matmul`` makes the amortized modes' parameter rows."""
     fn = block_density_plain if direction == "density" else block_sample_plain
-    out, ld = fn(x.T, _to_cols(params, mode), prep, meta, mode)
+    out, ld = fn(x.T, _to_cols(params, mode), prep, meta, mode, matmul)
     return out.T.contiguous(), ld.T.contiguous()
 
 
@@ -371,6 +410,8 @@ def _declare(lib):
     lib.gf_block_launch.argtypes = [i, i, p, p, p, i, p, p, p, p, p, p, p,
                                     i, i, i, p, p, p]
     lib.gf_block_launch.restype = i
+    lib.gf_block_occupancy.argtypes = [i, i, i, i, p, p]
+    lib.gf_block_occupancy.restype = i
     lib.gf_block_error_string.argtypes = [i]
     lib.gf_block_error_string.restype = ctypes.c_char_p
 
@@ -381,10 +422,12 @@ def _declare_bwd(lib):
                                         p, p, p, p, p, p, p, i, i, i, p, p,
                                         p, p, i, p, p, p]
     lib.gf_block_bwd_launch.restype = i
-    lib.gf_block_bwd_blocks.argtypes = [i, i, i, i, i]
+    lib.gf_block_bwd_blocks.argtypes = [i, i, i, i, i, p]
     lib.gf_block_bwd_blocks.restype = i
-    lib.gf_block_bwd_scratch.argtypes = [i, i, i]
+    lib.gf_block_bwd_scratch.argtypes = [i, i, i, p]
     lib.gf_block_bwd_scratch.restype = i
+    lib.gf_block_bwd_occupancy.argtypes = [i, i, i, i, p, p]
+    lib.gf_block_bwd_occupancy.restype = i
     lib.gf_block_bwd_error_string.argtypes = [i]
     lib.gf_block_bwd_error_string.restype = ctypes.c_char_p
 
@@ -439,6 +482,13 @@ def _kernel_args(x, params, prep, meta, mode):
         _check("pvec", pvec, (n_params,), dev)
         n_in = hid = 0
         ptrs = [pvec.data_ptr(), 0, 0, 0, 0, 0, 0]
+    c_ints, c_floats = _meta_args(prep, meta)
+    return ptrs, n_in, hid, n_params, c_ints, c_floats
+
+
+def _meta_args(prep, meta):
+    """The C interfaces' meta ints and regulator floats."""
+    k, d, layers = meta
     width_reg, norm_reg, fit_norm = prep
     norm_reg = norm_reg if norm_reg is not None else IDENTITY
     ints = [k, d, len(layers), int(bool(fit_norm)),
@@ -447,9 +497,33 @@ def _kernel_args(x, params, prep, meta, mode):
         ints += [int(has_off), int(rot_it), int(has_ln), IFT_CODES[ift]]
     floats = list(width_reg.kernel_args()[1:]) + \
         list(norm_reg.kernel_args()[1:])
-    c_ints = (ctypes.c_int * len(ints))(*ints)
-    c_floats = (ctypes.c_float * len(floats))(*floats)
-    return ptrs, n_in, hid, n_params, c_ints, c_floats
+    return ((ctypes.c_int * len(ints))(*ints),
+            (ctypes.c_float * len(floats))(*floats))
+
+
+def kernel_occupancy(name, prep, meta, hid=0):
+    """(blocks per SM, threads per block, dynamic shared memory bytes) of
+    the kernel behind launch counter ``name`` (e.g. "density_lazy2",
+    "nll_lazy2", "sample_bwd_perm") for a block (prep, meta) with an MLP
+    hidden width ``hid``, by cudaOccupancyMaxActiveBlocksPerMultiprocessor
+    on the current device."""
+    from . import cuda_build
+    parts = name.split("_")
+    mode = {v: k for k, v in _COUNTER.items()}[parts[-1]]
+    n_params = block_rows(meta[0], meta[1], meta[2])
+    c_ints, _ = _meta_args(prep, meta)
+    out = (ctypes.c_int * 3)()
+    if parts[0] == "nll" or parts[1] == "bwd":
+        lib = cuda_build.load("gf_block_bwd", _declare_bwd)
+        rc = lib.gf_block_bwd_occupancy(_BWD_MODES[parts[0]], MODES[mode],
+                                        hid, n_params, c_ints, out)
+    else:
+        lib = cuda_build.load("gf_block", _declare)
+        rc = lib.gf_block_occupancy(int(parts[0] == "sample"), MODES[mode],
+                                    hid, n_params, c_ints, out)
+    if rc != 0:
+        raise RuntimeError(f"occupancy query for {name} failed ({rc})")
+    return tuple(out)
 
 
 def _launch(x, params, prep, meta, mode, direction):
@@ -514,9 +588,14 @@ def _launch_bwd(kind, x, params, g_out, g_ld, prep, meta, mode, wv=0.0,
         # dh columns do not fit in shared memory, a scratch for them)
         n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
         code = MODES[mode]
-        n_blocks = lib.gf_block_bwd_blocks(code, b_rows, hid, n_params, n_sm)
+        n_blocks = lib.gf_block_bwd_blocks(code, b_rows, hid, n_params, n_sm,
+                                           c_ints)
+        if n_blocks < 1:
+            raise ValueError(f"block backward: no tile of the kernel fits "
+                             f"this block (mode {mode}, H={hid})")
         partials = torch.zeros((n_blocks, n_flat), **f32)
-        n_scratch = n_blocks * lib.gf_block_bwd_scratch(code, hid, n_params)
+        n_scratch = n_blocks * lib.gf_block_bwd_scratch(code, hid, n_params,
+                                                        c_ints)
         scratch = torch.empty(n_scratch, **f32) if n_scratch else None
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream

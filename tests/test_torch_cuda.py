@@ -143,7 +143,8 @@ def _rel(a, b):
 def _check_bwd(p, k, dev, n, seed=0):
     """T2 (both directions) and T3 of sub-manifold k's block against
     block_bwd_plain / block_nll_plain on the same inputs; T3's val / ld
-    equal the forward kernel's."""
+    equal the forward kernel's, and a second T3 call gives the same
+    gradients, bit for bit."""
     prep, meta = p._block_meta[k]
     mode, x, params = _block_args(p, k, n, seed, dev)
     _check_bwd_mode(x, params, prep, meta, mode, dev, ("density", "sample"),
@@ -154,9 +155,12 @@ def _check_bwd(p, k, dev, n, seed=0):
         x, *params, prep, meta, wv, wl)
     assert gb.LAUNCHES[f"nll_{mode}"] == before + 1
     out, ld1 = getattr(gb, f"gf_block_density_{mode}")(x, *params, prep, meta)
+    again = getattr(gb, f"gf_block_nll_{mode}")(x, *params, prep, meta, wv, wl)
     ref = gb.block_nll_plain(x, params, prep, meta, mode, wv, wl)
     torch.cuda.synchronize()
     assert torch.equal(val, out) and torch.equal(ld, ld1)
+    for got, same in zip((gx, *gp), (again[2], *again[3])):
+        assert torch.equal(got, same)
     for got, r in zip((gx, *gp), (ref[2], *ref[3])):
         assert _rel(got, r) < TOL_GRAD["nll"]
 
@@ -182,6 +186,37 @@ def test_wide_summary_bwd_kernels_match_plain(dev):
     hidden-layer pass, which reads the summary from global memory."""
     _check_bwd(pdf("e4", "gggg", conditional_input_dim=200, device=dev), 0,
                dev, n=1000)
+
+
+@pytest.mark.parametrize("hid,n_in,n", [(12, 3, 1000), (16, 10, 1000),
+                                        (128, 3, 4099), (128, 7, 4099),
+                                        (128, 10, 4099), (1024, 3, 1000)])
+def test_lazy2_tile_kernels_match_plain(dev, hid, n_in, n):
+    """The lazy2 kernels, whose parameter rows are 3xTF32 tensor-core tile
+    products (T1 both directions, T2 both bodies, T3), against their plain
+    versions: hidden widths that are not multiples of 8 (12), 16, the
+    flagship's 128 and the widest the routing sends (1024); summaries 3, 7
+    and 10 wide; batches that are not a multiple of the tile.  T3's val /
+    ld equal T1's and two T3 calls give equal gradients, bit for bit."""
+    p = pdf("e4", "gggg", conditional_input_dim=n_in,
+            amortization_mlp_dims=str(hid), device=dev)
+    assert p.mlp_predictors[0].first_layer_weights(
+        p.init_params(seed=0)["mlp_0"])[0].shape == (hid, n_in)
+    for direction in ("density", "sample"):
+        _check_block(p, 0, dev, direction, n=n)
+    _check_bwd(p, 0, dev, n)
+
+
+def test_lazy2_tiles_hold_two_blocks_per_sm(dev):
+    """At the flagship's H = 128 the lazy2 kernels' tile (128 rows, 4
+    warps, ~111 KB of shared memory) leaves room for a second block: 8
+    warps per SM, T1 and T2 / T3 alike."""
+    p = pdf(*FLAGSHIP, device=dev)
+    prep, meta = p._block_meta[2]
+    for name in ("density_lazy2", "sample_lazy2", "density_bwd_lazy2",
+                 "sample_bwd_lazy2", "nll_lazy2"):
+        blocks, threads, _ = gb.kernel_occupancy(name, prep, meta, 128)
+        assert threads == 128 and blocks >= 2, (name, blocks, threads)
 
 
 def test_gradients_through_every_entry_point(dev):
