@@ -28,7 +28,11 @@ in parallel), then drives the flagship ``pdf("e4+s2+e4", "gggg+f+gggg")``:
   rows);
 * the chain-rate probe (T8): the measured per-step rate of exp, log,
   softplus, sin, arccos and a multiply-add on 1,048,576 elements, beside
-  the data-sheet FP32 rate the bounds assume.
+  the data-sheet FP32 rate the bounds assume;
+* two checks beside the paths: a NaN made on the card (0/0) in the lazy2
+  block's summary or weights reaches T1 lazy2's and T3 lazy2's outputs
+  exactly where it reaches the plain versions'; the perm backward kernels
+  give the same bits on two launches.
 
 Each path has its own launch counts, which must be exactly the kernels that
 path runs.  Every kernel call of every path is recorded and held against the
@@ -211,6 +215,11 @@ PEAK_3XTF32_FLOPS = 495e12 / 3
 # (csrc/gf_block_src.cuh TileSrc): lazy2 forward and backward
 TILE_KERNELS = ("density_lazy2", "sample_lazy2", "density_bwd_lazy2",
                 "sample_bwd_lazy2", "nll_lazy2")
+# the perm backward kernels: a grid of (blocks per SM) x SMs, warp-private
+# partials summed in a fixed order
+PERM_BWD = ("density_bwd_perm", "sample_bwd_perm", "nll_perm")
+# rows of the NaN check (the flagship's lazy2 block)
+N_NAN = 4096
 
 
 def log(msg):
@@ -497,7 +506,8 @@ def cuobjdump_path():
 def tile_kernel_report(built, card):
     """After the build: each lazy2 kernel's TF32 HMMA instructions in the
     SASS of its built library (cuobjdump -sass), and its blocks per SM at
-    the flagship's H = 128 (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+    the flagship's H = 128 (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+    and the perm backward kernels' blocks per SM at block 0 (their grid).
     Fails when a lazy2 kernel has no TF32 HMMA."""
     from jammy_flows_tpu_torch import pdf
     from jammy_flows_tpu_torch.ops import gf_block as gb
@@ -528,12 +538,14 @@ def tile_kernel_report(built, card):
     if missing:
         raise AssertionError(f"no TF32 HMMA in the SASS of {missing}")
     p = pdf(*FLAGSHIP, device="cpu")
-    prep, meta = p._block_meta[2]
-    for name in TILE_KERNELS:
-        blocks, threads, smem = gb.kernel_occupancy(name, prep, meta, 128)
-        log(f"occupancy {name} (H = 128) on {card}: {blocks} blocks of "
-            f"{threads} threads = {blocks * threads // 32} warps per SM, "
-            f"{smem} B of shared memory a block")
+    for k, names, hid in ((2, TILE_KERNELS, 128), (0, PERM_BWD, 0)):
+        prep, meta = p._block_meta[k]
+        for name in names:
+            blocks, threads, smem = gb.kernel_occupancy(name, prep, meta, hid)
+            log(f"occupancy {name} (block {k}{', H = 128' if hid else ''}) "
+                f"on {card}: {blocks} blocks of {threads} threads = "
+                f"{blocks * threads // 32} warps per SM, {smem} B of shared "
+                f"memory a block")
 
 
 def entry_row(name, args, by_path, err, card):
@@ -987,6 +999,89 @@ def train(label, p, params, seed, opts=None):
                 "fit": l_fit}
     return (launches, errs, c_nll + c_lp + c_sg, lc_calls,
             (step_fused, step_auto))
+
+
+def nan_check(dev):
+    """One NaN made on the card as 0/0 (0x7fffffff) in the summary or in w
+    of the flagship's lazy2 block, through T1 lazy2 (both directions) and
+    T3 lazy2: NaN in exactly the outputs where the plain version has it,
+    and every row it does not reach equal to the kernel's result without
+    the NaN, bit for bit (the 3xTF32 split and the mixtures keep a NaN)."""
+    from jammy_flows_tpu_torch import pdf
+    from jammy_flows_tpu_torch.ops import gf_block as gb
+    p = pdf(*FLAGSHIP, device=dev)
+    prep, meta = p._block_meta[2]
+    par = jittered_params(p, seed=90)
+    mlp = p.mlp_predictors[2]
+    w1, b1 = (t.contiguous() for t in mlp.first_layer_weights(par["mlp_2"]))
+    w, b = (t.contiguous() for t in mlp.final_layer_weights(par["mlp_2"]))
+    g = torch.Generator(device=dev).manual_seed(91)
+    x = 0.8 * torch.randn((N_NAN, 4), generator=g, device=dev)
+    summary = torch.randn((N_NAN, mlp.input_dim), generator=g, device=dev)
+    clean = (summary, w1, b1, w, b)
+    zero = torch.zeros((), device=dev)
+    for what in ("summary", "w"):
+        bad_s, bad_w = summary.clone(), w.clone()
+        if what == "summary":
+            bad_s[5, 1] = zero / zero
+        else:
+            bad_w[9, 7] = zero / zero
+        params = (bad_s, w1, b1, bad_w, b)
+        outs = []
+        for direction in ("density", "sample"):
+            got = gb._launch(x, params, prep, meta, "lazy2", direction)
+            want = gb._launch(x, clean, prep, meta, "lazy2", direction)
+            ref = gb.block_plain(direction, x, params, prep, meta, "lazy2")
+            outs.append((f"{direction}_lazy2", got, ref, want, True))
+        wv, wl = 1.0 / N_NAN, -1.0 / N_NAN
+        got = gb._launch_bwd("nll", x, params, None, None, prep, meta,
+                             "lazy2", wv, wl)
+        want = gb._launch_bwd("nll", x, clean, None, None, prep, meta,
+                              "lazy2", wv, wl)
+        ref = gb.block_nll_plain(x, params, prep, meta, "lazy2", wv, wl)
+        # per row: val, ld, gx, gsummary; then the broadcast gradients
+        outs.append(("nll_lazy2", (*got[:3], got[3][0]),
+                     (*ref[:3], ref[3][0]), (*want[:3], want[3][0]), True))
+        outs.append(("nll_lazy2 broadcast", got[3][1:], ref[3][1:], None,
+                     False))
+        torch.cuda.synchronize()
+        for name, got, ref, want, per_row in outs:
+            n_nan = [int(torch.isnan(a).sum()) for a in got]
+            same = all(torch.equal(torch.isnan(a), torch.isnan(r))
+                       for a, r in zip(got, ref))
+            kept = True
+            if per_row:
+                rows = ~torch.isnan(ref[0]).any(dim=1)
+                kept = all(torch.equal(a[rows], c[rows])
+                           for a, c in zip(got, want))
+            log(f"NaN in {what}: {name}: NaN entries {n_nan} (plain "
+                f"{[int(torch.isnan(r).sum()) for r in ref]}), in the same "
+                f"places {same}" + (f", rows without NaN equal to the "
+                                    f"clean run's {kept}" if per_row else ""))
+            if not (same and kept and sum(n_nan)):
+                raise AssertionError(f"NaN in {what}: {name} does not keep "
+                                     "the NaN as its plain version does")
+
+
+def perm_repeat_check(calls):
+    """The perm backward kernels (T3, both T2 bodies) on the first recorded
+    call's own inputs, launched twice more: the same bits each time."""
+    from jammy_flows_tpu_torch.ops import gf_block as gb
+    for name in PERM_BWD:
+        _, kind, kept, prep, meta, mode, _ = next(c for c in calls
+                                                  if c[0] == name)
+        x, params = kept[:2]
+        g_out, g_ld = (None, None) if kind == "nll" else kept[2:]
+        wv, wl = kept[2:] if kind == "nll" else (0.0, 0.0)
+        a, b = (gb._launch_bwd(kind, x, params, g_out, g_ld, prep, meta,
+                               mode, wv, wl) for _ in range(2))
+        torch.cuda.synchronize()
+        same = all((u is None and v is None) or torch.equal(u, v)
+                   for u, v in zip((*a[:3], *a[3]), (*b[:3], *b[3])))
+        log(f"{name} ({x.shape[0]} rows): two launches bit-equal {same}")
+        if not same:
+            raise AssertionError(f"{name}: two launches on the same inputs "
+                                 "differ")
 
 
 def mlp_widths(mode, params):
@@ -1687,6 +1782,7 @@ def main():
         for k, v in e.items():
             errs_t[k] = max(errs_t.get(k, 0.0), v)
     del calls_t["conditional"]
+    perm_repeat_check(calls_t["unconditional"])
     rows += time_bwd_kernels(BWD_KERNELS, calls_t["unconditional"],
                              launch_t, errs_t, card)
     del calls_t
@@ -1696,6 +1792,7 @@ def main():
             f"per {N_TRAIN} rows")
     log(f"training phase {time.time() - t_train:.1f} s")
     del p_u, p_c, par_u, par_c, x_u, x_c
+    nan_check(dev)
 
     rows += layer_phase(dev, card)
     rows += lazy_phase(dev, card)

@@ -27,8 +27,11 @@
 // floats), read and written once per tile through L2.
 //
 // Design:
-//   * one thread per batch row; a fixed grid of persistent blocks (two per
-//     SM) walks the tiles in a fixed order, so the run is deterministic;
+//   * one thread per batch row; a fixed grid of persistent blocks walks
+//     the tiles in a fixed order, so the run is deterministic: in perm
+//     mode as many blocks as the SMs hold at once (the occupancy API's
+//     count: 3 per SM for the flagship, held by the launch bounds), else
+//     two per SM;
 //   * per row, the forward's per-layer inputs (L*d floats) are kept and the
 //     layers swept in reverse;
 //   * lazy2 (TileSrc, gf_block_src.cuh): the parameter rows come from the
@@ -40,15 +43,22 @@
 //     gb (sum over the tile's rows).  dh lives in the block's global
 //     scratch (L2), so that two 128-row blocks (8 warps) share an SM at
 //     H = 128; the tile shrinks to 64 or 32 rows above H = 454;
-//   * perm and lazy: parameter-row cotangents dp (one mixture's 3K rows,
-//     one reflection's or offset's d rows) are staged for the block's rows
+//   * perm: a piece's parameter-row cotangents (one mixture's 3K rows,
+//     one reflection's or offset's d rows) are summed over the warp's 32
+//     rows by a transpose-sum of shuffles (lane j ends with the sum of
+//     value j: 31 shuffles for 32 values, 6 for 4) and added by lane j to
+//     the warp's own partial in shared memory (P floats a warp; a
+//     parameter row is always the same lane's, so no barrier in the
+//     per-row body); at the end the block sums its warps' partials in warp
+//     order and writes its row of the partials once;
+//   * lazy: parameter-row cotangents dp are staged for the block's rows
 //     in shared memory; the block then adds sum_rows dp to its private
-//     partial of gb / gpvec and (lazy) sum_rows dp * hidden[h] to its
-//     partial of gw, thread h owning column h (hidden and dh columns
-//     padded to 129 floats, conflict-free), and each thread adds w^T dp to
-//     its row's dh column; the lazy tile shrinks to 64 or 32 rows while
-//     both columns do not fit in shared memory, and where they do not fit
-//     at 32 rows (H > 864) the dh columns move to the block's scratch;
+//     partial of gb and sum_rows dp * hidden[h] to its partial of gw,
+//     thread h owning column h (hidden and dh columns padded to 129
+//     floats, conflict-free), and each thread adds w^T dp to its row's dh
+//     column; the tile shrinks to 64 or 32 rows while both columns do not
+//     fit in shared memory, and where they do not fit at 32 rows
+//     (H > 864) the dh columns move to the block's scratch;
 //   * lazy2 ends each tile with dh * (1 - hidden^2) -> gsummary per row and
 //     the block's gb1 / gw1 partials; lazy ends it with dh -> ghidden per
 //     row (coalesced: consecutive threads write consecutive h);
@@ -63,6 +73,9 @@ using namespace gf;
 namespace {
 
 constexpr int STAGE = 32;  // parameter rows staged per flush (<= threads)
+// floats per parameter row of the backward's PermSrc (x P)
+constexpr int PERM_FLOATS = PermSrc<1, 0, 1, true>::FLOATS_PER_ROW;
+
 constexpr int SMEM_LIMIT = 227 * 1024;
 
 struct BwdArgs {
@@ -80,57 +93,108 @@ struct BwdArgs {
 
 // a block's working memory: the hidden and dh columns (lazy: shared, dh
 // possibly the block's global scratch; lazy2: TileSrc's hidden and the
-// scratch) and the staged row cotangents (perm, lazy)
+// scratch), the staged row cotangents (lazy) and the warp's partial of the
+// parameter gradient (perm)
 struct Stage {
-  float* hid;  // lazy2, lazy: (H or Hp, hs)
-  float* dh;   // lazy2, lazy: (H or Hp, hs)
-  float* dp;   // perm, lazy: (STAGE, blockDim.x)
-  int* prow;   // perm, lazy: (STAGE,)
+  float* hid;    // lazy2, lazy: (H or Hp, hs)
+  float* dh;     // lazy2, lazy: (H or Hp, hs)
+  float* dp;     // lazy: (STAGE, blockDim.x)
+  int* prow;     // lazy: (STAGE,)
+  float* wpart;  // perm: (P,), this warp's own
 };
 
-// Add the staged rows' cotangents (cnt rows, one per block row in each)
-// to the block's partials (perm: gpvec; lazy: [gw | gb]).
-template <int MODE>
-__device__ void flush(const BwdArgs& A, const Stage& st, int cnt) {
-  const BlockArgs& a = A.a;
-  const int T = blockDim.x, tid = threadIdx.x;
-  float* part = A.partials + (size_t)blockIdx.x * A.G;
-  if (MODE == LAZYH) {
-    float* pw = part;
-    float* pb = pw + (size_t)a.P * a.H;
-    for (int idx = tid; idx < cnt * a.H; idx += T) {
-      const int j = idx / a.H, h = idx - j * a.H;
-      const float* dp = st.dp + j * T;
-      const float* hv = st.hid + h * A.hs;
-      float acc = 0.0f;
-      for (int t = 0; t < T; ++t) acc += dp[t] * hv[t];
-      pw[(size_t)st.prow[j] * a.H + h] += acc;
+// ---- perm: a piece's cotangents summed over the warp by shuffles ---------
+
+// v[0] of lane l ends as the sum over the warp's 32 lanes of v[l % NV] (NV
+// a power of two <= 32): NV - 1 exchanges halve the values a lane holds
+// (lanes that differ in bit s swap the halves the other keeps), then the
+// lanes that hold the same value index add theirs by a butterfly.  A fixed
+// order of additions: the same bits on every call.
+template <int NV>
+__device__ __forceinline__ float warp_transpose_sum(float (&v)[NV]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int s = NV / 2; s >= 1; s /= 2) {
+    const bool upper = lane & s;
+#pragma unroll
+    for (int j = 0; j < s; ++j) {
+      const float send = upper ? v[j] : v[j + s];
+      const float keep = upper ? v[j + s] : v[j];
+      v[j] = keep + __shfl_xor_sync(0xffffffffu, send, s);
     }
-    for (int j = tid; j < cnt; j += T) {
-      float acc = 0.0f;
-      for (int t = 0; t < T; ++t) acc += st.dp[j * T + t];
-      pb[st.prow[j]] += acc;
-    }
-    float* dcol = st.dh + tid;
-    for (int h = 0; h < a.H; ++h) {
-      float acc = 0.0f;
-      for (int j = 0; j < cnt; ++j)
-        acc += st.dp[j * T + tid] * __ldg(a.w + (size_t)st.prow[j] * a.H + h);
-      dcol[h * A.hs] += acc;
-    }
+  }
+#pragma unroll
+  for (int s = NV; s < 32; s *= 2) v[0] += __shfl_xor_sync(0xffffffffu, v[0], s);
+  return v[0];
+}
+
+__host__ __device__ constexpr int pow2_at_least(int n) {
+  return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2);
+}
+
+// Add the warp's rows' cotangents of one piece (n <= NV values a row,
+// parameter rows rows(j)) to the warp's partial: the warp sum of value j
+// lands on lane j % 32, which owns rows(j) in the partial (a row belongs
+// to one piece, so to one lane: no other lane or warp touches it).  NV is
+// the length of the caller's array: up to 32 the values stay in registers
+// and take one transpose-sum; beyond (the generic shape's mixtures) they
+// go 32 at a time.  Every lane of the warp calls it, rows past B with
+// zeros.
+template <int NV, class Rows>
+__device__ __forceinline__ void warp_flush(float* wpart, const float* vals,
+                                           int n, const Rows& rows) {
+  const int lane = threadIdx.x & 31;
+  if constexpr (NV <= 32) {
+    constexpr int W = pow2_at_least(NV);
+    float v[W];
+#pragma unroll
+    for (int j = 0; j < W; ++j) v[j] = (j < NV && j < n) ? vals[j] : 0.0f;
+    const float sum = warp_transpose_sum<W>(v);
+    if (lane < n) wpart[rows(lane)] += sum;
   } else {
-    for (int j = tid; j < cnt; j += T) {
-      float acc = 0.0f;
-      for (int t = 0; t < T; ++t) acc += st.dp[j * T + t];
-      part[st.prow[j]] += acc;
+    for (int c0 = 0; c0 < n; c0 += 32) {
+      float v[32];
+#pragma unroll
+      for (int j = 0; j < 32; ++j) v[j] = c0 + j < n ? vals[c0 + j] : 0.0f;
+      const float sum = warp_transpose_sum<32>(v);
+      if (c0 + lane < n) wpart[rows(c0 + lane)] += sum;
     }
   }
 }
 
-// Stage this thread's n row cotangents vals (rows given by `rows`) and
-// flush them, STAGE rows at a time.  Every thread of the block calls it
-// with the same n.
-template <int MODE, class Rows>
+// lazy: add the staged rows' cotangents (cnt rows, one per block row in
+// each) to the block's partials [gw | gb] and to each row's dh column.
+__device__ void flush(const BwdArgs& A, const Stage& st, int cnt) {
+  const BlockArgs& a = A.a;
+  const int T = blockDim.x, tid = threadIdx.x;
+  float* pw = A.partials + (size_t)blockIdx.x * A.G;
+  float* pb = pw + (size_t)a.P * a.H;
+  for (int idx = tid; idx < cnt * a.H; idx += T) {
+    const int j = idx / a.H, h = idx - j * a.H;
+    const float* dp = st.dp + j * T;
+    const float* hv = st.hid + h * A.hs;
+    float acc = 0.0f;
+    for (int t = 0; t < T; ++t) acc += dp[t] * hv[t];
+    pw[(size_t)st.prow[j] * a.H + h] += acc;
+  }
+  for (int j = tid; j < cnt; j += T) {
+    float acc = 0.0f;
+    for (int t = 0; t < T; ++t) acc += st.dp[j * T + t];
+    pb[st.prow[j]] += acc;
+  }
+  float* dcol = st.dh + tid;
+  for (int h = 0; h < a.H; ++h) {
+    float acc = 0.0f;
+    for (int j = 0; j < cnt; ++j)
+      acc += st.dp[j * T + tid] * __ldg(a.w + (size_t)st.prow[j] * a.H + h);
+    dcol[h * A.hs] += acc;
+  }
+}
+
+// lazy: stage this thread's n row cotangents vals (rows given by `rows`)
+// and flush them, STAGE rows at a time.  Every thread of the block calls
+// it with the same n.
+template <class Rows>
 __device__ void stage_flush(const BwdArgs& A, const Stage& st,
                             const float* vals, int n, const Rows& rows) {
   const int T = blockDim.x, tid = threadIdx.x;
@@ -139,7 +203,7 @@ __device__ void stage_flush(const BwdArgs& A, const Stage& st,
     for (int j = 0; j < cnt; ++j) st.dp[j * T + tid] = vals[c0 + j];
     if (tid < cnt) st.prow[tid] = rows(c0 + tid);
     __syncthreads();
-    flush<MODE>(A, st, cnt);
+    flush(A, st, cnt);
     __syncthreads();
   }
 }
@@ -211,8 +275,8 @@ __device__ void dh_product(const Tile& tl, const float* dp, float* dh,
           for (int nt = 0; nt < 2; ++nt) {
             const float* wk = wb + (ks * 8 + q) * WS + (h0 & (TILE_KC - 1)) +
                               nt * 8 + g;
-            split_tf32(wk[0], bhi[nt][0], blo[nt][0]);
-            split_tf32(wk[4 * WS], bhi[nt][1], blo[nt][1]);
+            split_tf32_any(wk[0], bhi[nt][0], blo[nt][0]);
+            split_tf32_any(wk[4 * WS], bhi[nt][1], blo[nt][1]);
           }
           mma3_tile(acc, ahi, alo, bhi, blo, 2, n_tiles);
         }
@@ -366,32 +430,38 @@ __device__ __forceinline__ void reflect_bwd(const Src& src, int r0, int D,
   }
 }
 
-// A row's cotangents of one dimension's mixture rows: lazy2 writes them
-// over its row of the staged slab and flushes the piece on the tensor
-// cores; perm and lazy stage them for flush, STAGE rows at a time.
-template <int MODE, class Src>
+// A row's cotangents of one dimension's mixture rows (NV: the length of
+// the caller's array): lazy2 writes them over its row of the staged slab
+// and flushes the piece on the tensor cores; perm sums them over the warp
+// into the warp's partial; lazy stages them for flush, STAGE rows at a
+// time.
+template <int MODE, int NV, class Src>
 __device__ __forceinline__ void emit(const BwdArgs& A, const Stage& st,
                                      const Src& src, const float* vals, int n,
                                      const MixRows& rows) {
   if constexpr (MODE == LAZY2) {
     src.put_mix(vals, n);
     flush_piece(A, st, src.tl, src.tl.sm, rows, n);
+  } else if constexpr (MODE == PERM) {
+    warp_flush<NV>(st.wpart, vals, n, rows);
   } else {
-    stage_flush<MODE>(A, st, vals, n, rows);
+    stage_flush(A, st, vals, n, rows);
   }
 }
 
 // A row's cotangents of the n offset or reflection rows from r0: lazy2
 // writes them over its row of the staged `sa`, flushed by flush_a once the
-// layer's are all there; perm and lazy stage them for flush.
-template <int MODE, class Src>
+// layer's are all there; perm and lazy as `emit`.
+template <int MODE, int NV, class Src>
 __device__ __forceinline__ void emit_a(const BwdArgs& A, const Stage& st,
                                        const Src& src, const float* vals,
                                        int n, int r0) {
   if constexpr (MODE == LAZY2) {
-    for (int j = 0; j < n; ++j) *src.a_col(r0 + j) = vals[j];
+    for (int j = 0; j < n; ++j) *src.a_col(r0 + j) = keep_nan(vals[j]);
+  } else if constexpr (MODE == PERM) {
+    warp_flush<NV>(st.wpart, vals, n, SpanRows{r0});
   } else {
-    stage_flush<MODE>(A, st, vals, n, SpanRows{r0});
+    stage_flush(A, st, vals, n, SpanRows{r0});
   }
 }
 
@@ -401,6 +471,35 @@ __device__ __forceinline__ void flush_a(const BwdArgs& A, const Stage& st,
   if constexpr (MODE == LAZY2)
     flush_piece(A, st, src.tl, src.tl.sa, SpanRows{lm.row0},
                 (lm.has_off ? A.a.D : 0) + lm.rot_it * A.a.D);
+}
+
+// One dimension's mixture adjoint (gf_common.cuh mix_adjoint) at x with
+// the cotangents (g, gl); the parameter cotangents [means | raw log-widths
+// | raw log-norms] into vals.  perm: the parameter-only terms (regulator
+// derivatives, log inverse widths) are the block's, prepared once by
+// PermSrc<..., true>.
+template <int MODE, int KT, bool SAMPLE, class Src>
+__device__ __forceinline__ float adjoint(const Src& src, const BlockArgs& a,
+                                         const LayerMeta& lm, int K, int D,
+                                         int dd, float x, float g, float gl,
+                                         float* vals) {
+  constexpr int N = KT > 0 ? KT : KMAX;
+  Mix<N> mx;
+  float lw[N], ln[N];
+  src.load_mix_raw(mx, lw, ln, lm, K, D, dd, a);
+  const bool fit = lm.has_ln && a.fit_norm;
+  if constexpr (MODE == PERM) {
+    float fw[N], fn[N], fl[N];
+    src.load_mix_fac(fw, fn, fl, lm, K, D, dd);
+    return mix_adjoint<N, KT, SAMPLE, true>(x, mx, lw, ln, K, fit, a.wreg,
+                                            a.nreg, lm.ift, g, gl, vals,
+                                            vals + K, vals + 2 * K, fw, fn,
+                                            fl);
+  } else {
+    return mix_adjoint<N, KT, SAMPLE>(x, mx, lw, ln, K, fit, a.wreg, a.nreg,
+                                      lm.ift, g, gl, vals, vals + K,
+                                      vals + 2 * K);
+  }
 }
 
 // ---- density body (T2 density, T3) ----------------------------------------
@@ -470,19 +569,19 @@ __device__ void density_tile(const BwdArgs& A, const Stage& st, const Src& src,
     int m0, lw0, ln0;
     mix_rows(lm, K, D, m0, lw0, ln0);
     const int n_mix = (2 + lm.has_ln) * K;
+    // the entries of vals cleared: all of them where their count is a
+    // constant (they then stay in registers)
+    const int n_vals = KT > 0 ? 3 * N : n_mix;
     for (int dd = 0; dd < D; ++dd) {
       src.stage_mix(a, lm, dd);
-      Mix<N> mx;
-      float lw[N], ln[N], vals[3 * N];
-      src.load_mix_raw(mx, lw, ln, lm, K, D, dd, a);
-      for (int j = 0; j < n_mix; ++j) vals[j] = 0.0f;
-      g[dd] = mix_adjoint<N, KT, false>(s[dd], mx, lw, ln, K,
-                                        lm.has_ln && a.fit_norm, a.wreg, a.nreg,
-                                        lm.ift, g[dd], gl[dd], vals, vals + K,
-                                        vals + 2 * K);
+      float vals[3 * N];
+      for (int j = 0; j < n_vals; ++j) vals[j] = 0.0f;
+      g[dd] = adjoint<MODE, KT, false>(src, a, lm, K, D, dd, s[dd], g[dd],
+                                       gl[dd], vals);
       if (!valid)
-        for (int j = 0; j < n_mix; ++j) vals[j] = 0.0f;
-      emit<MODE>(A, st, src, vals, n_mix, MixRows{m0, lw0, ln0, K, D, dd});
+        for (int j = 0; j < n_vals; ++j) vals[j] = 0.0f;
+      emit<MODE, 3 * N>(A, st, src, vals, n_mix,
+                        MixRows{m0, lw0, ln0, K, D, dd});
     }
     // reflections were applied i = 0 .. it-1: undo them last-first
     for (int i = lm.rot_it - 1; i >= 0; --i) {
@@ -490,12 +589,12 @@ __device__ void density_tile(const BwdArgs& A, const Stage& st, const Src& src,
       reflect_bwd<DN>(src, rot0 + i * D, D, s, g, gu, true);
       if (!valid)
         for (int j = 0; j < D; ++j) gu[j] = 0.0f;
-      emit_a<MODE>(A, st, src, gu, D, rot0 + i * D);
+      emit_a<MODE, DN>(A, st, src, gu, D, rot0 + i * D);
     }
     if (lm.has_off) {
       float go[DN];
       for (int j = 0; j < D; ++j) go[j] = valid ? -g[j] : 0.0f;
-      emit_a<MODE>(A, st, src, go, D, lm.row0);
+      emit_a<MODE, DN>(A, st, src, go, D, lm.row0);
     }
     flush_a<MODE>(A, st, src, lm);
   }
@@ -554,7 +653,7 @@ __device__ void sample_tile(const BwdArgs& A, const Stage& st, const Src& src,
     if (lm.has_off) {
       float go[DN];
       for (int j = 0; j < D; ++j) go[j] = valid ? g[j] : 0.0f;
-      emit_a<MODE>(A, st, src, go, D, lm.row0);
+      emit_a<MODE, DN>(A, st, src, go, D, lm.row0);
     }
     float xr[DN];
     for (int j = 0; j < D; ++j) xr[j] = sl[l][j];
@@ -564,26 +663,26 @@ __device__ void sample_tile(const BwdArgs& A, const Stage& st, const Src& src,
       reflect_bwd<DN>(src, rot0 + i * D, D, xr, g, gu, true);
       if (!valid)
         for (int j = 0; j < D; ++j) gu[j] = 0.0f;
-      emit_a<MODE>(A, st, src, gu, D, rot0 + i * D);
+      emit_a<MODE, DN>(A, st, src, gu, D, rot0 + i * D);
     }
     flush_a<MODE>(A, st, src, lm);
     // implicit steps through the solve and its log-derivative
     int m0, lw0, ln0;
     mix_rows(lm, K, D, m0, lw0, ln0);
     const int n_mix = (2 + lm.has_ln) * K;
+    // the entries of vals cleared: all of them where their count is a
+    // constant (they then stay in registers)
+    const int n_vals = KT > 0 ? 3 * N : n_mix;
     for (int dd = 0; dd < D; ++dd) {
       src.stage_mix(a, lm, dd);
-      Mix<N> mx;
-      float lw[N], ln[N], vals[3 * N];
-      src.load_mix_raw(mx, lw, ln, lm, K, D, dd, a);
-      for (int j = 0; j < n_mix; ++j) vals[j] = 0.0f;
-      g[dd] = mix_adjoint<N, KT, true>(sl[l][dd], mx, lw, ln, K,
-                                       lm.has_ln && a.fit_norm, a.wreg, a.nreg,
-                                       lm.ift, g[dd], gl[dd], vals, vals + K,
-                                       vals + 2 * K);
+      float vals[3 * N];
+      for (int j = 0; j < n_vals; ++j) vals[j] = 0.0f;
+      g[dd] = adjoint<MODE, KT, true>(src, a, lm, K, D, dd, sl[l][dd], g[dd],
+                                       gl[dd], vals);
       if (!valid)
-        for (int j = 0; j < n_mix; ++j) vals[j] = 0.0f;
-      emit<MODE>(A, st, src, vals, n_mix, MixRows{m0, lw0, ln0, K, D, dd});
+        for (int j = 0; j < n_vals; ++j) vals[j] = 0.0f;
+      emit<MODE, 3 * N>(A, st, src, vals, n_mix,
+                        MixRows{m0, lw0, ln0, K, D, dd});
     }
   }
   if (valid)
@@ -605,31 +704,29 @@ __device__ __forceinline__ void run_tile(const BwdArgs& A, const Stage& st,
 // loads and stores (a pointer that may be shared or global would make every
 // access to them a generic one)
 template <int KIND, int MODE, bool DHG, int KT, int DT>
-__global__ void __launch_bounds__(128) gf_block_bwd_kernel(const BwdArgs A) {
+__global__ void __launch_bounds__(128, MODE == PERM ? 3 : 1)
+    gf_block_bwd_kernel(const BwdArgs A) {
   constexpr int N = KT > 0 ? KT : KMAX;
   constexpr int DN = DT > 0 ? DT : DMAX;
   const BlockArgs& a = A.a;
   const int T = blockDim.x, tid = threadIdx.x;
   const int n_tiles = (a.B + T - 1) / T;
   extern __shared__ __align__(16) float smem[];
-  Stage st;
+  Stage st{};
   if (MODE == LAZY2) {
     // the tile's shared memory is TileSrc's; dh is the block's scratch
-    st.hid = nullptr;
     st.dh = A.scratch + (size_t)blockIdx.x * a.tile.Hp * A.hs;
-    st.dp = nullptr;
-    st.prow = nullptr;
-  } else {
-    if (MODE == LAZYH) {
-      const size_t cols = (size_t)a.H * A.hs;
-      st.hid = smem;
-      st.dh = DHG ? A.scratch + (size_t)blockIdx.x * cols : st.hid + cols;
-      st.dp = DHG ? st.hid + cols : st.dh + cols;
-    } else {
-      st.hid = st.dh = nullptr;
-      st.dp = smem + 4 * a.P;  // after PermSrc's 4P floats
-    }
+  } else if (MODE == LAZYH) {
+    const size_t cols = (size_t)a.H * A.hs;
+    st.hid = smem;
+    st.dh = DHG ? A.scratch + (size_t)blockIdx.x * cols : st.hid + cols;
+    st.dp = DHG ? st.hid + cols : st.dh + cols;
     st.prow = reinterpret_cast<int*>(st.dp + STAGE * T);
+  } else {
+    // after PermSrc's 7P floats, one partial of P floats per warp
+    float* wparts = smem + PERM_FLOATS * a.P;
+    st.wpart = wparts + (size_t)(tid >> 5) * a.P;
+    for (int j = tid; j < (T >> 5) * a.P; j += T) wparts[j] = 0.0f;
   }
 
   if constexpr (MODE == LAZYH) {
@@ -692,9 +789,21 @@ __global__ void __launch_bounds__(128) gf_block_bwd_kernel(const BwdArgs A) {
       __syncthreads();
     }
   } else {
-    const PermSrc<N, KT, DN> src(a, smem);
+    // PermSrc's set-up ends with a barrier, after which the zeroed warp
+    // partials are visible; the tiles need no other barrier
+    const PermSrc<N, KT, DN, true> src(a, smem);
     for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x)
       run_tile<KIND, MODE, KT, DT>(A, st, src, tile * T + tid);
+    // the block's partial: its warps' partials summed in warp order,
+    // written once (every block writes its row, tiles or not)
+    __syncthreads();
+    const float* wparts = smem + PERM_FLOATS * a.P;
+    float* part = A.partials + (size_t)blockIdx.x * A.G;
+    for (int j = tid; j < a.P; j += T) {
+      float acc = 0.0f;
+      for (int w = 0; w < (T >> 5); ++w) acc += wparts[(size_t)w * a.P + j];
+      part[j] = acc;
+    }
   }
 }
 
@@ -808,7 +917,7 @@ int tile_shape(int mode, BlockArgs& a, int& threads, size_t& smem,
     smem = need(threads, dh_global ? 1 : 2);
     hs = threads + 1;
   } else {
-    smem = (size_t)4 * a.P * 4 + (size_t)STAGE * threads * 4 + STAGE * 4;
+    smem = ((size_t)PERM_FLOATS + threads / 32) * a.P * 4;
   }
   return smem > SMEM_LIMIT ? (int)cudaErrorInvalidValue : 0;
 }
@@ -821,24 +930,34 @@ int scratch_floats(int mode, const BlockArgs& a, bool dh_global, int hs) {
 
 }  // namespace
 
-// The grid of a call: a fixed number of persistent blocks, two per
-// streaming multiprocessor and at most one per tile.  Each block
-// accumulates a private partial of the broadcast gradients, so the caller
-// allocates (blocks, G) zeros for gf_block_bwd_launch.  meta as
+// The grid of a call: a fixed number of persistent blocks, at most one per
+// tile: in perm mode as many as the SMs hold at once (the occupancy API's
+// blocks per SM for this kernel, times n_sm), else two per SM.  Fixed for
+// a card and a build, so the run is deterministic.  Each block keeps a
+// private partial of the broadcast gradients; the caller allocates
+// (blocks, G) floats for gf_block_bwd_launch, zeros except in perm mode
+// (there each block writes its row once).  kind and meta as
 // gf_block_bwd_launch; 0 when the call is not one the kernels take.
-extern "C" int gf_block_bwd_blocks(int mode, int B, int H, int P, int n_sm,
-                                   const int* meta) {
-  BlockArgs a{};
+extern "C" int gf_block_bwd_blocks(int kind, int mode, int B, int H, int P,
+                                   int n_sm, const int* meta) {
+  BwdArgs A{};
+  BlockArgs& a = A.a;
   a.H = H;
   a.P = P;
   int threads, hs;
   size_t smem;
   bool dh_global;
-  if (parse_meta(a, mode, meta, P) != 0 ||
+  if (kind < 0 || kind > 2 || parse_meta(a, mode, meta, P) != 0 ||
       tile_shape(mode, a, threads, smem, dh_global, hs) != 0)
     return 0;
+  int per_sm = 2;
+  if (mode == PERM &&
+      dispatch_mode(kind, mode, A, 1, threads, smem, nullptr, &per_sm) !=
+          cudaSuccess)
+    return 0;
   const int n_tiles = (B + threads - 1) / threads;
-  const int blocks = n_tiles < 2 * n_sm ? n_tiles : 2 * n_sm;
+  const int cap = (per_sm > 1 ? per_sm : 1) * n_sm;
+  const int blocks = n_tiles < cap ? n_tiles : cap;
   return blocks > 1 ? blocks : 1;
 }
 
@@ -887,11 +1006,12 @@ extern "C" int gf_block_bwd_occupancy(int kind, int mode, int H, int P,
 // kind: 0 T2 density (x, gout, gld), 1 T2 sample (x = the sample output y,
 // gout, gld), 2 T3 (x; writes val, ld; cotangents wv * val, wl; perm and
 // lazy2 only).  mode and meta / regs as gf_block_launch.  partials:
-// (n_blocks, G) zeros, G = P (perm), H*n_in + H + P*H + P (lazy2) or
-// P*H + P (lazy); grads (G,): the sums over rows, packed [gpvec],
-// [gw1 (H, n_in) | gb1 | gw (P, H) | gb] or [gw | gb]; grow: the per-row
-// gradient, gsummary (B, n_in) in lazy2, ghidden (B, H) in lazy.  scratch:
-// n_blocks * gf_block_bwd_scratch(...) floats, or null when that is 0.
+// (n_blocks, G) floats, zeros except in perm mode, G = P (perm),
+// H*n_in + H + P*H + P (lazy2) or P*H + P (lazy); grads (G,): the sums
+// over rows, packed [gpvec], [gw1 (H, n_in) | gb1 | gw (P, H) | gb] or
+// [gw | gb]; grow: the per-row gradient, gsummary (B, n_in) in lazy2,
+// ghidden (B, H) in lazy.  scratch: n_blocks * gf_block_bwd_scratch(...)
+// floats, or null when that is 0.
 // Returns 0 or a cudaError_t; launches on `stream` and does not
 // synchronize.
 extern "C" int gf_block_bwd_launch(int kind, int mode, const float* x,

@@ -130,12 +130,20 @@ __device__ __forceinline__ void mix_rows(const LayerMeta& lm, int K, int D,
 }
 
 // ---- permanent parameters: prepared once per block in shared memory ------
-template <int N, int KT, int DN>
+// BWD (the backward kernels): also each component's regulator derivatives
+// and log inverse width, parameter-only terms of the adjoint (mix_adjoint's
+// fw, fn, fl), which in perm mode are the block's, not the row's: 7P
+// floats of shared memory instead of 4P.
+template <int N, int KT, int DN, bool BWD = false>
 struct PermSrc {
+  static constexpr int FLOATS_PER_ROW = BWD ? 7 : 4;  // x P
   const float* A;    // raw rows; householder rows hold unit vectors
   const float* IW;   // at the log-width rows: inverse widths
   const float* LNW;  // at the log-width rows: log weights
   const float* NW;   // at the log-width rows: weights
+  const float* FW;   // BWD, at the log-width rows: iw * d reg_w / d lw
+  const float* FN;   // BWD, at the log-width rows: d reg_n / d ln (or 0)
+  const float* FL;   // BWD, at the log-width rows: log(iw)
   const float* raw;  // the (P,) vector in global memory
 
   __device__ PermSrc(const BlockArgs& a, float* smem) : raw(a.pvec) {
@@ -143,6 +151,9 @@ struct PermSrc {
     float* sIW = sA + a.P;
     float* sLNW = sIW + a.P;
     float* sNW = sLNW + a.P;
+    float* sFW = sNW + a.P;
+    float* sFN = sFW + a.P;
+    float* sFL = sFN + a.P;
     const int K = KT > 0 ? KT : a.K;
     for (int j = threadIdx.x; j < a.P; j += blockDim.x) sA[j] = a.pvec[j];
     __syncthreads();
@@ -161,12 +172,18 @@ struct PermSrc {
           ln[k] = lm.has_ln ? sA[ln0 + k * a.D + dd] : 0.0f;
         }
         Mix<N> mx;
-        prep_mix<N, KT>(mx, lw, ln, K, lm.has_ln && a.fit_norm, a.wreg, a.nreg);
+        const bool fit = lm.has_ln && a.fit_norm;
+        prep_mix<N, KT>(mx, lw, ln, K, fit, a.wreg, a.nreg);
         for (int k = 0; k < K; ++k) {
           const int j = lw0 + k * a.D + dd;
           sIW[j] = mx.iw[k];
           sLNW[j] = mx.lnw[k];
           sNW[j] = mx.nw[k];
+          if (BWD) {
+            sFW[j] = mx.iw[k] * reg_deriv(a.wreg, lw[k]);
+            sFN[j] = fit ? reg_deriv(a.nreg, ln[k]) : 0.0f;
+            sFL[j] = logf(mx.iw[k]);
+          }
         }
       } else {
         int t = task - n_mix, l = 0;
@@ -184,6 +201,9 @@ struct PermSrc {
     IW = sIW;
     LNW = sLNW;
     NW = sNW;
+    FW = sFW;
+    FN = sFN;
+    FL = sFL;
   }
 
   // no stage: the parameters are at hand
@@ -231,6 +251,22 @@ struct PermSrc {
     float lw[N], ln[N];
     load_mix_raw(mx, lw, ln, lm, K, D, dd, a);
   }
+
+  // BWD: the mixture's parameter-only adjoint terms (mix_adjoint's fw,
+  // fn, fl)
+  __device__ void load_mix_fac(float* fw, float* fn, float* fl,
+                               const LayerMeta& lm, int K, int D,
+                               int dd) const {
+    int m0, lw0, ln0;
+    mix_rows(lm, K, D, m0, lw0, ln0);
+    const int kk = KT > 0 ? KT : K;
+#pragma unroll
+    for (int k = 0; k < kk; ++k) {
+      fw[k] = FW[lw0 + k * D + dd];
+      fn[k] = FN[lw0 + k * D + dd];
+      fl[k] = FL[lw0 + k * D + dd];
+    }
+  }
 };
 
 // ---- the hidden column of one row -----------------------------------------
@@ -246,7 +282,9 @@ __device__ __forceinline__ void hidden_column(const BlockArgs& a, float* col,
       const float si = s[i];
       for (int h = 0; h < a.H; ++h) col[h * stride] += a.w1[h * a.n_in + i] * si;
     }
-    for (int h = 0; h < a.H; ++h) col[h * stride] = tanhf(col[h * stride] + a.b1[h]);
+    // a NaN kept through the tile products' TF32 split
+    for (int h = 0; h < a.H; ++h)
+      col[h * stride] = keep_nan(tanhf(col[h * stride] + a.b1[h]));
   } else {
     const float* hr = a.hidden + (size_t)row * a.H;
     for (int h = 0; h < a.H; ++h) col[h * stride] = __ldg(hr + h);
@@ -455,8 +493,8 @@ __device__ void rows_product(const Tile& tl, float* slab, const float* w,
         for (int nt = 0; nt < 4; ++nt) {
           if (nt < n_tiles) {
             const float* wk = wb + (nt * 8 + g) * WS + ks * 8 + q;
-            split_tf32(wk[0], bhi[nt][0], blo[nt][0]);
-            split_tf32(wk[4], bhi[nt][1], blo[nt][1]);
+            split_tf32_any(wk[0], bhi[nt][0], blo[nt][0]);
+            split_tf32_any(wk[4], bhi[nt][1], blo[nt][1]);
           }
         }
         mma3_tile(acc, ahi, alo, bhi, blo, 2, n_tiles);
@@ -564,9 +602,10 @@ struct TileSrc {
     load_mix_raw(mx, lw, ln, lm, K, D, dd, a);
   }
 
-  // the staged dimension's cotangents, over this thread's row of sm
+  // the staged dimension's cotangents, over this thread's row of sm (a
+  // NaN kept through the TF32 split)
   __device__ void put_mix(const float* vals, int n) const {
-    for (int j = 0; j < n; ++j) tl.sm[j * tl.ts + t] = vals[j];
+    for (int j = 0; j < n; ++j) tl.sm[j * tl.ts + t] = keep_nan(vals[j]);
   }
 };
 

@@ -1,10 +1,14 @@
 // The tensor-core instructions of the lazy2 tile stage (gf_block_src.cuh),
-// and nothing else: every inline PTX of the block kernels lives here, so a
-// CPU rehearsal of the kernels can replace this one file by a scalar
-// emulation with the same lane -> fragment mapping and the same rounding.
+// and nothing else: the block kernels' inline PTX lives here (beside
+// gf_common.cuh's max.NaN / min.NaN, which have a C++ form for a host
+// compiler), so a CPU rehearsal of the kernels can replace this one file by
+// a scalar emulation with the same lane -> fragment mapping and the same
+// rounding.
 //
 //   * split: x = hi + lo, both rounded to TF32 as cvt.rna rounds (to
-//     nearest, ties away from zero, 10 mantissa bits kept);
+//     nearest, ties away from zero, 10 mantissa bits kept); a NaN x keeps
+//     making NaN products (keep_nan, split_tf32_any), as in the plain
+//     emulation (ops/gf_block.py round_tf32, matmul_3xtf32);
 //   * mma3_tile: acc += a * b over a warp's tile of fragment pairs, each as
 //     three m16n8k8 TF32 products with f32 accumulation, lo*hi + hi*lo
 //     first, then hi*hi ("3xTF32": about f32 accuracy; a single TF32 pass
@@ -28,14 +32,39 @@ namespace gf {
 // bits, the low 13 bits cleared (ties away from zero, the sign being a bit
 // of its own).  The same bits as the conversion instruction for finite x,
 // at the full integer rate where the conversion runs at a fraction of it.
+// Not for a NaN: its mantissa's carry can run into the exponent or the
+// sign (CUDA's NaN 0x7fffffff becomes -0); split_tf32 keeps it.
 __device__ __forceinline__ uint32_t to_tf32(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
+// x = hi + lo in TF32 parts, for an x that is finite or a NaN that
+// to_tf32 keeps (keep_nan): the tile stages write such NaNs into their
+// shared operands (the hidden column, a row's cotangents), so that the
+// products' inner loops pay nothing for them.
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
                                            uint32_t& lo) {
   hi = to_tf32(x);
   lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// x, with a NaN replaced by one that to_tf32 keeps (0x7fc00000)
+__device__ __forceinline__ float keep_nan(float x) {
+  return x != x ? __uint_as_float(0x7fc00000u) : x;
+}
+
+// split_tf32 for an operand as it comes from global memory (the final MLP
+// weight w, any bits): a non-finite x makes r = x - hi a NaN (NaN - any,
+// inf - inf), and lo takes it through 0 * r (NaN for a NaN r, +-0 else,
+// which leaves a rounded lo's bits as they are), so every product with x
+// is NaN, as with round_tf32 in ops/gf_block.py.  One FMA more than
+// split_tf32 (a NaN select in to_tf32 slows the lazy2 kernels by 21-44%
+// on an H100: the integer pipe paces the products' inner loops).
+__device__ __forceinline__ void split_tf32_any(float x, uint32_t& hi,
+                                               uint32_t& lo) {
+  hi = to_tf32(x);
+  const float r = x - __uint_as_float(hi);
+  lo = __float_as_uint(fmaf(0.0f, r, __uint_as_float(to_tf32(r))));
 }
 
 __device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,

@@ -38,6 +38,30 @@ from ..ops.special import LOG_SQRT_2PI, std_normal_log_prob
 from .amortizable_mlp import AmortizableMLP, list_from_str
 
 _TODO = "is not ported yet (ROADMAP.md, Queue 1)"
+_PDF_OPTIONS = "Queue 1 item 4(f): PDF-level options"
+# the JAX package's keywords that the port takes but does not run yet, with
+# their JAX defaults: any other value raises NotImplementedError
+UNPORTED_DEFAULTS = {
+    "predict_log_normalization": False,
+    "join_poisson_and_pdf_description": False,
+    "hidden_mlp_dims_poisson": "128", "rank_of_mlp_mappings_poisson": 0,
+    "amortization_mlp_use_custom_mode": False, "amortize_everything": False,
+    "use_as_passthrough_instead_of_pdf": False,
+    "skip_mlp_initialization": False, "verbose": False, "data": None,
+    "amortization_parameters": None, "force_embedding_coordinates": False,
+    "force_intrinsic_coordinates": False,
+    "failsafe_crosscheck_tolerance": None, "failsafe_rounds": 3,
+    "optimizer": None, "checkpoint_every": None}
+
+
+def refuse_unported(item, **given):
+    """NotImplementedError naming ROADMAP ``item`` for the first keyword
+    whose value is not its JAX default (UNPORTED_DEFAULTS)."""
+    for name, value in given.items():
+        default = UNPORTED_DEFAULTS[name]
+        if value is not default and (default is None or value != default):
+            raise NotImplementedError(
+                f"{name}={value!r} is not ported yet (ROADMAP.md, {item})")
 
 
 def resolve_device(device=None):
@@ -61,7 +85,16 @@ def _parse_subspace(token):
 
 def _resolve_flow_options(flow_defs_list, options_overwrite):
     """3-level option override precedence: (manifold, layer) tuple >
-    manifold int > flow symbol."""
+    manifold int > flow symbol.  An int key, or a tuple key's first index,
+    must name a sub-pdf (``ValueError`` otherwise, where the JAX package
+    asserts); a tuple key's layer index is not checked, as there."""
+    n_sub = len(flow_defs_list)
+    for k in options_overwrite:
+        ind = k[0] if isinstance(k, tuple) else k
+        if isinstance(ind, int) and not isinstance(ind, bool) \
+                and not 0 <= ind < n_sub:
+            raise ValueError(f"options_overwrite key {k!r}: the model has "
+                             f"sub-pdfs 0..{n_sub - 1}")
     flow_opts = {}
     for ind, cur_flow_defs in enumerate(flow_defs_list):
         flow_opts[ind] = []
@@ -101,8 +134,25 @@ class PDF:
 
     def __init__(self, pdf_defs, flow_defs, options_overwrite=None,
                  conditional_input_dim=None, amortization_mlp_dims="128",
+                 predict_log_normalization=False,
+                 join_poisson_and_pdf_description=False,
+                 hidden_mlp_dims_poisson="128",
+                 rank_of_mlp_mappings_poisson=0,
+                 amortization_mlp_use_custom_mode=False,
                  amortization_mlp_ranks=0, amortization_mlp_highway_mode=0,
-                 device=None):
+                 amortize_everything=False,
+                 use_as_passthrough_instead_of_pdf=False,
+                 skip_mlp_initialization=False, verbose=False, device=None):
+        refuse_unported(
+            _PDF_OPTIONS,
+            predict_log_normalization=predict_log_normalization,
+            join_poisson_and_pdf_description=join_poisson_and_pdf_description,
+            hidden_mlp_dims_poisson=hidden_mlp_dims_poisson,
+            rank_of_mlp_mappings_poisson=rank_of_mlp_mappings_poisson,
+            amortization_mlp_use_custom_mode=amortization_mlp_use_custom_mode,
+            amortize_everything=amortize_everything,
+            use_as_passthrough_instead_of_pdf=use_as_passthrough_instead_of_pdf,
+            skip_mlp_initialization=skip_mlp_initialization, verbose=verbose)
         self.device = resolve_device(device)
         self.pdf_defs_list = pdf_defs.split("+")
         self.flow_defs_list = flow_defs.split("+")
@@ -203,11 +253,12 @@ class PDF:
     # ------------------------------------------------------------------
     # parameters
     # ------------------------------------------------------------------
-    def init_params(self, seed=0, dtype=torch.float32):
+    def init_params(self, seed=0, dtype=torch.float32, data=None):
         """Parameter dict: layer init vectors for permanent parameters; each
         MLP gets kaiming init, its final bias pinned to the layers' init
         vector and everything upstream damped by 1000.  Same numpy RNG
         sequence as the JAX package, so the values are equal."""
+        refuse_unported(_PDF_OPTIONS, data=data)
         rng = np.random.default_rng(seed)
         desired = [np.concatenate([l.default_params(rng) for l in layers])
                    if sum(self.num_parameter_list[k]) > 0 else np.zeros(0)
@@ -419,8 +470,15 @@ class PDF:
     # ------------------------------------------------------------------
     # public API
     # ------------------------------------------------------------------
-    def log_prob(self, params, x, conditional_input=None):
+    def log_prob(self, params, x, conditional_input=None,
+                 amortization_parameters=None,
+                 force_embedding_coordinates=False,
+                 force_intrinsic_coordinates=False):
         """log p(x [| c]).  Returns (log_pdf, log_pdf_base, base_pos)."""
+        refuse_unported(
+            _PDF_OPTIONS, amortization_parameters=amortization_parameters,
+            force_embedding_coordinates=force_embedding_coordinates,
+            force_intrinsic_coordinates=force_intrinsic_coordinates)
         x = self._input(x, "x")
         log_det = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
         base_pos, log_det = self.all_layer_inverse(params, x, log_det,
@@ -515,10 +573,19 @@ class PDF:
         return loss, grads
 
     def sample(self, params, samplesize=1, conditional_input=None,
-               generator=None, dtype=None):
+               generator=None, dtype=None, amortization_parameters=None,
+               force_embedding_coordinates=False,
+               force_intrinsic_coordinates=False,
+               failsafe_crosscheck_tolerance=None, failsafe_rounds=3):
         """Ancestral sampling.  Returns (x, base_pos, log_pdf, log_pdf_base).
         Base draws come from ``generator`` (a torch.Generator on the pdf's
         device); with a conditional input the batch size is its row count."""
+        refuse_unported(
+            _PDF_OPTIONS, amortization_parameters=amortization_parameters,
+            force_embedding_coordinates=force_embedding_coordinates,
+            force_intrinsic_coordinates=force_intrinsic_coordinates,
+            failsafe_crosscheck_tolerance=failsafe_crosscheck_tolerance,
+            failsafe_rounds=failsafe_rounds)
         if conditional_input is not None:
             conditional_input = self._input(conditional_input,
                                             "conditional_input")

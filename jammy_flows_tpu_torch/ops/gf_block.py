@@ -422,7 +422,7 @@ def _declare_bwd(lib):
                                         p, p, p, p, p, p, p, i, i, i, p, p,
                                         p, p, i, p, p, p]
     lib.gf_block_bwd_launch.restype = i
-    lib.gf_block_bwd_blocks.argtypes = [i, i, i, i, i, p]
+    lib.gf_block_bwd_blocks.argtypes = [i, i, i, i, i, i, p]
     lib.gf_block_bwd_blocks.restype = i
     lib.gf_block_bwd_scratch.argtypes = [i, i, i, p]
     lib.gf_block_bwd_scratch.restype = i
@@ -585,15 +585,17 @@ def _launch_bwd(kind, x, params, g_out, g_ld, prep, meta, mode, wv=0.0,
         lib = cuda_build.load("gf_block_bwd", _declare_bwd)
         # the kernel's grid, chosen by the library: persistent blocks, each
         # with a private partial of the broadcast gradients (and, where the
-        # dh columns do not fit in shared memory, a scratch for them)
+        # dh columns do not fit in shared memory, a scratch for them); in
+        # perm mode each block writes its partial once, else adds to it
         n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
         code = MODES[mode]
-        n_blocks = lib.gf_block_bwd_blocks(code, b_rows, hid, n_params, n_sm,
-                                           c_ints)
+        n_blocks = lib.gf_block_bwd_blocks(_BWD_MODES[kind], code, b_rows,
+                                           hid, n_params, n_sm, c_ints)
         if n_blocks < 1:
             raise ValueError(f"block backward: no tile of the kernel fits "
                              f"this block (mode {mode}, H={hid})")
-        partials = torch.zeros((n_blocks, n_flat), **f32)
+        partials = (torch.empty if mode == "perm" else torch.zeros)(
+            (n_blocks, n_flat), **f32)
         n_scratch = n_blocks * lib.gf_block_bwd_scratch(code, hid, n_params,
                                                         c_ints)
         scratch = torch.empty(n_scratch, **f32) if n_scratch else None

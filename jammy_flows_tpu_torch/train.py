@@ -14,8 +14,10 @@ import math
 import numpy as np
 import torch
 
-_CHECKPOINT_TODO = ("checkpointing is not ported yet (ROADMAP.md, Queue 1 "
-                    "item 6: trainer and CLI)")
+from .models.pdf import refuse_unported
+
+_TRAINER = "Queue 1 item 6: trainer and CLI"
+_CHECKPOINT_TODO = f"checkpointing is not ported yet (ROADMAP.md, {_TRAINER})"
 
 
 def learning_rate_at(step, learning_rate=1e-3, schedule=None,
@@ -59,7 +61,8 @@ def clip_by_global_norm(grads, max_norm):
 
 def fit(pdf_obj, params, data, conditional_input=None, num_steps=1000,
         batch_size=None, learning_rate=1e-3, schedule=None, clip_norm=None,
-        generator=None, checkpoint_path=None, verbose=False):
+        optimizer=None, generator=None, checkpoint_path=None,
+        checkpoint_every=None, verbose=False):
     """Maximum-likelihood fit.  Returns (params, loss history as a numpy
     array); the input ``params`` are not modified.
 
@@ -68,6 +71,8 @@ def fit(pdf_obj, params, data, conditional_input=None, num_steps=1000,
     ``generator`` (None = full batch)."""
     if checkpoint_path is not None:
         raise NotImplementedError(_CHECKPOINT_TODO)
+    refuse_unported(_TRAINER, optimizer=optimizer,
+                     checkpoint_every=checkpoint_every)
     data = pdf_obj._input(data, "data")
     ci_all = None if conditional_input is None else pdf_obj._input(
         conditional_input, "conditional_input")

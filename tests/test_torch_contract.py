@@ -1,0 +1,93 @@
+"""The port's contract at its entry points, against the JAX package's:
+
+* an option override for a sub-pdf the model does not have raises
+  (``ValueError`` in the port, an assertion in the JAX package), while a
+  tuple key whose layer index is out of range builds in both;
+* every keyword of the JAX signatures of ``PDF``, ``init_params``,
+  ``log_prob``, ``sample`` and ``train.fit`` is taken: its JAX default runs,
+  any other value raises ``NotImplementedError`` naming the ROADMAP item."""
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from jammy_flows_tpu import pdf as jpdf
+from jammy_flows_tpu_torch import pdf as tpdf
+from jammy_flows_tpu_torch import train as ttrain
+from jammy_flows_tpu_torch.models.pdf import UNPORTED_DEFAULTS
+
+SKEW = {"g": {"add_skewness": 1}}
+BAD_KEYS = [3, -1, (2, 0), (-1, 0)]
+
+
+@pytest.mark.parametrize("key", BAD_KEYS, ids=str)
+def test_override_for_a_missing_sub_pdf_raises(key):
+    with pytest.raises(AssertionError):
+        jpdf("e2", "gg", options_overwrite={key: SKEW})
+    with pytest.raises(ValueError, match="sub-pdfs 0..0"):
+        tpdf("e2", "gg", options_overwrite={key: SKEW}, device="cpu")
+
+
+def test_tuple_key_past_the_layers_builds():
+    jp = jpdf("e2", "gg", options_overwrite={(0, 5): SKEW})
+    tp = tpdf("e2", "gg", options_overwrite={(0, 5): SKEW}, device="cpu")
+    assert [l.add_skewness for l in tp.layer_list[0]] == \
+        [l.add_skewness for l in jp.layer_list[0]] == [0, 0]
+    tp = tpdf("e2", "gg", options_overwrite={0: SKEW}, device="cpu")
+    assert [l.add_skewness for l in tp.layer_list[0]] == [1, 1]
+
+
+# keyword -> (entry point, a value other than the JAX default)
+NON_DEFAULT = {
+    "predict_log_normalization": ("PDF", True),
+    "join_poisson_and_pdf_description": ("PDF", True),
+    "hidden_mlp_dims_poisson": ("PDF", "64"),
+    "rank_of_mlp_mappings_poisson": ("PDF", 2),
+    "amortization_mlp_use_custom_mode": ("PDF", True),
+    "amortize_everything": ("PDF", True),
+    "use_as_passthrough_instead_of_pdf": ("PDF", True),
+    "skip_mlp_initialization": ("PDF", True),
+    "verbose": ("PDF", True),
+    "data": ("init_params", np.zeros((4, 2))),
+    "amortization_parameters": ("log_prob", torch.zeros(4, 3)),
+    "force_embedding_coordinates": ("log_prob", True),
+    "force_intrinsic_coordinates": ("sample", True),
+    "failsafe_crosscheck_tolerance": ("sample", 1e-3),
+    "failsafe_rounds": ("sample", 5),
+    "optimizer": ("fit", "adam"),
+    "checkpoint_every": ("fit", 10),
+}
+ITEM = {"PDF": "item 4(f)", "init_params": "item 4(f)",
+        "log_prob": "item 4(f)", "sample": "item 4(f)", "fit": "item 6"}
+
+
+def _call(entry, **kw):
+    p = tpdf("e2", "gg", device="cpu", **(kw if entry == "PDF" else {}))
+    if entry == "PDF":
+        return p
+    params = p.init_params(seed=0, **(kw if entry == "init_params" else {}))
+    x = torch.randn((4, 2), generator=torch.Generator().manual_seed(0))
+    if entry == "log_prob":
+        return p.log_prob(params, x, **kw)
+    if entry == "sample":
+        return p.sample(params, samplesize=4,
+                        generator=torch.Generator().manual_seed(1), **kw)
+    if entry == "fit":
+        return ttrain.fit(p, params, x, num_steps=1, **kw)
+    return params
+
+
+def test_every_keyword_is_listed():
+    assert set(NON_DEFAULT) == set(UNPORTED_DEFAULTS)
+
+
+@pytest.mark.parametrize("name", sorted(NON_DEFAULT))
+def test_unported_keyword(name):
+    entry, value = NON_DEFAULT[name]
+    with pytest.raises(NotImplementedError,
+                       match=re.escape(ITEM[entry])) as err:
+        _call(entry, **{name: value})
+    assert name in str(err.value)
+    out = _call(entry, **{name: UNPORTED_DEFAULTS[name]})
+    assert out is not None

@@ -274,6 +274,105 @@ def test_fused_nll_matches_autograd_on_card(dev):
         assert _rel(g1[key], g2[key]) < 1e-4, key
 
 
+def _nan_inputs(p, what, n, dev):
+    """The flagship's lazy2 block (block 2) with one NaN, made on the card
+    as 0/0 (CUDA's canonical NaN, 0x7fffffff): in row 5 of the summary, or
+    in one entry of the final weight w.  Returns (prep, meta, x, clean
+    params, params with the NaN)."""
+    prep, meta = p._block_meta[2]
+    _, x, params = _block_args(p, 2, n, 0, dev)
+    summary, w1, b1, w, b = params
+    zero = torch.zeros((), device=dev)
+    nan = zero / zero
+    if what == "summary":
+        summary = summary.clone()
+        summary[5, 1] = nan
+    else:
+        w = w.clone()
+        w[9, 7] = nan
+    return prep, meta, x, params, (summary, w1, b1, w, b)
+
+
+def _same_nans(got, ref):
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+
+
+@pytest.mark.parametrize("what", ["summary", "w"])
+def test_lazy2_kernels_keep_nan_as_plain(dev, what):
+    """A NaN in the summary or in w reaches T1 lazy2's and T3 lazy2's
+    outputs exactly where it reaches the plain versions' (the 3xTF32 split
+    and the mixture's max / min keep it); the rows it does not reach are
+    the kernels' results without the NaN, bit for bit."""
+    p = pdf(*FLAGSHIP, device=dev)
+    n = 1000
+    prep, meta, x, clean, params = _nan_inputs(p, what, n, dev)
+    for direction in ("density", "sample"):
+        fn = getattr(gb, f"gf_block_{direction}_lazy2")
+        got, want = fn(x, *params, prep, meta), fn(x, *clean, prep, meta)
+        ref = gb.block_plain(direction, x, params, prep, meta, "lazy2")
+        torch.cuda.synchronize()
+        bad = torch.isnan(ref[0]).any(dim=1)
+        assert bad[5]
+        for a, r, c in zip(got, ref, want):
+            _same_nans(a, r)
+            assert torch.equal(a[~bad], c[~bad])
+    wv, wl = 1.0 / n, -1.0 / n
+    val, ld, gx, gp = gb.gf_block_nll_lazy2(x, *params, prep, meta, wv, wl)
+    c_val, c_ld, c_gx, c_gp = gb.gf_block_nll_lazy2(x, *clean, prep, meta,
+                                                    wv, wl)
+    ref = gb.block_nll_plain(x, params, prep, meta, "lazy2", wv, wl)
+    torch.cuda.synchronize()
+    bad = torch.isnan(ref[0]).any(dim=1)
+    for a, r, c in zip((val, ld, gx, gp[0]), (ref[0], ref[1], ref[2],
+                                              ref[3][0]),
+                       (c_val, c_ld, c_gx, c_gp[0])):
+        _same_nans(a, r)
+        assert torch.equal(a[~bad], c[~bad])
+    for a, r in zip(gp[1:], ref[3][1:]):
+        _same_nans(a, r)
+
+
+def _perm_repeats(p, k, dev, n):
+    """T2 (both bodies) and T3 in perm mode, each launched twice on the
+    same inputs: the same bits."""
+    prep, meta = p._block_meta[k]
+    mode, x, params = _block_args(p, k, n, 3, dev)
+    assert mode == "perm"
+    g = torch.Generator(device=dev).manual_seed(4)
+    g_out = torch.randn(x.shape, generator=g, device=dev)
+    g_ld = torch.randn(x.shape, generator=g, device=dev)
+    y = gb._launch(x, params, prep, meta, mode, "sample")[0]
+    for kind, res in (("density", x), ("sample", y), ("nll", x)):
+        a, b = (gb._launch_bwd(kind, res, params, g_out, g_ld, prep, meta,
+                               mode, 1.0 / n, -1.0 / n) for _ in range(2))
+        torch.cuda.synchronize()
+        for u, v in zip((*a[:3], *a[3]), (*b[:3], *b[3])):
+            assert (u is None and v is None) or torch.equal(u, v), kind
+
+
+@pytest.mark.parametrize("n", [1, 31, 129, 262_145])
+def test_perm_bwd_kernels_match_plain_and_repeat(dev, n):
+    """The perm backward (T2 both bodies, T3) at batches of one row, less
+    than a warp, one row past a tile and one row past the training batch:
+    against the plain versions, and bit-equal across two launches."""
+    p = pdf(*FLAGSHIP, device=dev)
+    _check_bwd(p, 0, dev, n)
+    _perm_repeats(p, 0, dev, n)
+
+
+def test_generic_shape_perm_bwd_kernels(dev):
+    """The generic instantiation (K = 7, d = 3: not the flagship's K = 10,
+    d = 4) in perm mode: against the plain versions, and bit-equal across
+    two launches."""
+    g = {"num_kde": 7, "fit_normalization": 0,
+         "inverse_function_type": "inormal_full_pade"}
+    opts = {"g": g, (0, 1): {"g": dict(g, inverse_function_type=
+                                       "inormal_partly_crude")}}
+    p = pdf("e3", "ggg", options_overwrite=opts, device=dev)
+    _check_bwd(p, 0, dev, n=1000)
+    _perm_repeats(p, 0, dev, 1000)
+
+
 # ---------------------------------------------------------------------------
 # the per-layer kernels (csrc/gf_layer.cu T4-T6, csrc/gf_layer_bwd.cu T7)
 # ---------------------------------------------------------------------------
