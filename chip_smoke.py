@@ -94,10 +94,11 @@ TRAIN_LR = 1e-3
 # backward vs plain, relative (per-row gradients: max|diff| over max|ref|;
 # broadcast gradients: relative norm), and fused NLL vs autograd: the JAX
 # package's kernel-vs-XLA gradient limits (tests/test_tpu_kernels.py:136,
-# 147, 178-182); T3's val / ld vs T1's: the same code, so equal
+# 147, 178-182); T3's val / ld vs T1's: the same expressions on the same
+# values, so the same bits
 TOL_GRAD = {"density": 1e-4, "nll": 1e-4, "sample": 3e-4}
 TOL_NLL_LOSS = 1e-4
-TOL_T3_VS_T1 = 1e-6
+TOL_T3_VS_T1 = 0.0
 TOL_CROSS_GRAD = 1e-3
 # launches of each training path, per configuration: the fused NLL runs
 # one T3 launch per block and nothing else; autograd of log_prob the T1
@@ -218,6 +219,8 @@ TILE_KERNELS = ("density_lazy2", "sample_lazy2", "density_bwd_lazy2",
 # the perm backward kernels: a grid of (blocks per SM) x SMs, warp-private
 # partials summed in a fixed order
 PERM_BWD = ("density_bwd_perm", "sample_bwd_perm", "nll_perm")
+# the perm forward kernels: persistent blocks walking tiles of rows
+PERM_FWD = ("density_perm", "sample_perm")
 # rows of the NaN check (the flagship's lazy2 block)
 N_NAN = 4096
 
@@ -507,8 +510,8 @@ def tile_kernel_report(built, card):
     """After the build: each lazy2 kernel's TF32 HMMA instructions in the
     SASS of its built library (cuobjdump -sass), and its blocks per SM at
     the flagship's H = 128 (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
-    and the perm backward kernels' blocks per SM at block 0 (their grid).
-    Fails when a lazy2 kernel has no TF32 HMMA."""
+    and the perm kernels' blocks per SM at block 0 (their grid).  Fails
+    when a lazy2 kernel has no TF32 HMMA."""
     from jammy_flows_tpu_torch import pdf
     from jammy_flows_tpu_torch.ops import gf_block as gb
     # gf_block_density_kernel<MODE, KT, DT>, gf_block_bwd_kernel<KIND,
@@ -538,7 +541,8 @@ def tile_kernel_report(built, card):
     if missing:
         raise AssertionError(f"no TF32 HMMA in the SASS of {missing}")
     p = pdf(*FLAGSHIP, device="cpu")
-    for k, names, hid in ((2, TILE_KERNELS, 128), (0, PERM_BWD, 0)):
+    for k, names, hid in ((2, TILE_KERNELS, 128), (0, PERM_BWD + PERM_FWD,
+                                                   0)):
         prep, meta = p._block_meta[k]
         for name in names:
             blocks, threads, smem = gb.kernel_occupancy(name, prep, meta, hid)
@@ -548,9 +552,12 @@ def tile_kernel_report(built, card):
                 f"memory a block")
 
 
-def entry_row(name, args, by_path, err, card):
+def entry_row(name, args, by_path, err, card, ptxas=None):
     """Time block entry point ``name`` (T1) on one recorded call's own
-    inputs: kernel, plain version, bound; returns its JSON row."""
+    inputs: kernel, plain version, bound; returns its JSON row.  The perm
+    rows also carry their registers, stack and spills (``ptxas``: the
+    -Xptxas -v lines of the built library, tools/tile_breakdown.perm_ptxas)
+    and blocks per SM, and the grid of this call."""
     from jammy_flows_tpu_torch.ops import gf_block as gb
     fn = getattr(gb, f"gf_block_{name}")
     direction, mode, x, params, prep, meta = split_args(name, args)
@@ -573,6 +580,14 @@ def entry_row(name, args, by_path, err, card):
            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": b_ms, "bound_by": b_by, "tc_bound_ms": tc_ms,
            "library_ms": None}
+    if name in PERM_FWD:
+        shape = "K=10, d=4" if meta[:2] == (10, 4) else "generic"
+        row["ptxas"] = (ptxas or {}).get(f"{name} ({shape})")
+        row["blocks_per_sm"] = gb.kernel_occupancy(name, prep, meta)[0]
+        row["grid"] = gb.perm_grid(direction, x.shape[0], prep, meta)
+        log(f"{name} ({shape}): {row['ptxas']}, {row['blocks_per_sm']} "
+            f"blocks per SM; grid {row['grid'][0]} persistent blocks, "
+            f"tiles of {row['grid'][1]} rows")
     if counter(name) in TILE_KERNELS:
         row["products_matmul_ms"] = products_matmul_ms(name, x.shape[0],
                                                        p_rows, hid, x.device)
@@ -1450,15 +1465,40 @@ def time_layer_kernels(calls, launches, errs, card):
     for name in ("forward_prepared", "inverse_prepared"):
         time_layer_call(next(c for c in calls if c[0] == name
                              and c[3][1][0].ndim == 3), card)
-    # T6's raw interface has no caller in either package: its bound from
-    # the shapes of one flagship layer (K = 10, d = 4, broadcast raw means,
-    # log-widths and log-norms) at the serving batch
-    flops, byts = layer_work("inverse_raw", N_SAMPLE_UNCOND, 10, 4,
-                             "inormal_partly_precise", False, False, 3, 0)
-    b_ms, b_by = bound_ms(flops, byts)
-    log(f"inverse_raw (never called) at {N_SAMPLE_UNCOND} rows: bound "
-        f"{b_ms:.4f} ms ({b_by}: {flops:.4g} flop, {byts:.4g} B)")
     return rows
+
+
+def inverse_raw_row(args, card):
+    """T6's raw interface (gf_inverse_raw) has no caller in either package:
+    it is timed once at the serving batch on the flagship's first g layer
+    (block 0, layer 0: its means, log-widths and log-norms as broadcast raw
+    slabs, K = 10, d = 4) and the recorded sample_perm call's input
+    (``args``), which that layer solves first; held against its plain
+    version there.  Returns its JSON row (no launches on any path)."""
+    from jammy_flows_tpu_torch.ops import gf_block as gb, gf_layer as gl
+    _, _, z, (pvec,), prep, meta = split_args("sample_perm", args)
+    k, d, layers = meta
+    mix = gb._make_slabs([pvec[:, None]], k, d, layers, "perm")[0][2]
+    params = tuple(t[..., 0].contiguous() for t in mix if t is not None)
+    ift, prep = layers[0][3], tuple(prep) + (None, None)
+    root = gl._launch("inverse", "raw", z, params, ift, prep, None)
+    ref = gl.layer_plain("inverse", "raw", z, params, ift, prep)
+    torch.cuda.synchronize()
+    err = (root - ref).abs().max().item()
+    log(f"kernel vs plain inverse_raw {ift} ({z.shape[0]} rows): max|diff| "
+        f"{err:.3e} (limit {TOL_SAMPLE:g})")
+    if not (err < TOL_SAMPLE and torch.isfinite(root).all()):
+        raise AssertionError(f"inverse_raw: kernel disagrees with its plain "
+                             f"version ({err:.3e} >= {TOL_SAMPLE:g})")
+    ms, plain_ms, b_ms, b_by, tc_ms = time_layer_call(
+        ("inverse_raw", "inverse", "raw", (z, params), ift, prep, None,
+         None), card)
+    return {"name": "gf_inverse_raw", "route": "cuda",
+            "source": "jammy_flows_tpu_torch/csrc/gf_layer.cu",
+            "replaces": "jammy_flows_tpu/ops/pallas_gf.py:767",
+            "launches": 0, "launches_by_path": {}, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "tc_bound_ms": tc_ms, "library_ms": None}
 
 
 def layer_phase(dev, card):
@@ -1714,7 +1754,8 @@ def main():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     from jammy_flows_tpu_torch import pdf
-    from jammy_flows_tpu_torch.ops import cuda_build
+    from jammy_flows_tpu_torch.ops import cuda_build, gf_block as gb
+    from jammy_flows_tpu_torch.tools import tile_breakdown
 
     card = card_line()
     log(card)
@@ -1730,8 +1771,17 @@ def main():
             else f"loaded cached library {lib.name} (not rebuilt)")
     for line in ptxas_summary("".join(ptxas)):
         log(line)
+    perm_ptxas = tile_breakdown.perm_ptxas("".join(ptxas))
     tile_kernel_report(built, card)
     dev = torch.device("cuda", torch.cuda.current_device())
+    # the T1 perm kernels' reciprocal of 1 + e against the IEEE one, every
+    # float32 of [1, 2^88)
+    bad = gb.recip_mismatches(dev)
+    log(f"perm forward reciprocal (recip_ge1) vs 1.0f / d over every float "
+        f"of [1, 2^88): {bad} differ")
+    if bad:
+        raise AssertionError(f"recip_ge1 differs from 1.0f / d on {bad} "
+                             "inputs")
 
     p_u = pdf(*FLAGSHIP, device=dev)
     par_u = jittered_params(p_u, seed=1)
@@ -1761,7 +1811,9 @@ def main():
         args = next(a for n, a, _, _ in calls_u if n == name)
         rows.append(entry_row(name, args, {"unconditional": launch_u[name],
                                            "conditional": launch_c[name]},
-                              errs[name], card))
+                              errs[name], card, perm_ptxas))
+    rows.append(inverse_raw_row(
+        next(a for n, a, _, _ in calls_u if n == "sample_perm"), card))
     del calls_u
 
     g = torch.Generator(device=dev).manual_seed(6)

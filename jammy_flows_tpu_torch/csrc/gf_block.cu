@@ -28,8 +28,17 @@
 //     inverse widths, weights) lives in registers; K = 10, d = 4 (the
 //     flagship) is a compile-time instantiation, other shapes use the
 //     generic one (local arrays);
-//   * perm (gf_block_src.cuh PermSrc): the (P,) vector prepared once per
-//     128-row block in shared memory;
+//   * perm (gf_block_perm_kernel; gf_block_src.cuh PermSrc): a fixed grid
+//     of persistent blocks ((occupancy API blocks per SM) x SMs, at most
+//     one per tile) walks the tiles of 128 rows.  Each block prepares the
+//     (P,) vector once in shared memory, a mixture component a thread,
+//     with each component's row-independent terms (lnw + log(iw), nw *
+//     iw: MixF), so that a row evaluates no log(iw).  MixF also takes
+//     1 / (1 + e) without the IEEE reciprocal's range check and slow-path
+//     branch (recip_ge1: the same bits) and the Newton steps as a loop,
+//     not unrolled (a quarter of the solve's code).  What is left is
+//     latency-bound (PERF.md): the sample's four Newton steps are ~90% of
+//     it, at 7 blocks (28 warps) per SM;
 //   * lazy2 (TileSrc): a block of T = 128 rows (64 or 32 while the tile
 //     does not fit: H > 454) makes each row's hidden column in shared
 //     memory, then the parameter rows a piece at a time (a layer's offset
@@ -43,6 +52,8 @@
 //     the parameter rows made on demand per thread from w through L1/L2.
 // wgmma and TMA for the tile products are later work.
 #include <cuda_runtime.h>
+
+#include <mutex>
 
 #include "gf_block_src.cuh"
 
@@ -135,6 +146,107 @@ gf_block_sample_kernel(const BlockArgs a) {
   }
 }
 
+// ---- perm: one broadcast (P,) vector ----------------------------------------
+constexpr int PERM_THREADS = 128;
+// resident blocks per SM the launch bounds ask for (registers: 64 and 73
+// at most), per direction
+constexpr int PERM_MIN_BLOCKS_DENSITY = 8;
+constexpr int PERM_MIN_BLOCKS_SAMPLE = 7;
+
+// The density direction of one row, layers in reverse.
+template <int N, int KT, int DN>
+__device__ __forceinline__ void perm_density_row(const BlockArgs& a,
+                                                 const PermSrc<N, KT, DN>& src,
+                                                 int K, int D, float* x,
+                                                 float* ld) {
+  for (int l = a.n_layers - 1; l >= 0; --l) {
+    const LayerMeta& lm = a.layers[l];
+    int r = lm.row0;
+    if (lm.has_off) {
+      for (int j = 0; j < D; ++j) x[j] = x[j] - src.param(r + j);
+      r += D;
+    }
+    for (int i = 0; i < lm.rot_it; ++i) reflect<DN>(src, r + i * D, x, D);
+    for (int dd = 0; dd < D; ++dd) {
+      MixF<N> mx;
+      src.load_mixf(mx, lm, K, D, dd);
+      float lg;
+      x[dd] = density_pass<N, KT>(x[dd], mx, K, lm.ift, lg);
+      ld[dd] = ld[dd] + lg;
+    }
+  }
+}
+
+// The sample direction of one row, layers in order.
+template <int N, int KT, int DN>
+__device__ __forceinline__ void perm_sample_row(const BlockArgs& a,
+                                                const PermSrc<N, KT, DN>& src,
+                                                int K, int D, float* x,
+                                                float* ld) {
+  for (int l = 0; l < a.n_layers; ++l) {
+    const LayerMeta& lm = a.layers[l];
+    for (int dd = 0; dd < D; ++dd) {
+      MixF<N> mx;
+      src.load_mixf(mx, lm, K, D, dd);
+      float lg;
+      x[dd] = solve_log_deriv_rolled<N, KT>(x[dd], mx, K, lm.ift, lg);
+      ld[dd] = ld[dd] + lg;
+    }
+    const int rot0 = lm.row0 + (lm.has_off ? D : 0);
+    for (int i = lm.rot_it - 1; i >= 0; --i) reflect<DN>(src, rot0 + i * D, x, D);
+    if (lm.has_off)
+      for (int j = 0; j < D; ++j) x[j] = x[j] + src.param(lm.row0 + j);
+  }
+}
+
+// T1 perm: each block prepares PermSrc once, then walks the tiles
+// blockIdx.x, blockIdx.x + gridDim.x, ... of blockDim.x rows, a row a
+// thread.  No barrier follows the set-up.
+template <bool SAMPLE, int KT, int DT>
+__global__ void __launch_bounds__(PERM_THREADS,
+                                  SAMPLE ? PERM_MIN_BLOCKS_SAMPLE
+                                         : PERM_MIN_BLOCKS_DENSITY)
+gf_block_perm_kernel(const BlockArgs a) {
+  constexpr int N = KT > 0 ? KT : KMAX;
+  constexpr int DN = DT > 0 ? DT : DMAX;
+  const int K = KT > 0 ? KT : a.K;
+  const int D = DT > 0 ? DT : a.D;
+  extern __shared__ __align__(16) float smem[];
+  const PermSrc<N, KT, DN> src(a, smem);
+  const int n_tiles = (a.B + blockDim.x - 1) / blockDim.x;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int row = tile * blockDim.x + threadIdx.x;
+    if (row >= a.B) break;
+    float x[DN], ld[DN];
+    for (int j = 0; j < D; ++j) {
+      x[j] = a.x[(size_t)row * D + j];
+      ld[j] = 0.0f;
+    }
+    if (SAMPLE)
+      perm_sample_row<N, KT, DN>(a, src, K, D, x, ld);
+    else
+      perm_density_row<N, KT, DN>(a, src, K, D, x, ld);
+    for (int j = 0; j < D; ++j) {
+      a.out[(size_t)row * D + j] = x[j];
+      a.ld[(size_t)row * D + j] = ld[j];
+    }
+  }
+}
+
+// The exhaustive check of recip_ge1 (gf_common.cuh): over every float d
+// whose bits lie in [lo, hi), the count of those whose recip_ge1(d)
+// differs in its bits from the IEEE reciprocal 1.0f / d.
+__global__ void recip_check_kernel(unsigned lo, unsigned hi,
+                                   unsigned long long* count) {
+  unsigned long long bad = 0;
+  for (unsigned b = lo + blockIdx.x * blockDim.x + threadIdx.x; b < hi;
+       b += gridDim.x * blockDim.x) {
+    const float d = __uint_as_float(b);
+    bad += __float_as_uint(recip_ge1(d)) != __float_as_uint(1.0f / d);
+  }
+  atomicAdd(count, bad);
+}
+
 constexpr int SMEM_LIMIT = 227 * 1024;
 
 using Kernel = void (*)(const BlockArgs);
@@ -148,10 +260,23 @@ Kernel kernel_of(bool sample, const BlockArgs& a) {
                 : gf_block_density_kernel<MODE, 0, 0>;
 }
 
+template <bool SAMPLE>
+Kernel perm_kernel_of(const BlockArgs& a) {
+  if (a.K == 10 && a.D == 4) return gf_block_perm_kernel<SAMPLE, 10, 4>;
+  return gf_block_perm_kernel<SAMPLE, 0, 0>;
+}
+
 Kernel kernel_of(int mode, bool sample, const BlockArgs& a) {
   if (mode == LAZY2) return kernel_of<LAZY2>(sample, a);
   if (mode == LAZYH) return kernel_of<LAZYH>(sample, a);
-  return kernel_of<PERM>(sample, a);
+  return sample ? perm_kernel_of<true>(a) : perm_kernel_of<false>(a);
+}
+
+// The perm kernels' grid: one persistent block per resident slot
+// (blocks per SM x SMs), at most one per tile of PERM_THREADS rows.
+int perm_grid(int n_tiles, int per_sm, int n_sm) {
+  const int cap = (per_sm > 1 ? per_sm : 1) * n_sm;
+  return n_tiles < cap ? n_tiles : cap;
 }
 
 // The block of a call: its rows (threads) and dynamic shared memory; lazy2
@@ -167,9 +292,52 @@ int block_shape(int mode, BlockArgs& a, int& threads, size_t& smem) {
     while (threads > 32 && (size_t)a.H * threads * 4 > SMEM_LIMIT) threads /= 2;
     smem = (size_t)a.H * threads * 4;
   } else {
-    smem = (size_t)4 * a.P * 4;
+    threads = PERM_THREADS;
+    smem = (size_t)PermSrc<1, 0, 1>::FLOATS_PER_ROW * a.P * 4;
   }
   return smem > SMEM_LIMIT ? (int)cudaErrorInvalidValue : 0;
+}
+
+// Blocks per SM of a kernel (occupancy API), asked once per kernel,
+// threads, shared memory and device and then kept: the launch path does
+// not pay for the query at every call.
+cudaError_t blocks_per_sm(Kernel kernel, int threads, size_t smem, int dev,
+                          int& per_sm) {
+  struct Known {
+    Kernel kernel;
+    int threads;
+    size_t smem;
+    int dev, per_sm;
+  };
+  static Known known[64];
+  static int n_known = 0;
+  static std::mutex mu;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < n_known; ++i) {
+    const Known& k = known[i];
+    if (k.kernel == kernel && k.threads == threads && k.smem == smem &&
+        k.dev == dev) {
+      per_sm = k.per_sm;
+      return cudaSuccess;
+    }
+  }
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kernel, threads, smem);
+  if (e == cudaSuccess && n_known < 64)
+    known[n_known++] = Known{kernel, threads, smem, dev, per_sm};
+  return e;
+}
+
+// The perm kernel's grid for a.B rows on the current device (perm_grid).
+cudaError_t perm_blocks(Kernel kernel, const BlockArgs& a, int threads,
+                        size_t smem, int& blocks) {
+  int dev, n_sm = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = blocks_per_sm(kernel, threads, smem, dev, per_sm);
+  blocks = perm_grid((a.B + PERM_THREADS - 1) / PERM_THREADS, per_sm, n_sm);
+  return e;
 }
 
 cudaError_t allow_smem(Kernel kernel, size_t smem) {
@@ -225,7 +393,11 @@ extern "C" int gf_block_launch(int sample, int mode, const float* x,
   const Kernel kernel = kernel_of(mode, sample, a);
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  const int blocks = (B + threads - 1) / threads;
+  int blocks = (B + threads - 1) / threads;
+  if (mode == PERM) {
+    e = perm_blocks(kernel, a, threads, smem, blocks);
+    if (e != cudaSuccess) return (int)e;
+  }
   kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -254,6 +426,38 @@ extern "C" int gf_block_occupancy(int sample, int mode, int H, int P,
   out[1] = threads;
   out[2] = (int)smem;
   return (int)e;
+}
+
+// The perm kernel's grid for B rows (sample: the sample direction) on the
+// current device: out = [blocks, rows per tile].  0 or a cudaError_t.
+extern "C" int gf_block_perm_grid(int sample, int B, int P, const int* meta,
+                                  int* out) {
+  BlockArgs a{};
+  a.P = P;
+  a.B = B;
+  if (parse_meta(a, PERM, meta, P) != 0 || B < 1)
+    return (int)cudaErrorInvalidValue;
+  int threads;
+  size_t smem;
+  if (block_shape(PERM, a, threads, smem) != 0)
+    return (int)cudaErrorInvalidValue;
+  const Kernel kernel = kernel_of(PERM, sample, a);
+  cudaError_t e = allow_smem(kernel, smem);
+  int blocks = 0;
+  if (e == cudaSuccess) e = perm_blocks(kernel, a, threads, smem, blocks);
+  out[0] = blocks;
+  out[1] = PERM_THREADS;
+  return (int)e;
+}
+
+// recip_check_kernel over the bit patterns [lo, hi) (hi <= 0x7f800000),
+// adding its count to *count (device memory); 0 or a cudaError_t.
+extern "C" int gf_block_recip_mismatches(unsigned lo, unsigned hi,
+                                         unsigned long long* count,
+                                         void* stream) {
+  if (lo > hi || hi > 0x7f800000u) return (int)cudaErrorInvalidValue;
+  recip_check_kernel<<<1024, 256, 0, (cudaStream_t)stream>>>(lo, hi, count);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* gf_block_error_string(int code) {

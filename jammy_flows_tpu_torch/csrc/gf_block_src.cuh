@@ -130,19 +130,23 @@ __device__ __forceinline__ void mix_rows(const LayerMeta& lm, int K, int D,
 }
 
 // ---- permanent parameters: prepared once per block in shared memory ------
-// BWD (the backward kernels): also each component's regulator derivatives
-// and log inverse width, parameter-only terms of the adjoint (mix_adjoint's
-// fw, fn, fl), which in perm mode are the block's, not the row's: 7P
-// floats of shared memory instead of 4P.
+// The forward (BWD = false) also prepares each component's row-independent
+// mixture terms, lnw + log(iw) and nw * iw (MixF, load_mixf): 6P floats of
+// shared memory.  BWD (the backward kernels): instead each component's
+// regulator derivatives and log inverse width, parameter-only terms of the
+// adjoint (mix_adjoint's fw, fn, fl), which in perm mode are the block's,
+// not the row's: 7P floats.
 template <int N, int KT, int DN, bool BWD = false>
 struct PermSrc {
-  static constexpr int FLOATS_PER_ROW = BWD ? 7 : 4;  // x P
+  static constexpr int FLOATS_PER_ROW = BWD ? 7 : 6;  // x P
   const float* A;    // raw rows; householder rows hold unit vectors
   const float* IW;   // at the log-width rows: inverse widths
   const float* LNW;  // at the log-width rows: log weights
   const float* NW;   // at the log-width rows: weights
-  const float* FW;   // BWD, at the log-width rows: iw * d reg_w / d lw
-  const float* FN;   // BWD, at the log-width rows: d reg_n / d ln (or 0)
+  const float* FW;   // BWD, at the log-width rows: iw * d reg_w / d lw;
+                     // forward: lnw + log(iw)
+  const float* FN;   // BWD, at the log-width rows: d reg_n / d ln (or 0);
+                     // forward: nw * iw
   const float* FL;   // BWD, at the log-width rows: log(iw)
   const float* raw;  // the (P,) vector in global memory
 
@@ -157,46 +161,10 @@ struct PermSrc {
     const int K = KT > 0 ? KT : a.K;
     for (int j = threadIdx.x; j < a.P; j += blockDim.x) sA[j] = a.pvec[j];
     __syncthreads();
-    int n_rot = 0;
-    for (int l = 0; l < a.n_layers; ++l) n_rot += a.layers[l].rot_it;
-    const int n_mix = a.n_layers * a.D;
-    for (int task = threadIdx.x; task < n_mix + n_rot; task += blockDim.x) {
-      if (task < n_mix) {
-        const LayerMeta& lm = a.layers[task / a.D];
-        const int dd = task % a.D;
-        int m0, lw0, ln0;
-        mix_rows(lm, K, a.D, m0, lw0, ln0);
-        float lw[N], ln[N];
-        for (int k = 0; k < K; ++k) {
-          lw[k] = sA[lw0 + k * a.D + dd];
-          ln[k] = lm.has_ln ? sA[ln0 + k * a.D + dd] : 0.0f;
-        }
-        Mix<N> mx;
-        const bool fit = lm.has_ln && a.fit_norm;
-        prep_mix<N, KT>(mx, lw, ln, K, fit, a.wreg, a.nreg);
-        for (int k = 0; k < K; ++k) {
-          const int j = lw0 + k * a.D + dd;
-          sIW[j] = mx.iw[k];
-          sLNW[j] = mx.lnw[k];
-          sNW[j] = mx.nw[k];
-          if (BWD) {
-            sFW[j] = mx.iw[k] * reg_deriv(a.wreg, lw[k]);
-            sFN[j] = fit ? reg_deriv(a.nreg, ln[k]) : 0.0f;
-            sFL[j] = logf(mx.iw[k]);
-          }
-        }
-      } else {
-        int t = task - n_mix, l = 0;
-        while (t >= a.layers[l].rot_it) t -= a.layers[l++].rot_it;
-        const LayerMeta& lm = a.layers[l];
-        float* v = sA + lm.row0 + (lm.has_off ? a.D : 0) + t * a.D;
-        float ss = 0.0f;
-        for (int j = 0; j < a.D; ++j) ss += v[j] * v[j];
-        const float nrm = sqrtf(ss + 1e-20f);
-        for (int j = 0; j < a.D; ++j) v[j] = v[j] / nrm;
-      }
-    }
-    __syncthreads();
+    if constexpr (BWD)
+      prepare_bwd(a, K, sA, sIW, sLNW, sNW, sFW, sFN, sFL);
+    else
+      prepare_fwd(a, K, sA, sIW, sLNW, sNW, sFW, sFN);
     A = sA;
     IW = sIW;
     LNW = sLNW;
@@ -204,6 +172,127 @@ struct PermSrc {
     FW = sFW;
     FN = sFN;
     FL = sFL;
+  }
+
+  // task t of the householder rows: normalize that row of sA in place
+  __device__ static void unit_row(const BlockArgs& a, float* sA, int t) {
+    int l = 0;
+    while (t >= a.layers[l].rot_it) t -= a.layers[l++].rot_it;
+    const LayerMeta& lm = a.layers[l];
+    float* v = sA + lm.row0 + (lm.has_off ? a.D : 0) + t * a.D;
+    float ss = 0.0f;
+    for (int j = 0; j < a.D; ++j) ss += v[j] * v[j];
+    const float nrm = sqrtf(ss + 1e-20f);
+    for (int j = 0; j < a.D; ++j) v[j] = v[j] / nrm;
+  }
+
+  __device__ static int n_rot(const BlockArgs& a) {
+    int n = 0;
+    for (int l = 0; l < a.n_layers; ++l) n += a.layers[l].rot_it;
+    return n;
+  }
+
+  // The backward's preparation: one mixture a thread (prep_mix) and its
+  // adjoint's parameter-only terms.
+  __device__ static void prepare_bwd(const BlockArgs& a, int K, float* sA,
+                                     float* sIW, float* sLNW, float* sNW,
+                                     float* sFW, float* sFN, float* sFL) {
+    const int n_mix = a.n_layers * a.D;
+    for (int task = threadIdx.x; task < n_mix + n_rot(a);
+         task += blockDim.x) {
+      if (task >= n_mix) {
+        unit_row(a, sA, task - n_mix);
+        continue;
+      }
+      const LayerMeta& lm = a.layers[task / a.D];
+      const int dd = task % a.D;
+      int m0, lw0, ln0;
+      mix_rows(lm, K, a.D, m0, lw0, ln0);
+      float lw[N], ln[N];
+      for (int k = 0; k < K; ++k) {
+        lw[k] = sA[lw0 + k * a.D + dd];
+        ln[k] = lm.has_ln ? sA[ln0 + k * a.D + dd] : 0.0f;
+      }
+      Mix<N> mx;
+      const bool fit = lm.has_ln && a.fit_norm;
+      prep_mix<N, KT>(mx, lw, ln, K, fit, a.wreg, a.nreg);
+      for (int k = 0; k < K; ++k) {
+        const int j = lw0 + k * a.D + dd;
+        sIW[j] = mx.iw[k];
+        sLNW[j] = mx.lnw[k];
+        sNW[j] = mx.nw[k];
+        sFW[j] = mx.iw[k] * reg_deriv(a.wreg, lw[k]);
+        sFN[j] = fit ? reg_deriv(a.nreg, ln[k]) : 0.0f;
+        sFL[j] = logf(mx.iw[k]);
+      }
+    }
+    __syncthreads();
+  }
+
+  // The forward's preparation in three block-wide phases, one component a
+  // thread where prep_mix takes one mixture a thread (the same expressions
+  // in the same order, so the same bits as prep_mix and mix_lp /
+  // mix_nwiw; a set-up about K times shorter): 1) each component's inverse
+  // width and norm regulator value (into LNW), and the householder rows;
+  // 2) each mixture's log-softmax: the log weights; 3) each component's
+  // weight, lnw + log(iw) and nw * iw.
+  __device__ static void prepare_fwd(const BlockArgs& a, int K, float* sA,
+                                     float* sIW, float* sLNW, float* sNW,
+                                     float* sLP, float* sNWIW) {
+    const int n_mix = a.n_layers * a.D, n_comp = n_mix * K;
+    // the log-width row of component k of mixture i, and its log-norm row
+    auto rows = [&](int i, int k, int& j, int& jn, bool& fit) {
+      const LayerMeta& lm = a.layers[i / a.D];
+      int m0, lw0, ln0;
+      mix_rows(lm, K, a.D, m0, lw0, ln0);
+      j = lw0 + k * a.D + i % a.D;
+      jn = ln0 + k * a.D + i % a.D;
+      fit = lm.has_ln && a.fit_norm;
+    };
+    for (int task = threadIdx.x; task < n_comp + n_rot(a);
+         task += blockDim.x) {
+      if (task >= n_comp) {
+        unit_row(a, sA, task - n_comp);
+        continue;
+      }
+      int j, jn;
+      bool fit;
+      rows(task / K, task % K, j, jn, fit);
+      sIW[j] = expf(-apply_reg(a.wreg, sA[j]));
+      if (fit) sLNW[j] = apply_reg(a.nreg, sA[jn]);
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < n_mix; i += blockDim.x) {
+      int j, jn;
+      bool fit;
+      rows(i, 0, j, jn, fit);
+      if (fit) {
+        float mmax = -INFINITY;
+        for (int k = 0; k < K; ++k) mmax = fmaxf(mmax, sLNW[j + k * a.D]);
+        float s = 0.0f;
+        for (int k = 0; k < K; ++k) s += expf(sLNW[j + k * a.D] - mmax);
+        const float lse = mmax + logf(s);
+        for (int k = 0; k < K; ++k)
+          sLNW[j + k * a.D] = sLNW[j + k * a.D] - lse;
+      } else {
+        const float c = (float)(-log((double)K));
+        for (int k = 0; k < K; ++k) sLNW[j + k * a.D] = c;
+      }
+    }
+    __syncthreads();
+    for (int task = threadIdx.x; task < n_comp; task += blockDim.x) {
+      int j, jn;
+      bool fit;
+      rows(task / K, task % K, j, jn, fit);
+      Mix<1> mx;
+      mx.iw[0] = sIW[j];
+      mx.lnw[0] = sLNW[j];
+      mx.nw[0] = expf(mx.lnw[0]);
+      sNW[j] = mx.nw[0];
+      sLP[j] = mix_lp(mx, 0);
+      sNWIW[j] = mix_nwiw(mx, 0);
+    }
+    __syncthreads();
   }
 
   // no stage: the parameters are at hand
@@ -250,6 +339,25 @@ struct PermSrc {
                            int dd, const BlockArgs& a) const {
     float lw[N], ln[N];
     load_mix_raw(mx, lw, ln, lm, K, D, dd, a);
+  }
+
+  // forward: the prepared mixture with its row-independent terms
+  __device__ void load_mixf(MixF<N>& mx, const LayerMeta& lm, int K, int D,
+                            int dd) const {
+    static_assert(!BWD, "the backward's PermSrc holds no lp / nwiw");
+    int m0, lw0, ln0;
+    mix_rows(lm, K, D, m0, lw0, ln0);
+    const int kk = KT > 0 ? KT : K;
+#pragma unroll
+    for (int k = 0; k < kk; ++k) {
+      mx.m[k] = A[m0 + k * D + dd];
+      const int j = lw0 + k * D + dd;
+      mx.iw[k] = IW[j];
+      mx.lnw[k] = LNW[j];
+      mx.nw[k] = NW[j];
+      mx.lp[k] = FW[j];
+      mx.nwiw[k] = FN[j];
+    }
   }
 
   // BWD: the mixture's parameter-only adjoint terms (mix_adjoint's fw,
@@ -609,30 +717,34 @@ struct TileSrc {
   }
 };
 
-template <int DN, class Src>
-__device__ __forceinline__ void reflect(const Src& src, int r0, float* x, int D) {
-  float v[DN];
-  src.unit_vec(r0, D, v);
+// x <- (I - 2 v v^T) x for a unit vector v
+__device__ __forceinline__ void householder(const float* v, float* x, int D) {
   float dot = v[0] * x[0];
   for (int j = 1; j < D; ++j) dot += v[j] * x[j];
   for (int j = 0; j < D; ++j) x[j] = x[j] - (2.0f * v[j]) * dot;
 }
 
-template <int MODE, int N, int KT, int DN>
-using SrcT = typename std::conditional<
-    MODE == PERM, PermSrc<N, KT, DN>,
-    typename std::conditional<MODE == LAZY2, TileSrc<N, KT, DN, true>,
-                              LazySrc<N, KT, DN>>::type>::type;
+template <int DN, class Src>
+__device__ __forceinline__ void reflect(const Src& src, int r0, float* x, int D) {
+  float v[DN];
+  src.unit_vec(r0, D, v);
+  householder(v, x, D);
+}
 
-// the forward kernels' source (lazy: hidden columns at stride blockDim.x)
+template <int MODE, int N, int KT, int DN>
+using SrcT = typename std::conditional<MODE == LAZY2,
+                                       TileSrc<N, KT, DN, true>,
+                                       LazySrc<N, KT, DN>>::type;
+
+// the lazy2 / lazy forward kernels' source (lazy: hidden columns at stride
+// blockDim.x); the perm forward (gf_block.cu) builds its PermSrc itself
 template <int MODE, int KT, int DT>
 __device__ __forceinline__ SrcT<MODE, (KT > 0 ? KT : KMAX), KT,
                                 (DT > 0 ? DT : DMAX)>
 make_src(const BlockArgs& a, float* smem, int row) {
+  static_assert(MODE == LAZY2 || MODE == LAZYH, "lazy2 or lazy");
   using S = SrcT<MODE, (KT > 0 ? KT : KMAX), KT, (DT > 0 ? DT : DMAX)>;
-  if constexpr (MODE == PERM)
-    return S(a, smem);
-  else if constexpr (MODE == LAZY2)
+  if constexpr (MODE == LAZY2)
     return S(a, smem, row);
   else
     return S(a, smem, row, blockDim.x);

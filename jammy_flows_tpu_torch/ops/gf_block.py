@@ -41,6 +41,7 @@ plain version.
 from __future__ import annotations
 
 import ctypes
+import struct
 
 import torch
 
@@ -412,6 +413,14 @@ def _declare(lib):
     lib.gf_block_launch.restype = i
     lib.gf_block_occupancy.argtypes = [i, i, i, i, p, p]
     lib.gf_block_occupancy.restype = i
+    # absent from the libraries built before the perm forward's tile loop
+    # (tools/tile_breakdown.py --csrc of an older tree)
+    if hasattr(lib, "gf_block_perm_grid"):
+        lib.gf_block_perm_grid.argtypes = [i, i, i, p, p]
+        lib.gf_block_perm_grid.restype = i
+        lib.gf_block_recip_mismatches.argtypes = [ctypes.c_uint,
+                                                  ctypes.c_uint, p, p]
+        lib.gf_block_recip_mismatches.restype = i
     lib.gf_block_error_string.argtypes = [i]
     lib.gf_block_error_string.restype = ctypes.c_char_p
 
@@ -524,6 +533,40 @@ def kernel_occupancy(name, prep, meta, hid=0):
     if rc != 0:
         raise RuntimeError(f"occupancy query for {name} failed ({rc})")
     return tuple(out)
+
+
+def perm_grid(direction, n, prep, meta):
+    """(blocks, rows per tile) of the T1 perm kernel's grid for n rows on
+    the current device: persistent blocks, (occupancy API blocks per SM)
+    x SMs at most, each walking tiles of rows."""
+    from . import cuda_build
+    lib = cuda_build.load("gf_block", _declare)
+    c_ints, _ = _meta_args(prep, meta)
+    out = (ctypes.c_int * 2)()
+    rc = lib.gf_block_perm_grid(int(direction == "sample"), n,
+                                block_rows(*meta), c_ints, out)
+    if rc != 0:
+        raise RuntimeError(f"perm grid query failed ({rc})")
+    return tuple(out)
+
+
+def recip_mismatches(device, lo=1.0, hi=2.0 ** 88):
+    """How many float32 d in [lo, hi) the perm forward's reciprocal of
+    1 + e (csrc/gf_common.cuh recip_ge1: rcp.approx and one Newton step,
+    no range check) gives other bits than the IEEE 1.0f / d: the card's
+    exhaustive check, every float of the range (1 + e lies in [1, 1 +
+    e^60], below 2^88)."""
+    from . import cuda_build
+    lib = cuda_build.load("gf_block", _declare)
+    bits = struct.unpack("<2I", struct.pack("<2f", lo, hi))
+    count = torch.zeros(1, dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        rc = lib.gf_block_recip_mismatches(
+            int(bits[0]), int(bits[1]), count.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"reciprocal check failed ({rc})")
+    return int(count.item())
 
 
 def _launch(x, params, prep, meta, mode, direction):

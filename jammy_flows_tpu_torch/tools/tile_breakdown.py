@@ -1,13 +1,14 @@
 """Where a block kernel's time goes: the block kernels timed as built, and
 again with parts of them switched off, on the card.
 
-    python -m jammy_flows_tpu_torch.tools.tile_breakdown [--part lazy2|perm]
-        [--csrc DIR]
+    python -m jammy_flows_tpu_torch.tools.tile_breakdown
+        [--part lazy2|perm|perm_fwd] [--csrc DIR [DIR ...]]
 
 Builds ``csrc/gf_block.cu`` and ``csrc/gf_block_bwd.cu`` from a copy of the
 sources (``--csrc``, by default the package's own: a parent tree's sources
-can be measured with this tool) under ``build/tile_breakdown/``, each
-variant by its own nvcc process, all at once.
+can be measured with this tool, and several trees side by side) under
+``build/tile_breakdown/``, each variant of each tree by its own nvcc
+process, all at once.
 
 lazy2 (the flagship's block 2: H = 128, a 7-wide summary): as built; with
 every 3xTF32 tile product off (``rows_product`` reduced to the bias, so that
@@ -30,6 +31,22 @@ the kernels before the perm redesign) and (blocks per SM from the
 occupancy API) x SMs.  With ``-Xptxas -v``: the perm kernels' registers,
 stack and spills.
 
+perm_fwd (the flagship's block 0, the T1 perm forward: ``density_perm``,
+``sample_perm``), each timed alone and as one of 10 launches back to back
+(where the host's launch time hides behind the kernels before it): as
+built, and with the per-row body switched off (the
+forward kernels' layer loops left at once, ``perm_body``), so that only the
+block's parameter set-up (``PermSrc``) and each row's loads and stores
+remain.  Sources whose perm forward walks row tiles (a ``perm_grid``
+function choosing its grid) are also timed at one block per tile of rows,
+the grid of a kernel without a tile loop (``perm_grid`` switched to
+``return n_tiles``), both with the body on and off.  With ``-Xptxas -v``:
+the perm forward kernels' registers, stack and spills; with ``cuobjdump
+-sass``: each perm forward kernel's MUFU (by function), FFMA, FMUL, FADD,
+FCHK (one per IEEE division) and CALL instructions, as the kernel's code
+holds them once (its loop bodies once each: the layer loop's trip count is
+a run-time value), and its blocks per SM (the occupancy API).
+
 Forward at 1,048,576 rows, backward at 262,144; CUDA events, median of
 10.  Prints one JSON line with the card's name and power limit.  Needs a
 CUDA device.
@@ -37,6 +54,7 @@ CUDA device.
 from __future__ import annotations
 
 import argparse
+import collections
 import ctypes
 import json
 import pathlib
@@ -68,9 +86,17 @@ _PERM_FLUSH = {
     r"template <int MODE, class Rows>\s*__device__ void stage_flush":
         "  if (MODE == PERM) return;\n",
     r"__device__ __forceinline__ void warp_flush": "  return;\n"}
+# the perm forward's per-row body: the forward kernels' layer loops
+# (gf_block.cu), left at once (in every mode: this part times perm only)
+_PERM_BODY = (r"for \(int l = a\.n_layers - 1; l >= 0; --l\) \{\n",
+              r"for \(int l = 0; l < a\.n_layers; \+\+l\) \{\n")
+# the perm forward's grid, where the sources have one to choose: one block
+# per tile of rows
+_PERM_GRID = r"int perm_grid\([^)]*\)\s*\{\n"
 
 
-# part -> variant -> (the switches on, the libraries built)
+# part -> variant -> (the switches on, the libraries built); a variant
+# whose switch the sources do not have is left out (perm_grid)
 VARIANTS = {
     "lazy2": {"as_built": ((), ("gf_block", "gf_block_bwd")),
               "products_off": (tuple(_OFF), ("gf_block", "gf_block_bwd")),
@@ -78,76 +104,146 @@ VARIANTS = {
               "gw_off": (("gw_product",), ("gf_block_bwd",))},
     "perm": {"as_built": ((), ("gf_block_bwd",)),
              "flush_off": (("perm_flush",), ("gf_block_bwd",))},
+    "perm_fwd": {"as_built": ((), ("gf_block",)),
+                 "body_off": (("perm_body",), ("gf_block",)),
+                 "tile_grid": (("perm_grid",), ("gf_block",)),
+                 "body_off_tile_grid": (("perm_body", "perm_grid"),
+                                        ("gf_block",))},
 }
 
 
 def _switches(src_dir):
     """Insert each switch's body into a copy of the sources; raises unless
-    every product was found once and the perm flush at least once."""
+    every product was found once, the perm flush at least once and the
+    perm forward's layer loops at least once each.  Returns the switches
+    found."""
     found = []
     for path in src_dir.iterdir():
         text = path.read_text()
-        cases = [(name, r"__device__ void " + name, body)
-                 for name, body in _OFF.items()] + \
-            [("perm_flush", head, body) for head, body in _PERM_FLUSH.items()]
+        cases = [(name, r"__device__ void " + name + r"\([^)]*\)\s*\{\n",
+                  body) for name, body in _OFF.items()] + \
+            [("perm_flush", head + r"\([^)]*\)\s*\{\n", body)
+             for head, body in _PERM_FLUSH.items()]
+        if path.name == "gf_block.cu":
+            cases += [("perm_body", head, "break;\n") for head in _PERM_BODY]
+            cases += [("perm_grid", _PERM_GRID, "  return n_tiles;\n")]
         for switch, head, body in cases:
-            pat = re.compile("(" + head + r"\([^)]*\)\s*\{\n)")
+            pat = re.compile("(" + head + ")")
             text, n = pat.subn(lambda m: m.group(1) + f"#ifdef GF_OFF_{switch}"
                                f"\n{body}#endif\n", text)
             found += [switch] * n
         path.write_text(text)
     if sorted(f for f in found if f in _OFF) != sorted(_OFF) or \
-            "perm_flush" not in found:
+            "perm_flush" not in found or found.count("perm_body") < 2:
         raise RuntimeError(f"switches found {found}, expected each of "
-                           f"{sorted(_OFF)} once and perm_flush")
+                           f"{sorted(_OFF)} once, perm_flush and both "
+                           "perm forward layer loops")
+    return set(found)
 
 
-def build(part, csrc):
-    """{(variant, library): path} of the builds, and the -Xptxas -v report
-    of each as-built library."""
+def build(part, trees, variants=None):
+    """{(tree, variant, library): path} of the builds of every source tree
+    in ``trees`` (a dict label -> csrc directory), all nvcc processes at
+    once, and {tree: the -Xptxas -v report of its as-built libraries}
+    (also written to ptxas.txt beside each tree's copy).  ``variants``: the
+    part's variants to build (default all)."""
     shutil.rmtree(OUT, ignore_errors=True)
-    src = OUT / "csrc"
-    shutil.copytree(csrc, src)
-    _switches(src)
     procs = {}
-    for variant, (off, libs) in VARIANTS[part].items():
-        extra = [f"-DGF_OFF_{name}" for name in off]
-        flags = [f for f in cuda_build.NVCC_FLAGS
-                 if variant == "as_built" or f not in ("-Xptxas", "-v")]
-        for lib in libs:
-            out = OUT / f"lib{lib}_{variant}.so"
-            procs[(variant, lib)] = (out, subprocess.Popen(
-                [cuda_build.nvcc_path(), *flags, *extra, "-I", str(src),
-                 "-o", str(out), str(src / f"{lib}.cu")],
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-    paths, report = {}, ""
+    for i, (tree, csrc) in enumerate(trees.items()):
+        src = OUT / f"tree{i}" / "csrc"
+        shutil.copytree(csrc, src)
+        found = _switches(src)
+        for variant, (off, libs) in VARIANTS[part].items():
+            if not set(off) <= found or (variants and
+                                         variant not in variants):
+                continue
+            extra = [f"-DGF_OFF_{name}" for name in off]
+            flags = [f for f in cuda_build.NVCC_FLAGS
+                     if variant == "as_built" or f not in ("-Xptxas", "-v")]
+            for lib in libs:
+                out = src.parent / f"lib{lib}_{variant}.so"
+                procs[(tree, variant, lib)] = (out, subprocess.Popen(
+                    [cuda_build.nvcc_path(), *flags, *extra, "-I", str(src),
+                     "-o", str(out), str(src / f"{lib}.cu")],
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True))
+    paths, report = {}, collections.defaultdict(str)
     for key, (out, proc) in procs.items():
         _, err = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {key}:\n{err}")
         paths[key] = out
-        if key[0] == "as_built":
-            report += err
+        if key[1] == "as_built":
+            report[key[0]] += err
+            with open(out.parent / "ptxas.txt", "a") as f:
+                f.write(err)
     return paths, report
 
 
+# the perm kernels' mangled names: the backward gf_block_bwd_kernel<KIND,
+# MODE = 0, ...>; the forward gf_block_{density,sample}_kernel<MODE = 0,
+# KT, DT> before the perm redesign, gf_block_perm_kernel<SAMPLE, KT, DT>
+# after it
+_PERM_KERNELS = (
+    (r"gf_block_bwd_kernelILi(\d)ELi0ELb\dELi(\d+)E",
+     lambda m: ("density_bwd_perm", "sample_bwd_perm",
+                "nll_perm")[int(m.group(1))]),
+    (r"gf_block_(density|sample)_kernelILi0ELi(\d+)E",
+     lambda m: f"{m.group(1)}_perm"),
+    (r"gf_block_perm_kernelILb(\d)ELi(\d+)E",
+     lambda m: ("density_perm", "sample_perm")[int(m.group(1))]))
+
+
+def _perm_kernel(name):
+    """(counter name, shape) of a perm kernel's mangled name, or None."""
+    for pat, kernel in _PERM_KERNELS:
+        m = re.search(pat, name)
+        if m:
+            return kernel(m), ("K=10, d=4" if m.group(2) == "10"
+                               else "generic")
+    return None
+
+
 def perm_ptxas(report):
-    """{kernel: "registers, stack, spills"} of the perm backward kernels
-    (gf_block_bwd_kernel<KIND, MODE = 0, ...>) in an -Xptxas -v report."""
+    """{kernel: "registers, stack, spills"} of the perm kernels in an
+    -Xptxas -v report."""
     out = {}
     for name, body in re.findall(r"Function properties for (\S+)\n(.*?)"
                                  r"(?=ptxas info\s+: Compil|\Z)", report, re.S):
-        m = re.search(r"gf_block_bwd_kernelILi(\d)ELi0ELb\dELi(\d+)E", name)
+        which = _perm_kernel(name)
         regs = re.search(r"Used (\d+) registers", body)
         spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
                           r"stores, (\d+) bytes spill loads", body)
-        if m and regs and spill:
-            kind = ("density_bwd_perm", "sample_bwd_perm",
-                    "nll_perm")[int(m.group(1))]
-            shape = "K=10, d=4" if m.group(2) == "10" else "generic"
-            out[f"{kind} ({shape})"] = (
+        if which and regs and spill:
+            out[f"{which[0]} ({which[1]})"] = (
                 f"{regs.group(1)} registers, stack {spill.group(1)} B, spill "
                 f"stores {spill.group(2)} B, loads {spill.group(3)} B")
+    return out
+
+
+# SASS instruction classes counted in the perm forward kernels
+_SASS_OPS = ("MUFU.EX2", "MUFU.LG2", "MUFU.RCP", "MUFU.RSQ", "MUFU.SQRT",
+             "FFMA", "FMUL", "FADD", "FCHK", "CALL", "LDS", "LDL", "STL")
+
+
+def perm_fwd_sass(lib):
+    """{kernel: {instruction class: count}} of the perm forward kernels in
+    the SASS of a built library (cuobjdump -sass)."""
+    tool = pathlib.Path(cuda_build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=600).stdout
+    out = {}
+    for fn, body in re.findall(r"Function : (\S+)\n(.*?)(?=Function : |\Z)",
+                               sass, re.S):
+        which = _perm_kernel(fn)
+        if which is None or which[0] not in ("density_perm", "sample_perm"):
+            continue
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)",
+                         body)
+        counts = {op: sum(1 for o in ops if o == op or o.startswith(op + "."))
+                  for op in _SASS_OPS}
+        counts["instructions"] = len(ops)
+        out[f"{which[0]} ({which[1]})"] = counts
     return out
 
 
@@ -164,6 +260,25 @@ def _ms(fn, reps=10):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _ms_back_to_back(fn, n=10):
+    """ms of one of n launches made back to back between two events: the
+    host's time to issue a launch hides behind the kernels before it."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
     return statistics.median(times)
 
 
@@ -197,6 +312,28 @@ def _perm_case(gb, p, dev, g, n_sm):
                     None if kind == "nll" else g_ld, prep, meta, "perm",
                     1.0 / x.shape[0], -1.0 / x.shape[0]))
         handle.gf_block_bwd_blocks = choose
+        return times, occ
+
+    return run
+
+
+def _perm_fwd_case(gb, p, dev, g):
+    """The T1 perm forward kernels on block 0 at 1,048,576 rows: run(variant)
+    times each; returns ({name: ms}, {name: blocks per SM})."""
+    import torch
+    prep, meta = p._block_meta[0]
+    pvec = p.init_params(seed=0)["flow_0"]
+    x = 0.8 * torch.randn((1 << 20, 4), generator=g, device=dev)
+    z = torch.randn((1 << 20, 4), generator=g, device=dev)
+
+    def run(variant):
+        times, occ = {}, {}
+        for d, arg in (("density", x), ("sample", z)):
+            occ[f"{d}_perm"] = gb.kernel_occupancy(f"{d}_perm", prep, meta)[0]
+            fn = lambda: gb._launch(arg, (pvec,), prep, meta, "perm", d)
+            times[f"{d}_perm {variant}"] = _ms(fn)
+            times[f"{d}_perm {variant} (10 back to back)"] = \
+                _ms_back_to_back(fn)
         return times, occ
 
     return run
@@ -253,7 +390,10 @@ def main(argv=None):
     from ..ops import gf_block as gb
     ap = argparse.ArgumentParser()
     ap.add_argument("--part", choices=sorted(VARIANTS), default="lazy2")
-    ap.add_argument("--csrc", type=pathlib.Path, default=cuda_build.CSRC)
+    ap.add_argument("--csrc", type=pathlib.Path, nargs="+",
+                    default=[cuda_build.CSRC])
+    ap.add_argument("--variants", nargs="+", default=None,
+                    help="build and time only these variants of the part")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("tile_breakdown: no CUDA device available", file=sys.stderr)
@@ -261,31 +401,54 @@ def main(argv=None):
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
-    paths, report = build(args.part, args.csrc)
+    trees = {str(c): c for c in args.csrc}
+    paths, report = build(args.part, trees, args.variants)
     dev = torch.device("cuda", torch.cuda.current_device())
     p = pdf("e4+s2+e4", "gggg+f+gggg", device=dev)
     g = torch.Generator(device=dev).manual_seed(0)
-    times, extra = {}, {}
     if args.part == "perm":
         n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
         run = _perm_case(gb, p, dev, g, n_sm)
-        extra = {"rows_backward": 1 << 18, "blocks_per_sm": {},
-                 "ptxas": perm_ptxas(report)}
+    elif args.part == "perm_fwd":
+        run = _perm_fwd_case(gb, p, dev, g)
     else:
         run = _lazy2_case(gb, p, dev, g)
-        extra = {"rows_forward": 1 << 20, "rows_backward": 1 << 18}
-    for (variant, lib), path in paths.items():
-        handle = ctypes.CDLL(str(path))
-        (gb._declare if lib == "gf_block" else gb._declare_bwd)(handle)
-        cuda_build._LOADED[lib] = handle
+    results = {}
+    for tree in trees:
+        times, extra = {}, {}
         if args.part == "perm":
-            t, extra["blocks_per_sm"][variant] = run(handle)
-            times.update({f"{k} {variant}": v for k, v in t.items()})
+            extra = {"rows_backward": 1 << 18, "blocks_per_sm": {},
+                     "ptxas": perm_ptxas(report[tree])}
+        elif args.part == "perm_fwd":
+            extra = {"rows_forward": 1 << 20, "blocks_per_sm": {},
+                     "ptxas": perm_ptxas(report[tree]),
+                     "sass": perm_fwd_sass(paths[(tree, "as_built",
+                                                  "gf_block")])}
         else:
-            times.update(run(lib, variant))
-    cuda_build._LOADED.clear()
-    print(json.dumps({"card": card, "part": args.part,
-                      "csrc": str(args.csrc), "ms": times, **extra}))
+            extra = {"rows_forward": 1 << 20, "rows_backward": 1 << 18}
+        for (t, variant, lib), path in paths.items():
+            if t != tree:
+                continue
+            handle = ctypes.CDLL(str(path))
+            (gb._declare if lib == "gf_block" else gb._declare_bwd)(handle)
+            cuda_build._LOADED[lib] = handle
+            if args.part == "perm":
+                t, extra["blocks_per_sm"][variant] = run(handle)
+                times.update({f"{k} {variant}": v for k, v in t.items()})
+            elif args.part == "perm_fwd":
+                t, extra["blocks_per_sm"][variant] = run(variant)
+                times.update(t)
+            else:
+                times.update(run(lib, variant))
+        cuda_build._LOADED.clear()
+        results[tree] = {"ms": times, **extra}
+    if len(trees) == 1:
+        (tree, res), = results.items()
+        print(json.dumps({"card": card, "part": args.part, "csrc": tree,
+                          **res}))
+    else:
+        print(json.dumps({"card": card, "part": args.part,
+                          "trees": results}))
     return 0
 
 

@@ -373,6 +373,79 @@ def test_generic_shape_perm_bwd_kernels(dev):
     _perm_repeats(p, 0, dev, 1000)
 
 
+def _perm_model(shape, dev):
+    """The flagship (its block 0 is perm mode) or the generic K = 7, d = 3
+    shape in perm mode."""
+    if shape == "flagship":
+        return pdf(*FLAGSHIP, device=dev)
+    g = {"num_kde": 7, "fit_normalization": 0,
+         "inverse_function_type": "inormal_full_pade"}
+    opts = {"g": g, (0, 1): {"g": dict(g, inverse_function_type=
+                                       "inormal_partly_crude")}}
+    return pdf("e3", "ggg", options_overwrite=opts, device=dev)
+
+
+# batches at the edges of the T1 perm kernel's tile loop: one row, one row
+# short of and past a 128-row block, and one row short of and past a full
+# wave (every persistent block one tile)
+PERM_FWD_BATCHES = ("1", "127", "129", "wave-1", "wave+1")
+
+
+def _perm_fwd_rows(which, direction, prep, meta):
+    if which[0].isdigit():
+        return int(which)
+    blocks, rows = gb.perm_grid(direction, 1 << 30, prep, meta)
+    return blocks * rows + (1 if which.endswith("+1") else -1)
+
+
+@pytest.mark.parametrize("which", PERM_FWD_BATCHES)
+@pytest.mark.parametrize("direction", ["density", "sample"])
+@pytest.mark.parametrize("shape", ["flagship", "generic"])
+def test_perm_fwd_kernels_at_tile_edges(dev, shape, direction, which):
+    """T1 perm (persistent blocks walking tiles of rows) at ragged batches
+    that cross its tile loop: against the plain version, bit-equal across
+    two launches, and, density, T3's val / ld equal to T1's bit for bit."""
+    p = _perm_model(shape, dev)
+    prep, meta = p._block_meta[0]
+    n = _perm_fwd_rows(which, direction, prep, meta)
+    mode, x, params = _block_args(p, 0, n, 5, dev)
+    out, ld = gb._launch(x, params, prep, meta, mode, direction)
+    out2, ld2 = gb._launch(x, params, prep, meta, mode, direction)
+    ref_out, ref_ld = gb.block_plain(direction, x, params, prep, meta, mode)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and torch.isfinite(ld).all()
+    assert float((out - ref_out).abs().max()) < TOL[direction]
+    assert float((ld - ref_ld).abs().max()) < TOL[direction]
+    assert torch.equal(out, out2) and torch.equal(ld, ld2)
+    if direction == "density":
+        val, ld3, _, _ = gb._launch_bwd("nll", x, params, None, None, prep,
+                                        meta, mode, 1.0 / n, -1.0 / n)
+        assert torch.equal(val, out) and torch.equal(ld3, ld)
+
+
+def test_perm_density_fallback_lanes_t3_equals_t1(dev):
+    """Rows far in the tails (every component beyond 55 widths) take the
+    density's fallback lanes, where T1 perm reads lnw + log(iw) prepared
+    once per block and T3 adds its own log(iw): the same bits."""
+    p = pdf(*FLAGSHIP, device=dev)
+    prep, meta = p._block_meta[0]
+    mode, x, params = _block_args(p, 0, 4096, 6, dev)
+    x[::3] *= 300.0
+    out, ld = gb._launch(x, params, prep, meta, mode, "density")
+    val, ld3, _, _ = gb._launch_bwd("nll", x, params, None, None, prep, meta,
+                                    mode, 1.0, -1.0)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and torch.isfinite(ld).all()
+    assert torch.equal(val, out) and torch.equal(ld3, ld)
+
+
+def test_perm_reciprocal_is_the_ieee_one(dev):
+    """The T1 perm kernels' reciprocal of 1 + e (rcp.approx and one Newton
+    step, recip_ge1) gives the IEEE reciprocal's bits for every float32 in
+    [1, 2^88): 1 + e lies in [1, 1 + e^60]."""
+    assert gb.recip_mismatches(dev) == 0
+
+
 # ---------------------------------------------------------------------------
 # the per-layer kernels (csrc/gf_layer.cu T4-T6, csrc/gf_layer_bwd.cu T7)
 # ---------------------------------------------------------------------------
