@@ -15,9 +15,10 @@ in parallel), then drives the flagship ``pdf("e4+s2+e4", "gggg+f+gggg")``:
 * the per-layer route (T4-T7), on the flagship with
   ``{"g": {"add_skewness": 1}}`` (raw and lazy interfaces) and with
   ``{"g": {"center_mean": 1}}`` (prepared interface), each unconditional and
-  conditional: serving at the same row counts, the skewed models' training
-  paths as above (T4 / T5 and both T7 bodies per layer), and the centred
-  models' gradients at the cross-check size;
+  conditional: serving at the same row counts (the skewed models' sample
+  and log_prob timed, 1,048,576 / 262,144 rows), the skewed models'
+  training paths as above (T4 / T5 and both T7 bodies per layer), and the
+  centred models' gradients at the cross-check size;
 * the block's lazy mode (precomputed hidden activations, T1 / T2), on the
   flagship with two-hidden-layer ``amortization_mlp_dims="64-64"`` MLPs,
   unconditional and conditional, serving and training as the flagship;
@@ -29,10 +30,15 @@ in parallel), then drives the flagship ``pdf("e4+s2+e4", "gggg+f+gggg")``:
 * the chain-rate probe (T8): the measured per-step rate of exp, log,
   softplus, sin, arccos and a multiply-add on 1,048,576 elements, beside
   the data-sheet FP32 rate the bounds assume;
-* two checks beside the paths: a NaN made on the card (0/0) in the lazy2
+* checks beside the paths: a NaN made on the card (0/0) in the lazy2
   block's summary or weights reaches T1 lazy2's and T3 lazy2's outputs
-  exactly where it reaches the plain versions'; the perm backward kernels
-  give the same bits on two launches.
+  exactly where it reaches the plain versions', and one in the skewed
+  layer's hidden activations or w reaches T4 / T5 lazy's and T7 lazy's
+  (density body) outputs so too; the perm backward kernels and T7 lazy
+  (both bodies) give the same bits on two launches; the per-layer lazy
+  kernels (3xTF32 tile products) match their plain versions at hidden
+  widths 12, 200 and 1024 on a row count that is not a multiple of any
+  tile.
 
 Each path has its own launch counts, which must be exactly the kernels that
 path runs.  Every kernel call of every path is recorded and held against the
@@ -216,6 +222,18 @@ PEAK_3XTF32_FLOPS = 495e12 / 3
 # (csrc/gf_block_src.cuh TileSrc): lazy2 forward and backward
 TILE_KERNELS = ("density_lazy2", "sample_lazy2", "density_bwd_lazy2",
                 "sample_bwd_lazy2", "nll_lazy2")
+# the per-layer lazy kernels whose parameter rows (and T7's dh / gw) are
+# 3xTF32 tile products (csrc/tile_rows.cuh, csrc/gf_layer_src.cuh
+# LayerTileSrc)
+LAYER_TILE_KERNELS = ("forward_lazy", "sample_lazy", "forward_bwd_lazy",
+                      "sample_bwd_lazy")
+# the lazy instances against their plain versions beyond the flagship's
+# H = 128, on the skewed flagship with amortization_mlp_dims = H: the widths
+# (12: not a multiple of the 8-wide k step; 1024: the routing limit, the
+# backward's 32-row tiles, dh in the global scratch) and a row count that is
+# not a multiple of any tile
+LAYER_WIDTHS = (12, 200, 1024)
+N_WIDTH = 4099
 # the perm backward kernels: a grid of (blocks per SM) x SMs, warp-private
 # partials summed in a fixed order
 PERM_BWD = ("density_bwd_perm", "sample_bwd_perm", "nll_perm")
@@ -536,8 +554,33 @@ def tile_kernel_report(built, card):
                 log(f"SASS {kernel(m)} ({shape}): {n} TF32 HMMA "
                     f"instructions")
                 found[(kernel(m), shape)] = n
+    # gf_layer_kernel<LAZY = 1, SKEW, MODE, KT>, gf_layer_bwd_kernel<LAZY =
+    # 1, SKEW, SAMPLE, KT>: the per-layer lazy kernels
+    layer_pats = {
+        "gf_layer": (r"gf_layer_kernelILb1ELb(\d)ELi(\d)ELi(\d+)E",
+                     ("forward_lazy", "sample_lazy")),
+        "gf_layer_bwd": (r"gf_layer_bwd_kernelILb1ELb(\d)ELb(\d)ELi(\d+)E",
+                         ("forward_bwd_lazy", "sample_bwd_lazy"))}
+    for lib_name, (pat, names) in layer_pats.items():
+        sass = subprocess.run([cuobjdump_path(), "-sass",
+                               str(built[lib_name][0])], capture_output=True,
+                              text=True, check=True, timeout=600).stdout
+        for fn, body in re.findall(r"Function : (\S+)\n(.*?)(?=Function : |\Z)",
+                                   sass, re.S):
+            m = re.search(pat, fn)
+            if m:
+                n = len(re.findall(r"HMMA\.\S*TF32", body))
+                shape = ("K=10" if m.group(3) == "10" else "generic") + (
+                    ", skewed" if m.group(1) == "1" else "")
+                name = names[int(m.group(2))]
+                log(f"SASS {name} ({shape}): {n} TF32 HMMA instructions")
+                found[(name, shape)] = n
     missing = [k for k in TILE_KERNELS for shape in ("K=10, d=4", "generic")
                if not found.get((k, shape))]
+    missing += [k for k in LAYER_TILE_KERNELS
+                for shape in ("K=10", "generic", "K=10, skewed",
+                              "generic, skewed")
+                if not found.get((k, shape))]
     if missing:
         raise AssertionError(f"no TF32 HMMA in the SASS of {missing}")
     p = pdf(*FLAGSHIP, device="cpu")
@@ -550,6 +593,19 @@ def tile_kernel_report(built, card):
                 f"on {card}: {blocks} blocks of {threads} threads = "
                 f"{blocks * threads // 32} warps per SM, {smem} B of shared "
                 f"memory a block")
+    for name in LAYER_TILE_KERNELS:
+        blocks, threads, smem = layer_occupancy(name)
+        log(f"occupancy {name} (the skewed flagship layer, H = 128) on "
+            f"{card}: {blocks} blocks of {threads} threads = "
+            f"{blocks * threads // 32} warps per SM, {smem} B of shared "
+            f"memory a block")
+
+
+def layer_occupancy(name, hid=128):
+    """(blocks per SM, threads, shared memory bytes) of a per-layer lazy
+    kernel at the skewed flagship's layer (K = 10, d = 4, four groups)."""
+    from jammy_flows_tpu_torch.ops import gf_layer as gl
+    return gl.kernel_occupancy(name, 10, 4, hid, 4, skew=True)
 
 
 def entry_row(name, args, by_path, err, card, ptxas=None):
@@ -1256,6 +1312,143 @@ def check_layer_calls(label, calls):
     return errs
 
 
+def layer_repeat_check(calls):
+    """T7 lazy (both bodies) on the first recorded call's own inputs,
+    launched twice more: the same bits each time (persistent blocks walking
+    the tiles in a fixed order, partials summed in block order)."""
+    from jammy_flows_tpu_torch.ops import gf_layer as gl
+    for name in ("forward_bwd_lazy", "sample_bwd_lazy"):
+        _, body, iface, kept, ift, prep, kd, _ = next(c for c in calls
+                                                      if c[0] == name)
+        x, params, g1, g2 = kept
+        a, b = (gl._launch_bwd(body, iface, x, params, g1, g2, ift, prep, kd)
+                for _ in range(2))
+        torch.cuda.synchronize()
+        same = all(torch.equal(u, v) for u, v in zip((a[0], *a[1]),
+                                                     (b[0], *b[1])))
+        log(f"{name} ({x.shape[0]} rows): two launches bit-equal {same}")
+        if not same:
+            raise AssertionError(f"{name}: two launches on the same inputs "
+                                 "differ")
+
+
+def layer_nan_check(calls):
+    """One NaN made on the card as 0/0 in hidden or in w of the first
+    recorded forward_lazy call (the skewed flagship's layer, its first
+    N_NAN rows), through T4 lazy, T5 lazy (at the same rows as targets) and
+    T7 lazy's density body: NaN in exactly the outputs where the plain
+    version has it, and every row whose per-row outputs it does not reach
+    equal to the kernel's result without the NaN, bit for bit."""
+    from jammy_flows_tpu_torch.ops import gf_layer as gl
+    _, _, _, kept, ift, prep, kd, _ = next(c for c in calls
+                                           if c[0] == "forward_lazy")
+    x = kept[0][:N_NAN].contiguous()
+    clean = (kept[1][0][:N_NAN].contiguous(), *kept[1][1:])
+    g = torch.Generator(device=x.device).manual_seed(92)
+    g1, g2 = (torch.randn(x.shape, generator=g, device=x.device)
+              for _ in range(2))
+    zero = torch.zeros((), device=x.device)
+
+    def bwd(fn):
+        gx, grads = fn
+        return (gx, *grads)
+
+    for what in ("hidden", "w"):
+        hidden, w, b = (t.clone() for t in clean)
+        if what == "hidden":
+            hidden[5, 1] = zero / zero
+        else:
+            w[9, 7] = zero / zero
+        params = (hidden, w, b)
+        cases = [(f"{m}_lazy", 2,
+                  lambda ps, m=m: gl._launch(m, "lazy", x, ps, ift, prep, kd),
+                  lambda m=m: gl.layer_plain(m, "lazy", x, params, ift, prep,
+                                             kd))
+                 for m in ("forward", "sample")]
+        cases.append(("forward_bwd_lazy", 2, lambda ps: bwd(gl._launch_bwd(
+            "forward", "lazy", x, ps, g1, g2, ift, prep, kd)),
+            lambda: bwd(gl.layer_bwd_plain("forward", "lazy", x, params, g1,
+                                           g2, ift, prep, kd))))
+        for name, n_per_row, kernel, plain in cases:
+            got, want, ref = kernel(params), kernel(clean), plain()
+            torch.cuda.synchronize()
+            n_nan = [int(torch.isnan(a).sum()) for a in got]
+            same = all(torch.equal(torch.isnan(a), torch.isnan(r))
+                       for a, r in zip(got, ref))
+            rows = ~torch.stack([torch.isnan(r).any(dim=1)
+                                 for r in ref[:n_per_row]]).any(dim=0)
+            kept_bits = all(torch.equal(a[rows], c[rows]) for a, c in
+                            zip(got[:n_per_row], want[:n_per_row]))
+            log(f"NaN in {what}: {name}: NaN entries {n_nan} (plain "
+                f"{[int(torch.isnan(r).sum()) for r in ref]}), in the same "
+                f"places {same}, rows without NaN equal to the clean run's "
+                f"{kept_bits}")
+            if not (same and kept_bits and sum(n_nan)):
+                raise AssertionError(f"NaN in {what}: {name} does not keep "
+                                     "the NaN as its plain version does")
+
+
+def layer_width_check(dev):
+    """The lazy instances of T4 / T5 and both T7 bodies beyond the
+    flagship's H = 128: the skewed unconditional flagship with
+    amortization_mlp_dims = H for each H in LAYER_WIDTHS (its block-2
+    layers take hidden rows of that width) serves N_WIDTH rows (sample,
+    then log_prob of rows drawn by a second jittered model) and takes the
+    gradients of -log_prob().mean() and of the sample objective; every
+    per-layer lazy call is recorded and held against its plain version on
+    its inputs.  Returns the largest differences."""
+    from jammy_flows_tpu_torch import pdf
+    errs = {}
+    for hid in LAYER_WIDTHS:
+        label = f"skewed H = {hid}"
+        p = pdf(*FLAGSHIP, options_overwrite=SKEW,
+                amortization_mlp_dims=str(hid), device=dev)
+        params = jittered_params(p, seed=94, flow_scale=0.02)
+        g = torch.Generator(device=dev).manual_seed(95)
+        calls = []
+        with recording_layer(calls):
+            with torch.no_grad():
+                x = p.sample(jittered_params(p, seed=96, flow_scale=0.1),
+                             samplesize=N_WIDTH, generator=g)[0]
+                p.sample(params, samplesize=N_WIDTH, generator=g)
+                p.log_prob(params, x)
+            z = torch.randn((N_WIDTH, p.total_base_dim), generator=g,
+                            device=dev)
+            p._value_and_grad(lambda pp: -p.log_prob(pp, x)[0].mean(),
+                              params)
+            p._value_and_grad(lambda pp: sample_objective(p, pp, z, None),
+                              params)
+        lazy = [c for c in calls if c[2] == "lazy"]
+        widths = {c[3][1][0].shape[1] for c in lazy}
+        if {c[0] for c in lazy} != set(LAYER_TILE_KERNELS) or \
+                widths != {hid}:
+            raise AssertionError(f"{label}: lazy calls "
+                                 f"{sorted({c[0] for c in lazy})} at "
+                                 f"widths {widths}")
+        for k, v in check_layer_calls(label, lazy).items():
+            errs[k] = max(errs.get(k, 0.0), v)
+        del calls, lazy
+        torch.cuda.empty_cache()
+    return errs
+
+
+def materialized_ms(call):
+    """A yardstick the port never calls: the function of a recorded lazy
+    call (T4 / T5 lazy, T7 lazy) through the materialized route on its own
+    inputs (tools/tile_breakdown.materialized_route: the rows as
+    torch.matmul into per-row slabs, then the raw per-row kernel; T7 also
+    ghidden and gw as matmuls and gb as a sum).  Median of 5."""
+    from jammy_flows_tpu_torch.ops import gf_layer as gl
+    from jammy_flows_tpu_torch.tools import tile_breakdown
+    torch.set_float32_matmul_precision("highest")
+    name, mode, _, kept, ift, prep, kd, _ = call
+    cts = kept[2:] if "_bwd_" in name else None
+    ms = cuda_ms(tile_breakdown.materialized_route(
+        gl, mode, kept[0], kept[1], ift, prep, kd, cts), 5)
+    torch.cuda.empty_cache()
+    return ms
+
+
 def centred_params(p, params):
     """``params`` with the means of every g layer (in flow_0, or in the final
     bias of an MLP) scaled by CENTRE_MEAN_SCALE."""
@@ -1438,15 +1631,19 @@ def time_layer_call(call, card):
     return ms, plain_ms, b_ms, b_by, tc_ms
 
 
-def time_layer_kernels(calls, launches, errs, card):
+def time_layer_kernels(calls, launches, errs, card, ptxas=None):
     """Each per-layer entry point and T7 body on its first recorded call's
     inputs (the unconditional serving or training paths): kernel, plain
-    version, bound; returns the JSON rows.  A per-row prepared call (the
+    version, bound; returns the JSON rows.  The lazy rows also carry two
+    yardsticks on the same inputs (their P x H products alone as
+    torch.matmul, and the materialized route), their registers, stack and
+    spills (``ptxas``: tools/tile_breakdown.layer_ptxas of the build's
+    -Xptxas -v lines) and blocks per SM.  A per-row prepared call (the
     centred amortized block) is timed too, for the log."""
     rows = []
     for name in LAYER_ENTRY + LAYER_BWD:
-        ms, plain_ms, b_ms, b_by, tc_ms = time_layer_call(
-            next(c for c in calls if c[0] == name), card)
+        call = next(c for c in calls if c[0] == name)
+        ms, plain_ms, b_ms, b_by, tc_ms = time_layer_call(call, card)
         by_path = {f"{cfg} {what}": n[name]
                    for cfg, paths in launches.items()
                    for what, n in paths.items() if n[name]}
@@ -1462,6 +1659,19 @@ def time_layer_kernels(calls, launches, errs, card):
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                      "bound_by": b_by, "tc_bound_ms": tc_ms,
                      "library_ms": None})
+        if name in LAYER_TILE_KERNELS:
+            x, (hidden, w, _) = call[3][:2]
+            row = rows[-1]
+            row["products_matmul_ms"] = products_matmul_ms(
+                name, x.shape[0], w.shape[0], w.shape[1], x.device)
+            row["materialized_ms"] = materialized_ms(call)
+            row["blocks_per_sm"] = layer_occupancy(name, w.shape[1])[0]
+            row["ptxas"] = (ptxas or {}).get(f"{name} (K=10, skewed)")
+            log(f"{name}: yardsticks on its inputs on {card}: its P x H "
+                f"products alone as torch.matmul {row['products_matmul_ms']:.4f}"
+                f" ms, the materialized route (torch.matmul + raw per-row "
+                f"kernel) {row['materialized_ms']:.4f} ms; "
+                f"{row['blocks_per_sm']} blocks per SM; {row['ptxas']}")
     for name in ("forward_prepared", "inverse_prepared"):
         time_layer_call(next(c for c in calls if c[0] == name
                              and c[3][1][0].ndim == 3), card)
@@ -1501,10 +1711,10 @@ def inverse_raw_row(args, card):
             "bound_by": b_by, "tc_bound_ms": tc_ms, "library_ms": None}
 
 
-def layer_phase(dev, card):
+def layer_phase(dev, card, ptxas=None):
     """The per-layer route: serving of the four models, training of the
-    skewed ones, gradients of the centred ones, kernel times; returns the
-    kernels' JSON rows."""
+    skewed ones, gradients of the centred ones, the lazy kernels' repeat,
+    NaN and width checks, kernel times; returns the kernels' JSON rows."""
     t_phase = time.time()
     launches, errs, calls = {}, {}, []
 
@@ -1527,15 +1737,16 @@ def layer_phase(dev, card):
         merge(check_layer_calls(label, layer_calls))
         cross_check(label, p, params, x, ci, opts)
         launches[label] = {"serving": launch}
-        if cond is None:
+        if cond is None or opts is SKEW:
             # whole-call times on this path's own inputs
             g = torch.Generator(device=dev).manual_seed(50 + i)
-            sample_ms = cuda_ms(lambda: p.sample(params, samplesize=n,
-                                                 generator=g), 5)
-            log_prob_ms = cuda_ms(lambda: p.log_prob(params, x), 5)
+            sample_ms = cuda_ms(lambda: p.sample(
+                params, samplesize=n, conditional_input=ci, generator=g), 5)
+            log_prob_ms = cuda_ms(lambda: p.log_prob(params, x, ci), 5)
             for what, ms in (("sample", sample_ms), ("log_prob", log_prob_ms)):
                 log(f"{label} {what} on {card}: {ms:.3f} ms per {n} rows = "
                     f"{n / ms * 1e3:.6g} rows/s (median of 5)")
+        if cond is None:
             calls += first_calls(layer_calls)
         del layer_calls, x
         torch.cuda.empty_cache()
@@ -1557,7 +1768,10 @@ def layer_phase(dev, card):
                                              seed=60 + i)
             launches[label].update(l_g)
             merge(check_layer_calls(label, layer_calls))
-    rows = time_layer_kernels(calls, launches, errs, card)
+    layer_repeat_check(calls)
+    layer_nan_check(calls)
+    merge(layer_width_check(dev))
+    rows = time_layer_kernels(calls, launches, errs, card, ptxas)
     log(f"per-layer phase {time.time() - t_phase:.1f} s")
     return rows
 
@@ -1772,6 +1986,7 @@ def main():
     for line in ptxas_summary("".join(ptxas)):
         log(line)
     perm_ptxas = tile_breakdown.perm_ptxas("".join(ptxas))
+    layer_ptxas = tile_breakdown.layer_ptxas("".join(ptxas))
     tile_kernel_report(built, card)
     dev = torch.device("cuda", torch.cuda.current_device())
     # the T1 perm kernels' reciprocal of 1 + e against the IEEE one, every
@@ -1846,7 +2061,7 @@ def main():
     del p_u, p_c, par_u, par_c, x_u, x_c
     nan_check(dev)
 
-    rows += layer_phase(dev, card)
+    rows += layer_phase(dev, card, layer_ptxas)
     rows += lazy_phase(dev, card)
     rows += chain_phase(dev, card)
 

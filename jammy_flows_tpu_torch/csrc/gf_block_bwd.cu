@@ -209,161 +209,7 @@ __device__ void stage_flush(const BwdArgs& A, const Stage& st,
 }
 
 // ---- lazy2: a piece's cotangents into the gradients, on the tensor cores --
-
-// dh[t][h] += sum_c dp[t][c] w[rows(c)][h] (3xTF32): warp w takes rows
-// 32w .. 32w + 31 (two m16 tiles), the piece's columns are the k axis, in
-// chunks of 32 rows of w by 32 hidden columns streamed through the chunk
-// buffers (row stride TILE_KC + 8: conflict-free B fragments), and each
-// chunk's hidden columns are taken 16 at a time (two n8 tiles: 16
-// accumulators a lane, so that the products keep to registers beside the
-// body's live state).  dh (Hp, hs) is the block's global scratch; the
-// warp's own entries are the accumulators' start.
-template <class Rows>
-__device__ void dh_product(const Tile& tl, const float* dp, float* dh,
-                           const float* w, const Rows& rows, int n) {
-  constexpr int WS = TILE_KC + 8;
-  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-  const int t0 = (threadIdx.x >> 5) * 32;
-  const int n_cc = (n + TILE_NC - 1) / TILE_NC;
-  const int n_steps = (tl.Hp + TILE_KC - 1) / TILE_KC * n_cc;
-  const int n8 = (n + 7) / 8 * 8;
-  load_w_chunk(tl, tl.wc, WS, w, rows, n, 0, 0);
-  for (int s = 0; s < n_steps; ++s) {
-    const int hc = s / n_cc, cc = s - hc * n_cc;
-    if (s + 1 < n_steps) {
-      const int hc1 = (s + 1) / n_cc;
-      load_w_chunk(tl, tl.wc + ((s + 1) & 1) * TILE_NC * TILE_WS, WS, w,
-                   rows, n, (s + 1 - hc1 * n_cc) * TILE_NC, hc1 * TILE_KC);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float* wb = tl.wc + (s & 1) * TILE_NC * TILE_WS;
-    const int k_steps = min(TILE_NC, n8 - cc * TILE_NC) / 8;
-    for (int h0 = hc * TILE_KC; h0 < min(tl.Hp, hc * TILE_KC + TILE_KC);
-         h0 += 16) {
-      const int n_tiles = min(2, (tl.Hp - h0) / 8);
-      float acc[2][2][4];
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          const float* o =
-              dh + (size_t)(h0 + nt * 8 + 2 * q) * tl.hs + t0 + mt * 16 + g;
-          const bool in = nt < n_tiles;
-          acc[mt][nt][0] = in ? o[0] : 0.0f;
-          acc[mt][nt][1] = in ? o[tl.hs] : 0.0f;
-          acc[mt][nt][2] = in ? o[8] : 0.0f;
-          acc[mt][nt][3] = in ? o[tl.hs + 8] : 0.0f;
-        }
-#pragma unroll
-      for (int ks = 0; ks < TILE_NC / 8; ++ks) {
-        if (ks < k_steps) {
-          const float* ak =
-              dp + (size_t)(cc * TILE_NC + ks * 8 + q) * tl.ts + t0 + g;
-          uint32_t ahi[2][4], alo[2][4], bhi[2][2], blo[2][2];
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
-            const float* a0 = ak + mt * 16;
-            split_tf32(a0[0], ahi[mt][0], alo[mt][0]);
-            split_tf32(a0[8], ahi[mt][1], alo[mt][1]);
-            split_tf32(a0[4 * tl.ts], ahi[mt][2], alo[mt][2]);
-            split_tf32(a0[4 * tl.ts + 8], ahi[mt][3], alo[mt][3]);
-          }
-#pragma unroll
-          for (int nt = 0; nt < 2; ++nt) {
-            const float* wk = wb + (ks * 8 + q) * WS + (h0 & (TILE_KC - 1)) +
-                              nt * 8 + g;
-            split_tf32_any(wk[0], bhi[nt][0], blo[nt][0]);
-            split_tf32_any(wk[4 * WS], bhi[nt][1], blo[nt][1]);
-          }
-          mma3_tile(acc, ahi, alo, bhi, blo, 2, n_tiles);
-        }
-      }
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        if (nt < n_tiles) {
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
-            float* o =
-                dh + (size_t)(h0 + nt * 8 + 2 * q) * tl.hs + t0 + mt * 16 + g;
-            o[0] = acc[mt][nt][0];
-            o[tl.hs] = acc[mt][nt][1];
-            o[8] = acc[mt][nt][2];
-            o[tl.hs + 8] = acc[mt][nt][3];
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// gw[rows(c)][h] += sum_t dp[t][c] hid[t][h] (3xTF32) into the block's
-// partial: an item is 32 piece columns (two m16 tiles) by 16 hidden
-// columns (two n8 tiles), the items dealt to the warps in turn, the tile's
-// rows the k axis; the partial's entries are the accumulators' start.  A
-// column past n reads what the slab holds there and feeds only rows that
-// are not stored.
-template <class Rows>
-__device__ void gw_product(const Tile& tl, const float* dp, float* gw,
-                           const Rows& rows, int n) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-  const int T = blockDim.x, n_warps = T >> 5;
-  const int n_hc = (tl.Hp + 15) / 16, n_items = (n + 31) / 32 * n_hc;
-  for (int item = threadIdx.x >> 5; item < n_items; item += n_warps) {
-    const int c0 = item / n_hc * 32, h0 = (item % n_hc) * 16;
-    const int m_tiles = min(2, (n - c0 + 15) / 16);
-    const int n_tiles = min(2, (tl.Hp - h0) / 8);
-    float acc[2][2][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = c0 + mt * 16 + g + (e >= 2 ? 8 : 0);
-          const int h = h0 + nt * 8 + 2 * q + (e & 1);
-          acc[mt][nt][e] = mt < m_tiles && nt < n_tiles && c < n && h < tl.H
-                               ? gw[(size_t)rows(c) * tl.H + h]
-                               : 0.0f;
-        }
-    for (int k0 = 0; k0 < T; k0 += 8) {
-      uint32_t ahi[2][4], alo[2][4], bhi[2][2], blo[2][2];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        if (mt < m_tiles) {
-          const float* a0 = dp + (size_t)(c0 + mt * 16 + g) * tl.ts + k0 + q;
-          split_tf32(a0[0], ahi[mt][0], alo[mt][0]);
-          split_tf32(a0[8 * tl.ts], ahi[mt][1], alo[mt][1]);
-          split_tf32(a0[4], ahi[mt][2], alo[mt][2]);
-          split_tf32(a0[8 * tl.ts + 4], ahi[mt][3], alo[mt][3]);
-        }
-      }
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        if (nt < n_tiles) {
-          const float* bk = tl.hid + (size_t)(h0 + nt * 8 + g) * tl.hs + k0 + q;
-          split_tf32(bk[0], bhi[nt][0], blo[nt][0]);
-          split_tf32(bk[4], bhi[nt][1], blo[nt][1]);
-        }
-      }
-      mma3_tile(acc, ahi, alo, bhi, blo, m_tiles, n_tiles);
-    }
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = c0 + mt * 16 + g + (e >= 2 ? 8 : 0);
-          const int h = h0 + nt * 8 + 2 * q + (e & 1);
-          if (mt < m_tiles && nt < n_tiles && c < n && h < tl.H)
-            gw[(size_t)rows(c) * tl.H + h] = acc[mt][nt][e];
-        }
-  }
-}
+// (dh_product, gw_product and gb_sum: tile_rows.cuh)
 
 // One piece's cotangents dp (its slab: each row's thread has written its
 // own) into dh, the block's partial gw (3xTF32 tile products) and gb (the
@@ -378,25 +224,7 @@ __device__ void flush_piece(const BwdArgs& A, const Stage& st, const Tile& tl,
   __syncthreads();
   dh_product(tl, dp, st.dh, a.w, rows, n);
   gw_product(tl, dp, pw, rows, n);
-  // gb: warp w sums rows 32w .. 32w + 31 of 32 columns (one a lane), then
-  // warp 0 adds the warps' sums in warp order (through the chunk buffers,
-  // free once dh_product is done)
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int c0 = 0; c0 < n; c0 += 32) {
-    const int c = c0 + lane;
-    float acc = 0.0f;
-    if (c < n)
-      for (int t = 32 * warp; t < 32 * warp + 32; ++t)
-        acc += dp[(size_t)c * tl.ts + t];
-    tl.wc[threadIdx.x] = acc;
-    __syncthreads();
-    if (warp == 0 && c < n) {
-      float sum = 0.0f;
-      for (int v = 0; v < (int)blockDim.x / 32; ++v) sum += tl.wc[v * 32 + lane];
-      pb[rows(c)] += sum;
-    }
-    __syncthreads();
-  }
+  gb_sum(tl, dp, pb, rows, n);
 }
 
 // Reflection i's backward: x_out = x_in - 2 v (v . x_in), v = u / |u|.

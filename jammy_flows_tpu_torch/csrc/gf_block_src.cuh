@@ -8,7 +8,7 @@
 //     into a column of shared memory; the block then makes the parameter
 //     rows of one piece at a time for all its rows at once, as a tile
 //     product hidden (T x H) . W_piece^T (H x n) + b on the tensor cores in
-//     3xTF32 (mma_tf32.cuh), into a shared slab that each row's thread
+//     3xTF32 (tile_rows.cuh), into a shared slab that each row's thread
 //     reads.  A piece is a layer's offset and reflection rows (slab `sa`,
 //     kept through the layer) or one dimension's 3K mixture rows (slab
 //     `sm`);
@@ -24,7 +24,7 @@
 #include <type_traits>
 
 #include "gf_common.cuh"
-#include "mma_tf32.cuh"
+#include "tile_rows.cuh"
 
 namespace gf {
 
@@ -35,27 +35,6 @@ constexpr int LAZYH = 2;  // precomputed hidden (B, H) and the final w, b
 
 struct LayerMeta {
   int has_off, rot_it, has_ln, ift, row0;
-};
-
-// ---- the lazy2 tile: rows per block and shared-memory layout --------------
-constexpr int TILE_KC = 32;            // a W chunk: 32 hidden columns (or
-constexpr int TILE_NC = 32;            // k rows) of 32 parameter rows
-constexpr int TILE_WS = TILE_KC + 8;   // a chunk row's capacity (floats)
-constexpr int TILE_SMEM_LIMIT = 227 * 1024;
-
-// Shared memory of a lazy2 block, in floats:
-//   hid (Hp, hs)  hidden[h][t]; hs = T + 8: conflict-free A fragments
-//   sa  (na, ts)  the layer's offset and reflection rows, kept through it
-//   sm  (nm, ts)  one dimension's mixture rows; ts = T + 4: conflict-free
-//                 C stores and per-row reads
-//   wc  2 x (32, TILE_WS)  double-buffered W chunks (cp.async)
-// Flagship (H = 128, 20 / 30 rows per piece, T = 128): 69,632 + 16,896 +
-// 16,896 + 10,240 = 113,664 bytes, two blocks (8 warps) per SM.
-struct TileShape {
-  int T, Hp, hs, ts, na, nm;
-  __host__ __device__ size_t floats() const {
-    return (size_t)Hp * hs + (size_t)(na + nm) * ts + 2 * TILE_NC * TILE_WS;
-  }
 };
 
 struct BlockArgs {
@@ -494,142 +473,6 @@ struct SpanRows {
   __device__ int operator()(int j) const { return r0 + j; }
 };
 
-// the shared memory of a lazy2 block (TileShape), chunk buffers first so
-// that 16-byte copies land aligned
-struct Tile {
-  float* wc;   // 2 x (TILE_NC, TILE_WS)
-  float* hid;  // (Hp, hs)
-  float* sa;   // (na, ts)
-  float* sm;   // (nm, ts)
-  int H, Hp, hs, ts;
-  bool vec;    // w's rows 16-byte aligned: 16-byte copies
-
-  __device__ Tile(const BlockArgs& a, float* smem)
-      : wc(smem), hid(smem + 2 * TILE_NC * TILE_WS),
-        sa(hid + (size_t)a.tile.Hp * a.tile.hs),
-        sm(sa + (size_t)a.tile.na * a.tile.ts), H(a.H), Hp(a.tile.Hp),
-        hs(a.tile.hs), ts(a.tile.ts),
-        vec(a.H % 4 == 0 && reinterpret_cast<uintptr_t>(a.w) % 16 == 0) {}
-};
-
-// Start copying w's rows rows(c0 .. c0 + 31) (those below n), columns
-// h0 .. h0 + 31 (those below H), into a chunk buffer at row stride ws,
-// zeros elsewhere; one cp.async group.
-template <class Rows>
-__device__ void load_w_chunk(const Tile& tl, float* buf, int ws,
-                             const float* w, const Rows& rows, int n, int c0,
-                             int h0) {
-  if (tl.vec) {
-    constexpr int V = TILE_KC / 4;
-    for (int i = threadIdx.x; i < TILE_NC * V; i += blockDim.x) {
-      const int c = i / V, q = (i - c * V) * 4;
-      const bool ok = c0 + c < n && h0 + q < tl.H;
-      cp_async16(buf + c * ws + q,
-                 ok ? w + (size_t)rows(c0 + c) * tl.H + h0 + q : w,
-                 ok ? 16 : 0);
-    }
-  } else {
-    for (int i = threadIdx.x; i < TILE_NC * TILE_KC; i += blockDim.x) {
-      const int c = i / TILE_KC, q = i - c * TILE_KC;
-      const bool ok = c0 + c < n && h0 + q < tl.H;
-      cp_async4(buf + c * ws + q,
-                ok ? w + (size_t)rows(c0 + c) * tl.H + h0 + q : w,
-                ok ? 4 : 0);
-    }
-  }
-  cp_async_commit();
-}
-
-// The row product of one piece: slab[c][t] = b[rows(c)] + sum_h hid[t][h]
-// w[rows(c)][h] for the block's rows t and the piece's columns c < n (and
-// zeros up to the next multiple of 8), in 3xTF32 on the tensor cores.  Warp
-// w makes rows 32w .. 32w + 31 (two m16 tiles), 32 columns (four n8 tiles)
-// at a time, the hidden axis in chunks of 32 streamed through the two
-// chunk buffers (row stride TILE_KC + 4: conflict-free B fragments).  The
-// k order is fixed (hidden units 0..7, 8..15, ...), so a row's parameters
-// do not depend on the tile, the piece or the kernel that makes them: the
-// forward and the backward make the same bits.  Block-synchronous.
-template <class Rows>
-__device__ void rows_product(const Tile& tl, float* slab, const float* w,
-                             const float* b, const Rows& rows, int n) {
-  if (n <= 0) return;
-  constexpr int WS = TILE_KC + 4;
-  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-  const int t0 = (threadIdx.x >> 5) * 32;
-  const int n_kc = (tl.Hp + TILE_KC - 1) / TILE_KC;
-  const int n_steps = (n + TILE_NC - 1) / TILE_NC * n_kc;
-  float acc[2][4][4];
-  load_w_chunk(tl, tl.wc, WS, w, rows, n, 0, 0);
-  for (int s = 0; s < n_steps; ++s) {
-    const int nc = s / n_kc, kc = s - nc * n_kc;
-    if (s + 1 < n_steps) {
-      const int nc1 = (s + 1) / n_kc;
-      load_w_chunk(tl, tl.wc + ((s + 1) & 1) * TILE_NC * TILE_WS, WS, w,
-                   rows, n, nc1 * TILE_NC, (s + 1 - nc1 * n_kc) * TILE_KC);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (kc == 0) {
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
-    }
-    const float* wb = tl.wc + (s & 1) * TILE_NC * TILE_WS;
-    const int n_tiles = min(4, (n - nc * TILE_NC + 7) / 8);
-    const int k_steps = min(TILE_KC, tl.Hp - kc * TILE_KC) / 8;
-#pragma unroll
-    for (int ks = 0; ks < TILE_KC / 8; ++ks) {
-      if (ks < k_steps) {
-        const float* hk =
-            tl.hid + (size_t)(kc * TILE_KC + ks * 8 + q) * tl.hs + t0 + g;
-        uint32_t ahi[2][4], alo[2][4];
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          const float* h0 = hk + mt * 16;
-          split_tf32(h0[0], ahi[mt][0], alo[mt][0]);
-          split_tf32(h0[8], ahi[mt][1], alo[mt][1]);
-          split_tf32(h0[4 * tl.hs], ahi[mt][2], alo[mt][2]);
-          split_tf32(h0[4 * tl.hs + 8], ahi[mt][3], alo[mt][3]);
-        }
-        uint32_t bhi[4][2], blo[4][2];
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          if (nt < n_tiles) {
-            const float* wk = wb + (nt * 8 + g) * WS + ks * 8 + q;
-            split_tf32_any(wk[0], bhi[nt][0], blo[nt][0]);
-            split_tf32_any(wk[4], bhi[nt][1], blo[nt][1]);
-          }
-        }
-        mma3_tile(acc, ahi, alo, bhi, blo, 2, n_tiles);
-      }
-    }
-    if (kc == n_kc - 1) {
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        if (nt < n_tiles) {
-          const int c = nc * TILE_NC + nt * 8 + 2 * q;
-          const float b0 = c < n ? __ldg(b + rows(c)) : 0.0f;
-          const float b1 = c + 1 < n ? __ldg(b + rows(c + 1)) : 0.0f;
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
-            float* o = slab + (size_t)c * tl.ts + t0 + mt * 16 + g;
-            o[0] = acc[mt][nt][0] + b0;
-            o[tl.ts] = acc[mt][nt][1] + b1;
-            o[8] = acc[mt][nt][2] + b0;
-            o[tl.ts + 8] = acc[mt][nt][3] + b1;
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
 // lazy2 (FUSED; FUSED = false would take the precomputed hidden rows as
 // LazySrc does): each thread makes its row's hidden column (zeros for a row
 // past B and for the padding to Hp), then the block makes each piece's
@@ -646,7 +489,8 @@ struct TileSrc {
   mutable int r_a;  // parameter row of sa's column 0 (the staged layer's)
 
   __device__ TileSrc(const BlockArgs& a, float* smem, int row)
-      : tl(a, smem), w(a.w), b(a.b), t(threadIdx.x), r_a(0) {
+      : tl(a.H, a.tile, a.w, smem), w(a.w), b(a.b), t(threadIdx.x),
+        r_a(0) {
     float* col = tl.hid + t;
     if (row < a.B)
       hidden_column<FUSED>(a, col, tl.hs, row);

@@ -16,12 +16,23 @@
 // terms per dimension (the skewed chain ~2.5x the plain one); the sample
 // mode evaluates it ~7 times per dimension; the lazy interface adds
 // 2 * n_groups * K * D * H flops per row for the parameter rows (the
-// skewed flagship: 41 kflop per row and layer).  All in f32 on the CUDA
-// cores.
+// skewed flagship: 41 kflop per row and layer), which it runs on the
+// tensor cores (3xTF32); the mixtures run in f32 on the CUDA cores.
 //
-// Design, simple first: one thread per row, looping over the dimensions
-// (the mixture of one dimension in registers for K = 10, local memory
-// otherwise), 128 rows per block, one block per 128-row tile.  The density
+// Design: one thread per row, looping over the dimensions (the mixture of
+// one dimension in registers for K = 10, local memory otherwise), 128 rows
+// per block.  Prepared and raw calls: one block per 128-row tile.  Lazy
+// calls: the tile stage of tile_rows.cuh (LayerStreamSrc): for each
+// dimension the block makes that dimension's n_groups * K parameter rows
+// for all its 128 rows as one 3xTF32 tile product, the hidden rows and w
+// streamed through shared memory in chunks of 32 hidden units (cp.async,
+// double-buffered), into a shared slab, and each row's thread runs the
+// body on its column.  The stage is block-synchronous, so rows past B run
+// it too (on zero rows).  Its shared memory (71 KB at the skewed flagship,
+// any H) holds three blocks (12 warps, as many as the body's registers
+// allow) per SM; a staged hidden tile (70 KB alone at H = 128) would hold
+// two, and the body, latency-bound, ran ~1.6x slower there.  One block per
+// tile: persistent blocks walking the tiles were no faster.  The density
 // and sample kernels call the same __device__ functions and the library is
 // built without fast-math, so the f32 sample -> log_prob roundtrip cancels.
 #include <cuda_runtime.h>
@@ -35,58 +46,88 @@ namespace {
 constexpr int FORWARD = 0, SAMPLE = 1, INVERSE = 2;
 constexpr int SMEM_LIMIT = 227 * 1024;
 
-template <bool LAZY, bool SKEW, int MODE, int KT>
-__global__ void __launch_bounds__(128) gf_layer_kernel(const LayerArgs a) {
-  constexpr int N = KT > 0 ? KT : KMAX;
-  extern __shared__ float smem[];
-  const int row0 = blockIdx.x * blockDim.x;
-  const int row = row0 + threadIdx.x;
-  const LayerSrc<LAZY, SKEW, N, KT> src(a, smem, row0);
-  if (row >= a.B) return;
-  const int K = KT > 0 ? KT : a.K;
-  for (int dd = 0; dd < a.D; ++dd) {
-    MixT<SKEW, N> mx;
-    float lw[N], ln[N], se[N];
-    src.load(a, row, dd, mx, lw, ln, se);
-    const size_t i = (size_t)row * a.D + dd;
-    const float xv = a.x[i];
-    if (MODE == FORWARD) {
+// One row's pass of dimension dd (element i of x): the value (FORWARD) or
+// the root (SAMPLE, INVERSE) into out, and the log-derivative into ld.
+template <bool SKEW, int MODE, int N, int KT>
+__device__ __forceinline__ void row_pass(const LayerArgs& a,
+                                         const MixT<SKEW, N>& mx, int K,
+                                         size_t i) {
+  const float xv = a.x[i];
+  if (MODE == FORWARD) {
+    float lg;
+    float val;
+    if constexpr (SKEW)
+      val = skew_density_pass<N, KT>(xv, mx, K, a.n_pos, a.ift, lg);
+    else
+      val = density_pass<N, KT>(xv, mx, K, a.ift, lg);
+    a.out[i] = val;
+    a.ld[i] = lg;
+  } else {
+    float root;
+    if constexpr (SKEW)
+      root = skew_solve<N, KT>(xv, mx, K, a.n_pos, a.ift);
+    else
+      root = solve<N, KT>(xv, mx, K, a.ift);
+    a.out[i] = root;
+    if (MODE == SAMPLE) {
       float lg;
-      float val;
       if constexpr (SKEW)
-        val = skew_density_pass<N, KT>(xv, mx, K, a.n_pos, a.ift, lg);
+        skew_density_pass<N, KT>(root, mx, K, a.n_pos, a.ift, lg);
       else
-        val = density_pass<N, KT>(xv, mx, K, a.ift, lg);
-      a.out[i] = val;
+        lg = solve_log_deriv<N, KT>(root, mx, K, a.ift);
       a.ld[i] = lg;
-    } else {
-      float root;
-      if constexpr (SKEW)
-        root = skew_solve<N, KT>(xv, mx, K, a.n_pos, a.ift);
-      else
-        root = solve<N, KT>(xv, mx, K, a.ift);
-      a.out[i] = root;
-      if (MODE == SAMPLE) {
-        float lg;
-        if constexpr (SKEW)
-          skew_density_pass<N, KT>(root, mx, K, a.n_pos, a.ift, lg);
-        else
-          lg = solve_log_deriv<N, KT>(root, mx, K, a.ift);
-        a.ld[i] = lg;
-      }
     }
   }
 }
 
 template <bool LAZY, bool SKEW, int MODE, int KT>
+__global__ void __launch_bounds__(128) gf_layer_kernel(const LayerArgs a) {
+  constexpr int N = KT > 0 ? KT : KMAX;
+  extern __shared__ __align__(16) float smem[];
+  const int K = KT > 0 ? KT : a.K;
+  if constexpr (LAZY) {
+    const LayerStreamSrc<SKEW, N, KT> src(a, smem);
+    const int row0 = blockIdx.x * blockDim.x;
+    const int row = row0 + threadIdx.x;
+    for (int dd = 0; dd < a.D; ++dd) {
+      // forward: a skewed flagship piece (40 rows) in one W chunk; sample:
+      // 32-row chunks, whose accumulators keep the skewed solve at 168
+      // registers (3 blocks per SM; with 40 rows it took 221, 2 blocks)
+      src.template stage<MODE == FORWARD ? 5 : 4>(a, row0, dd);
+      if (row < a.B) {
+        MixT<SKEW, N> mx;
+        float lw[N], ln[N], se[N];
+        src.load(a, mx, lw, ln, se);
+        row_pass<SKEW, MODE, N, KT>(a, mx, K, (size_t)row * a.D + dd);
+      }
+    }
+  } else {
+    const int row = blockIdx.x * blockDim.x + threadIdx.x;
+    const LayerSrc<SKEW, N, KT> src(a, smem);
+    if (row >= a.B) return;
+    for (int dd = 0; dd < a.D; ++dd) {
+      MixT<SKEW, N> mx;
+      float lw[N], ln[N], se[N];
+      src.load(a, row, dd, mx, lw, ln, se);
+      row_pass<SKEW, MODE, N, KT>(a, mx, K, (size_t)row * a.D + dd);
+    }
+  }
+}
+
+// Launch on `stream`, or with occupancy non-null write the kernel's
+// resident blocks per SM there instead (the CUDA occupancy API).
+template <bool LAZY, bool SKEW, int MODE, int KT>
 cudaError_t launch(const LayerArgs& a, int threads, size_t smem,
-                   cudaStream_t stream) {
+                   cudaStream_t stream, int* occupancy) {
   auto kernel = gf_layer_kernel<LAZY, SKEW, MODE, KT>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
+  if (occupancy)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(occupancy, kernel,
+                                                         threads, smem);
   const int blocks = (a.B + threads - 1) / threads;
   kernel<<<blocks, threads, smem, stream>>>(a);
   return cudaGetLastError();
@@ -94,21 +135,46 @@ cudaError_t launch(const LayerArgs& a, int threads, size_t smem,
 
 template <bool LAZY, bool SKEW, int MODE>
 cudaError_t dispatch_k(const LayerArgs& a, int threads, size_t smem,
-                       cudaStream_t s) {
-  if (a.K == 10) return launch<LAZY, SKEW, MODE, 10>(a, threads, smem, s);
-  return launch<LAZY, SKEW, MODE, 0>(a, threads, smem, s);
+                       cudaStream_t s, int* occ) {
+  if (a.K == 10) return launch<LAZY, SKEW, MODE, 10>(a, threads, smem, s, occ);
+  return launch<LAZY, SKEW, MODE, 0>(a, threads, smem, s, occ);
 }
 
 template <bool LAZY, bool SKEW>
 cudaError_t dispatch_mode(int mode, const LayerArgs& a, int threads,
-                          size_t smem, cudaStream_t s) {
-  if (mode == FORWARD) return dispatch_k<LAZY, SKEW, FORWARD>(a, threads, smem, s);
-  if (mode == SAMPLE) return dispatch_k<LAZY, SKEW, SAMPLE>(a, threads, smem, s);
+                          size_t smem, cudaStream_t s, int* occ) {
+  if (mode == FORWARD)
+    return dispatch_k<LAZY, SKEW, FORWARD>(a, threads, smem, s, occ);
+  if (mode == SAMPLE)
+    return dispatch_k<LAZY, SKEW, SAMPLE>(a, threads, smem, s, occ);
   if constexpr (LAZY) {
     return cudaErrorInvalidValue;  // the lazy interface has no solve-alone
   } else {
-    return dispatch_k<LAZY, SKEW, INVERSE>(a, threads, smem, s);
+    return dispatch_k<LAZY, SKEW, INVERSE>(a, threads, smem, s, occ);
   }
+}
+
+cudaError_t dispatch(int mode, bool lazy, bool skew, const LayerArgs& a,
+                     int threads, size_t smem, cudaStream_t s, int* occ) {
+  if (lazy)
+    return skew ? dispatch_mode<true, true>(mode, a, threads, smem, s, occ)
+                : dispatch_mode<true, false>(mode, a, threads, smem, s, occ);
+  return skew ? dispatch_mode<false, true>(mode, a, threads, smem, s, occ)
+              : dispatch_mode<false, false>(mode, a, threads, smem, s, occ);
+}
+
+// A call's rows per block and dynamic shared memory (the lazy tile:
+// a.tile); 0 or cudaErrorInvalidValue when none fits.
+int block_shape(LayerArgs& a, bool lazy, int& threads, size_t& smem) {
+  threads = 128;
+  if (lazy) {
+    a.stream = layer_stream_shape(a.n_groups * a.K);
+    threads = a.stream.T;
+    smem = a.stream.floats() * 4;
+  } else {
+    smem = layer_src_floats(a) * 4;
+  }
+  return smem > SMEM_LIMIT ? (int)cudaErrorInvalidValue : 0;
 }
 
 }  // namespace
@@ -163,20 +229,38 @@ extern "C" int gf_layer_launch(const int* meta, const float* regs,
       if (a.p[g] == nullptr) return (int)cudaErrorInvalidValue;
   if (a.B == 0) return 0;
 
-  int threads = 128;
-  if (lazy)
-    while (threads > 32 && layer_src_floats(lazy, a, threads) * 4 > SMEM_LIMIT)
-      threads /= 2;
-  const size_t smem = layer_src_floats(lazy, a, threads) * 4;
-  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e;
-  if (lazy)
-    e = skew ? dispatch_mode<true, true>(mode, a, threads, smem, s)
-             : dispatch_mode<true, false>(mode, a, threads, smem, s);
-  else
-    e = skew ? dispatch_mode<false, true>(mode, a, threads, smem, s)
-             : dispatch_mode<false, false>(mode, a, threads, smem, s);
+  int threads;
+  size_t smem;
+  if (block_shape(a, lazy, threads, smem) != 0)
+    return (int)cudaErrorInvalidValue;
+  return (int)dispatch(mode, lazy, skew, a, threads, smem,
+                       (cudaStream_t)stream, nullptr);
+}
+
+// Resident blocks per SM of the kernel a call of this (mode, lazy, skew,
+// K, D, H, n_groups) launches, by cudaOccupancyMaxActiveBlocksPerMultiprocessor;
+// writes [blocks per SM, threads per block, dynamic shared memory bytes]
+// to out.  Returns 0 or a cudaError_t.
+extern "C" int gf_layer_occupancy(int mode, int lazy, int skew, int K, int D,
+                                  int H, int n_groups, int* out) {
+  LayerArgs a{};
+  a.B = 1;
+  a.K = K;
+  a.D = D;
+  a.H = H;
+  a.n_groups = n_groups;
+  a.per_row = 1;
+  int threads;
+  size_t smem;
+  if (mode < 0 || mode > 2 || K < 1 || K > KMAX || D < 1 || D > DMAX ||
+      (lazy && H < 1) || block_shape(a, lazy, threads, smem) != 0)
+    return (int)cudaErrorInvalidValue;
+  int n = 0;
+  const cudaError_t e =
+      dispatch(mode, lazy, skew, a, threads, smem, nullptr, &n);
+  out[0] = n;
+  out[1] = threads;
+  out[2] = (int)smem;
   return (int)e;
 }
 

@@ -20,17 +20,28 @@
 // tangent rule (gf_common.cuh mix_adjoint), the skewed one by its AD
 // written out (skew_adjoint).  The lazy interface adds, per row, the
 // parameter rows (2 P H flops), dh = w^T dp (2 P H) and its share of
-// gw = sum_rows dp (x) hidden (2 P H), P = n_groups * K * D.
+// gw = sum_rows dp (x) hidden (2 P H), P = n_groups * K * D: all three on
+// the tensor cores (3xTF32).
 //
-// Design, simple first (the block backward's, csrc/gf_block_bwd.cu): one
-// thread per row, 128-row tiles walked by a fixed grid of persistent
-// blocks; the parameter-row cotangents of one dimension are staged for the
-// tile's rows in shared memory, STAGE rows at a time, and added to the
-// block's private partial of the summed gradients; a second kernel sums the
-// partials in block order.  Deterministic, no atomics.  Where the lazy
-// hidden and dh columns do not fit in shared memory even at 32 rows
-// (H > 864), dh moves to a per-block scratch in global memory, so every
-// H <= 1024 (the routing limit, layers/euclidean.py) launches.
+// Design (the block backward's, csrc/gf_block_bwd.cu): one thread per row,
+// tiles of rows walked by a fixed grid of persistent blocks, each adding
+// to its private partial of the summed gradients; a second kernel sums the
+// partials in block order.  Deterministic, no atomics.
+//   * raw broadcast: the parameter-row cotangents of one dimension are
+//     staged for the tile's rows in shared memory, STAGE rows at a time,
+//     and summed into the block's partial (128-row tiles); per-row raw
+//     slabs take their gradient per row;
+//   * lazy: the tile stage of tile_rows.cuh (LayerTileSrc), as the lazy2
+//     block backward: per dimension the block makes the piece's parameter
+//     rows by the forward's own tile product (the same bits), each row's
+//     thread runs the adjoint on its column and writes its cotangents back
+//     over it, and the block flushes the piece: dh += dp . w_piece and the
+//     partial gw_piece += dp^T . hidden as 3xTF32 tile products, gb as a
+//     fixed-order sum.  dh stays in shared memory where it fits beside the
+//     tile without costing the second block per SM (small H); otherwise it
+//     lives in the block's global scratch (through L2).  The tile shrinks
+//     to 64 / 32 rows above H ~ 454, so every H <= 1024 (the routing
+//     limit, layers/euclidean.py) launches.
 #include <cuda_runtime.h>
 
 #include "gf_layer_src.cuh"
@@ -55,56 +66,25 @@ struct LayerBwdArgs {
 };
 
 struct Stage {
-  float* hid;  // lazy: (H, hs), the source's tile
-  float* dh;   // lazy: (H, hs), shared or the block's global scratch
-  float* dp;   // (STAGE, blockDim.x)
-  int* prow;   // (STAGE,)
-  int hs;
+  float* dp;  // (STAGE, blockDim.x)
+  int* prow;  // (STAGE,)
 };
 
 // Add the staged cotangents of cnt parameter rows to the block's partials
-// (and, lazy, each row's w^T dp to its dh column).
-template <bool LAZY>
+// (broadcast slabs).
 __device__ void flush(const LayerBwdArgs& A, const Stage& st, int cnt) {
-  const LayerArgs& a = A.a;
   const int T = blockDim.x, tid = threadIdx.x;
   float* part = A.partials + (size_t)blockIdx.x * A.G;
-  if (LAZY) {
-    const int P = a.n_groups * a.K * a.D;
-    float* pb = part + (size_t)P * a.H;
-    for (int idx = tid; idx < cnt * a.H; idx += T) {
-      const int j = idx / a.H, h = idx - j * a.H;
-      const float* dp = st.dp + j * T;
-      const float* hv = st.hid + h * st.hs;
-      float acc = 0.0f;
-      for (int t = 0; t < T; ++t) acc += dp[t] * hv[t];
-      part[(size_t)st.prow[j] * a.H + h] += acc;
-    }
-    for (int j = tid; j < cnt; j += T) {
-      float acc = 0.0f;
-      for (int t = 0; t < T; ++t) acc += st.dp[j * T + t];
-      pb[st.prow[j]] += acc;
-    }
-    float* dcol = st.dh + tid;
-    for (int h = 0; h < a.H; ++h) {
-      float acc = 0.0f;
-      for (int j = 0; j < cnt; ++j)
-        acc += st.dp[j * T + tid] * __ldg(a.w + (size_t)st.prow[j] * a.H + h);
-      dcol[h * st.hs] += acc;
-    }
-  } else {
-    for (int j = tid; j < cnt; j += T) {
-      float acc = 0.0f;
-      for (int t = 0; t < T; ++t) acc += st.dp[j * T + t];
-      part[st.prow[j]] += acc;
-    }
+  for (int j = tid; j < cnt; j += T) {
+    float acc = 0.0f;
+    for (int t = 0; t < T; ++t) acc += st.dp[j * T + t];
+    part[st.prow[j]] += acc;
   }
 }
 
 // Stage this thread's n cotangents of dimension dd's parameter rows
 // (vals[g*K + k] for row g*K*D + k*D + dd) and flush them, STAGE at a time.
 // Every thread of the block calls it.
-template <bool LAZY>
 __device__ void stage_flush(const LayerBwdArgs& A, const Stage& st,
                             const float* vals, int n, int dd) {
   const LayerArgs& a = A.a;
@@ -117,9 +97,53 @@ __device__ void stage_flush(const LayerBwdArgs& A, const Stage& st,
       st.prow[tid] = (g * a.K + k) * a.D + dd;
     }
     __syncthreads();
-    flush<LAZY>(A, st, cnt);
+    flush(A, st, cnt);
     __syncthreads();
   }
+}
+
+// lazy: one piece's cotangents (the slab, each row's thread has written
+// its own column) into dh and the block's partial gw (3xTF32 tile
+// products) and gb (the sum over the tile's rows, in a fixed order).
+// Block-synchronous.
+__device__ void layer_flush(const LayerBwdArgs& A, const Tile& tl, float* dh,
+                            int dd, int n) {
+  const LayerArgs& a = A.a;
+  float* pw = A.partials + (size_t)blockIdx.x * A.G;
+  float* pb = pw + (size_t)a.n_groups * a.K * a.D * a.H;
+  const PieceRows rows{a.D, dd};
+  __syncthreads();
+  dh_product<STREAM_NC>(tl, tl.sm, dh, a.w, rows, n);
+  gw_product(tl, tl.sm, pw, rows, n);
+  gb_sum(tl, tl.sm, pb, rows, n);
+}
+
+// One row's adjoint of dimension dd (element i; rows past B: zero input
+// and cotangents): the cotangent of x into gx (valid rows), the parameter
+// rows' cotangents into vals.
+template <bool SKEW, bool SAMPLE, int N, int KT>
+__device__ __forceinline__ void row_adjoint(const LayerBwdArgs& A,
+                                            const MixT<SKEW, N>& mx,
+                                            const float* lw, const float* ln,
+                                            const float* se, int K, size_t i,
+                                            bool valid, float* vals) {
+  const LayerArgs& a = A.a;
+  const int n_mix = a.n_groups * K;
+  const float xv = valid ? a.x[i] : 0.0f;
+  const float g1 = valid ? A.g1[i] : 0.0f;
+  const float g2 = valid ? A.g2[i] : 0.0f;
+  for (int j = 0; j < n_mix; ++j) vals[j] = 0.0f;
+  float r;
+  if constexpr (SKEW)
+    r = skew_adjoint<N, KT, SAMPLE>(
+        xv, mx, lw, ln, se, K, a.n_pos, a.fit_norm, a.wreg, a.nreg, a.ereg,
+        a.ift, g1, g2, vals, vals + K, vals + 2 * K,
+        vals + (2 + a.fit_norm) * K);
+  else
+    r = mix_adjoint<N, KT, SAMPLE>(xv, mx, lw, ln, K, a.fit_norm, a.wreg,
+                                   a.nreg, a.ift, g1, g2, vals, vals + K,
+                                   vals + 2 * K);
+  if (valid) A.gx[i] = r;
 }
 
 template <bool LAZY, bool SKEW, bool SAMPLE, int KT>
@@ -130,62 +154,63 @@ __global__ void __launch_bounds__(128) gf_layer_bwd_kernel(const LayerBwdArgs A)
   const int K = KT > 0 ? KT : a.K;
   const int n_tiles = (a.B + T - 1) / T;
   const int n_mix = a.n_groups * K;
-  extern __shared__ float smem[];
-  Stage st;
-  st.hs = T + 1;
-  float* rest = smem + layer_src_floats(LAZY, a, T);
-  st.hid = smem;
-  st.dh = A.scratch ? A.scratch + (size_t)blockIdx.x * a.H * st.hs : rest;
-  st.dp = LAZY && !A.scratch ? rest + (size_t)a.H * st.hs : rest;
-  st.prow = reinterpret_cast<int*>(st.dp + STAGE * T);
-  LayerSrc<LAZY, SKEW, N, KT> src(a, smem, blockIdx.x * T);
-
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int row0 = tile * T, row = row0 + tid;
-    const bool valid = row < a.B;
-    if (LAZY) {
-      if (tile != (int)blockIdx.x) src.load_tile(a, row0);
-      for (int h = 0; h < a.H; ++h) st.dh[h * st.hs + tid] = 0.0f;
-    }
-    const int r_ld = valid ? row : a.B - 1;  // a row to read for idle threads
-    for (int dd = 0; dd < a.D; ++dd) {
-      MixT<SKEW, N> mx;
-      float lw[N], ln[N], se[N], vals[4 * N];
-      src.load(a, r_ld, dd, mx, lw, ln, se);
-      const size_t i = (size_t)row * a.D + dd;
-      const float xv = valid ? a.x[i] : 0.0f;
-      const float g1 = valid ? A.g1[i] : 0.0f;
-      const float g2 = valid ? A.g2[i] : 0.0f;
-      for (int j = 0; j < n_mix; ++j) vals[j] = 0.0f;
-      float r;
-      if constexpr (SKEW)
-        r = skew_adjoint<N, KT, SAMPLE>(
-            xv, mx, lw, ln, se, K, a.n_pos, a.fit_norm, a.wreg, a.nreg, a.ereg,
-            a.ift, g1, g2, vals, vals + K, vals + 2 * K,
-            vals + (2 + a.fit_norm) * K);
-      else
-        r = mix_adjoint<N, KT, SAMPLE>(xv, mx, lw, ln, K, a.fit_norm, a.wreg,
-                                       a.nreg, a.ift, g1, g2, vals, vals + K,
-                                       vals + 2 * K);
-      if (valid) A.gx[i] = r;
-      if (!LAZY && a.per_row) {
-        if (valid)
-          for (int j = 0; j < n_mix; ++j) {
-            const int g = j / K, k = j - g * K;
-            A.gslab[((size_t)(g * K + k) * a.D + dd) * a.B + row] = vals[j];
-          }
-      } else {
+  extern __shared__ __align__(16) float smem[];
+  if constexpr (LAZY) {
+    const LayerTileSrc<SKEW, N, KT> src(a, smem);
+    const Tile& tl = src.tl;
+    float* dh = A.scratch ? A.scratch + (size_t)blockIdx.x * tl.Hp * tl.hs
+                          : smem + layer_tile_floats(a.tile);
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const int row0 = tile * T, row = row0 + tid;
+      const bool valid = row < a.B;
+      src.load_tile(a, row0);
+      for (int h = 0; h < tl.Hp; ++h) dh[h * tl.hs + tid] = 0.0f;
+      for (int dd = 0; dd < a.D; ++dd) {
+        src.stage(a, dd);
+        MixT<SKEW, N> mx;
+        float lw[N], ln[N], se[N], vals[4 * N];
+        src.load(a, mx, lw, ln, se);
+        row_adjoint<SKEW, SAMPLE, N, KT>(A, mx, lw, ln, se, K,
+                                         (size_t)row * a.D + dd, valid, vals);
         if (!valid)
           for (int j = 0; j < n_mix; ++j) vals[j] = 0.0f;
-        stage_flush<LAZY>(A, st, vals, n_mix, dd);
+        src.put(vals, n_mix);
+        layer_flush(A, tl, dh, dd, n_mix);
       }
-    }
-    if (LAZY) {
+      // ghidden = dh, the tile's rows written h-fastest (coalesced)
       __syncthreads();
       const int n = min(T, a.B - row0) * a.H;
       for (int idx = tid; idx < n; idx += T) {
         const int r2 = idx / a.H, h = idx - r2 * a.H;
-        A.gh[(size_t)row0 * a.H + idx] = st.dh[h * st.hs + r2];
+        A.gh[(size_t)row0 * a.H + idx] = dh[h * tl.hs + r2];
+      }
+    }
+  } else {
+    Stage st;
+    st.dp = smem + layer_src_floats(a);
+    st.prow = reinterpret_cast<int*>(st.dp + STAGE * T);
+    const LayerSrc<SKEW, N, KT> src(a, smem);
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const int row = tile * T + tid;
+      const bool valid = row < a.B;
+      const int r_ld = valid ? row : a.B - 1;  // a row to read for idle threads
+      for (int dd = 0; dd < a.D; ++dd) {
+        MixT<SKEW, N> mx;
+        float lw[N], ln[N], se[N], vals[4 * N];
+        src.load(a, r_ld, dd, mx, lw, ln, se);
+        row_adjoint<SKEW, SAMPLE, N, KT>(A, mx, lw, ln, se, K,
+                                         (size_t)row * a.D + dd, valid, vals);
+        if (a.per_row) {
+          if (valid)
+            for (int j = 0; j < n_mix; ++j) {
+              const int g = j / K, k = j - g * K;
+              A.gslab[((size_t)(g * K + k) * a.D + dd) * a.B + row] = vals[j];
+            }
+        } else {
+          if (!valid)
+            for (int j = 0; j < n_mix; ++j) vals[j] = 0.0f;
+          stage_flush(A, st, vals, n_mix, dd);
+        }
       }
     }
   }
@@ -202,52 +227,72 @@ __global__ void reduce_partials(const float* partials, int n_blocks, int G,
   }
 }
 
+// Launch on `stream`, or with occupancy non-null write the kernel's
+// resident blocks per SM there instead (the CUDA occupancy API).
 template <bool LAZY, bool SKEW, bool SAMPLE, int KT>
 cudaError_t launch(const LayerBwdArgs& A, int blocks, int threads, size_t smem,
-                   cudaStream_t stream) {
+                   cudaStream_t stream, int* occupancy) {
   auto kernel = gf_layer_bwd_kernel<LAZY, SKEW, SAMPLE, KT>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
+  if (occupancy)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(occupancy, kernel,
+                                                         threads, smem);
   kernel<<<blocks, threads, smem, stream>>>(A);
   return cudaGetLastError();
 }
 
 template <bool LAZY, bool SKEW, bool SAMPLE>
 cudaError_t dispatch_k(const LayerBwdArgs& A, int blocks, int threads,
-                       size_t smem, cudaStream_t s) {
-  if (A.a.K == 10) return launch<LAZY, SKEW, SAMPLE, 10>(A, blocks, threads, smem, s);
-  return launch<LAZY, SKEW, SAMPLE, 0>(A, blocks, threads, smem, s);
+                       size_t smem, cudaStream_t s, int* occ) {
+  if (A.a.K == 10)
+    return launch<LAZY, SKEW, SAMPLE, 10>(A, blocks, threads, smem, s, occ);
+  return launch<LAZY, SKEW, SAMPLE, 0>(A, blocks, threads, smem, s, occ);
 }
 
-template <bool LAZY, bool SKEW>
-cudaError_t dispatch_body(bool sample, const LayerBwdArgs& A, int blocks,
-                          int threads, size_t smem, cudaStream_t s) {
-  return sample ? dispatch_k<LAZY, SKEW, true>(A, blocks, threads, smem, s)
-                : dispatch_k<LAZY, SKEW, false>(A, blocks, threads, smem, s);
-}
-
-// The tile: 128 rows, halved while the lazy hidden and dh columns would
-// exceed the shared memory; where both do not fit even at STAGE rows, dh
-// goes to a global scratch (dh_global) and the tile is sized for the
-// hidden columns alone.  Returns the block's dynamic shared memory.
-size_t tile_shape(const LayerArgs& a, int lazy, int& threads,
-                  bool& dh_global) {
-  auto need = [&](int t, bool dh_shared) {
-    return (layer_src_floats(lazy, a, t) +
-            (lazy && dh_shared ? (size_t)a.H * (t + 1) : 0) +
-            (size_t)STAGE * t + STAGE) * 4;
-  };
-  threads = 128;
-  while (threads > STAGE && need(threads, true) > SMEM_LIMIT) threads /= 2;
-  dh_global = lazy && need(threads, true) > SMEM_LIMIT;
-  if (dh_global) {
-    threads = 128;
-    while (threads > STAGE && need(threads, false) > SMEM_LIMIT) threads /= 2;
+cudaError_t dispatch(bool sample, bool lazy, bool skew, const LayerBwdArgs& A,
+                     int blocks, int threads, size_t smem, cudaStream_t s,
+                     int* occ) {
+  if (lazy) {
+    if (skew)
+      return sample ? dispatch_k<true, true, true>(A, blocks, threads, smem, s, occ)
+                    : dispatch_k<true, true, false>(A, blocks, threads, smem, s, occ);
+    return sample ? dispatch_k<true, false, true>(A, blocks, threads, smem, s, occ)
+                  : dispatch_k<true, false, false>(A, blocks, threads, smem, s, occ);
   }
-  return need(threads, !dh_global);
+  if (skew)
+    return sample ? dispatch_k<false, true, true>(A, blocks, threads, smem, s, occ)
+                  : dispatch_k<false, true, false>(A, blocks, threads, smem, s, occ);
+  return sample ? dispatch_k<false, false, true>(A, blocks, threads, smem, s, occ)
+                : dispatch_k<false, false, false>(A, blocks, threads, smem, s, occ);
+}
+
+// The block of a call: its rows (threads) and dynamic shared memory, and
+// for lazy a.tile (pieces of n_piece parameter rows) and where dh lives.
+// Broadcast and per-row raw: 128 rows, the source's floats and the staged
+// rows.  Lazy: the tile of layer_tile; dh in shared memory after it where
+// the tile keeps its rows and two blocks still fit an SM, else in the
+// block's global scratch (dh_global).  0 or cudaErrorInvalidValue.
+int tile_shape(LayerArgs& a, int lazy, int n_piece, int& threads,
+               size_t& smem, bool& dh_global) {
+  dh_global = false;
+  if (!lazy) {
+    threads = 128;
+    smem = (layer_src_floats(a) + (size_t)STAGE * threads + STAGE) * 4;
+    return smem > SMEM_LIMIT ? (int)cudaErrorInvalidValue : 0;
+  }
+  a.tile = layer_tile(a.H, n_piece, false);
+  threads = a.tile.T;
+  if (threads == 0) return (int)cudaErrorInvalidValue;
+  const TileShape with_dh = layer_tile(a.H, n_piece, true);
+  const size_t dh_floats = (size_t)with_dh.Hp * with_dh.hs;
+  dh_global = with_dh.T != a.tile.T ||
+              (layer_tile_floats(a.tile) + dh_floats) * 4 > SMEM_LIMIT / 2;
+  smem = (layer_tile_floats(a.tile) + (dh_global ? 0 : dh_floats)) * 4;
+  return 0;
 }
 
 }  // namespace
@@ -255,29 +300,65 @@ size_t tile_shape(const LayerArgs& a, int lazy, int& threads,
 // The grid of a call: a fixed number of persistent blocks, two per
 // streaming multiprocessor and at most one per tile.  Each block
 // accumulates a private partial of the summed gradients, so the caller
-// allocates (blocks, G) zeros for gf_layer_bwd_launch.
-extern "C" int gf_layer_bwd_blocks(int lazy, int B, int H, int n_sm) {
+// allocates (blocks, G) zeros for gf_layer_bwd_launch.  n_piece: the
+// parameter rows of one dimension, n_groups * K (lazy; the tile's rows
+// depend on it).
+extern "C" int gf_layer_bwd_blocks(int lazy, int B, int H, int n_sm,
+                                   int n_piece) {
   LayerArgs a{};
   a.H = H;
   a.per_row = 1;
   int threads;
+  size_t smem;
   bool dh_global;
-  tile_shape(a, lazy, threads, dh_global);
+  if (tile_shape(a, lazy, n_piece, threads, smem, dh_global) != 0) return 0;
   const int n_tiles = (B + threads - 1) / threads;
   const int blocks = n_tiles < 2 * n_sm ? n_tiles : 2 * n_sm;
   return blocks > 1 ? blocks : 1;
 }
 
 // Floats of global dh scratch a lazy call needs per block: 0 while the dh
-// columns fit in shared memory.
-extern "C" int gf_layer_bwd_scratch(int lazy, int H) {
+// columns stay in shared memory.
+extern "C" int gf_layer_bwd_scratch(int lazy, int H, int n_piece) {
   LayerArgs a{};
   a.H = H;
   a.per_row = 1;
   int threads;
+  size_t smem;
   bool dh_global;
-  tile_shape(a, lazy, threads, dh_global);
-  return dh_global ? H * (threads + 1) : 0;
+  if (tile_shape(a, lazy, n_piece, threads, smem, dh_global) != 0 ||
+      !dh_global)
+    return 0;
+  return a.tile.Hp * a.tile.hs;
+}
+
+// Resident blocks per SM of the kernel a call of this (body, lazy, skew,
+// K, D, H, n_groups) launches, by cudaOccupancyMaxActiveBlocksPerMultiprocessor;
+// writes [blocks per SM, threads per block, dynamic shared memory bytes]
+// to out.  Returns 0 or a cudaError_t.
+extern "C" int gf_layer_bwd_occupancy(int body, int lazy, int skew, int K,
+                                      int D, int H, int n_groups, int* out) {
+  LayerBwdArgs A{};
+  LayerArgs& a = A.a;
+  a.K = K;
+  a.D = D;
+  a.H = H;
+  a.per_row = 1;
+  a.n_groups = n_groups;
+  int threads;
+  size_t smem;
+  bool dh_global;
+  if (body < 0 || body > 1 || K < 1 || K > KMAX || D < 1 || D > DMAX ||
+      (lazy && H < 1) ||
+      tile_shape(a, lazy, n_groups * K, threads, smem, dh_global) != 0)
+    return (int)cudaErrorInvalidValue;
+  int n = 0;
+  const cudaError_t e =
+      dispatch(body == 1, lazy, skew, A, 1, threads, smem, nullptr, &n);
+  out[0] = n;
+  out[1] = threads;
+  out[2] = (int)smem;
+  return (int)e;
 }
 
 // meta: [body (0 density, 1 sample), lazy, skew, prepared (must be 0),
@@ -347,19 +428,15 @@ extern "C" int gf_layer_bwd_launch(const int* meta, const float* regs,
   if (a.B == 0) return 0;
 
   int threads;
+  size_t smem;
   bool dh_global;
-  const size_t smem = tile_shape(a, lazy, threads, dh_global);
-  if (smem > SMEM_LIMIT || (dh_global && scratch == nullptr))
+  if (tile_shape(a, lazy, a.n_groups * a.K, threads, smem, dh_global) != 0 ||
+      (dh_global && scratch == nullptr))
     return (int)cudaErrorInvalidValue;
   if (!dh_global) A.scratch = nullptr;
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e;
-  if (lazy)
-    e = skew ? dispatch_body<true, true>(body, A, n_blocks, threads, smem, s)
-             : dispatch_body<true, false>(body, A, n_blocks, threads, smem, s);
-  else
-    e = skew ? dispatch_body<false, true>(body, A, n_blocks, threads, smem, s)
-             : dispatch_body<false, false>(body, A, n_blocks, threads, smem, s);
+  const cudaError_t e =
+      dispatch(body == 1, lazy, skew, A, n_blocks, threads, smem, s, nullptr);
   if (e != cudaSuccess || A.G == 0) return (int)e;
   reduce_partials<<<(A.G + 255) / 256, 256, 0, s>>>(partials, n_blocks, A.G,
                                                     grads);

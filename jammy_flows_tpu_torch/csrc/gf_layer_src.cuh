@@ -7,17 +7,26 @@
 //   * raw: the pre-regulator slabs (means, lw, [ln], [se]); the regulators,
 //     the weight normalization and the skew exponents run here;
 //   * lazy: the final amortization-MLP product b_j + w_j . hidden made here
-//     for each row and parameter row, from the row's hidden activations.
+//     from each row's hidden activations (B, H).
 // Prepared and raw slabs are broadcast (K, D) or per row (K, D, B), B minor,
 // so the threads of a warp (one row each) read neighbouring floats.
-// Broadcast slabs are prepared once per block into shared memory; lazy
-// blocks stage their rows' hidden activations there (H x (threads + 1)
-// floats, conflict-free) and read w by broadcast through L1/L2.
+// Broadcast slabs are prepared once per block into shared memory
+// (LayerSrc).  Lazy blocks take the tile stage of tile_rows.cuh: the block
+// makes one dimension's piece of parameter rows at a time for all its rows
+// (the n_groups * K rows g K D + k D + dd, in the group order of the slabs)
+// as a 3xTF32 tile product on the tensor cores, into a slab whose column
+// each row's thread reads.  The forward (LayerStreamSrc) streams the hidden
+// rows through shared memory in chunks, so that its shared memory does not
+// grow with H; the backward (LayerTileSrc) stages the hidden tile whole,
+// which its gw product reads again.  The k order of the products is fixed
+// and the parts of a finite value the same, so the forward, the sample and
+// the backward's recomputation make the same parameter bits.
 #pragma once
 
 #include <type_traits>
 
 #include "gf_common.cuh"
+#include "tile_rows.cuh"
 
 namespace gf {
 
@@ -31,6 +40,8 @@ struct LayerArgs {
   const float* b;       // lazy: (n_groups * K * D,)
   int B, K, D, H, prepared, per_row, fit_norm, n_pos, ift, n_groups;
   Reg wreg, nreg, ereg;
+  TileShape tile;       // lazy backward: the staged hidden tile
+  StreamShape stream;   // lazy forward: the streamed hidden rows
 };
 
 // floats of shared memory a broadcast call prepares (10 arrays of K*D)
@@ -59,58 +70,40 @@ __device__ __forceinline__ void prep_layer_mix(MixT<SKEW, N>& mx, const float* l
   if constexpr (SKEW) prep_skew<N, KT>(mx, se, a.K, a.ereg);
 }
 
-template <bool LAZY, bool SKEW, int N, int KT>
+// The prepared and raw interfaces: broadcast slabs prepared once per block
+// into shared memory, per-row slabs read per row.
+template <bool SKEW, int N, int KT>
 struct LayerSrc {
-  float* sm;   // broadcast: the prepared arrays; lazy: the hidden tile
-  int hs;      // lazy: stride of a hidden row in shared memory
-  int col;     // lazy: this thread's column
+  float* sm;   // broadcast: the prepared arrays
 
-  // Stage the block's shared memory.  row0: the block's first row.  Every
-  // thread of the block calls it (it synchronizes).
-  __device__ LayerSrc(const LayerArgs& a, float* smem, int row0)
-      : sm(smem), hs(blockDim.x + 1), col(threadIdx.x) {
+  // Stage the block's shared memory.  Every thread of the block calls it
+  // (it synchronizes).
+  __device__ LayerSrc(const LayerArgs& a, float* smem) : sm(smem) {
     const int T = blockDim.x, tid = threadIdx.x;
-    if constexpr (LAZY) {
-      load_tile(a, row0);
-    } else {
-      if (!a.per_row) {
-        const int kd = a.K * a.D;
-        for (int dd = tid; dd < a.D; dd += T) {
-          MixT<SKEW, N> mx;
-          float lw[N], ln[N], se[N];
-          read_global(a, 0, dd, mx, lw, ln, se);
-          prep_layer_mix<SKEW, N, KT>(mx, lw, ln, se, a);
-          const int kk = KT > 0 ? KT : a.K;
-          for (int k = 0; k < kk; ++k) {
-            const int j = k * a.D + dd;
-            sm[j] = mx.m[k];
-            sm[kd + j] = mx.iw[k];
-            sm[2 * kd + j] = mx.lnw[k];
-            sm[3 * kd + j] = mx.nw[k];
-            sm[7 * kd + j] = lw[k];
-            sm[8 * kd + j] = ln[k];
-            if constexpr (SKEW) {
-              sm[4 * kd + j] = mx.liw[k];
-              sm[5 * kd + j] = mx.ls[k];
-              sm[6 * kd + j] = mx.a[k];
-              sm[9 * kd + j] = se[k];
-            }
+    if (!a.per_row) {
+      const int kd = a.K * a.D;
+      for (int dd = tid; dd < a.D; dd += T) {
+        MixT<SKEW, N> mx;
+        float lw[N], ln[N], se[N];
+        read_global(a, 0, dd, mx, lw, ln, se);
+        prep_layer_mix<SKEW, N, KT>(mx, lw, ln, se, a);
+        const int kk = KT > 0 ? KT : a.K;
+        for (int k = 0; k < kk; ++k) {
+          const int j = k * a.D + dd;
+          sm[j] = mx.m[k];
+          sm[kd + j] = mx.iw[k];
+          sm[2 * kd + j] = mx.lnw[k];
+          sm[3 * kd + j] = mx.nw[k];
+          sm[7 * kd + j] = lw[k];
+          sm[8 * kd + j] = ln[k];
+          if constexpr (SKEW) {
+            sm[4 * kd + j] = mx.liw[k];
+            sm[5 * kd + j] = mx.ls[k];
+            sm[6 * kd + j] = mx.a[k];
+            sm[9 * kd + j] = se[k];
           }
         }
       }
-      __syncthreads();
-    }
-  }
-
-  // lazy: this tile's hidden rows, coalesced, into columns (rows past B: 0)
-  __device__ void load_tile(const LayerArgs& a, int row0) {
-    const int T = blockDim.x, tid = threadIdx.x;
-    __syncthreads();  // the previous tile's readers are done
-    const int n = T * a.H;
-    for (int i = tid; i < n; i += T) {
-      const int r = i / a.H, h = i - r * a.H;
-      sm[h * hs + r] =
-          row0 + r < a.B ? __ldg(a.hidden + (size_t)row0 * a.H + i) : 0.0f;
     }
     __syncthreads();
   }
@@ -139,33 +132,7 @@ struct LayerSrc {
   __device__ void load(const LayerArgs& a, int row, int dd, MixT<SKEW, N>& mx,
                        float* lw, float* ln, float* se) const {
     const int kk = KT > 0 ? KT : a.K;
-    if constexpr (LAZY) {
-      const int kd = a.K * a.D;
-#pragma unroll
-      for (int k = 0; k < kk; ++k) mx.m[k] = lw[k] = ln[k] = se[k] = 0.0f;
-      const int g_se = 2 + a.fit_norm;
-      for (int h = 0; h < a.H; ++h) {
-        const float hv = sm[h * hs + col];
-        const float* wh = a.w + h;
-#pragma unroll
-        for (int k = 0; k < kk; ++k) {
-          const int r = k * a.D + dd;
-          mx.m[k] += __ldg(wh + (size_t)r * a.H) * hv;
-          lw[k] += __ldg(wh + (size_t)(kd + r) * a.H) * hv;
-          if (a.fit_norm) ln[k] += __ldg(wh + (size_t)(2 * kd + r) * a.H) * hv;
-          if (SKEW) se[k] += __ldg(wh + (size_t)(g_se * kd + r) * a.H) * hv;
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < kk; ++k) {
-        const int r = k * a.D + dd;
-        mx.m[k] += __ldg(a.b + r);
-        lw[k] += __ldg(a.b + kd + r);
-        if (a.fit_norm) ln[k] += __ldg(a.b + 2 * kd + r);
-        if (SKEW) se[k] += __ldg(a.b + g_se * kd + r);
-      }
-      prep_layer_mix<SKEW, N, KT>(mx, lw, ln, se, a);
-    } else if (a.per_row) {
+    if (a.per_row) {
       read_global(a, row, dd, mx, lw, ln, se);
       prep_layer_mix<SKEW, N, KT>(mx, lw, ln, se, a);
     } else {
@@ -190,11 +157,159 @@ struct LayerSrc {
   }
 };
 
-// Shared memory floats a call's block needs for its source.
-__host__ __device__ inline size_t layer_src_floats(int lazy, const LayerArgs& a,
-                                                    int threads) {
-  if (lazy) return (size_t)a.H * (threads + 1);
+// the parameter rows of dimension dd's piece: slab column j = g K + k is
+// row g K D + k D + dd = j D + dd
+struct PieceRows {
+  int D, dd;
+  __device__ int operator()(int j) const { return j * D + dd; }
+};
+
+// A row's mixture of the staged dimension from its column t of the piece's
+// slab (stride ts), and the raw values it was prepared from
+template <bool SKEW, int N, int KT>
+__device__ __forceinline__ void load_piece_mix(const LayerArgs& a,
+                                               const float* sm, int ts, int t,
+                                               MixT<SKEW, N>& mx, float* lw,
+                                               float* ln, float* se) {
+  const int K = KT > 0 ? KT : a.K;
+  const int g_se = 2 + a.fit_norm;
+  const float* s = sm + t;
+#pragma unroll
+  for (int k = 0; k < (KT > 0 ? KT : a.K); ++k) {
+    mx.m[k] = s[k * ts];
+    lw[k] = s[(K + k) * ts];
+    ln[k] = a.fit_norm ? s[(2 * K + k) * ts] : 0.0f;
+    se[k] = SKEW ? s[(g_se * K + k) * ts] : 0.0f;
+  }
+  prep_layer_mix<SKEW, N, KT>(mx, lw, ln, se, a);
+}
+
+// The lazy forward: each dimension's piece of parameter rows made by the
+// streamed tile product (tile_rows.cuh rows_product_streamed) into the
+// slab.  stage is block-synchronous: every thread of the block calls it,
+// rows past B included (their hidden rows read as zeros).
+template <bool SKEW, int N, int KT>
+struct LayerStreamSrc {
+  StreamTile tl;
+  int t;  // this thread's row of the tile
+
+  __device__ LayerStreamSrc(const LayerArgs& a, float* smem)
+      : tl(a.H, a.stream, a.w, a.hidden, smem), t(threadIdx.x) {}
+
+  // dimension dd's piece of the parameter rows of the tile from row0, NT
+  // n8 tiles of it at a time
+  template <int NT>
+  __device__ void stage(const LayerArgs& a, int row0, int dd) const {
+    const int K = KT > 0 ? KT : a.K;
+    rows_product_streamed<NT>(tl, a.hidden, row0, a.B, tl.sm, a.w, a.b,
+                              PieceRows{a.D, dd}, a.n_groups * K);
+  }
+
+  __device__ void load(const LayerArgs& a, MixT<SKEW, N>& mx, float* lw,
+                       float* ln, float* se) const {
+    load_piece_mix<SKEW, N, KT>(a, tl.sm, tl.ts, t, mx, lw, ln, se);
+  }
+};
+
+// The lazy backward's chunk buffers: W chunks of up to STREAM_NC rows, so
+// that dh_product takes a skewed flagship piece (40 rows) in one chunk
+constexpr int LAYER_WC_FLOATS = 2 * STREAM_NC * TILE_WS;
+
+// Floats of a lazy backward block's tile (its chunk buffers LAYER_WC_FLOATS)
+__host__ __device__ inline size_t layer_tile_floats(const TileShape& t) {
+  return t.floats() - 2 * TILE_NC * TILE_WS + LAYER_WC_FLOATS;
+}
+
+// The lazy backward: the tile stage with the hidden tile staged whole
+// (tile_rows.cuh), which the flush's gw product reads too.  Every call is
+// block-synchronous but load and put, and every thread of the block makes
+// them, rows past B included (their hidden rows are zeros).
+template <bool SKEW, int N, int KT>
+struct LayerTileSrc {
+  Tile tl;
+  int t;  // this thread's row of the tile
+
+  __device__ LayerTileSrc(const LayerArgs& a, float* smem)
+      : tl(a.H, a.tile, a.w, smem, LAYER_WC_FLOATS), t(threadIdx.x) {}
+
+  // The hidden rows row0 .. row0 + T - 1 into the tile, coalesced, eight
+  // loads in flight a thread: zeros past B and in the columns H .. Hp - 1;
+  // a NaN kept for the TF32 split.
+  __device__ void load_tile(const LayerArgs& a, int row0) const {
+    constexpr int U = 8;
+    const int T = blockDim.x, total = T * a.H;
+    const int n = min(T, a.B - row0) * a.H;
+    const float* src = a.hidden + (size_t)row0 * a.H;
+    __syncthreads();  // the previous tile's readers are done
+    for (int i0 = 0; i0 < total; i0 += U * T) {
+      float v[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = i0 + u * T + t;
+        v[u] = i < n ? __ldg(src + i) : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = i0 + u * T + t;
+        if (i < total) {
+          const int r = i / a.H, h = i - r * a.H;
+          tl.hid[h * tl.hs + r] = keep_nan(v[u]);
+        }
+      }
+    }
+    for (int i = t; i < (tl.Hp - a.H) * T; i += T)
+      tl.hid[(a.H + i / T) * tl.hs + i % T] = 0.0f;
+    __syncthreads();
+  }
+
+  // dimension dd's piece of parameter rows into the slab
+  __device__ void stage(const LayerArgs& a, int dd) const {
+    const int K = KT > 0 ? KT : a.K;
+    rows_product<4>(tl, tl.sm, a.w, a.b, PieceRows{a.D, dd}, a.n_groups * K);
+  }
+
+  // this thread's mixture of the staged dimension, and the raw values it
+  // was prepared from
+  __device__ void load(const LayerArgs& a, MixT<SKEW, N>& mx, float* lw,
+                       float* ln, float* se) const {
+    load_piece_mix<SKEW, N, KT>(a, tl.sm, tl.ts, t, mx, lw, ln, se);
+  }
+
+  // the backward: this thread's n cotangents of the staged piece over its
+  // column of the slab (a NaN kept for the TF32 split), zeros up to the
+  // next multiple of 8 (the tile products' k steps read them)
+  __device__ void put(const float* vals, int n) const {
+    float* s = tl.sm + t;
+    for (int j = 0; j < n; ++j) s[j * tl.ts] = keep_nan(vals[j]);
+    for (int j = n; j < (n + 7) / 8 * 8; ++j) s[j * tl.ts] = 0.0f;
+  }
+};
+
+// Shared memory floats a broadcast or per-row call's block needs for its
+// source.
+__host__ __device__ inline size_t layer_src_floats(const LayerArgs& a) {
   return a.per_row ? 0 : (size_t)BCAST_ARRAYS * a.K * a.D;
+}
+
+// The lazy forward's streamed tile for pieces of n parameter rows: 128
+// rows at every H.
+__host__ __device__ inline StreamShape layer_stream_shape(int n) {
+  return StreamShape{128, 128 + 4, (n + 7) / 8 * 8};
+}
+
+// The lazy backward's tile for pieces of n parameter rows: the largest T of
+// 128, 64, 32 rows whose shared memory fits, with dh_cols the backward's dh
+// columns (Hp, hs) after the tile's own floats; T = 0 when none does.  The
+// slab's rows: n rounded up to 16 (gw_product's m16 tiles read them).
+__host__ __device__ inline TileShape layer_tile(int H, int n, bool dh_cols) {
+  TileShape t{};
+  for (int T = 128; T >= 32; T /= 2) {
+    t = TileShape{T, (H + 7) / 8 * 8, T + 8, T + 4, 0, (n + 15) / 16 * 16};
+    const size_t dh = dh_cols ? (size_t)t.Hp * t.hs : 0;
+    if ((layer_tile_floats(t) + dh) * 4 <= TILE_SMEM_LIMIT) return t;
+  }
+  t.T = 0;
+  return t;
 }
 
 }  // namespace gf

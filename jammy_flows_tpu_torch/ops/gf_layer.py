@@ -149,9 +149,9 @@ def _declare_bwd(lib):
     lib.gf_layer_bwd_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p,
                                         p, p, p, p, i, p, p, p]
     lib.gf_layer_bwd_launch.restype = i
-    lib.gf_layer_bwd_blocks.argtypes = [i, i, i, i]
+    lib.gf_layer_bwd_blocks.argtypes = [i, i, i, i, i]
     lib.gf_layer_bwd_blocks.restype = i
-    lib.gf_layer_bwd_scratch.argtypes = [i, i]
+    lib.gf_layer_bwd_scratch.argtypes = [i, i, i]
     lib.gf_layer_bwd_scratch.restype = i
     lib.gf_layer_bwd_error_string.argtypes = [i]
     lib.gf_layer_bwd_error_string.restype = ctypes.c_char_p
@@ -262,10 +262,12 @@ def _launch_bwd(body, iface, x, params, g1, g2, ift, prep, kd):
         lib = cuda_build.load("gf_layer_bwd", _declare_bwd)
         n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
         lazy = int(iface == "lazy")
-        n_blocks = lib.gf_layer_bwd_blocks(lazy, b_rows, hid, n_sm)
+        # the lazy tile depends on the parameter rows of one dimension
+        n_piece = n_groups * k
+        n_blocks = lib.gf_layer_bwd_blocks(lazy, b_rows, hid, n_sm, n_piece)
         partials = torch.zeros((n_blocks, n_flat), **f32)
-        # where the lazy dh columns do not fit in shared memory
-        n_scratch = n_blocks * lib.gf_layer_bwd_scratch(lazy, hid)
+        # where the lazy dh columns do not stay in shared memory
+        n_scratch = n_blocks * lib.gf_layer_bwd_scratch(lazy, hid, n_piece)
         scratch = torch.empty(n_scratch, **f32) if n_scratch else None
         c_ints, c_floats = _c_arrays([int(body == "sample")] + ints, floats)
         with torch.cuda.device(dev):
@@ -288,6 +290,28 @@ def _launch_bwd(body, iface, x, params, g1, g2, ift, prep, kd):
     if per_row:
         return gx, list(gslab.unbind(0))
     return gx, list(flat.view(n_groups, k, d).unbind(0))
+
+
+def kernel_occupancy(name, k, d, hid, n_groups, skew=True):
+    """(blocks per SM, threads per block, dynamic shared memory bytes) of
+    the lazy kernel ``name`` (a ``LAUNCHES`` key: forward_lazy,
+    sample_lazy, forward_bwd_lazy, sample_bwd_lazy) at a layer of K = k,
+    D = d, hidden width hid and n_groups parameter groups, from the CUDA
+    occupancy API on the current device."""
+    from . import cuda_build
+    bwd = "_bwd_" in name
+    lib = (cuda_build.load("gf_layer_bwd", _declare_bwd) if bwd
+           else cuda_build.load("gf_layer", _declare))
+    fn = lib.gf_layer_bwd_occupancy if bwd else lib.gf_layer_occupancy
+    i = ctypes.c_int
+    fn.argtypes = [i, i, i, i, i, i, i, ctypes.c_void_p]
+    fn.restype = i
+    out = (ctypes.c_int * 3)()
+    rc = fn(int(name.startswith("sample")), 1, int(skew), k, d, hid,
+            n_groups, out)
+    if rc != 0:
+        raise RuntimeError(f"occupancy query of {name} failed ({rc})")
+    return tuple(out)
 
 
 def _run(mode, iface, x, params, ift, prep, kd):

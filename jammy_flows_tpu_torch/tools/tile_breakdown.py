@@ -2,7 +2,7 @@
 again with parts of them switched off, on the card.
 
     python -m jammy_flows_tpu_torch.tools.tile_breakdown
-        [--part lazy2|perm|perm_fwd] [--csrc DIR [DIR ...]]
+        [--part lazy2|perm|perm_fwd|layer_lazy] [--csrc DIR [DIR ...]]
 
 Builds ``csrc/gf_block.cu`` and ``csrc/gf_block_bwd.cu`` from a copy of the
 sources (``--csrc``, by default the package's own: a parent tree's sources
@@ -46,6 +46,20 @@ the perm forward kernels' registers, stack and spills; with ``cuobjdump
 FCHK (one per IEEE division) and CALL instructions, as the kernel's code
 holds them once (its loop bodies once each: the layer loop's trip count is
 a run-time value), and its blocks per SM (the occupancy API).
+
+layer_lazy (the per-layer lazy kernels of the flagship with
+``{"g": {"add_skewness": 1}}``, block 2's shapes: T4 ``forward_lazy``, T5
+``sample_lazy``, both T7 lazy bodies; builds ``csrc/gf_layer.cu`` and
+``csrc/gf_layer_bwd.cu``), each timed alone and as one of 10 launches back
+to back: as built; with the parameter product off (every parameter row
+its bias b: the per-thread loop over the hidden units before the tile
+redesign, ``rows_product`` / ``rows_product_streamed`` after it); T7
+with the flush of each piece's cotangents into dh, gw and gb off.
+Yardsticks on the same inputs: the P x H product
+alone as ``torch.matmul`` and the materialized route (that product as
+per-row slabs, then the raw per-row kernel; T7 also ghidden and gw as
+matmuls).  With ``-Xptxas -v``: the lazy kernels' registers, stack and
+spills; blocks per SM where the sources have an occupancy query.
 
 Forward at 1,048,576 rows, backward at 262,144; CUDA events, median of
 10.  Prints one JSON line with the card's name and power limit.  Needs a
@@ -95,6 +109,22 @@ _PERM_BODY = (r"for \(int l = a\.n_layers - 1; l >= 0; --l\) \{\n",
 _PERM_GRID = r"int perm_grid\([^)]*\)\s*\{\n"
 
 
+# the per-layer lazy kernels (T4 / T5 forward_lazy / sample_lazy, T7 lazy
+# bodies): their parameter product (the sources before the tile redesign:
+# each thread's loop over the hidden units, left at once, so that every
+# parameter row is b; after it: rows_product and rows_product_streamed
+# reduced to the bias, as _OFF), and T7's flush of a piece's cotangents (the per-thread staged flush
+# before, the tile products after), each switched off
+_LAYER_PRODUCT = {
+    r"const int g_se = 2 \+ a\.fit_norm;\n\s*for \(int h = 0; h < a\.H; "
+    r"\+\+h\) \{\n": "break;\n",
+    r"__device__ void rows_product\([^)]*\)\s*\{\n": _OFF["rows_product"],
+    r"__device__ void rows_product_streamed\([^)]*\)\s*\{\n":
+        _OFF["rows_product"]}
+_LAYER_FLUSH = {
+    r"template <bool LAZY>\s*__device__ void flush\(const LayerBwdArgs[^)]*\)"
+    r"\s*\{\n": "  if (LAZY) return;\n",
+    r"__device__ void layer_flush\([^)]*\)\s*\{\n": "  return;\n"}
 # part -> variant -> (the switches on, the libraries built); a variant
 # whose switch the sources do not have is left out (perm_grid)
 VARIANTS = {
@@ -109,21 +139,30 @@ VARIANTS = {
                  "tile_grid": (("perm_grid",), ("gf_block",)),
                  "body_off_tile_grid": (("perm_body", "perm_grid"),
                                         ("gf_block",))},
+    "layer_lazy": {"as_built": ((), ("gf_layer", "gf_layer_bwd")),
+                   "product_off": (("layer_product",),
+                                   ("gf_layer", "gf_layer_bwd")),
+                   "flush_off": (("layer_flush",), ("gf_layer_bwd",))},
 }
 
 
-def _switches(src_dir):
+def _switches(src_dir, part):
     """Insert each switch's body into a copy of the sources; raises unless
-    every product was found once, the perm flush at least once and the
-    perm forward's layer loops at least once each.  Returns the switches
-    found."""
+    the part's switches are there: for lazy2, perm and perm_fwd every
+    product once, the perm flush at least once and the perm forward's
+    layer loops at least once each; for layer_lazy the layer product and
+    the layer flush.  Returns the switches found."""
     found = []
     for path in src_dir.iterdir():
         text = path.read_text()
         cases = [(name, r"__device__ void " + name + r"\([^)]*\)\s*\{\n",
                   body) for name, body in _OFF.items()] + \
             [("perm_flush", head + r"\([^)]*\)\s*\{\n", body)
-             for head, body in _PERM_FLUSH.items()]
+             for head, body in _PERM_FLUSH.items()] + \
+            [("layer_product", head, body)
+             for head, body in _LAYER_PRODUCT.items()] + \
+            [("layer_flush", head, body)
+             for head, body in _LAYER_FLUSH.items()]
         if path.name == "gf_block.cu":
             cases += [("perm_body", head, "break;\n") for head in _PERM_BODY]
             cases += [("perm_grid", _PERM_GRID, "  return n_tiles;\n")]
@@ -133,7 +172,11 @@ def _switches(src_dir):
                                f"\n{body}#endif\n", text)
             found += [switch] * n
         path.write_text(text)
-    if sorted(f for f in found if f in _OFF) != sorted(_OFF) or \
+    if part == "layer_lazy":
+        if "layer_product" not in found or "layer_flush" not in found:
+            raise RuntimeError(f"switches found {found}, expected the "
+                               "layer product and the layer flush")
+    elif sorted(f for f in found if f in _OFF) != sorted(_OFF) or \
             "perm_flush" not in found or found.count("perm_body") < 2:
         raise RuntimeError(f"switches found {found}, expected each of "
                            f"{sorted(_OFF)} once, perm_flush and both "
@@ -152,7 +195,7 @@ def build(part, trees, variants=None):
     for i, (tree, csrc) in enumerate(trees.items()):
         src = OUT / f"tree{i}" / "csrc"
         shutil.copytree(csrc, src)
-        found = _switches(src)
+        found = _switches(src, part)
         for variant, (off, libs) in VARIANTS[part].items():
             if not set(off) <= found or (variants and
                                          variant not in variants):
@@ -218,6 +261,36 @@ def perm_ptxas(report):
             out[f"{which[0]} ({which[1]})"] = (
                 f"{regs.group(1)} registers, stack {spill.group(1)} B, spill "
                 f"stores {spill.group(2)} B, loads {spill.group(3)} B")
+    return out
+
+
+# the per-layer lazy kernels' mangled names: gf_layer_kernel<LAZY = true,
+# SKEW, MODE, KT>, gf_layer_bwd_kernel<LAZY = true, SKEW, SAMPLE, KT>
+_LAYER_KERNELS = (
+    (r"gf_layer_kernelILb1ELb(\d)ELi(\d)ELi(\d+)E",
+     lambda m: ("forward_lazy", "sample_lazy")[int(m.group(2))]),
+    (r"gf_layer_bwd_kernelILb1ELb(\d)ELb(\d)ELi(\d+)E",
+     lambda m: ("forward_bwd_lazy", "sample_bwd_lazy")[int(m.group(2))]))
+
+
+def layer_ptxas(report):
+    """{kernel: "registers, stack, spills"} of the per-layer lazy kernels
+    in an -Xptxas -v report (skewed or not, K = 10 or generic)."""
+    out = {}
+    for name, body in re.findall(r"Function properties for (\S+)\n(.*?)"
+                                 r"(?=ptxas info\s+: Compil|\Z)", report, re.S):
+        regs = re.search(r"Used (\d+) registers", body)
+        spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", body)
+        for pat, kernel in _LAYER_KERNELS:
+            m = re.search(pat, name)
+            if m and regs and spill:
+                shape = "K=10" if m.group(3) == "10" else "generic"
+                skew = ", skewed" if m.group(1) == "1" else ""
+                out[f"{kernel(m)} ({shape}{skew})"] = (
+                    f"{regs.group(1)} registers, stack {spill.group(1)} B, "
+                    f"spill stores {spill.group(2)} B, loads "
+                    f"{spill.group(3)} B")
     return out
 
 
@@ -384,6 +457,142 @@ def _lazy2_case(gb, p, dev, g):
     return run
 
 
+# the per-layer lazy kernels each layer_lazy variant changes
+_VARIANT_KERNELS = {
+    "product_off": ("forward_lazy", "sample_lazy", "forward_bwd_lazy",
+                    "sample_bwd_lazy"),
+    "flush_off": ("forward_bwd_lazy", "sample_bwd_lazy")}
+
+
+def layer_occupancy(handle, lib, shapes):
+    """{kernel: [blocks per SM, threads, dynamic shared memory bytes]} of
+    the skewed per-layer lazy kernels at ``shapes``, from the library's
+    occupancy query (the CUDA occupancy API), where the sources have one;
+    {} where they do not."""
+    fn = getattr(handle, f"{lib}_occupancy", None)
+    if fn is None:
+        return {}
+    i = ctypes.c_int
+    fn.argtypes = [i, i, i, i, i, i, i, ctypes.c_void_p]
+    fn.restype = i
+    k, d, hid = shapes["K"], shapes["d"], shapes["H"]
+    n_groups = shapes["P"] // (k * d)
+    names = (("forward_lazy", "sample_lazy") if lib == "gf_layer"
+             else ("forward_bwd_lazy", "sample_bwd_lazy"))
+    out = {}
+    for mode, name in enumerate(names):
+        res = (ctypes.c_int * 3)()
+        if fn(mode, 1, 1, k, d, hid, n_groups, res) == 0:
+            out[name] = list(res)
+    return out
+
+
+def materialized_route(gl, mode, x, params, ift, prep, kd, cts=None):
+    """A yardstick the port never calls: a lazy call's function (``gl`` the
+    per-layer wrapper module; mode forward / sample, cts the T7 body's
+    cotangents or None for T4 / T5) through the materialized route: the
+    rows b + w . hidden as torch.matmul into per-row (K, d, B) slabs
+    (``gl._lazy_slabs``), then the raw per-row kernel; T7: the raw per-row
+    backward, then ghidden = dp . w and gw = dp^T . hidden as two matmuls
+    and gb as a sum.  Returns the route as a function of no arguments."""
+    import torch
+    hidden, w, b = params
+
+    def route():
+        slabs = gl._lazy_slabs(hidden, w, b, kd)
+        if cts is None:
+            return gl._launch(mode, "raw", x, slabs, ift, prep, None)
+        _, gs = gl._launch_bwd(mode, "raw", x, slabs, *cts, ift, prep, None)
+        gp = torch.stack(gs).view(-1, x.shape[0])
+        return (torch.matmul(gp.T, w), torch.matmul(gp, hidden),
+                gp.sum(dim=1))
+
+    return route
+
+
+def _layer_lazy_case(gl, p, params, dev, g, n_fwd=1 << 20, n_bwd=1 << 18):
+    """The skewed flagship's per-layer lazy kernels at their own shapes
+    (block 2, layer 0: K = 10, d = 4, four parameter groups, P = 160,
+    H = 128): its forward_lazy / sample_lazy call in ``log_prob`` /
+    ``sample`` at 1,048,576 rows, recorded with its inputs; T7's two bodies on the first
+    262,144 rows of those (the density body at log_prob's input, the
+    sample body at the sample call's roots) with cotangents from ``g``.
+    run(variant) times each kernel single and as one of 10 launches back
+    to back; yardsticks() times, on the same inputs, the P x H product
+    alone as ``torch.matmul(hidden, w.T) + b`` and the materialized route
+    (``materialized_route``).  Returns (run, yardsticks, shapes)."""
+    import torch
+    calls = {}
+    run_layer = gl._run
+
+    def record(mode, iface, x, ps, ift, prep, kd):
+        if iface == "lazy":
+            calls.setdefault(mode, []).append(
+                (x.clone(), tuple(t.clone() for t in ps), ift, prep, kd))
+        return run_layer(mode, iface, x, ps, ift, prep, kd)
+
+    gl._run = record
+    try:
+        with torch.no_grad():
+            xs = p.sample(params, samplesize=n_fwd, generator=g)[0]
+            p.log_prob(params, xs)
+    finally:
+        gl._run = run_layer
+    del xs
+    n_b = n_bwd
+    # layer 0 of block 2: the sample direction's first lazy call; log_prob
+    # runs the block's layers in reverse, so its call of the same w
+    z_s, par_s, ift_s, prep_s, kd = calls["sample"][0]
+    x_f, par_f, ift_f, prep_f, _ = next(
+        c for c in calls["forward"] if torch.equal(c[1][1], par_s[1]))
+    del calls
+    root = gl._launch("sample", "lazy", z_s, par_s, ift_s, prep_s, kd)[0]
+    bwd = {"forward": (x_f[:n_b].contiguous(),
+                       (par_f[0][:n_b].contiguous(), *par_f[1:]), ift_f,
+                       prep_f),
+           "sample": (root[:n_b].contiguous(),
+                      (par_s[0][:n_b].contiguous(), *par_s[1:]), ift_s,
+                      prep_s)}
+    g1 = torch.randn((n_b, kd[1]), generator=g, device=dev)
+    g2 = torch.randn((n_b, kd[1]), generator=g, device=dev)
+    fwd = {"forward": (x_f, par_f, ift_f, prep_f),
+           "sample": (z_s, par_s, ift_s, prep_s)}
+
+    def cases():
+        for mode, (x, ps, ift, prep) in fwd.items():
+            yield f"{mode}_lazy", lambda: gl._launch(mode, "lazy", x, ps,
+                                                     ift, prep, kd)
+        for body, (x, ps, ift, prep) in bwd.items():
+            yield f"{body}_bwd_lazy", lambda: gl._launch_bwd(
+                body, "lazy", x, ps, g1, g2, ift, prep, kd)
+
+    def run(variant):
+        times = {}
+        for name, fn in cases():
+            times[f"{name} {variant}"] = _ms(fn)
+            times[f"{name} {variant} (10 back to back)"] = \
+                _ms_back_to_back(fn)
+        return times
+
+    def yardsticks():
+        times = {}
+        for name, (x, ps, ift, prep) in list(fwd.items()) + \
+                [(f"{b}_bwd", v) for b, v in bwd.items()]:
+            hidden, w, b = ps
+            times[f"{name}_lazy: product alone (torch.matmul)"] = _ms(
+                lambda: torch.matmul(hidden, w.T) + b)
+            cts = (g1, g2) if name.endswith("_bwd") else None
+            times[f"{name}_lazy: materialized route (torch.matmul + raw "
+                  f"per-row kernel)"] = _ms(materialized_route(
+                      gl, name.split("_")[0], x, ps, ift, prep, kd, cts))
+        return times
+
+    shapes = {"K": kd[0], "d": kd[1], "P": par_f[1].shape[0],
+              "H": par_f[1].shape[1], "rows_forward": x_f.shape[0],
+              "rows_backward": n_b, "ift": [ift_f, ift_s]}
+    return run, yardsticks, shapes
+
+
 def main(argv=None):
     import torch
     from .. import pdf
@@ -411,6 +620,24 @@ def main(argv=None):
         run = _perm_case(gb, p, dev, g, n_sm)
     elif args.part == "perm_fwd":
         run = _perm_fwd_case(gb, p, dev, g)
+    elif args.part == "layer_lazy":
+        from ..ops import gf_layer as gl
+        torch.backends.cuda.matmul.allow_tf32 = False
+        p = pdf("e4+s2+e4", "gggg+f+gggg",
+                options_overwrite={"g": {"add_skewness": 1}}, device=dev)
+        params = p.init_params(seed=0)
+        params = {k: v + 0.02 * torch.randn(v.shape, generator=g, device=dev)
+                  if k.startswith("mlp_") or k == "flow_0" else v
+                  for k, v in params.items()}
+        # the model's path (recording the calls) on the first tree's
+        # as-built kernels
+        first = next(iter(trees))
+        for lib, declare in (("gf_layer", gl._declare),
+                             ("gf_layer_bwd", gl._declare_bwd)):
+            handle = ctypes.CDLL(str(paths[(first, "as_built", lib)]))
+            declare(handle)
+            cuda_build._LOADED[lib] = handle
+        run, yardsticks, shapes = _layer_lazy_case(gl, p, params, dev, g)
     else:
         run = _lazy2_case(gb, p, dev, g)
     results = {}
@@ -424,8 +651,37 @@ def main(argv=None):
                      "ptxas": perm_ptxas(report[tree]),
                      "sass": perm_fwd_sass(paths[(tree, "as_built",
                                                   "gf_block")])}
+        elif args.part == "layer_lazy":
+            extra = {"shapes": shapes, "ptxas": layer_ptxas(report[tree]),
+                     "blocks_per_sm": {}}
         else:
             extra = {"rows_forward": 1 << 20, "rows_backward": 1 << 18}
+        if args.part == "layer_lazy":
+            # every variant's libraries loaded together: a T7 variant
+            # leaves the forward as built, and the reverse
+            by_variant = collections.defaultdict(dict)
+            for (t, variant, lib), path in paths.items():
+                if t == tree:
+                    by_variant[variant][lib] = path
+            for variant, libs in by_variant.items():
+                for lib in ("gf_layer", "gf_layer_bwd"):
+                    path = libs.get(lib, paths.get((tree, "as_built", lib)))
+                    handle = ctypes.CDLL(str(path))
+                    (gl._declare if lib == "gf_layer"
+                     else gl._declare_bwd)(handle)
+                    cuda_build._LOADED[lib] = handle
+                    extra["blocks_per_sm"].setdefault(variant, {}).update(
+                        layer_occupancy(handle, lib, shapes))
+                t_v = run(variant)
+                times.update({k: v for k, v in t_v.items()
+                              if variant == "as_built" or
+                              any(k.startswith(n + " ") for n in
+                                  _VARIANT_KERNELS[variant])})
+                if variant == "as_built":
+                    times.update(yardsticks())
+            cuda_build._LOADED.clear()
+            results[tree] = {"ms": times, **extra}
+            continue
         for (t, variant, lib), path in paths.items():
             if t != tree:
                 continue

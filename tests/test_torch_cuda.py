@@ -626,6 +626,151 @@ def test_per_layer_flagship_on_card(dev, opts):
     assert float((lp.double().cpu() - lp64).abs().max()) < 1e-3
 
 
+def _model_lazy_calls(hid, n, dev):
+    """Every per-layer lazy call (T4 / T5 lazy, both T7 lazy bodies) of the
+    skewed unconditional flagship with amortization_mlp_dims = hid (its
+    block-2 layers take hidden rows of that width): sample, then log_prob
+    of n rows drawn by a second jittered model, and autograd of
+    -log_prob().mean() and of a sample objective; each call recorded as
+    (name, mode or body, inputs, ift, prep, kd)."""
+    p = pdf(*FLAGSHIP, options_overwrite={"g": {"add_skewness": 1}},
+            amortization_mlp_dims=str(hid), device=dev)
+    g = torch.Generator(device=dev).manual_seed(hid)
+
+    def jitter(scale):
+        return {k: v + (0.02 if k.startswith("mlp_") else scale)
+                * torch.randn(v.shape, generator=g, device=dev)
+                for k, v in p.init_params(seed=0).items()}
+
+    par = jitter(0.02)
+    calls = []
+    run, run_bwd = gl._run, gl._run_bwd
+
+    def fwd(mode, iface, x, params, ift, prep, kd):
+        if iface == "lazy":
+            calls.append((f"{mode}_lazy", mode, (x.clone(), params), ift,
+                          prep, kd))
+        return run(mode, iface, x, params, ift, prep, kd)
+
+    def bwd(body, iface, x, params, g1, g2, ift, prep, kd):
+        if iface == "lazy":
+            calls.append((f"{body}_bwd_lazy", body,
+                          (x.clone(), params, g1.contiguous().clone(),
+                           g2.contiguous().clone()), ift,
+                          prep, kd))
+        return run_bwd(body, iface, x, params, g1, g2, ift, prep, kd)
+
+    gl._run, gl._run_bwd = fwd, bwd
+    try:
+        with torch.no_grad():
+            x = p.sample(jitter(0.1), samplesize=n, generator=g)[0]
+            p.sample(par, samplesize=n, generator=g)
+            p.log_prob(par, x)
+        p._value_and_grad(lambda pp: -p.log_prob(pp, x)[0].mean(), par)
+        z = torch.randn((n, p.total_base_dim), generator=g, device=dev)
+        p._value_and_grad(lambda pp: p.all_layer_forward(
+            pp, z, torch.zeros(n, device=dev))[0].pow(2).mean(), par)
+    finally:
+        gl._run, gl._run_bwd = run, run_bwd
+    assert {c[2][1][0].shape[1] for c in calls} == {hid}
+    return calls
+
+
+@pytest.mark.parametrize("hid,n", [(12, 1000), (200, 4099), (1024, 333)])
+def test_layer_lazy_tile_kernels_across_widths(dev, hid, n):
+    """The lazy instances of T4 / T5 / T7 (3xTF32 tile products) on the
+    skewed flagship's own layer calls at hidden widths from 12 (not a
+    multiple of the 8-wide k step) to 1024 (the backward's 32-row tiles, dh
+    in the global scratch), on row counts that are not a multiple of the
+    tile, against their plain versions on the same inputs."""
+    calls = _model_lazy_calls(hid, n, dev)
+    assert {c[0] for c in calls} == {"forward_lazy", "sample_lazy",
+                                     "forward_bwd_lazy", "sample_bwd_lazy"}
+    torch.set_grad_enabled(False)
+    for name, mode, args, ift, prep, kd in calls:
+        if "_bwd_" in name:
+            x, params, g1, g2 = args
+            gx, gp = gl._launch_bwd(mode, "lazy", x, params, g1, g2, ift,
+                                    prep, kd)
+            rgx, rgp = gl.layer_bwd_plain(mode, "lazy", x, params, g1, g2,
+                                          ift, prep, kd)
+            torch.cuda.synchronize()
+            for got, ref in zip((gx, *gp), (rgx, *rgp)):
+                assert got.shape == ref.shape and torch.isfinite(got).all()
+                tol = TOL_GRAD["density" if mode == "forward" else "sample"]
+                assert _rel(got, ref) < tol, (name, _rel(got, ref))
+        else:
+            x, params = args
+            got = gl._launch(mode, "lazy", x, params, ift, prep, kd)
+            ref = gl.layer_plain(mode, "lazy", x, params, ift, prep, kd)
+            torch.cuda.synchronize()
+            for a, b in zip(got, ref):
+                assert torch.isfinite(a).all()
+                assert float((a - b).abs().max()) < TOL[
+                    "density" if mode == "forward" else "sample"], name
+    torch.set_grad_enabled(True)
+
+
+@pytest.mark.parametrize("hid", [12, 128, 1024])
+def test_layer_lazy_bwd_repeats(dev, hid):
+    """T7 lazy, both bodies, gives the same bits on two launches (persistent
+    blocks walking the tiles in a fixed order, partials summed in block
+    order)."""
+    n, k, d = 3001, 10, 4
+    params, prep, lkd = _layer_case("lazy", False, 1, k, d, n, dev, hid=hid)
+    rng = np.random.default_rng(5)
+    x, g1, g2 = (torch.as_tensor(rng.normal(size=(n, d)), dtype=torch.float32,
+                                 device=dev) for _ in range(3))
+    for body in ("forward", "sample"):
+        res = x if body == "forward" else gl._run(
+            "sample", "lazy", x, params, "isigmoid", prep, lkd)[0]
+        a, b = (gl._launch_bwd(body, "lazy", res, params, g1, g2, "isigmoid",
+                               prep, lkd) for _ in range(2))
+        torch.cuda.synchronize()
+        for u, v in zip((a[0], *a[1]), (b[0], *b[1])):
+            assert torch.equal(u, v), body
+
+
+@pytest.mark.parametrize("what", ["hidden", "w"])
+def test_layer_lazy_kernels_keep_nan_as_plain(dev, what):
+    """A NaN made on the card (0/0) in hidden or in w reaches T4 lazy's, T5
+    lazy's and T7 lazy's (density body) outputs exactly where it reaches
+    the plain versions'; rows whose per-row outputs it does not reach keep
+    the clean run's bits."""
+    n, k, d = 1000, 10, 4
+    clean, prep, lkd = _layer_case("lazy", False, 1, k, d, n, dev, hid=128)
+    rng = np.random.default_rng(6)
+    x, g1, g2 = (torch.as_tensor(rng.normal(size=(n, d)), dtype=torch.float32,
+                                 device=dev) for _ in range(3))
+    hidden, w, b = (t.clone() for t in clean)
+    zero = torch.zeros((), device=dev)
+    if what == "hidden":
+        hidden[5, 1] = zero / zero
+    else:
+        w[9, 7] = zero / zero
+    params = (hidden, w, b)
+    calls = [(lambda ps, m=m: gl._launch(m, "lazy", x, ps, "isigmoid", prep,
+                                         lkd),
+              lambda m=m: gl.layer_plain(m, "lazy", x, params, "isigmoid",
+                                         prep, lkd), 2)
+             for m in ("forward", "sample")]
+    calls.append((lambda ps: (lambda r: (r[0], r[1][0], *r[1][1:]))(
+        gl._launch_bwd("forward", "lazy", x, ps, g1, g2, "isigmoid", prep,
+                       lkd)),
+        lambda: (lambda r: (r[0], r[1][0], *r[1][1:]))(gl.layer_bwd_plain(
+            "forward", "lazy", x, params, g1, g2, "isigmoid", prep, lkd)), 2))
+    for kernel, plain, n_per_row in calls:
+        got, want, ref = kernel(params), kernel(clean), plain()
+        torch.cuda.synchronize()
+        assert any(bool(torch.isnan(a).any()) for a in got)
+        for a, r in zip(got, ref):
+            _same_nans(a, r)
+        rows = ~torch.stack([torch.isnan(r).any(dim=1)
+                             for r in ref[:n_per_row]]).any(dim=0)
+        for a, c in zip(got[:n_per_row], want[:n_per_row]):
+            assert torch.equal(a[rows], c[rows])
+
+
 # ---------------------------------------------------------------------------
 # the block's lazy mode (precomputed hidden), every backward kernel at the
 # widest hidden layer the routing sends to it, the chain-rate probe (T8)
