@@ -38,7 +38,8 @@ in parallel), then drives the flagship ``pdf("e4+s2+e4", "gggg+f+gggg")``:
   (both bodies) give the same bits on two launches; the per-layer lazy
   kernels (3xTF32 tile products) match their plain versions at hidden
   widths 12, 200 and 1024 on a row count that is not a multiple of any
-  tile.
+  tile, and the block's lazy mode (T1 / T2 lazy, on the same tile stage)
+  at 12, 64, 200 and 1024, T2 lazy with the same bits on two launches.
 
 Each path has its own launch counts, which must be exactly the kernels that
 path runs.  Every kernel call of every path is recorded and held against the
@@ -219,9 +220,15 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 PEAK_3XTF32_FLOPS = 495e12 / 3
 # the kernels whose parameter rows are 3xTF32 tile products
-# (csrc/gf_block_src.cuh TileSrc): lazy2 forward and backward
+# (csrc/gf_block_src.cuh TileSrc): lazy2 and lazy, forward and backward
 TILE_KERNELS = ("density_lazy2", "sample_lazy2", "density_bwd_lazy2",
-                "sample_bwd_lazy2", "nll_lazy2")
+                "sample_bwd_lazy2", "nll_lazy2", "density_lazyh",
+                "sample_lazyh", "density_bwd_lazyh", "sample_bwd_lazyh")
+# the block's lazy mode against its plain versions beyond the "64-64"
+# flagship's H = 64, on the flagship with "64-<H>" MLPs (block 2): 12 (not
+# a multiple of the 8-wide k step), 64 (dh in shared memory), 200 (dh in
+# the global scratch), 1024 (32-row tiles), on N_WIDTH rows
+LAZY_WIDTHS = (12, 64, 200, 1024)
 # the per-layer lazy kernels whose parameter rows (and T7's dh / gw) are
 # 3xTF32 tile products (csrc/tile_rows.cuh, csrc/gf_layer_src.cuh
 # LayerTileSrc)
@@ -533,13 +540,15 @@ def tile_kernel_report(built, card):
     from jammy_flows_tpu_torch import pdf
     from jammy_flows_tpu_torch.ops import gf_block as gb
     # gf_block_density_kernel<MODE, KT, DT>, gf_block_bwd_kernel<KIND,
-    # MODE, DHG, KT, DT>: MODE 1 is lazy2
-    pats = {"gf_block": (r"gf_block_(density|sample)_kernelILi1ELi(\d+)ELi",
-                         lambda m: f"{m.group(1)}_lazy2"),
-            "gf_block_bwd": (r"gf_block_bwd_kernelILi(\d)ELi1ELb\dELi(\d+)ELi",
-                             lambda m: ("density_bwd_lazy2",
-                                        "sample_bwd_lazy2",
-                                        "nll_lazy2")[int(m.group(1))])}
+    # MODE, DHG, KT, DT>: MODE 1 is lazy2, 2 lazy (whose backward has an
+    # instance with dh in shared memory and one with dh in the scratch)
+    suffix = {"1": "lazy2", "2": "lazyh"}
+    pats = {"gf_block": (r"gf_block_(density|sample)_kernelILi([12])ELi(\d+)ELi",
+                         lambda m: f"{m.group(1)}_{suffix[m.group(2)]}"),
+            "gf_block_bwd": (r"gf_block_bwd_kernelILi(\d)ELi([12])ELb\dELi(\d+)ELi",
+                             lambda m: ("density_bwd", "sample_bwd",
+                                        "nll")[int(m.group(1))] + "_" +
+                             suffix[m.group(2)])}
     found = {}
     for lib_name, (pat, kernel) in pats.items():
         sass = subprocess.run([cuobjdump_path(), "-sass",
@@ -550,10 +559,13 @@ def tile_kernel_report(built, card):
             m = re.search(pat, fn)
             if m:
                 n = len(re.findall(r"HMMA\.\S*TF32", body))
-                shape = "K=10, d=4" if m.group(2) == "10" else "generic"
-                log(f"SASS {kernel(m)} ({shape}): {n} TF32 HMMA "
+                shape = "K=10, d=4" if m.group(3) == "10" else "generic"
+                scratch = (", dh in the scratch"
+                           if re.search(r"ELi2ELb1E", fn) else "")
+                log(f"SASS {kernel(m)} ({shape}{scratch}): {n} TF32 HMMA "
                     f"instructions")
-                found[(kernel(m), shape)] = n
+                found[(kernel(m), shape)] = min(
+                    n, found.get((kernel(m), shape), n))
     # gf_layer_kernel<LAZY = 1, SKEW, MODE, KT>, gf_layer_bwd_kernel<LAZY =
     # 1, SKEW, SAMPLE, KT>: the per-layer lazy kernels
     layer_pats = {
@@ -584,13 +596,17 @@ def tile_kernel_report(built, card):
     if missing:
         raise AssertionError(f"no TF32 HMMA in the SASS of {missing}")
     p = pdf(*FLAGSHIP, device="cpu")
-    for k, names, hid in ((2, TILE_KERNELS, 128), (0, PERM_BWD + PERM_FWD,
-                                                   0)):
-        prep, meta = p._block_meta[k]
+    p_lazy = pdf(*FLAGSHIP, amortization_mlp_dims=DIMS_LAZY, device="cpu")
+    lazy2 = tuple(n for n in TILE_KERNELS if n.endswith("lazy2"))
+    lazyh = tuple(n for n in TILE_KERNELS if n.endswith("lazyh"))
+    for pp, k, names, hid in ((p, 2, lazy2, 128),
+                              (p, 0, PERM_BWD + PERM_FWD, 0),
+                              (p_lazy, 2, lazyh, 64)):
+        prep, meta = pp._block_meta[k]
         for name in names:
             blocks, threads, smem = gb.kernel_occupancy(name, prep, meta, hid)
-            log(f"occupancy {name} (block {k}{', H = 128' if hid else ''}) "
-                f"on {card}: {blocks} blocks of {threads} threads = "
+            log(f"occupancy {name} (block {k}{f', H = {hid}' if hid else ''}"
+                f") on {card}: {blocks} blocks of {threads} threads = "
                 f"{blocks * threads // 32} warps per SM, {smem} B of shared "
                 f"memory a block")
     for name in LAYER_TILE_KERNELS:
@@ -1432,6 +1448,72 @@ def layer_width_check(dev):
     return errs
 
 
+def block_lazy_width_check(dev):
+    """The block's lazy mode (T1 / T2 lazy) at each width of LAZY_WIDTHS:
+    the flagship with "64-<H>" MLPs, block 2, on N_WIDTH rows (hidden rows
+    made by its jittered MLP from a random summary): both directions and
+    both backward bodies against their plain versions on the same inputs,
+    and each T2 lazy body's bits on two launches.  Returns the largest
+    differences (values: absolute; gradients: relative norm)."""
+    from jammy_flows_tpu_torch import pdf
+    from jammy_flows_tpu_torch.ops import gf_block as gb
+    errs = {}
+    for hid in LAZY_WIDTHS:
+        p = pdf(*FLAGSHIP, amortization_mlp_dims=f"64-{hid}", device=dev)
+        prep, meta = p._block_meta[2]
+        mlp = p.mlp_predictors[2]
+        flat = jittered_params(p, seed=97)["mlp_2"]
+        g = torch.Generator(device=dev).manual_seed(98)
+        with torch.no_grad():
+            hidden = mlp.apply_penultimate(flat, torch.randn(
+                (N_WIDTH, mlp.input_dim), generator=g, device=dev))
+        params = (hidden.contiguous(),
+                  *(t.contiguous() for t in mlp.final_layer_weights(flat)))
+        x = 0.8 * torch.randn((N_WIDTH, meta[1]), generator=g, device=dev)
+        g_out, g_ld = (torch.randn(x.shape, generator=g, device=dev)
+                       for _ in range(2))
+        for direction in ("density", "sample"):
+            out, ld = gb._launch(x, params, prep, meta, "lazy", direction)
+            ref = gb.block_plain(direction, x, params, prep, meta, "lazy")
+            torch.cuda.synchronize()
+            err = max((out - ref[0]).abs().max().item(),
+                      (ld - ref[1]).abs().max().item())
+            tol = TOL_DENSITY if direction == "density" else TOL_SAMPLE
+            log(f"kernel vs plain {direction}_lazy (H = {hid}, {N_WIDTH} "
+                f"rows): max|diff| {err:.3e} (limit {tol:g})")
+            if not (err < tol and torch.isfinite(out).all()
+                    and torch.isfinite(ld).all()):
+                raise AssertionError(f"{direction}_lazy at H = {hid}: kernel "
+                                     f"disagrees with its plain version "
+                                     f"({err:.3e})")
+            errs[f"{direction}_lazyh"] = max(errs.get(f"{direction}_lazyh",
+                                                  0.0), err)
+            res = x if direction == "density" else out
+            got, again = (gb._launch_bwd(direction, res, params, g_out, g_ld,
+                                         prep, meta, "lazy")[2:]
+                          for _ in range(2))
+            r_gx, r_gp = gb.block_bwd_plain(direction, res, params, g_out,
+                                            g_ld, prep, meta, "lazy")
+            torch.cuda.synchronize()
+            name = f"{direction}_bwd_lazyh"
+            rels = [rel_norm(a, r) for a, r in zip((got[0], *got[1]),
+                                                   (r_gx, *r_gp))]
+            same = all(torch.equal(a, b) for a, b in zip(
+                (got[0], *got[1]), (again[0], *again[1])))
+            log(f"kernel vs plain {name} (H = {hid}, {N_WIDTH} rows): "
+                f"relative errors gx, ghidden, gw, gb "
+                f"{', '.join(f'{e:.3e}' for e in rels)} (limit "
+                f"{TOL_GRAD[direction]:g}); bit-equal on two launches: "
+                f"{same}")
+            if not (max(rels) < TOL_GRAD[direction] and same):
+                raise AssertionError(f"{name} at H = {hid}: relative errors "
+                                     f"{rels}, repeat bits equal {same}")
+            errs[name] = max(errs.get(name, 0.0), *rels)
+        del p, params, hidden, x
+        torch.cuda.empty_cache()
+    return errs
+
+
 def materialized_ms(call):
     """A yardstick the port never calls: the function of a recorded lazy
     call (T4 / T5 lazy, T7 lazy) through the materialized route on its own
@@ -1890,6 +1972,9 @@ def lazy_phase(dev, card):
     del serve_calls, train_calls
     torch.cuda.empty_cache()
 
+    errs_l = block_lazy_width_check(dev)
+    log(f"lazy mode at H = {', '.join(map(str, LAZY_WIDTHS))}: largest "
+        f"errors {errs_l}")
     launch_w, errs_w = wide_summary_check(dev)
     launch_h, errs_h = h1024_check(dev)
     log(f"routing: wide summary launches "

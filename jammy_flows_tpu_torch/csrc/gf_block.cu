@@ -20,8 +20,8 @@
 // spend ~2*P*H flops per row on the final MLP product (P = 548, H = 128 on
 // the flagship: 140 kflop per row) and each mixture evaluation ~K
 // transcendental-heavy terms per dimension (the sample direction evaluates
-// it ~6 times per layer and dimension).  In lazy2 the P x H product runs on
-// the tensor cores; the rest is f32 on the CUDA cores and the SFU.
+// it ~6 times per layer and dimension).  The P x H product runs on the
+// tensor cores; the rest is f32 on the CUDA cores and the SFU.
 //
 // Design:
 //   * one thread per batch row; a mixture of one dimension (K means,
@@ -39,17 +39,18 @@
 //     not unrolled (a quarter of the solve's code).  What is left is
 //     latency-bound (PERF.md): the sample's four Newton steps are ~90% of
 //     it, at 7 blocks (28 warps) per SM;
-//   * lazy2 (TileSrc): a block of T = 128 rows (64 or 32 while the tile
-//     does not fit: H > 454) makes each row's hidden column in shared
-//     memory, then the parameter rows a piece at a time (a layer's offset
-//     and reflections, one dimension's 3K mixture rows) as a 3xTF32
-//     mma.sync product of the hidden tile and w's rows, streamed by
-//     cp.async, into a shared slab each row reads; 111 KB at H = 128, two
-//     blocks (8 warps) per SM.  Rows past B run the body on zeros (the
-//     stages are block-synchronous) and write nothing;
-//   * lazy (LazySrc): each row's hidden column in shared memory (H x 128
-//     floats, conflict-free; 64 or 32 rows per block above H = 454) and
-//     the parameter rows made on demand per thread from w through L1/L2.
+//   * lazy2 and lazy (TileSrc): a block of T = 128 rows (64 or 32 while
+//     the tile does not fit: H > 454) keeps its rows' hidden activations
+//     in shared memory (lazy2 makes each row's column; lazy copies the
+//     precomputed (B, H) rows, coalesced), then makes the parameter rows a
+//     piece at a time (a layer's offset and reflections, one dimension's
+//     3K mixture rows) as a 3xTF32 mma.sync product of the hidden tile and
+//     w's rows, streamed by cp.async, into a shared slab each row reads;
+//     lazy2 111 KB at H = 128, two blocks (8 warps) per SM; lazy, its
+//     slabs' rows rounded to 8 / 16 instead of 32 (lazy_tile), 73 KB at
+//     the "64-64" flagship's H = 64, three blocks (12 warps).  Rows past B
+//     run the body on zeros (the stages are block-synchronous) and write
+//     nothing.
 // wgmma and TMA for the tile products are later work.
 #include <cuda_runtime.h>
 
@@ -71,10 +72,9 @@ gf_block_density_kernel(const BlockArgs a) {
   extern __shared__ __align__(16) float smem[];
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
   const auto src = make_src<MODE, KT, DT>(a, smem, row);
-  // lazy2's stages are block-synchronous: a row past B runs the body on
-  // zeros and writes nothing
+  // the stages are block-synchronous: a row past B runs the body on zeros
+  // and writes nothing
   const bool valid = row < a.B;
-  if (MODE != LAZY2 && !valid) return;
 
   float x[DN], ld[DN];
   for (int j = 0; j < D; ++j) {
@@ -117,7 +117,6 @@ gf_block_sample_kernel(const BlockArgs a) {
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
   const auto src = make_src<MODE, KT, DT>(a, smem, row);
   const bool valid = row < a.B;
-  if (MODE != LAZY2 && !valid) return;
 
   float x[DN], ld[DN];
   for (int j = 0; j < D; ++j) {
@@ -280,17 +279,14 @@ int perm_grid(int n_tiles, int per_sm, int n_sm) {
 }
 
 // The block of a call: its rows (threads) and dynamic shared memory; lazy2
-// also sets a.tile.  0 or cudaErrorInvalidValue.
+// and lazy also set a.tile.  0 or cudaErrorInvalidValue.
 int block_shape(int mode, BlockArgs& a, int& threads, size_t& smem) {
   threads = 128;
-  if (mode == LAZY2) {
-    a.tile = lazy2_tile(a);
+  if (mode == LAZY2 || mode == LAZYH) {
+    a.tile = mode == LAZY2 ? lazy2_tile(a) : lazy_tile(a);
     if (a.tile.T == 0) return (int)cudaErrorInvalidValue;
     threads = a.tile.T;
     smem = a.tile.floats() * 4;
-  } else if (mode == LAZYH) {
-    while (threads > 32 && (size_t)a.H * threads * 4 > SMEM_LIMIT) threads /= 2;
-    smem = (size_t)a.H * threads * 4;
   } else {
     threads = PERM_THREADS;
     smem = (size_t)PermSrc<1, 0, 1>::FLOATS_PER_ROW * a.P * 4;

@@ -34,15 +34,18 @@
 //     two per SM;
 //   * per row, the forward's per-layer inputs (L*d floats) are kept and the
 //     layers swept in reverse;
-//   * lazy2 (TileSrc, gf_block_src.cuh): the parameter rows come from the
-//     forward's own tile stage (3xTF32 tensor-core products into shared
-//     slabs), in the recomputation and again in the reverse sweep; each
-//     row writes its cotangents over its own slab entries, then the block
-//     adds the piece to dh (dh += dp . w_piece) and to its partial gw
-//     (gw_piece += dp^T . hidden), both 3xTF32 mma.sync products, and to
-//     gb (sum over the tile's rows).  dh lives in the block's global
-//     scratch (L2), so that two 128-row blocks (8 warps) share an SM at
-//     H = 128; the tile shrinks to 64 or 32 rows above H = 454;
+//   * lazy2 and lazy (TileSrc, gf_block_src.cuh): the parameter rows come
+//     from the forward's own tile stage (3xTF32 tensor-core products into
+//     shared slabs), in the recomputation and again in the reverse sweep;
+//     each row writes its cotangents over its own slab entries, then the
+//     block adds the piece to dh (dh += dp . w_piece) and to its partial
+//     gw (gw_piece += dp^T . hidden), both 3xTF32 mma.sync products, and
+//     to gb (sum over the tile's rows).  lazy2's dh lives in the block's
+//     global scratch (L2), so that two 128-row blocks (8 warps) share an
+//     SM at H = 128; lazy keeps dh in shared memory after the tile where
+//     two blocks still fit (lazy_dh_shared: H <= 64 at 128 rows),
+//     else in the scratch too; the tile shrinks to 64 or 32 rows above
+//     H = 454;
 //   * perm: a piece's parameter-row cotangents (one mixture's 3K rows,
 //     one reflection's or offset's d rows) are summed over the warp's 32
 //     rows by a transpose-sum of shuffles (lane j ends with the sum of
@@ -51,14 +54,6 @@
 //     parameter row is always the same lane's, so no barrier in the
 //     per-row body); at the end the block sums its warps' partials in warp
 //     order and writes its row of the partials once;
-//   * lazy: parameter-row cotangents dp are staged for the block's rows
-//     in shared memory; the block then adds sum_rows dp to its private
-//     partial of gb and sum_rows dp * hidden[h] to its partial of gw,
-//     thread h owning column h (hidden and dh columns padded to 129
-//     floats, conflict-free), and each thread adds w^T dp to its row's dh
-//     column; the tile shrinks to 64 or 32 rows while both columns do not
-//     fit in shared memory, and where they do not fit at 32 rows
-//     (H > 864) the dh columns move to the block's scratch;
 //   * lazy2 ends each tile with dh * (1 - hidden^2) -> gsummary per row and
 //     the block's gb1 / gw1 partials; lazy ends it with dh -> ghidden per
 //     row (coalesced: consecutive threads write consecutive h);
@@ -72,7 +67,6 @@ using namespace gf;
 
 namespace {
 
-constexpr int STAGE = 32;  // parameter rows staged per flush (<= threads)
 // floats per parameter row of the backward's PermSrc (x P)
 constexpr int PERM_FLOATS = PermSrc<1, 0, 1, true>::FLOATS_PER_ROW;
 
@@ -86,21 +80,23 @@ struct BwdArgs {
   float* gx;          // (B, D)
   float* gsummary;    // lazy2: (B, n_in); lazy: ghidden (B, H)
   float* partials;    // (gridDim.x, G)
-  float* scratch;     // dh in global memory: (gridDim.x, H, hs), or null
+  float* scratch;     // dh in global memory: (gridDim.x, Hp, hs), or null
   int G;              // perm: P; lazy2: H*n_in + H + P*H + P; lazy: P*H + P
   int hs;             // stride of a hidden / dh row
 };
 
-// a block's working memory: the hidden and dh columns (lazy: shared, dh
-// possibly the block's global scratch; lazy2: TileSrc's hidden and the
-// scratch), the staged row cotangents (lazy) and the warp's partial of the
-// parameter gradient (perm)
+// a block's working memory: TileSrc's hidden tile and the dh columns
+// (lazy2: the block's global scratch; lazy: shared memory after the tile,
+// or the scratch) and the warp's partial of the parameter gradient (perm).
+// The lazy2 backward keeps it on its stack: `kept` holds the 16 bytes that
+// the lazy mode's staged rows took before it used the tile stage, so that
+// lazy2's code stays what it was (without them its SASS changes;
+// tools/tile_breakdown.py --part sass).
 struct Stage {
-  float* hid;    // lazy2, lazy: (H or Hp, hs)
-  float* dh;     // lazy2, lazy: (H or Hp, hs)
-  float* dp;     // lazy: (STAGE, blockDim.x)
-  int* prow;     // lazy: (STAGE,)
-  float* wpart;  // perm: (P,), this warp's own
+  float* hid;      // lazy2: (Hp, hs)
+  float* dh;       // lazy2, lazy: (Hp, hs)
+  float* kept[2];  // unused
+  float* wpart;    // perm: (P,), this warp's own
 };
 
 // ---- perm: a piece's cotangents summed over the warp by shuffles ---------
@@ -162,64 +158,20 @@ __device__ __forceinline__ void warp_flush(float* wpart, const float* vals,
   }
 }
 
-// lazy: add the staged rows' cotangents (cnt rows, one per block row in
-// each) to the block's partials [gw | gb] and to each row's dh column.
-__device__ void flush(const BwdArgs& A, const Stage& st, int cnt) {
-  const BlockArgs& a = A.a;
-  const int T = blockDim.x, tid = threadIdx.x;
-  float* pw = A.partials + (size_t)blockIdx.x * A.G;
-  float* pb = pw + (size_t)a.P * a.H;
-  for (int idx = tid; idx < cnt * a.H; idx += T) {
-    const int j = idx / a.H, h = idx - j * a.H;
-    const float* dp = st.dp + j * T;
-    const float* hv = st.hid + h * A.hs;
-    float acc = 0.0f;
-    for (int t = 0; t < T; ++t) acc += dp[t] * hv[t];
-    pw[(size_t)st.prow[j] * a.H + h] += acc;
-  }
-  for (int j = tid; j < cnt; j += T) {
-    float acc = 0.0f;
-    for (int t = 0; t < T; ++t) acc += st.dp[j * T + t];
-    pb[st.prow[j]] += acc;
-  }
-  float* dcol = st.dh + tid;
-  for (int h = 0; h < a.H; ++h) {
-    float acc = 0.0f;
-    for (int j = 0; j < cnt; ++j)
-      acc += st.dp[j * T + tid] * __ldg(a.w + (size_t)st.prow[j] * a.H + h);
-    dcol[h * A.hs] += acc;
-  }
-}
-
-// lazy: stage this thread's n row cotangents vals (rows given by `rows`)
-// and flush them, STAGE rows at a time.  Every thread of the block calls
-// it with the same n.
-template <class Rows>
-__device__ void stage_flush(const BwdArgs& A, const Stage& st,
-                            const float* vals, int n, const Rows& rows) {
-  const int T = blockDim.x, tid = threadIdx.x;
-  for (int c0 = 0; c0 < n; c0 += STAGE) {
-    const int cnt = min(STAGE, n - c0);
-    for (int j = 0; j < cnt; ++j) st.dp[j * T + tid] = vals[c0 + j];
-    if (tid < cnt) st.prow[tid] = rows(c0 + tid);
-    __syncthreads();
-    flush(A, st, cnt);
-    __syncthreads();
-  }
-}
-
-// ---- lazy2: a piece's cotangents into the gradients, on the tensor cores --
-// (dh_product, gw_product and gb_sum: tile_rows.cuh)
+// ---- lazy2, lazy: a piece's cotangents into the gradients, on the tensor
+// cores (dh_product, gw_product and gb_sum: tile_rows.cuh)
 
 // One piece's cotangents dp (its slab: each row's thread has written its
 // own) into dh, the block's partial gw (3xTF32 tile products) and gb (the
-// sum over the tile's rows, in a fixed order).  Block-synchronous.
-template <class Rows>
+// sum over the tile's rows, in a fixed order).  The partial's gw follows
+// lazy2's gw1 and gb1.  Block-synchronous.
+template <int MODE, class Rows>
 __device__ void flush_piece(const BwdArgs& A, const Stage& st, const Tile& tl,
                             const float* dp, const Rows& rows, int n) {
   if (n <= 0) return;
   const BlockArgs& a = A.a;
-  float* pw = A.partials + (size_t)blockIdx.x * A.G + a.H * a.n_in + a.H;
+  float* pw = A.partials + (size_t)blockIdx.x * A.G;
+  if constexpr (MODE == LAZY2) pw = pw + a.H * a.n_in + a.H;
   float* pb = pw + (size_t)a.P * a.H;
   __syncthreads();
   dh_product(tl, dp, st.dh, a.w, rows, n);
@@ -259,46 +211,41 @@ __device__ __forceinline__ void reflect_bwd(const Src& src, int r0, int D,
 }
 
 // A row's cotangents of one dimension's mixture rows (NV: the length of
-// the caller's array): lazy2 writes them over its row of the staged slab
-// and flushes the piece on the tensor cores; perm sums them over the warp
-// into the warp's partial; lazy stages them for flush, STAGE rows at a
-// time.
+// the caller's array): lazy2 and lazy write them over its row of the
+// staged slab and flush the piece on the tensor cores; perm sums them over
+// the warp into the warp's partial.
 template <int MODE, int NV, class Src>
 __device__ __forceinline__ void emit(const BwdArgs& A, const Stage& st,
                                      const Src& src, const float* vals, int n,
                                      const MixRows& rows) {
-  if constexpr (MODE == LAZY2) {
-    src.put_mix(vals, n);
-    flush_piece(A, st, src.tl, src.tl.sm, rows, n);
-  } else if constexpr (MODE == PERM) {
+  if constexpr (MODE == PERM) {
     warp_flush<NV>(st.wpart, vals, n, rows);
   } else {
-    stage_flush(A, st, vals, n, rows);
+    src.put_mix(vals, n);
+    flush_piece<MODE>(A, st, src.tl, src.tl.sm, rows, n);
   }
 }
 
-// A row's cotangents of the n offset or reflection rows from r0: lazy2
-// writes them over its row of the staged `sa`, flushed by flush_a once the
-// layer's are all there; perm and lazy as `emit`.
+// A row's cotangents of the n offset or reflection rows from r0: lazy2 and
+// lazy write them over its row of the staged `sa`, flushed by flush_a once
+// the layer's are all there; perm as `emit`.
 template <int MODE, int NV, class Src>
 __device__ __forceinline__ void emit_a(const BwdArgs& A, const Stage& st,
                                        const Src& src, const float* vals,
                                        int n, int r0) {
-  if constexpr (MODE == LAZY2) {
-    for (int j = 0; j < n; ++j) *src.a_col(r0 + j) = keep_nan(vals[j]);
-  } else if constexpr (MODE == PERM) {
+  if constexpr (MODE == PERM) {
     warp_flush<NV>(st.wpart, vals, n, SpanRows{r0});
   } else {
-    stage_flush(A, st, vals, n, SpanRows{r0});
+    for (int j = 0; j < n; ++j) *src.a_col(r0 + j) = keep_nan(vals[j]);
   }
 }
 
 template <int MODE, class Src>
 __device__ __forceinline__ void flush_a(const BwdArgs& A, const Stage& st,
                                         const Src& src, const LayerMeta& lm) {
-  if constexpr (MODE == LAZY2)
-    flush_piece(A, st, src.tl, src.tl.sa, SpanRows{lm.row0},
-                (lm.has_off ? A.a.D : 0) + lm.rot_it * A.a.D);
+  if constexpr (MODE != PERM)
+    flush_piece<MODE>(A, st, src.tl, src.tl.sa, SpanRows{lm.row0},
+                      (lm.has_off ? A.a.D : 0) + lm.rot_it * A.a.D);
 }
 
 // One dimension's mixture adjoint (gf_common.cuh mix_adjoint) at x with
@@ -528,9 +475,9 @@ __device__ __forceinline__ void run_tile(const BwdArgs& A, const Stage& st,
 
 // KIND 0: T2 density, 1: T2 sample, 2: T3 (fused NLL); MODE as the source;
 // DHG: dh in the block's global scratch.  A compile-time choice, so that
-// below the scratch width the hidden, dh and staged rows stay shared-space
-// loads and stores (a pointer that may be shared or global would make every
-// access to them a generic one)
+// where dh fits beside the tile its accesses stay shared-space loads and
+// stores (a pointer that may be shared or global would make every access
+// to it a generic one)
 template <int KIND, int MODE, bool DHG, int KT, int DT>
 __global__ void __launch_bounds__(128, MODE == PERM ? 3 : 1)
     gf_block_bwd_kernel(const BwdArgs A) {
@@ -545,11 +492,10 @@ __global__ void __launch_bounds__(128, MODE == PERM ? 3 : 1)
     // the tile's shared memory is TileSrc's; dh is the block's scratch
     st.dh = A.scratch + (size_t)blockIdx.x * a.tile.Hp * A.hs;
   } else if (MODE == LAZYH) {
-    const size_t cols = (size_t)a.H * A.hs;
-    st.hid = smem;
-    st.dh = DHG ? A.scratch + (size_t)blockIdx.x * cols : st.hid + cols;
-    st.dp = DHG ? st.hid + cols : st.dh + cols;
-    st.prow = reinterpret_cast<int*>(st.dp + STAGE * T);
+    // the tile's shared memory is TileSrc's; dh follows it or is the
+    // block's scratch
+    st.dh = DHG ? A.scratch + (size_t)blockIdx.x * a.tile.Hp * A.hs
+                : smem + a.tile.floats();
   } else {
     // after PermSrc's 7P floats, one partial of P floats per warp
     float* wparts = smem + PERM_FLOATS * a.P;
@@ -560,12 +506,9 @@ __global__ void __launch_bounds__(128, MODE == PERM ? 3 : 1)
   if constexpr (MODE == LAZYH) {
     for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
       const int row = tile * T + tid;
-      const bool valid = row < a.B;
-      const LazySrc<N, KT, DN> src(a, st.hid, row, A.hs);
-      for (int h = 0; h < a.H; ++h) {
-        st.dh[h * A.hs + tid] = 0.0f;
-        if (!valid) st.hid[h * A.hs + tid] = 0.0f;
-      }
+      // its hidden tile's copy waits for the previous tile's readers
+      const TileSrc<N, KT, DN, false> src(a, smem, row);
+      for (int h = 0; h < a.tile.Hp; ++h) st.dh[h * A.hs + tid] = 0.0f;
       run_tile<KIND, MODE, KT, DT>(A, st, src, row);
       // ghidden = dh, the tile's rows written h-fastest
       __syncthreads();
@@ -574,7 +517,6 @@ __global__ void __launch_bounds__(128, MODE == PERM ? 3 : 1)
         const int r = idx / a.H, h = idx - r * a.H;
         A.gsummary[(size_t)tile * T * a.H + idx] = st.dh[h * A.hs + r];
       }
-      __syncthreads();
     }
   } else if constexpr (MODE == LAZY2) {
     float* pw1 = A.partials + (size_t)blockIdx.x * A.G;
@@ -710,15 +652,19 @@ cudaError_t dispatch_mode(int kind, int mode, const BwdArgs& A, int blocks,
   return dispatch<PERM>(kind, A, blocks, threads, smem, stream, occupancy);
 }
 
+// Whether the lazy backward keeps dh (dh_bytes) in shared memory after its
+// tile (tile_bytes): where two blocks of both still fit an SM (228 KB, 1 KB
+// of it reserved per block), the blocks the kernel's registers allow.
+bool lazy_dh_shared(size_t tile_bytes, size_t dh_bytes) {
+  return 2 * (tile_bytes + dh_bytes + 1024) <= 228 * 1024;
+}
+
 // The tile of a call: its rows (threads) per block, dynamic shared memory,
 // whether dh lives in the block's global scratch, and the stride of a
 // hidden / dh row.  lazy2 takes lazy2_tile (sets a.tile) and always keeps
 // dh in the scratch: with it in shared memory too, a block of 128 rows at
-// H = 128 would fill the SM alone.  lazy: 128 rows, halved while the hidden
-// and dh columns (H x (threads + 1) floats each) and the staged rows would
-// exceed the shared memory; where they do not fit even at STAGE rows, dh
-// goes to the scratch and the tile is sized for the hidden columns alone.
-// 0 or cudaErrorInvalidValue.
+// H = 128 would fill the SM alone.  lazy takes lazy_tile and keeps dh
+// after it where lazy_dh_shared says so.  0 or cudaErrorInvalidValue.
 int tile_shape(int mode, BlockArgs& a, int& threads, size_t& smem,
                bool& dh_global, int& hs) {
   threads = 128;
@@ -732,18 +678,14 @@ int tile_shape(int mode, BlockArgs& a, int& threads, size_t& smem,
     dh_global = true;
     hs = a.tile.hs;
   } else if (mode == LAZYH) {
-    auto need = [&](int t, int cols) {
-      return (size_t)cols * a.H * (t + 1) * 4 + (size_t)STAGE * t * 4 +
-             STAGE * 4;
-    };
-    while (threads > STAGE && need(threads, 2) > SMEM_LIMIT) threads /= 2;
-    if (need(threads, 2) > SMEM_LIMIT) {
-      dh_global = true;
-      threads = 128;
-      while (threads > STAGE && need(threads, 1) > SMEM_LIMIT) threads /= 2;
-    }
-    smem = need(threads, dh_global ? 1 : 2);
-    hs = threads + 1;
+    a.tile = lazy_tile(a);
+    if (a.tile.T == 0) return (int)cudaErrorInvalidValue;
+    threads = a.tile.T;
+    hs = a.tile.hs;
+    smem = a.tile.floats() * 4;
+    const size_t dh = (size_t)a.tile.Hp * hs * 4;
+    dh_global = !lazy_dh_shared(smem, dh);
+    if (!dh_global) smem += dh;
   } else {
     smem = ((size_t)PERM_FLOATS + threads / 32) * a.P * 4;
   }
@@ -751,9 +693,8 @@ int tile_shape(int mode, BlockArgs& a, int& threads, size_t& smem,
 }
 
 // floats of dh scratch per block (0: dh in shared memory)
-int scratch_floats(int mode, const BlockArgs& a, bool dh_global, int hs) {
-  if (!dh_global) return 0;
-  return mode == LAZY2 ? a.tile.Hp * hs : a.H * hs;
+int scratch_floats(const BlockArgs& a, bool dh_global, int hs) {
+  return dh_global ? a.tile.Hp * hs : 0;
 }
 
 }  // namespace
@@ -790,7 +731,7 @@ extern "C" int gf_block_bwd_blocks(int kind, int mode, int B, int H, int P,
 }
 
 // Floats of global dh scratch a call needs per block: 0 while the dh
-// columns fit in shared memory (perm, lazy below H = 865).
+// columns fit in shared memory (perm; lazy where lazy_dh_shared).
 extern "C" int gf_block_bwd_scratch(int mode, int H, int P, const int* meta) {
   BlockArgs a{};
   a.H = H;
@@ -801,7 +742,7 @@ extern "C" int gf_block_bwd_scratch(int mode, int H, int P, const int* meta) {
   if (parse_meta(a, mode, meta, P) != 0 ||
       tile_shape(mode, a, threads, smem, dh_global, hs) != 0)
     return 0;
-  return scratch_floats(mode, a, dh_global, hs);
+  return scratch_floats(a, dh_global, hs);
 }
 
 // Resident blocks per SM of the kernel a call of this (kind, mode, H, P,

@@ -4,24 +4,19 @@
 //   * perm: the block stages the (P,) vector in shared memory and prepares
 //     it once (regulators, log-softmax of the weights, unit householder
 //     vectors); every thread then reads it as a broadcast;
-//   * lazy2 (TileSrc): each thread writes its row's hidden tanh(w1 s + b1)
-//     into a column of shared memory; the block then makes the parameter
-//     rows of one piece at a time for all its rows at once, as a tile
-//     product hidden (T x H) . W_piece^T (H x n) + b on the tensor cores in
-//     3xTF32 (tile_rows.cuh), into a shared slab that each row's thread
-//     reads.  A piece is a layer's offset and reflection rows (slab `sa`,
-//     kept through the layer) or one dimension's 3K mixture rows (slab
-//     `sm`);
-//   * lazy (precomputed hidden, LazySrc): each thread copies its row of the
-//     (B, H) hidden activations, made outside by the MLP, into its column
-//     and produces each parameter row b_j + w_j . hidden when it needs it,
-//     one layer and dimension at a time, reading w through L1/L2.
-// The stage hooks (stage_rot, stage_mix) are block-synchronous in lazy2 and
-// empty in the other sources: every thread of a block calls them, rows past
-// B included.
+//   * lazy2 and lazy (TileSrc): the block keeps its rows' hidden
+//     activations as a tile in shared memory: lazy2 makes them itself, each
+//     thread its row's tanh(w1 s + b1); lazy copies the (B, H) rows the MLP
+//     made outside.  The block then makes the parameter rows of one piece
+//     at a time for all its rows at once, as a tile product hidden (T x H)
+//     . W_piece^T (H x n) + b on the tensor cores in 3xTF32
+//     (tile_rows.cuh), into a shared slab that each row's thread reads.  A
+//     piece is a layer's offset and reflection rows (slab `sa`, kept
+//     through the layer) or one dimension's 3K mixture rows (slab `sm`).
+// The stage hooks (stage_rot, stage_mix) are block-synchronous in the tile
+// modes and empty in perm: every thread of a block calls them, rows past B
+// included.
 #pragma once
-
-#include <type_traits>
 
 #include "gf_common.cuh"
 #include "tile_rows.cuh"
@@ -52,7 +47,7 @@ struct BlockArgs {
   int n_in, H, P, K, D, n_layers, fit_norm;
   Reg wreg, nreg;
   LayerMeta layers[MAX_LAYERS];
-  TileShape tile;        // lazy2
+  TileShape tile;        // lazy2, lazy
 };
 
 // The meta ints of the C interfaces into a: K, D, the layers and their
@@ -78,10 +73,10 @@ inline int parse_meta(BlockArgs& a, int mode, const int* meta, int P) {
   return row == P ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// The lazy2 tile of a call: the largest T of 128, 64, 32 rows whose shared
+// The tile of a call: the largest T of 128, 64, 32 rows whose shared
 // memory fits; T = 0 when none does.  Slab widths are the layers' widest
-// pieces, rounded up to the 32 columns of a chunk.
-inline TileShape lazy2_tile(const BlockArgs& a) {
+// pieces, rounded up to ra rows (sa) and rm rows (sm).
+inline TileShape piece_tile(const BlockArgs& a, int ra, int rm) {
   int na = 0, nm = 0;
   for (int l = 0; l < a.n_layers; ++l) {
     const LayerMeta& lm = a.layers[l];
@@ -92,12 +87,30 @@ inline TileShape lazy2_tile(const BlockArgs& a) {
   }
   TileShape t{};
   for (int T = 128; T >= 32; T /= 2) {
-    t = TileShape{T, (a.H + 7) / 8 * 8, T + 8, T + 4, (na + 31) / 32 * 32,
-                  (nm + 31) / 32 * 32};
+    t = TileShape{T, (a.H + 7) / 8 * 8, T + 8, T + 4, (na + ra - 1) / ra * ra,
+                  (nm + rm - 1) / rm * rm};
     if (t.floats() * 4 <= TILE_SMEM_LIMIT) return t;
   }
   t.T = 0;
   return t;
+}
+
+// lazy2's tile: the slabs rounded up to the 32 columns of a chunk
+inline TileShape lazy2_tile(const BlockArgs& a) { return piece_tile(a, 32, 32); }
+
+// The lazy mode's slab rounding: each slab holds its widest piece's rows
+// rounded up to this (rows_product writes up to the next multiple of 8),
+// sm at least to 16 (the backward's gw_product reads a piece's rows in m16
+// tiles; what it reads past sa's end lies in sm).  Below lazy2's 32 rows,
+// so that at the "64-64" flagship's H = 64 three blocks (12 warps) share
+// an SM where lazy2's rounding keeps two.
+inline int lazy_slab_round() {
+  return 8;
+}
+
+inline TileShape lazy_tile(const BlockArgs& a) {
+  const int r = lazy_slab_round();
+  return piece_tile(a, r, r > 16 ? r : 16);
 }
 
 // rows of layer l's mixture groups
@@ -356,107 +369,22 @@ struct PermSrc {
   }
 };
 
-// ---- the hidden column of one row -----------------------------------------
-// FUSED: tanh(w1 s + b1) from the row's summary (lazy2); else the row of the
-// precomputed (B, H) hidden activations (lazy)
-template <bool FUSED>
+// ---- the hidden column of one row (lazy2) ---------------------------------
+// tanh(w1 s + b1) from the row's summary
 __device__ __forceinline__ void hidden_column(const BlockArgs& a, float* col,
                                               int stride, int row) {
-  if constexpr (FUSED) {
-    for (int h = 0; h < a.H; ++h) col[h * stride] = 0.0f;
-    const float* s = a.summary + (size_t)row * a.n_in;
-    for (int i = 0; i < a.n_in; ++i) {
-      const float si = s[i];
-      for (int h = 0; h < a.H; ++h) col[h * stride] += a.w1[h * a.n_in + i] * si;
-    }
-    // a NaN kept through the tile products' TF32 split
-    for (int h = 0; h < a.H; ++h)
-      col[h * stride] = keep_nan(tanhf(col[h * stride] + a.b1[h]));
-  } else {
-    const float* hr = a.hidden + (size_t)row * a.H;
-    for (int h = 0; h < a.H; ++h) col[h * stride] = __ldg(hr + h);
+  for (int h = 0; h < a.H; ++h) col[h * stride] = 0.0f;
+  const float* s = a.summary + (size_t)row * a.n_in;
+  for (int i = 0; i < a.n_in; ++i) {
+    const float si = s[i];
+    for (int h = 0; h < a.H; ++h) col[h * stride] += a.w1[h * a.n_in + i] * si;
   }
+  // a NaN kept through the tile products' TF32 split
+  for (int h = 0; h < a.H; ++h)
+    col[h * stride] = keep_nan(tanhf(col[h * stride] + a.b1[h]));
 }
 
-// ---- lazy (precomputed hidden): parameter rows on demand, per thread ------
-// The hidden column is copied from the (B, H) rows.  Rows past B keep an
-// unwritten column; their threads produce nothing.
-template <int N, int KT, int DN>
-struct LazySrc {
-  const float* hid;  // this thread's column: hid[h * stride]
-  int stride, H;
-  const float* w;
-  const float* b;
-
-  __device__ LazySrc(const BlockArgs& a, float* smem, int row, int stride_)
-      : hid(smem + threadIdx.x), stride(stride_), H(a.H), w(a.w), b(a.b) {
-    if (row < a.B) hidden_column<false>(a, smem + threadIdx.x, stride, row);
-  }
-
-  // no stage: the parameters are at hand
-  __device__ void stage_rot(const BlockArgs&, const LayerMeta&) const {}
-  __device__ void stage_mix(const BlockArgs&, const LayerMeta&, int) const {}
-
-  __device__ float param(int j) const {
-    const float* wj = w + (size_t)j * H;
-    float acc = 0.0f;
-    for (int h = 0; h < H; ++h) acc += __ldg(wj + h) * hid[h * stride];
-    return acc + __ldg(b + j);
-  }
-
-  __device__ void unit_vec(int r0, int D, float* v, float& nrm) const {
-    float ss = 0.0f;
-    for (int j = 0; j < D; ++j) {
-      v[j] = param(r0 + j);
-      ss += v[j] * v[j];
-    }
-    nrm = sqrtf(ss + 1e-20f);
-    for (int j = 0; j < D; ++j) v[j] = v[j] / nrm;
-  }
-
-  __device__ void unit_vec(int r0, int D, float* v) const {
-    float nrm;
-    unit_vec(r0, D, v, nrm);
-  }
-
-  __device__ void load_mix_raw(Mix<N>& mx, float* lw, float* ln,
-                               const LayerMeta& lm, int K, int D, int dd,
-                               const BlockArgs& a) const {
-    int m0, lw0, ln0;
-    mix_rows(lm, K, D, m0, lw0, ln0);
-    const int kk = KT > 0 ? KT : K;
-#pragma unroll
-    for (int k = 0; k < kk; ++k) mx.m[k] = lw[k] = ln[k] = 0.0f;
-    // one pass over the hidden units for all 3K rows of this dimension
-    for (int h = 0; h < H; ++h) {
-      const float hv = hid[h * stride];
-      const float* wh = w + h;
-#pragma unroll
-      for (int k = 0; k < kk; ++k) {
-        const int r = k * D + dd;
-        mx.m[k] += __ldg(wh + (size_t)(m0 + r) * H) * hv;
-        lw[k] += __ldg(wh + (size_t)(lw0 + r) * H) * hv;
-        if (lm.has_ln) ln[k] += __ldg(wh + (size_t)(ln0 + r) * H) * hv;
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kk; ++k) {
-      const int r = k * D + dd;
-      mx.m[k] += __ldg(b + m0 + r);
-      lw[k] += __ldg(b + lw0 + r);
-      if (lm.has_ln) ln[k] += __ldg(b + ln0 + r);
-    }
-    prep_mix<N, KT>(mx, lw, ln, K, lm.has_ln && a.fit_norm, a.wreg, a.nreg);
-  }
-
-  __device__ void load_mix(Mix<N>& mx, const LayerMeta& lm, int K, int D,
-                           int dd, const BlockArgs& a) const {
-    float lw[N], ln[N];
-    load_mix_raw(mx, lw, ln, lm, K, D, dd, a);
-  }
-};
-
-// ---- lazy2: parameter rows by tile on the tensor cores --------------------
+// ---- lazy2 and lazy: parameter rows by tile on the tensor cores -----------
 
 // rows of one mixture group: [means | raw log-widths | raw log-norms]
 struct MixRows {
@@ -473,13 +401,14 @@ struct SpanRows {
   __device__ int operator()(int j) const { return r0 + j; }
 };
 
-// lazy2 (FUSED; FUSED = false would take the precomputed hidden rows as
-// LazySrc does): each thread makes its row's hidden column (zeros for a row
-// past B and for the padding to Hp), then the block makes each piece's
-// parameter rows by rows_product when the body asks for them (stage_rot,
-// stage_mix) and each thread reads its row of the slab.  The backward
-// writes a piece's cotangents over its own rows of the slab (a_col,
-// put_mix) for the tile products of gf_block_bwd.cu.
+// The hidden tile: lazy2 (FUSED) has each thread make its row's hidden
+// column (zeros for a row past B and for the padding to Hp); lazy copies
+// the block's rows of the precomputed (B, H) activations, coalesced
+// (load_hidden_tile, block-synchronous).  The block then makes each
+// piece's parameter rows by rows_product when the body asks for them
+// (stage_rot, stage_mix) and each thread reads its row of the slab.  The
+// backward writes a piece's cotangents over its own rows of the slab
+// (a_col, put_mix) for the tile products of gf_block_bwd.cu.
 template <int N, int KT, int DN, bool FUSED>
 struct TileSrc {
   Tile tl;
@@ -491,12 +420,16 @@ struct TileSrc {
   __device__ TileSrc(const BlockArgs& a, float* smem, int row)
       : tl(a.H, a.tile, a.w, smem), w(a.w), b(a.b), t(threadIdx.x),
         r_a(0) {
-    float* col = tl.hid + t;
-    if (row < a.B)
-      hidden_column<FUSED>(a, col, tl.hs, row);
-    else
-      for (int h = 0; h < a.H; ++h) col[h * tl.hs] = 0.0f;
-    for (int h = a.H; h < tl.Hp; ++h) col[h * tl.hs] = 0.0f;
+    if constexpr (FUSED) {
+      float* col = tl.hid + t;
+      if (row < a.B)
+        hidden_column(a, col, tl.hs, row);
+      else
+        for (int h = 0; h < a.H; ++h) col[h * tl.hs] = 0.0f;
+      for (int h = a.H; h < tl.Hp; ++h) col[h * tl.hs] = 0.0f;
+    } else {
+      load_hidden_tile(tl, a.hidden, row - t, a.B, a.H);
+    }
   }
 
   __device__ void stage_rot(const BlockArgs& a, const LayerMeta& lm) const {
@@ -576,22 +509,17 @@ __device__ __forceinline__ void reflect(const Src& src, int r0, float* x, int D)
 }
 
 template <int MODE, int N, int KT, int DN>
-using SrcT = typename std::conditional<MODE == LAZY2,
-                                       TileSrc<N, KT, DN, true>,
-                                       LazySrc<N, KT, DN>>::type;
+using SrcT = TileSrc<N, KT, DN, MODE == LAZY2>;
 
-// the lazy2 / lazy forward kernels' source (lazy: hidden columns at stride
-// blockDim.x); the perm forward (gf_block.cu) builds its PermSrc itself
+// the lazy2 / lazy forward kernels' source; the perm forward (gf_block.cu)
+// builds its PermSrc itself
 template <int MODE, int KT, int DT>
 __device__ __forceinline__ SrcT<MODE, (KT > 0 ? KT : KMAX), KT,
                                 (DT > 0 ? DT : DMAX)>
 make_src(const BlockArgs& a, float* smem, int row) {
   static_assert(MODE == LAZY2 || MODE == LAZYH, "lazy2 or lazy");
   using S = SrcT<MODE, (KT > 0 ? KT : KMAX), KT, (DT > 0 ? DT : DMAX)>;
-  if constexpr (MODE == LAZY2)
-    return S(a, smem, row);
-  else
-    return S(a, smem, row, blockDim.x);
+  return S(a, smem, row);
 }
 
 }  // namespace gf

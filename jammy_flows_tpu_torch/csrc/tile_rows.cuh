@@ -1,7 +1,7 @@
 // The tensor-core tile stage of the kernels that make their parameter rows
-// from hidden activations, b_j + w_j . hidden: the lazy2 block kernels
-// (gf_block_src.cuh TileSrc, gf_block_bwd.cu) and the per-layer lazy
-// kernels (gf_layer_src.cuh, gf_layer.cu, gf_layer_bwd.cu).  A block of T
+// from hidden activations, b_j + w_j . hidden: the lazy2 and lazy block
+// kernels (gf_block_src.cuh TileSrc, gf_block_bwd.cu) and the per-layer
+// lazy kernels (gf_layer_src.cuh, gf_layer.cu, gf_layer_bwd.cu).  A block of T
 // rows keeps its rows' hidden activations as a tile in shared memory (or
 // streams them through it: rows_product_streamed); a piece of n parameter
 // rows (rows(c), c < n) is then made for all T rows at once as the tile
@@ -70,6 +70,41 @@ struct Tile {
         Hp(s.Hp), hs(s.hs), ts(s.ts),
         vec(H_ % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0) {}
 };
+
+// The precomputed hidden rows row0 .. row0 + T - 1 (T = blockDim.x) of
+// the (B, H) activations into the tile, coalesced, eight loads in flight a
+// thread: zeros past B and in the columns H .. Hp - 1; a NaN kept for the
+// TF32 split.  Block-synchronous; its first barrier waits for the previous
+// tile's readers.  (The per-layer backward keeps its own copy of this loop,
+// LayerTileSrc::load_tile: calling this one changed the SASS of its lazy
+// kernels.)
+__device__ inline void load_hidden_tile(const Tile& tl, const float* hidden,
+                                        int row0, int B, int H) {
+  constexpr int U = 8;
+  const int T = blockDim.x, t = threadIdx.x, total = T * H;
+  const int n = min(T, B - row0) * H;
+  const float* src = hidden + (size_t)row0 * H;
+  __syncthreads();
+  for (int i0 = 0; i0 < total; i0 += U * T) {
+    float v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * T + t;
+      v[u] = i < n ? __ldg(src + i) : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * T + t;
+      if (i < total) {
+        const int r = i / H, h = i - r * H;
+        tl.hid[h * tl.hs + r] = keep_nan(v[u]);
+      }
+    }
+  }
+  for (int i = t; i < (tl.Hp - H) * T; i += T)
+    tl.hid[(H + i / T) * tl.hs + i % T] = 0.0f;
+  __syncthreads();
+}
 
 // Start copying w's rows rows(c0 .. c0 + NC - 1) (those below n), columns
 // h0 .. h0 + 31 (those below H), into a chunk buffer at row stride ws,
@@ -366,8 +401,9 @@ __device__ void rows_product_streamed(const StreamTile& tl,
 // conflict-free B fragments), and each
 // chunk's hidden columns are taken 16 at a time (two n8 tiles: 16
 // accumulators a lane, so that the products keep to registers beside the
-// body's live state).  dh (Hp, hs) is the block's global scratch; the
-// warp's own entries are the accumulators' start.
+// body's live state).  dh (Hp, hs) is the block's global scratch (or, in
+// the lazy mode where the tile leaves room, shared memory); the warp's own
+// entries are the accumulators' start.
 template <int NC = TILE_NC, class Rows>
 __device__ void dh_product(const Tile& tl, const float* dp, float* dh,
                            const float* w, const Rows& rows, int n) {

@@ -2,7 +2,8 @@
 again with parts of them switched off, on the card.
 
     python -m jammy_flows_tpu_torch.tools.tile_breakdown
-        [--part lazy2|perm|perm_fwd|layer_lazy] [--csrc DIR [DIR ...]]
+        [--part lazy2|perm|perm_fwd|layer_lazy|block_lazy|sass]
+        [--csrc DIR [DIR ...]]
 
 Builds ``csrc/gf_block.cu`` and ``csrc/gf_block_bwd.cu`` from a copy of the
 sources (``--csrc``, by default the package's own: a parent tree's sources
@@ -60,6 +61,31 @@ alone as ``torch.matmul`` and the materialized route (that product as
 per-row slabs, then the raw per-row kernel; T7 also ghidden and gw as
 matmuls).  With ``-Xptxas -v``: the lazy kernels' registers, stack and
 spills; blocks per SM where the sources have an occupancy query.
+
+block_lazy (the block's lazy mode, precomputed hidden activations, on
+the flagship with ``amortization_mlp_dims="64-64"``, block 2: K = 10,
+d = 4, P = 548, H = 64; T1 ``density_lazyh`` / ``sample_lazyh``, T2
+``density_bwd_lazyh`` / ``sample_bwd_lazyh``), each timed alone and as
+one of 10 launches back to back: as built; with the parameter product off
+(every parameter row its bias b: the per-thread loops over the hidden
+units of ``LazySrc`` before the tile redesign, ``rows_product`` after
+it); T2 with the flush of the row cotangents into dh, gw and gb off
+(``flush`` before, ``flush_piece`` after); where the sources choose them
+by a function, the design's alternatives: the slabs' rows rounded up to
+32 (``lazy_slab_round``) and dh in the block's global scratch at every H
+(``lazy_dh_shared``).  Yardsticks on the same inputs: the P x H product
+alone as one ``torch.matmul`` (float32 at "highest" precision), hidden .
+w^T; T2 the two products dh = dp . w and gw = dp^T . hidden.  With
+``-Xptxas -v`` the lazy kernels' registers, stack and spills, with
+``cuobjdump -sass`` their TF32 HMMA instructions, and their blocks per SM
+(the occupancy API) for every variant.
+
+sass (no timing): the as-built libraries of every block and per-layer
+source (``gf_block``, ``gf_block_bwd``, ``gf_layer``, ``gf_layer_bwd``) of
+each tree, their kernels' SASS (``cuobjdump -sass``) compared with the
+first tree's, function by function, with addresses and immediates masked:
+per library the functions that are identical, those that differ (with
+their count of differing instructions) and those only one tree has.
 
 Forward at 1,048,576 rows, backward at 262,144; CUDA events, median of
 10.  Prints one JSON line with the card's name and power limit.  Needs a
@@ -125,6 +151,28 @@ _LAYER_FLUSH = {
     r"template <bool LAZY>\s*__device__ void flush\(const LayerBwdArgs[^)]*\)"
     r"\s*\{\n": "  if (LAZY) return;\n",
     r"__device__ void layer_flush\([^)]*\)\s*\{\n": "  return;\n"}
+# the block's lazy mode (T1 / T2 lazyh): its parameter product (before the
+# tile redesign LazySrc's per-thread loops over the hidden units, left so
+# that every parameter row is b; after it rows_product, as _OFF), its
+# flush (the staged per-thread flush before, flush_piece's tile products
+# after) and, where the sources choose them by a function, the tile's
+# slab rounding and dh's place
+_BLOCK_LAZY = {
+    "block_lazy_product": {
+        r"__device__ float param\(int j\) const \{\n":
+            "    return __ldg(b + j);\n",
+        r"// one pass over the hidden units for all 3K rows of this "
+        r"dimension\n\s*for \(int h = 0; h < H; \+\+h\) \{\n": "break;\n",
+        r"__device__ void rows_product\([^)]*\)\s*\{\n": _OFF["rows_product"]},
+    "block_lazy_flush": {
+        r"__device__ void flush\(const BwdArgs& A, const Stage& st, int "
+        r"cnt\) \{\n": "  return;\n",
+        r"__device__ void flush_piece\([^)]*\)\s*\{\n": "  return;\n"},
+    "lazy_slabs_32": {r"int lazy_slab_round\(\)\s*\{\n": "  return 32;\n"},
+    "lazy_dh_global": {r"bool lazy_dh_shared\([^)]*\)\s*\{\n":
+                       "  return false;\n"},
+}
+_BOTH = ("gf_block", "gf_block_bwd")
 # part -> variant -> (the switches on, the libraries built); a variant
 # whose switch the sources do not have is left out (perm_grid)
 VARIANTS = {
@@ -143,6 +191,12 @@ VARIANTS = {
                    "product_off": (("layer_product",),
                                    ("gf_layer", "gf_layer_bwd")),
                    "flush_off": (("layer_flush",), ("gf_layer_bwd",))},
+    "block_lazy": {"as_built": ((), _BOTH),
+                   "product_off": (("block_lazy_product",), _BOTH),
+                   "flush_off": (("block_lazy_flush",), ("gf_block_bwd",)),
+                   "slabs_32": (("lazy_slabs_32",), _BOTH),
+                   "dh_global": (("lazy_dh_global",), ("gf_block_bwd",))},
+    "sass": {"as_built": ((), _BOTH + ("gf_layer", "gf_layer_bwd"))},
 }
 
 
@@ -162,7 +216,9 @@ def _switches(src_dir, part):
             [("layer_product", head, body)
              for head, body in _LAYER_PRODUCT.items()] + \
             [("layer_flush", head, body)
-             for head, body in _LAYER_FLUSH.items()]
+             for head, body in _LAYER_FLUSH.items()] + \
+            [(switch, head, body) for switch, heads in _BLOCK_LAZY.items()
+             for head, body in heads.items()]
         if path.name == "gf_block.cu":
             cases += [("perm_body", head, "break;\n") for head in _PERM_BODY]
             cases += [("perm_grid", _PERM_GRID, "  return n_tiles;\n")]
@@ -172,7 +228,14 @@ def _switches(src_dir, part):
                                f"\n{body}#endif\n", text)
             found += [switch] * n
         path.write_text(text)
-    if part == "layer_lazy":
+    if part == "sass":
+        pass
+    elif part == "block_lazy":
+        if "block_lazy_product" not in found or \
+                "block_lazy_flush" not in found:
+            raise RuntimeError(f"switches found {found}, expected the "
+                               "block lazy product and flush")
+    elif part == "layer_lazy":
         if "layer_product" not in found or "layer_flush" not in found:
             raise RuntimeError(f"switches found {found}, expected the "
                                "layer product and the layer flush")
@@ -294,6 +357,65 @@ def layer_ptxas(report):
     return out
 
 
+# the block's lazy-mode kernels' mangled names: gf_block_density_kernel /
+# gf_block_sample_kernel<MODE = 2, KT, DT>, gf_block_bwd_kernel<KIND, MODE
+# = 2, DHG, KT, DT>
+_BLOCK_LAZY_KERNELS = (
+    (r"gf_block_(density|sample)_kernelILi2ELi(\d+)E",
+     lambda m: f"{m.group(1)}_lazyh"),
+    (r"gf_block_bwd_kernelILi(\d)ELi2ELb\dELi(\d+)E",
+     lambda m: ("density_bwd_lazyh", "sample_bwd_lazyh")[int(m.group(1))]))
+
+
+def _block_lazy_kernel(name):
+    """(counter name, shape) of a lazy-mode block kernel's mangled name
+    (a dh-in-scratch instance of the backward gets " dh global"), or
+    None."""
+    for pat, kernel in _BLOCK_LAZY_KERNELS:
+        m = re.search(pat, name)
+        if m:
+            shape = "K=10, d=4" if m.group(2) == "10" else "generic"
+            if "bwd" in pat and re.search(r"ELi2ELb1E", name):
+                shape += ", dh global"
+            return kernel(m), shape
+    return None
+
+
+def block_lazy_ptxas(report):
+    """{kernel: "registers, stack, spills"} of the block's lazy-mode
+    kernels in an -Xptxas -v report."""
+    out = {}
+    for name, body in re.findall(r"Function properties for (\S+)\n(.*?)"
+                                 r"(?=ptxas info\s+: Compil|\Z)", report, re.S):
+        which = _block_lazy_kernel(name)
+        regs = re.search(r"Used (\d+) registers", body)
+        spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", body)
+        if which and regs and spill:
+            out[f"{which[0]} ({which[1]})"] = (
+                f"{regs.group(1)} registers, stack {spill.group(1)} B, spill "
+                f"stores {spill.group(2)} B, loads {spill.group(3)} B")
+    return out
+
+
+def block_lazy_hmma(libs):
+    """{kernel: TF32 HMMA instructions} of the block's lazy-mode kernels in
+    the SASS (cuobjdump -sass) of the built libraries ``libs``."""
+    tool = pathlib.Path(cuda_build.nvcc_path()).parent / "cuobjdump"
+    out = {}
+    for lib in libs:
+        sass = subprocess.run([str(tool), "-sass", str(lib)],
+                              capture_output=True, text=True, check=True,
+                              timeout=600).stdout
+        for fn, body in re.findall(r"Function : (\S+)\n(.*?)"
+                                   r"(?=Function : |\Z)", sass, re.S):
+            which = _block_lazy_kernel(fn)
+            if which:
+                out[f"{which[0]} ({which[1]})"] = len(
+                    re.findall(r"HMMA\.\S*TF32", body))
+    return out
+
+
 # SASS instruction classes counted in the perm forward kernels
 _SASS_OPS = ("MUFU.EX2", "MUFU.LG2", "MUFU.RCP", "MUFU.RSQ", "MUFU.SQRT",
              "FFMA", "FMUL", "FADD", "FCHK", "CALL", "LDS", "LDL", "STL")
@@ -317,6 +439,49 @@ def perm_fwd_sass(lib):
                   for op in _SASS_OPS}
         counts["instructions"] = len(ops)
         out[f"{which[0]} ({which[1]})"] = counts
+    return out
+
+
+def _sass_functions(lib):
+    """{mangled function name: [instructions]} of a built library's SASS,
+    addresses and immediates masked (0x...: branch targets, constants,
+    constant-bank offsets)."""
+    tool = pathlib.Path(cuda_build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=600).stdout
+    out = {}
+    for fn, body in re.findall(r"Function : (\S+)\n(.*?)(?=Function : |\Z)",
+                               sass, re.S):
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", body)
+        # the anonymous namespace's name carries a hash of the source
+        fn = re.sub(r"_ZN\d+_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}",
+                    "_ZN_anon_", fn)
+        out[fn] = [re.sub(r"0x[0-9a-fA-F]+", "0x#", " ".join(o.split()))
+                   for o in ops]
+    return out
+
+
+def sass_compare(paths, trees):
+    """{tree: {library: {"identical": n, "differ": {function: differing
+    instructions}, "only_here": [...], "only_first": [...]}}} of every tree
+    against the first one's SASS."""
+    first, *rest = trees
+    out = {}
+    for tree in rest:
+        res = {}
+        for lib in VARIANTS["sass"]["as_built"][1]:
+            a = _sass_functions(paths[(first, "as_built", lib)])
+            b = _sass_functions(paths[(tree, "as_built", lib)])
+            differ = {}
+            for fn in sorted(a.keys() & b.keys()):
+                if a[fn] != b[fn]:
+                    n = sum(x != y for x, y in zip(a[fn], b[fn]))
+                    differ[fn] = n + abs(len(a[fn]) - len(b[fn]))
+            res[lib] = {"identical": len(a.keys() & b.keys()) - len(differ),
+                        "differ": differ,
+                        "only_here": sorted(b.keys() - a.keys()),
+                        "only_first": sorted(a.keys() - b.keys())}
+        out[tree] = res
     return out
 
 
@@ -455,6 +620,80 @@ def _lazy2_case(gb, p, dev, g):
         return times
 
     return run
+
+
+def _block_lazy_case(gb, dev, g, n_fwd=1 << 20, n_bwd=1 << 18):
+    """The block's lazy mode on the "64-64" flagship's block 2 (K = 10,
+    d = 4, P = 548, H = 64), its MLP jittered by 0.02 N(0, 1), hidden rows
+    made by the MLP from a random summary: T1 on n_fwd rows, T2 on the
+    first n_bwd of them (the sample body at the plain sample's output)
+    with cotangents from ``g``.  run(lib, variant) times the kernels of
+    library ``lib`` single and as one of 10 launches back to back;
+    yardsticks() times, on the same inputs, the P x H products alone as
+    torch.matmul at "highest" precision; blocks(variant) gives each
+    kernel's blocks per SM.  Returns (run, yardsticks, blocks, shapes)."""
+    import torch
+    from .. import pdf
+    p = pdf("e4+s2+e4", "gggg+f+gggg", amortization_mlp_dims="64-64",
+            device=dev)
+    prep, meta = p._block_meta[2]
+    mlp = p.mlp_predictors[2]
+    flat = p.init_params(seed=0)["mlp_2"]
+    flat = flat + 0.02 * torch.randn(flat.shape, generator=g, device=dev)
+    w, b = (t.contiguous() for t in mlp.final_layer_weights(flat))
+    summary = torch.randn((n_fwd, mlp.input_dim), generator=g, device=dev)
+    hidden = mlp.apply_penultimate(flat, summary).contiguous()
+    del summary
+    x = 0.8 * torch.randn((n_fwd, 4), generator=g, device=dev)
+    z = torch.randn((n_fwd, 4), generator=g, device=dev)
+    par = (hidden, w, b)
+    par2 = (hidden[:n_bwd].contiguous(), w, b)
+    x2 = x[:n_bwd].contiguous()
+    y2 = gb.block_plain("sample", z[:n_bwd].contiguous(), par2, prep, meta,
+                        "lazy")[0]
+    g_out = torch.randn(x2.shape, generator=g, device=dev)
+    g_ld = torch.randn(x2.shape, generator=g, device=dev)
+    hid = w.shape[1]
+
+    def cases(lib):
+        if lib == "gf_block":
+            for d, arg in (("density", x), ("sample", z)):
+                yield f"{d}_lazyh", lambda: gb._launch(arg, par, prep, meta,
+                                                       "lazy", d)
+        else:
+            for d, arg in (("density", x2), ("sample", y2)):
+                yield f"{d}_bwd_lazyh", lambda: gb._launch_bwd(
+                    d, arg, par2, g_out, g_ld, prep, meta, "lazy")
+
+    def run(lib, variant):
+        times = {}
+        for name, fn in cases(lib):
+            times[f"{name} {variant}"] = _ms(fn)
+            times[f"{name} {variant} (10 back to back)"] = \
+                _ms_back_to_back(fn)
+        return times
+
+    def yardsticks():
+        torch.set_float32_matmul_precision("highest")
+        dp = torch.randn((n_bwd, w.shape[0]), generator=g, device=dev)
+        times = {
+            "lazyh forward: product alone (torch.matmul)":
+                _ms(lambda: torch.matmul(hidden, w.T)),
+            "lazyh backward: products dh, gw alone (torch.matmul)":
+                _ms(lambda: (torch.matmul(dp, w),
+                             torch.matmul(dp.T, par2[0])))}
+        del dp
+        return times
+
+    def blocks(lib):
+        names = (("density_lazyh", "sample_lazyh") if lib == "gf_block"
+                 else ("density_bwd_lazyh", "sample_bwd_lazyh"))
+        return {n: list(gb.kernel_occupancy(n, prep, meta, hid))
+                for n in names}
+
+    shapes = {"K": meta[0], "d": meta[1], "P": w.shape[0], "H": hid,
+              "rows_forward": n_fwd, "rows_backward": n_bwd}
+    return run, yardsticks, blocks, shapes
 
 
 # the per-layer lazy kernels each layer_lazy variant changes
@@ -612,6 +851,11 @@ def main(argv=None):
                           text=True, check=True).stdout.strip()
     trees = {str(c): c for c in args.csrc}
     paths, report = build(args.part, trees, args.variants)
+    if args.part == "sass":
+        print(json.dumps({"card": card, "part": "sass",
+                          "against": str(args.csrc[0]),
+                          "trees": sass_compare(paths, trees)}))
+        return 0
     dev = torch.device("cuda", torch.cuda.current_device())
     p = pdf("e4+s2+e4", "gggg+f+gggg", device=dev)
     g = torch.Generator(device=dev).manual_seed(0)
@@ -620,6 +864,9 @@ def main(argv=None):
         run = _perm_case(gb, p, dev, g, n_sm)
     elif args.part == "perm_fwd":
         run = _perm_fwd_case(gb, p, dev, g)
+    elif args.part == "block_lazy":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        run, yardsticks, blocks, shapes = _block_lazy_case(gb, dev, g)
     elif args.part == "layer_lazy":
         from ..ops import gf_layer as gl
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -653,6 +900,12 @@ def main(argv=None):
                                                   "gf_block")])}
         elif args.part == "layer_lazy":
             extra = {"shapes": shapes, "ptxas": layer_ptxas(report[tree]),
+                     "blocks_per_sm": {}}
+        elif args.part == "block_lazy":
+            extra = {"shapes": shapes,
+                     "ptxas": block_lazy_ptxas(report[tree]),
+                     "tf32_hmma": block_lazy_hmma(
+                         [paths[(tree, "as_built", lib)] for lib in _BOTH]),
                      "blocks_per_sm": {}}
         else:
             extra = {"rows_forward": 1 << 20, "rows_backward": 1 << 18}
@@ -694,9 +947,15 @@ def main(argv=None):
             elif args.part == "perm_fwd":
                 t, extra["blocks_per_sm"][variant] = run(variant)
                 times.update(t)
+            elif args.part == "block_lazy":
+                times.update(run(lib, variant))
+                extra["blocks_per_sm"].setdefault(variant, {}).update(
+                    blocks(lib))
             else:
                 times.update(run(lib, variant))
         cuda_build._LOADED.clear()
+        if args.part == "block_lazy":
+            times.update(yardsticks())
         results[tree] = {"ms": times, **extra}
     if len(trees) == 1:
         (tree, res), = results.items()

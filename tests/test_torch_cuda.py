@@ -36,8 +36,11 @@ def dev():
 
 
 def _block_args(p, k, n, seed, dev):
-    """Inputs of sub-manifold k's block: (mode, x, params)."""
+    """Inputs of sub-manifold k's block: (mode, x, params), all from
+    ``seed`` (numpy for x, a torch generator of its own for the rest:
+    never the global one, whose state the tests before would set)."""
     rng = np.random.default_rng(seed)
+    g = torch.Generator(device=dev).manual_seed(seed)
     par = p.init_params(seed=0)
     d = p._block_meta[k][1][1]
     x = torch.as_tensor(0.8 * rng.normal(size=(n, d)), dtype=torch.float32,
@@ -45,15 +48,15 @@ def _block_args(p, k, n, seed, dev):
     mlp = p.mlp_predictors[k]
     if mlp is None:
         pvec = par["flow_0"] + 0.1 * torch.randn(par["flow_0"].shape,
-                                                 device=dev)
+                                                 generator=g, device=dev)
         return "perm", x, (pvec,)
     flat = par[f"mlp_{k}"]
     w1, b1 = mlp.first_layer_weights(flat)
     w, b = mlp.final_layer_weights(flat)
-    w = (w + 0.02 * torch.randn(w.shape, device=dev)).contiguous()
-    summary = torch.randn((n, mlp.input_dim), device=dev)
-    return "lazy2", x, (summary, w1.contiguous(), b1.contiguous(), w,
-                        b.contiguous())
+    w = (w + 0.02 * torch.randn(w.shape, generator=g, device=dev))
+    summary = torch.randn((n, mlp.input_dim), generator=g, device=dev)
+    return "lazy2", x, (summary, w1.contiguous(), b1.contiguous(),
+                        w.contiguous(), b.contiguous())
 
 
 def _check_block(p, k, dev, direction, n=4096, seed=0):
@@ -423,6 +426,28 @@ def test_perm_fwd_kernels_at_tile_edges(dev, shape, direction, which):
         assert torch.equal(val, out) and torch.equal(ld3, ld)
 
 
+def test_test_inputs_come_from_their_seed_alone(dev):
+    """The inputs of the kernel-vs-plain tests (_block_args, _lazy_args)
+    are the same whatever torch's global generator drew before.  They once
+    took their random parameters from it, so that the tests before one in
+    the same process chose its parameters: test_perm_fwd_kernels_at_tile_
+    edges then failed now and then, on draws that put one of its 168,961
+    rows on the layer-0 iCDF's float32 seam (cdf = 0.5e-7, where the erfinv
+    polynomial gives way to the Pade approximation with a jump of ~3e-3),
+    so that the kernel and its plain version, a float32 rounding apart,
+    took different sides of it."""
+    p = pdf(*FLAGSHIP, device=dev)
+    p_lazy = pdf(*FLAGSHIP, amortization_mlp_dims="64-64", device=dev)
+    for make in (lambda: _block_args(p, 0, 129, 5, dev)[1:],
+                 lambda: _block_args(p, 2, 129, 5, dev)[1:],
+                 lambda: _lazy_args(p_lazy, 2, 129, 5, dev)):
+        first = make()
+        torch.randn(1000, device=dev)
+        again = make()
+        for a, b in zip((first[0], *first[1]), (again[0], *again[1])):
+            assert torch.equal(a, b)
+
+
 def test_perm_density_fallback_lanes_t3_equals_t1(dev):
     """Rows far in the tails (every component beyond 55 widths) take the
     density's fallback lanes, where T1 perm reads lnw + log(iw) prepared
@@ -779,15 +804,16 @@ def test_layer_lazy_kernels_keep_nan_as_plain(dev, what):
 def _lazy_args(p, k, n, seed, dev):
     """Inputs of sub-manifold k's block in the lazy mode: x and (hidden, w,
     b), the hidden activations made by the block's own (jittered) MLP from a
-    random summary."""
+    random summary; all from ``seed``, as _block_args."""
     rng = np.random.default_rng(seed)
+    g = torch.Generator(device=dev).manual_seed(seed)
     d = p._block_meta[k][1][1]
     x = torch.as_tensor(0.8 * rng.normal(size=(n, d)), dtype=torch.float32,
                         device=dev)
     mlp = p.mlp_predictors[k]
     flat = p.init_params(seed=0)[f"mlp_{k}"]
-    flat = flat + 0.02 * torch.randn(flat.shape, device=dev)
-    summary = torch.randn((n, mlp.input_dim), device=dev)
+    flat = flat + 0.02 * torch.randn(flat.shape, generator=g, device=dev)
+    summary = torch.randn((n, mlp.input_dim), generator=g, device=dev)
     hidden = mlp.apply_penultimate(flat, summary).contiguous()
     w, b = mlp.final_layer_weights(flat)
     return x, (hidden, w.contiguous(), b.contiguous())
@@ -824,11 +850,38 @@ def test_lazy_mode_kernels_match_plain(dev):
             device=dev)
     prep, meta = p._block_meta[2]
     x, params = _lazy_args(p, 2, 4099, 0, dev)
+    _check_lazy_fwd(x, params, prep, meta, entry_points=True)
+    _check_bwd_mode(x, params, prep, meta, "lazy", dev, ("density", "sample"))
+    with pytest.raises(ValueError):
+        gb._launch_bwd("nll", x, params, None, None, prep, meta, "lazy",
+                       1.0, -1.0)
+
+
+# the block's lazy mode on the "64-64" flagship's own block 2 with the
+# MLP's last hidden width changed: 12 (not a multiple of the 8-wide k
+# step), 200 (dh in the global scratch), 1024 (32-row tiles); the
+# flagship's 64 (dh in shared memory) is test_lazy_mode_kernels_match_
+# plain's
+LAZY_WIDTHS = (12, 200, 1024)
+LAZY_BATCHES = ("1", "127", "129", "wave-1", "wave+1")
+
+
+def _lazy_model(hid, dev):
+    """The flagship with "64-<hid>" MLPs: block 2 takes the lazy mode on
+    hidden rows of width hid."""
+    return pdf(*FLAGSHIP, amortization_mlp_dims=f"64-{hid}", device=dev)
+
+
+def _check_lazy_fwd(x, params, prep, meta, entry_points=False):
+    """T1 lazy, both directions, against the plain version, one counted
+    launch each (through the entry points gf_block_*_lazy, or the
+    launcher)."""
     for direction in ("density", "sample"):
         name = f"{direction}_lazyh"
         before = gb.LAUNCHES[name]
-        out, ld = getattr(gb, f"gf_block_{direction}_lazy")(x, *params, prep,
-                                                            meta)
+        out, ld = (getattr(gb, f"gf_block_{direction}_lazy")(
+            x, *params, prep, meta) if entry_points else
+            gb._launch(x, params, prep, meta, "lazy", direction))
         assert gb.LAUNCHES[name] == before + 1
         ref_out, ref_ld = gb.block_plain(direction, x, params, prep, meta,
                                          "lazy")
@@ -836,10 +889,127 @@ def test_lazy_mode_kernels_match_plain(dev):
         assert torch.isfinite(out).all() and torch.isfinite(ld).all()
         assert float((out - ref_out).abs().max()) < TOL[direction]
         assert float((ld - ref_ld).abs().max()) < TOL[direction]
+
+
+@pytest.mark.parametrize("hid", LAZY_WIDTHS)
+def test_lazy_tile_kernels_across_widths(dev, hid):
+    """T1 and T2 lazy (3xTF32 tile products) at the widths of LAZY_WIDTHS
+    on 4,099 rows (not a multiple of any tile): both forward directions and
+    both backward bodies against their plain versions."""
+    p = _lazy_model(hid, dev)
+    prep, meta = p._block_meta[2]
+    x, params = _lazy_args(p, 2, 4099, 0, dev)
+    assert params[0].shape[1] == hid
+    _check_lazy_fwd(x, params, prep, meta)
     _check_bwd_mode(x, params, prep, meta, "lazy", dev, ("density", "sample"))
-    with pytest.raises(ValueError):
-        gb._launch_bwd("nll", x, params, None, None, prep, meta, "lazy",
-                       1.0, -1.0)
+
+
+def test_lazy_tiles_hold_three_forward_blocks_per_sm(dev):
+    """At the "64-64" flagship's H = 64 the lazy forward's tile (128 rows,
+    its slabs' rows rounded to 8 / 16: ~73 KB) lets three blocks share an
+    SM (12 warps); the backward, with dh in shared memory beside the tile
+    (~107 KB), two, as many as its registers allow."""
+    p = _lazy_model(64, dev)
+    prep, meta = p._block_meta[2]
+    for name, want in (("density_lazyh", 3), ("sample_lazyh", 3),
+                       ("density_bwd_lazyh", 2), ("sample_bwd_lazyh", 2)):
+        blocks, threads, _ = gb.kernel_occupancy(name, prep, meta, 64)
+        assert threads == 128 and blocks >= want, (name, blocks, threads)
+
+
+@pytest.mark.parametrize("which", LAZY_BATCHES)
+def test_lazy_kernels_at_tile_edges(dev, which):
+    """The lazy kernels at H = 64 on one row, one row short of and past a
+    128-row tile, and one row short of and past a full wave: T1 (a block
+    per tile) at (blocks per SM) x SMs tiles, T2 (persistent blocks, two
+    per SM) at 2 x SMs tiles, where one block walks a second tile of one
+    row."""
+    p = _lazy_model(64, dev)
+    prep, meta = p._block_meta[2]
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name in ("density_lazyh", "density_bwd_lazyh"):
+        n = int(which) if which[0].isdigit() else None
+        if n is None:
+            per_sm, rows, _ = gb.kernel_occupancy(name, prep, meta, 64)
+            per_sm = 2 if "_bwd_" in name else per_sm
+            n = per_sm * n_sm * rows + (1 if which.endswith("+1") else -1)
+        x, params = _lazy_args(p, 2, n, 3, dev)
+        if "_bwd_" in name:
+            _check_bwd_mode(x, params, prep, meta, "lazy", dev,
+                            ("density", "sample"))
+        else:
+            _check_lazy_fwd(x, params, prep, meta)
+
+
+@pytest.mark.parametrize("hid", [12, 64, 1024])
+def test_lazy_bwd_repeats(dev, hid):
+    """T2 lazy, both bodies, gives the same bits on two launches
+    (persistent blocks walking the tiles in a fixed order, partials summed
+    in block order), on a batch where each block walks about three
+    tiles."""
+    p = _lazy_model(hid, dev)
+    prep, meta = p._block_meta[2]
+    _, rows, _ = gb.kernel_occupancy("density_bwd_lazyh", prep, meta, hid)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    n = 3 * 2 * n_sm * rows - 5
+    x, params = _lazy_args(p, 2, n, 4, dev)
+    g = torch.Generator(device=dev).manual_seed(4)
+    g_out, g_ld = (torch.randn(x.shape, generator=g, device=dev)
+                   for _ in range(2))
+    y = gb._launch(x, params, prep, meta, "lazy", "sample")[0]
+    for body, res in (("density", x), ("sample", y)):
+        a, b = (gb._launch_bwd(body, res, params, g_out, g_ld, prep, meta,
+                               "lazy") for _ in range(2))
+        torch.cuda.synchronize()
+        for u, v in zip((a[2], *a[3]), (b[2], *b[3])):
+            assert torch.equal(u, v), body
+
+
+@pytest.mark.parametrize("what", ["hidden", "x"])
+def test_lazy_kernels_keep_nan_as_plain(dev, what):
+    """A NaN made on the card (0/0) in row 5 of the hidden rows (both
+    directions) or of x (the density direction: the sample direction's
+    solve, in the plain version as in the kernel, turns a NaN base draw
+    into a finite point) reaches T1 lazy's and T2 lazy's outputs exactly
+    where it reaches the plain versions' (the hidden tile's copy and the
+    cotangents keep it through the TF32 split); the per-row outputs of the
+    rows it does not reach keep the clean run's bits."""
+    p = _lazy_model(64, dev)
+    prep, meta = p._block_meta[2]
+    x, clean = _lazy_args(p, 2, 1000, 6, dev)
+    zero = torch.zeros((), device=dev)
+    hidden, xs = clean[0].clone(), x.clone()
+    (hidden if what == "hidden" else xs)[5, 2] = zero / zero
+    params = (hidden, *clean[1:])
+    g = torch.Generator(device=dev).manual_seed(7)
+    g_out, g_ld = (torch.randn(x.shape, generator=g, device=dev)
+                   for _ in range(2))
+
+    def check(got, want, ref, n_per_row):
+        bad = torch.stack([torch.isnan(r).any(dim=1)
+                           for r in ref[:n_per_row]]).any(dim=0)
+        assert bad[5]
+        for a, r in zip(got, ref):
+            _same_nans(a, r)
+        for a, c in zip(got[:n_per_row], want[:n_per_row]):
+            assert torch.equal(a[~bad], c[~bad])
+
+    for direction in ("density", "sample")[:2 if what == "hidden" else 1]:
+        got = gb._launch(xs, params, prep, meta, "lazy", direction)
+        want = gb._launch(x, clean, prep, meta, "lazy", direction)
+        ref = gb.block_plain(direction, xs, params, prep, meta, "lazy")
+        torch.cuda.synchronize()
+        check(got, want, ref, 2)
+        res, res_c = ((xs, x) if direction == "density" else
+                      (got[0], want[0]))
+        _, _, gx, gp = gb._launch_bwd(direction, res, params, g_out, g_ld,
+                                      prep, meta, "lazy")
+        _, _, cgx, cgp = gb._launch_bwd(direction, res_c, clean, g_out, g_ld,
+                                        prep, meta, "lazy")
+        rgx, rgp = gb.block_bwd_plain(direction, res, params, g_out, g_ld,
+                                      prep, meta, "lazy")
+        torch.cuda.synchronize()
+        check((gx, *gp), (cgx, *cgp), (rgx, *rgp), 2)
 
 
 @pytest.mark.parametrize("kernel", ["t2_lazy2", "t3_lazy2", "t2_lazy",
