@@ -88,15 +88,14 @@ struct BwdArgs {
 // a block's working memory: TileSrc's hidden tile and the dh columns
 // (lazy2: the block's global scratch; lazy: shared memory after the tile,
 // or the scratch) and the warp's partial of the parameter gradient (perm).
-// The lazy2 backward keeps it on its stack: `kept` holds the 16 bytes that
-// the lazy mode's staged rows took before it used the tile stage, so that
-// lazy2's code stays what it was (without them its SASS changes;
-// tools/tile_breakdown.py --part sass).
+// The lazy2 backward keeps it on its stack; `pad` keeps it at 40 bytes:
+// at 24 the lazy2 backward's SASS changes, though not its results
+// (tools/tile_breakdown.py --part bits; ROADMAP Queue 2 item 4).
 struct Stage {
-  float* hid;      // lazy2: (Hp, hs)
-  float* dh;       // lazy2, lazy: (Hp, hs)
-  float* kept[2];  // unused
-  float* wpart;    // perm: (P,), this warp's own
+  float* hid;     // lazy2: (Hp, hs)
+  float* dh;      // lazy2, lazy: (Hp, hs)
+  float* pad[2];  // unused
+  float* wpart;   // perm: (P,), this warp's own
 };
 
 // ---- perm: a piece's cotangents summed over the warp by shuffles ---------

@@ -98,19 +98,14 @@ inline TileShape piece_tile(const BlockArgs& a, int ra, int rm) {
 // lazy2's tile: the slabs rounded up to the 32 columns of a chunk
 inline TileShape lazy2_tile(const BlockArgs& a) { return piece_tile(a, 32, 32); }
 
-// The lazy mode's slab rounding: each slab holds its widest piece's rows
-// rounded up to this (rows_product writes up to the next multiple of 8),
-// sm at least to 16 (the backward's gw_product reads a piece's rows in m16
-// tiles; what it reads past sa's end lies in sm).  Below lazy2's 32 rows,
-// so that at the "64-64" flagship's H = 64 three blocks (12 warps) share
-// an SM where lazy2's rounding keeps two.
-inline int lazy_slab_round() {
-  return 8;
-}
-
+// The lazy mode's tile: each slab holds its widest piece's rows rounded up
+// to 8 (rows_product writes up to the next multiple of 8), sm to 16 (the
+// backward's gw_product reads a piece's rows in m16 tiles; what it reads
+// past sa's end lies in sm).  Below lazy2's 32 rows, so that at the
+// "64-64" flagship's H = 64 three blocks (12 warps) share an SM where
+// lazy2's rounding keeps two.
 inline TileShape lazy_tile(const BlockArgs& a) {
-  const int r = lazy_slab_round();
-  return piece_tile(a, r, r > 16 ? r : 16);
+  return piece_tile(a, 8, 16);
 }
 
 // rows of layer l's mixture groups

@@ -232,34 +232,9 @@ struct LayerTileSrc {
   __device__ LayerTileSrc(const LayerArgs& a, float* smem)
       : tl(a.H, a.tile, a.w, smem, LAYER_WC_FLOATS), t(threadIdx.x) {}
 
-  // The hidden rows row0 .. row0 + T - 1 into the tile, coalesced, eight
-  // loads in flight a thread: zeros past B and in the columns H .. Hp - 1;
-  // a NaN kept for the TF32 split.
+  // the hidden rows row0 .. row0 + T - 1 into the tile (load_hidden_tile)
   __device__ void load_tile(const LayerArgs& a, int row0) const {
-    constexpr int U = 8;
-    const int T = blockDim.x, total = T * a.H;
-    const int n = min(T, a.B - row0) * a.H;
-    const float* src = a.hidden + (size_t)row0 * a.H;
-    __syncthreads();  // the previous tile's readers are done
-    for (int i0 = 0; i0 < total; i0 += U * T) {
-      float v[U];
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int i = i0 + u * T + t;
-        v[u] = i < n ? __ldg(src + i) : 0.0f;
-      }
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int i = i0 + u * T + t;
-        if (i < total) {
-          const int r = i / a.H, h = i - r * a.H;
-          tl.hid[h * tl.hs + r] = keep_nan(v[u]);
-        }
-      }
-    }
-    for (int i = t; i < (tl.Hp - a.H) * T; i += T)
-      tl.hid[(a.H + i / T) * tl.hs + i % T] = 0.0f;
-    __syncthreads();
+    load_hidden_tile(tl, a.hidden, row0, a.B, a.H);
   }
 
   // dimension dd's piece of parameter rows into the slab

@@ -75,9 +75,7 @@ struct Tile {
 // the (B, H) activations into the tile, coalesced, eight loads in flight a
 // thread: zeros past B and in the columns H .. Hp - 1; a NaN kept for the
 // TF32 split.  Block-synchronous; its first barrier waits for the previous
-// tile's readers.  (The per-layer backward keeps its own copy of this loop,
-// LayerTileSrc::load_tile: calling this one changed the SASS of its lazy
-// kernels.)
+// tile's readers.
 __device__ inline void load_hidden_tile(const Tile& tl, const float* hidden,
                                         int row0, int B, int H) {
   constexpr int U = 8;

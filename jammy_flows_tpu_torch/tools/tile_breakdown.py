@@ -2,14 +2,16 @@
 again with parts of them switched off, on the card.
 
     python -m jammy_flows_tpu_torch.tools.tile_breakdown
-        [--part lazy2|perm|perm_fwd|layer_lazy|block_lazy|sass]
-        [--csrc DIR [DIR ...]]
+        [--part lazy2|perm|perm_fwd|layer_lazy|block_lazy|sass|bits]
+        [--csrc DIR [DIR ...]] [--rounds R]
 
 Builds ``csrc/gf_block.cu`` and ``csrc/gf_block_bwd.cu`` from a copy of the
 sources (``--csrc``, by default the package's own: a parent tree's sources
 can be measured with this tool, and several trees side by side) under
 ``build/tile_breakdown/``, each variant of each tree by its own nvcc
-process, all at once.
+process, all at once.  ``--rounds R`` times the trees R times, in their
+order and then in reverse (two trees, R = 2: A B B A), and reports each
+time's median over the rounds beside every round's.
 
 lazy2 (the flagship's block 2: H = 128, a 7-wide summary): as built; with
 every 3xTF32 tile product off (``rows_product`` reduced to the bias, so that
@@ -72,7 +74,7 @@ units of ``LazySrc`` before the tile redesign, ``rows_product`` after
 it); T2 with the flush of the row cotangents into dh, gw and gb off
 (``flush`` before, ``flush_piece`` after); where the sources choose them
 by a function, the design's alternatives: the slabs' rows rounded up to
-32 (``lazy_slab_round``) and dh in the block's global scratch at every H
+32 (``lazy_tile``) and dh in the block's global scratch at every H
 (``lazy_dh_shared``).  Yardsticks on the same inputs: the P x H product
 alone as one ``torch.matmul`` (float32 at "highest" precision), hidden .
 w^T; T2 the two products dh = dp . w and gw = dp^T . hidden.  With
@@ -86,6 +88,18 @@ each tree, their kernels' SASS (``cuobjdump -sass``) compared with the
 first tree's, function by function, with addresses and immediates masked:
 per library the functions that are identical, those that differ (with
 their count of differing instructions) and those only one tree has.
+
+bits (no timing): the SASS comparison of ``sass``, and each tree's outputs
+of the same seeded model calls compared bit for bit with the first
+tree's.  The models: the flagship (perm and lazy2 blocks), the flagship
+with ``{"g": {"center_mean": 1}}`` and with ``{"g": {"add_skewness":
+1}}`` (the per-layer kernels, lazy and raw), and with
+``amortization_mlp_dims="64-64"`` (the block's lazy mode); each model's
+``sample`` and ``log_prob`` at 65,536 rows, the fused
+``nll_value_and_grad``, and the gradients of ``-log_prob().mean()`` and of
+a sample objective, with the kernels each model launched; and the
+per-layer lazy kernels (T4, T5, both T7 bodies) called directly on seeded
+inputs, skewed and not, at K = 10 and at the generic shape.
 
 Forward at 1,048,576 rows, backward at 262,144; CUDA events, median of
 10.  Prints one JSON line with the card's name and power limit.  Needs a
@@ -168,7 +182,8 @@ _BLOCK_LAZY = {
         r"__device__ void flush\(const BwdArgs& A, const Stage& st, int "
         r"cnt\) \{\n": "  return;\n",
         r"__device__ void flush_piece\([^)]*\)\s*\{\n": "  return;\n"},
-    "lazy_slabs_32": {r"int lazy_slab_round\(\)\s*\{\n": "  return 32;\n"},
+    "lazy_slabs_32": {r"TileShape lazy_tile\([^)]*\)\s*\{\n":
+                      "  return piece_tile(a, 32, 32);\n"},
     "lazy_dh_global": {r"bool lazy_dh_shared\([^)]*\)\s*\{\n":
                        "  return false;\n"},
 }
@@ -197,6 +212,7 @@ VARIANTS = {
                    "slabs_32": (("lazy_slabs_32",), _BOTH),
                    "dh_global": (("lazy_dh_global",), ("gf_block_bwd",))},
     "sass": {"as_built": ((), _BOTH + ("gf_layer", "gf_layer_bwd"))},
+    "bits": {"as_built": ((), _BOTH + ("gf_layer", "gf_layer_bwd"))},
 }
 
 
@@ -228,7 +244,7 @@ def _switches(src_dir, part):
                                f"\n{body}#endif\n", text)
             found += [switch] * n
         path.write_text(text)
-    if part == "sass":
+    if part in ("sass", "bits"):
         pass
     elif part == "block_lazy":
         if "block_lazy_product" not in found or \
@@ -832,6 +848,114 @@ def _layer_lazy_case(gl, p, params, dev, g, n_fwd=1 << 20, n_bwd=1 << 18):
     return run, yardsticks, shapes
 
 
+def _bits_outputs(dev, n=1 << 16):
+    """({name: output on the CPU}, {model: kernels launched}) of seeded
+    calls of every model of the ``bits`` part through the libraries
+    loaded."""
+    import torch
+    from .. import pdf
+    from ..ops import gf_block as gb, gf_layer as gl
+    models = (("flagship", {}),
+              ("centred", {"options_overwrite": {"g": {"center_mean": 1}}}),
+              ("skewed", {"options_overwrite": {"g": {"add_skewness": 1}}}),
+              ("64-64", {"amortization_mlp_dims": "64-64"}))
+    out, launched = {}, {}
+    for label, kw in models:
+        p = pdf("e4+s2+e4", "gggg+f+gggg", device=dev, **kw)
+        g = torch.Generator(device=dev).manual_seed(0)
+        params = {k: v + 0.02 * torch.randn(v.shape, generator=g, device=dev)
+                  if k.startswith("mlp_") or k == "flow_0" else v
+                  for k, v in p.init_params(seed=0).items()}
+        z = torch.randn((n, p.total_base_dim), generator=g, device=dev)
+        gb.reset_launch_counts()
+        gl.reset_launch_counts()
+        with torch.no_grad():
+            x, _, lp_sample, _ = p.sample(params, samplesize=n, generator=g)
+            lp = p.log_prob(params, x)[0]
+        val, g_nll = p.nll_value_and_grad(params, x)
+        _, g_lp = p._value_and_grad(
+            lambda pp: -p.log_prob(pp, x)[0].mean(), params)
+
+        def objective(pp):
+            y, ld = p.all_layer_forward(pp, z, torch.zeros(
+                n, dtype=z.dtype, device=dev), None)
+            return (y**2).mean() - 0.1 * ld.mean()
+
+        _, g_s = p._value_and_grad(objective, params)
+        launched[label] = {k: v for k, v in {**gb.LAUNCHES,
+                                              **gl.LAUNCHES}.items() if v}
+        got = {"sample": x, "sample log_pdf": lp_sample, "log_prob": lp,
+               "nll": val.reshape(1)}
+        for what, grads in (("nll grad", g_nll), ("log_prob grad", g_lp),
+                            ("sample grad", g_s)):
+            got.update({f"{what} {k}": v for k, v in grads.items()})
+        out.update({f"{label} {k}": v.detach().cpu().contiguous()
+                    for k, v in got.items()})
+    out.update(_layer_lazy_bits(dev, n))
+    return out, launched
+
+
+def _layer_lazy_bits(dev, n, hid=64):
+    """{name: output on the CPU} of the per-layer lazy kernels called
+    directly on seeded inputs, skewed and not (the models reach the skewed
+    ones only), at K = 10, d = 4 and the generic K = 7, d = 3: T4, T5 and
+    both T7 bodies."""
+    import numpy as np
+    import torch
+    from ..ops import gf_layer as gl
+    from ..ops.special import log_bounded_exp_fn, width_regulator_fn
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    ift, out = "inormal_partly_precise", {}
+    for skew in (0, 1):
+        for k, d in ((10, 4), (7, 3)):
+            rng = np.random.default_rng(100 * skew + k)
+            signs = tuple([1.0] * (k // 2) + [-1.0] * (k - k // 2))
+            prep = (width_regulator_fn(0, 1, 0.01, 100, 0), None, True,
+                    log_bounded_exp_fn(0.1, 9.0, center=True) if skew
+                    else None, signs if skew else None)
+            groups = [rng.normal(size=(k, d)),
+                      -1.0 + 0.5 * rng.normal(size=(k, d)),
+                      rng.normal(size=(k, d))] + \
+                [0.8 * rng.normal(size=(k, d))] * skew
+            w = 0.2 * np.sqrt(24 / hid) * rng.normal(
+                size=(len(groups) * k * d, hid))
+            params = (t(np.tanh(rng.normal(size=(n, hid)))), t(w),
+                      t(np.concatenate([g.reshape(-1) for g in groups])))
+            x, g1, g2 = (t(rng.normal(size=(n, d))) for _ in range(3))
+            got = {mode: gl._run(mode, "lazy", x, params, ift, prep, (k, d))
+                   for mode in ("forward", "sample")}
+            for body, res in (("forward", x), ("sample", got["sample"][0])):
+                gx, gp = gl._run_bwd(body, "lazy", res, params, g1, g2, ift,
+                                     prep, (k, d))
+                got[f"{body}_bwd"] = (gx, *gp)
+            for name, vals in got.items():
+                out.update({f"layer lazy skew={skew} K={k} {name} {i}":
+                            v.detach().cpu().contiguous()
+                            for i, v in enumerate(vals)})
+    return out
+
+
+def _bits_compare(ref, got):
+    """{name: "equal" or how the outputs differ} of ``got`` against
+    ``ref``, bit for bit (a NaN equal to a NaN of the same bits)."""
+    out = {}
+    for k, a in ref.items():
+        b = got[k]
+        if a.shape != b.shape or a.dtype != b.dtype:
+            out[k] = f"shape {tuple(b.shape)} {b.dtype}"
+            continue
+        same = a.numpy().view("u1").reshape(a.numel(), -1) == \
+            b.numpy().view("u1").reshape(b.numel(), -1)
+        n = int((~same.all(axis=1)).sum())
+        out[k] = "equal" if n == 0 else (
+            f"{n} of {a.numel()} differ, max abs "
+            f"{(a.double() - b.double()).abs().nan_to_num(0).max().item()}")
+    return out
+
+
 def main(argv=None):
     import torch
     from .. import pdf
@@ -842,6 +966,9 @@ def main(argv=None):
                     default=[cuda_build.CSRC])
     ap.add_argument("--variants", nargs="+", default=None,
                     help="build and time only these variants of the part")
+    ap.add_argument("--rounds", type=int, default=1,
+                    help="time the trees this often, alternately in order "
+                    "and in reverse")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("tile_breakdown: no CUDA device available", file=sys.stderr)
@@ -857,6 +984,25 @@ def main(argv=None):
                           "trees": sass_compare(paths, trees)}))
         return 0
     dev = torch.device("cuda", torch.cuda.current_device())
+    if args.part == "bits":
+        from ..ops import gf_layer as gl
+        declare = {"gf_block": gb._declare, "gf_block_bwd": gb._declare_bwd,
+                   "gf_layer": gl._declare, "gf_layer_bwd": gl._declare_bwd}
+        outputs = {}
+        for tree in trees:
+            for lib in VARIANTS["bits"]["as_built"][1]:
+                handle = ctypes.CDLL(str(paths[(tree, "as_built", lib)]))
+                declare[lib](handle)
+                cuda_build._LOADED[lib] = handle
+            outputs[tree] = _bits_outputs(dev)
+            cuda_build._LOADED.clear()
+        (first, (ref, launched)), *rest = outputs.items()
+        print(json.dumps({"card": card, "part": "bits", "against": first,
+                          "launched": launched,
+                          "sass": sass_compare(paths, trees),
+                          "bits": {t: _bits_compare(ref, o[0])
+                                   for t, o in rest}}))
+        return 0
     p = pdf("e4+s2+e4", "gggg+f+gggg", device=dev)
     g = torch.Generator(device=dev).manual_seed(0)
     if args.part == "perm":
@@ -887,8 +1033,9 @@ def main(argv=None):
         run, yardsticks, shapes = _layer_lazy_case(gl, p, params, dev, g)
     else:
         run = _lazy2_case(gb, p, dev, g)
-    results = {}
-    for tree in trees:
+
+    def visit(tree):
+        """({name: ms}, the tree's other facts) of one tree's kernels."""
         times, extra = {}, {}
         if args.part == "perm":
             extra = {"rows_backward": 1 << 18, "blocks_per_sm": {},
@@ -933,8 +1080,7 @@ def main(argv=None):
                 if variant == "as_built":
                     times.update(yardsticks())
             cuda_build._LOADED.clear()
-            results[tree] = {"ms": times, **extra}
-            continue
+            return times, extra
         for (t, variant, lib), path in paths.items():
             if t != tree:
                 continue
@@ -956,7 +1102,19 @@ def main(argv=None):
         cuda_build._LOADED.clear()
         if args.part == "block_lazy":
             times.update(yardsticks())
-        results[tree] = {"ms": times, **extra}
+        return times, extra
+
+    results = {}
+    for r in range(args.rounds):
+        for tree in list(trees)[::1 if r % 2 == 0 else -1]:
+            times, extra = visit(tree)
+            res = results.setdefault(tree, {"ms": times, **extra})
+            if args.rounds > 1:
+                res.setdefault("ms_rounds", []).append(times)
+    if args.rounds > 1:
+        for res in results.values():
+            res["ms"] = {k: statistics.median(t[k] for t in res["ms_rounds"])
+                         for k in res["ms"]}
     if len(trees) == 1:
         (tree, res), = results.items()
         print(json.dumps({"card": card, "part": args.part, "csrc": tree,
