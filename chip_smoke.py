@@ -399,20 +399,52 @@ def check_calls(label, calls):
 # parameters differ per row (lazy2), else once per call.  Data-dependent
 # branches count the branch of a row inside the mixture (no far-tail
 # fallback lane; the erfinv centre of the normal iCDF).
-MIX_OPS = 27        # per component: c, exp, sigmoid, F, SF, P, fallback maxima
-MIX_DIM_OPS = 12    # per dimension: log_cdf, log_sf, log_pdf from the sums
-ICDF_OPS = {"isigmoid": 12, "inormal_partly_precise": 41}  # pass + log-deriv
-PREP_OPS = 50       # per component: both regulators, exp(-lw), log-softmax,
-                    # nw * iw, lnw + log iw
-PREP_DIM_OPS = 2    # per dimension: the log-softmax's log-sum
-ADJ_OPS = 30        # per component: the transposed tangent rule -> dx, dm,
+# Each constant is also split (ops(): its plain operations and its calls of
+# the library's expf and of logf / log1pf, counted from the same
+# expressions; a regulator is the flagship's bounded one, whose value takes
+# two exp and two log calls and whose derivative four and two) for the
+# per-layer kernels' slot bound (layer_work's slots).
+
+
+def ops(plain, exp=0, log=0):
+    """An operation count: plain FP32 operations and library exp and log
+    (logf, log1pf) calls."""
+    return {"plain": plain, "exp": exp, "log": log}
+
+
+def cost(c, slots=None):
+    """The FP32 operations of count c with each library call at slots[kind]
+    operations (two a multiply-add slot), or at 1 (work()'s count)."""
+    slots = slots or {}
+    return c["plain"] + sum(slots.get(kind, 1) * c[kind]
+                            for kind in ("exp", "log"))
+
+
+MIX = ops(26, exp=1)    # per component: c, exp, sigmoid, F, SF, P, fallback
+                        # maxima
+MIX_DIM = ops(9, log=3)     # per dimension: log_cdf, log_sf, log_pdf
+# pass + log-deriv: isigmoid's logaddexp; the erfinv centre's two exp and
+# its log
+ICDF = {"isigmoid": ops(10, exp=1, log=1),
+        "inormal_partly_precise": ops(38, exp=2, log=1)}
+PREP = ops(38, exp=7, log=5)    # per component: both regulators, exp(-lw),
+                                # log-softmax, nw * iw, lnw + log iw
+PREP_DIM = ops(1, log=1)    # per dimension: the log-softmax's log-sum
+ADJ = ops(30)       # per component: the transposed tangent rule -> dx, dm,
                     # dlw, dln
-ADJ_DIM_OPS = 7     # per dimension: 1/F, 1/SF, 1/P and their cotangents
-ICDF_ADJ_OPS = {"isigmoid": 8, "inormal_partly_precise": 28}
-PREP_ADJ_OPS = 14   # per component: the two regulators' derivatives
-JVP_OPS = 6         # sample body, per component: the tangent along ds
-JVP_DIM_OPS = 7     # sample body, per dimension: c = (gs + gld lx) / fp
-ICDF_JVP_OPS = {"isigmoid": 5, "inormal_partly_precise": 11}
+ADJ_DIM = ops(7)    # per dimension: 1/F, 1/SF, 1/P and their cotangents
+ICDF_ADJ = {"isigmoid": ops(6, exp=2), "inormal_partly_precise": ops(28)}
+PREP_ADJ = ops(2, exp=8, log=4)     # per component: the two regulators'
+                                    # derivatives
+JVP = ops(6)        # sample body, per component: the tangent along ds
+JVP_DIM = ops(7)    # sample body, per dimension: c = (gs + gld lx) / fp
+ICDF_JVP = {"isigmoid": ops(5), "inormal_partly_precise": ops(11)}
+MIX_OPS, MIX_DIM_OPS, PREP_OPS, PREP_DIM_OPS = (
+    cost(c) for c in (MIX, MIX_DIM, PREP, PREP_DIM))
+ADJ_OPS, ADJ_DIM_OPS, PREP_ADJ_OPS, JVP_OPS, JVP_DIM_OPS = (
+    cost(c) for c in (ADJ, ADJ_DIM, PREP_ADJ, JVP, JVP_DIM))
+ICDF_OPS, ICDF_ADJ_OPS, ICDF_JVP_OPS = (
+    {k: cost(v) for k, v in c.items()} for c in (ICDF, ICDF_ADJ, ICDF_JVP))
 
 
 def work(name, n, meta, n_in=0, hid=0):
@@ -619,7 +651,8 @@ def tile_kernel_report(built, card):
 
 def layer_occupancy(name, hid=128):
     """(blocks per SM, threads, shared memory bytes) of a per-layer lazy
-    kernel at the skewed flagship's layer (K = 10, d = 4, four groups)."""
+    kernel, or of T7 with raw broadcast slabs, at the skewed flagship's
+    layer (K = 10, d = 4, four groups)."""
     from jammy_flows_tpu_torch.ops import gf_layer as gl
     return gl.kernel_occupancy(name, 10, 4, hid, 4, skew=True)
 
@@ -1329,13 +1362,16 @@ def check_layer_calls(label, calls):
 
 
 def layer_repeat_check(calls):
-    """T7 lazy (both bodies) on the first recorded call's own inputs,
-    launched twice more: the same bits each time (persistent blocks walking
-    the tiles in a fixed order, partials summed in block order)."""
+    """T7 lazy and raw with broadcast slabs (both bodies) on the first
+    recorded call's own inputs, launched twice more: the same bits each
+    time (persistent blocks walking the tiles in a fixed order, partials
+    summed in warp and block order)."""
     from jammy_flows_tpu_torch.ops import gf_layer as gl
-    for name in ("forward_bwd_lazy", "sample_bwd_lazy"):
-        _, body, iface, kept, ift, prep, kd, _ = next(c for c in calls
-                                                      if c[0] == name)
+    for name in ("forward_bwd_lazy", "sample_bwd_lazy", "forward_bwd_raw",
+                 "sample_bwd_raw"):
+        _, body, iface, kept, ift, prep, kd, _ = next(
+            c for c in calls if c[0] == name and (
+                c[2] == "lazy" or c[3][1][0].ndim == 2))
         x, params, g1, g2 = kept
         a, b = (gl._launch_bwd(body, iface, x, params, g1, g2, ift, prep, kd)
                 for _ in range(2))
@@ -1352,9 +1388,12 @@ def layer_nan_check(calls):
     """One NaN made on the card as 0/0 in hidden or in w of the first
     recorded forward_lazy call (the skewed flagship's layer, its first
     N_NAN rows), through T4 lazy, T5 lazy (at the same rows as targets) and
-    T7 lazy's density body: NaN in exactly the outputs where the plain
-    version has it, and every row whose per-row outputs it does not reach
-    equal to the kernel's result without the NaN, bit for bit."""
+    T7 lazy's density body; and one row of x made NaN in the first
+    recorded broadcast forward_bwd_raw / sample_bwd_raw call (its first
+    N_NAN rows), through T7 raw: NaN in exactly the outputs where the plain
+    version has it (that row's gx and every broadcast gradient), and every
+    row whose per-row outputs it does not reach equal to the kernel's
+    result without the NaN, bit for bit."""
     from jammy_flows_tpu_torch.ops import gf_layer as gl
     _, _, _, kept, ift, prep, kd, _ = next(c for c in calls
                                            if c[0] == "forward_lazy")
@@ -1368,6 +1407,26 @@ def layer_nan_check(calls):
     def bwd(fn):
         gx, grads = fn
         return (gx, *grads)
+
+    def check(what, name, n_per_row, got, want, ref):
+        """got (the kernel's outputs with the NaN) against ref (the plain
+        version's) and want (the kernel's without it); the first
+        n_per_row outputs are per row."""
+        torch.cuda.synchronize()
+        n_nan = [int(torch.isnan(a).sum()) for a in got]
+        same = all(torch.equal(torch.isnan(a), torch.isnan(r))
+                   for a, r in zip(got, ref))
+        rows = ~torch.stack([torch.isnan(r).any(dim=1)
+                             for r in ref[:n_per_row]]).any(dim=0)
+        kept_bits = all(torch.equal(a[rows], c[rows]) for a, c in
+                        zip(got[:n_per_row], want[:n_per_row]))
+        log(f"NaN in {what}: {name}: NaN entries {n_nan} (plain "
+            f"{[int(torch.isnan(r).sum()) for r in ref]}), in the same "
+            f"places {same}, rows without NaN equal to the clean run's "
+            f"{kept_bits}")
+        if not (same and kept_bits and sum(n_nan)):
+            raise AssertionError(f"NaN in {what}: {name} does not keep "
+                                 "the NaN as its plain version does")
 
     for what in ("hidden", "w"):
         hidden, w, b = (t.clone() for t in clean)
@@ -1386,22 +1445,23 @@ def layer_nan_check(calls):
             lambda: bwd(gl.layer_bwd_plain("forward", "lazy", x, params, g1,
                                            g2, ift, prep, kd))))
         for name, n_per_row, kernel, plain in cases:
-            got, want, ref = kernel(params), kernel(clean), plain()
-            torch.cuda.synchronize()
-            n_nan = [int(torch.isnan(a).sum()) for a in got]
-            same = all(torch.equal(torch.isnan(a), torch.isnan(r))
-                       for a, r in zip(got, ref))
-            rows = ~torch.stack([torch.isnan(r).any(dim=1)
-                                 for r in ref[:n_per_row]]).any(dim=0)
-            kept_bits = all(torch.equal(a[rows], c[rows]) for a, c in
-                            zip(got[:n_per_row], want[:n_per_row]))
-            log(f"NaN in {what}: {name}: NaN entries {n_nan} (plain "
-                f"{[int(torch.isnan(r).sum()) for r in ref]}), in the same "
-                f"places {same}, rows without NaN equal to the clean run's "
-                f"{kept_bits}")
-            if not (same and kept_bits and sum(n_nan)):
-                raise AssertionError(f"NaN in {what}: {name} does not keep "
-                                     "the NaN as its plain version does")
+            check(what, name, n_per_row, kernel(params), kernel(clean),
+                  plain())
+    for name in ("forward_bwd_raw", "sample_bwd_raw"):
+        _, body, _, kept, ift, prep, _, _ = next(
+            c for c in calls if c[0] == name and c[3][1][0].ndim == 2)
+        x_clean = kept[0][:N_NAN].contiguous()
+        x = x_clean.clone()
+        x[5] = zero / zero
+        params = kept[1]
+
+        def kernel(xx):
+            return bwd(gl._launch_bwd(body, "raw", xx, params, g1, g2, ift,
+                                      prep, None))
+
+        check("a row of x", name, 1, kernel(x), kernel(x_clean),
+              bwd(gl.layer_bwd_plain(body, "raw", x, params, g1, g2, ift,
+                                     prep)))
 
 
 def layer_width_check(dev):
@@ -1554,65 +1614,88 @@ def centred_params(p, params):
 # FP32 operations of the per-layer kernels, counted from their expressions
 # as work() counts the block kernels' (an FMA as 2, every other operation
 # as 1; each function's minimum once; a data-dependent branch counted as a
-# row in the bulk takes it).  The plain mixture and the iCDF constants are
-# work()'s.
-SKEW_OPS = 63       # per component: c, two softplus, the selected branch's
-                    # logs with the series of log((1+e^u)^a - 1), three
-                    # logsumexp terms
-SKEW_VAL_OPS = 53   # the same without log_pdf (solve-side value)
-SKEW_DIM_OPS = 6    # per dimension: the three logsumexps' log and add
-SKEW_PREP_OPS = 23  # per component: log iw, the exponent regulator, exp
-SKEW_BRACKET_OPS = 22   # per component: the skewed component quantile
-SKEW_BRACKET_DIM_OPS = 23   # per dimension: log q, log(1-q), the margin
-SKEW_ADJ_OPS = 129  # per component: partials, softmax weights, the
-                    # cotangents of c, ls, lnw, and the three regulators'
-                    # derivatives
-SKEW_JVP_OPS = 9    # sample body, per component: the tangent along dx
-LOGIT_PHI_OPS = 25  # per dimension, inormal solves
+# row in the bulk takes it), split as work()'s constants are.  The plain
+# mixture and the iCDF constants are work()'s.
+SKEW_MIX = ops(54, exp=6, log=3)    # per component: c, two softplus, the
+                                    # selected branch's logs with the series
+                                    # of log((1+e^u)^a - 1), three logsumexp
+                                    # terms
+SKEW_VAL = ops(45, exp=5, log=3)    # the same without log_pdf (solve-side
+                                    # value)
+SKEW_DIM = ops(3, log=3)    # per dimension: the three logsumexps' log and add
+SKEW_PREP = ops(17, exp=3, log=3)   # per component: log iw, the exponent
+                                    # regulator, exp
+SKEW_BRACKET = ops(20, exp=1, log=1)    # per component: the skewed
+                                        # component quantile
+SKEW_BRACKET_DIM = ops(19, exp=2, log=2)    # per dimension: log q,
+                                            # log(1-q), the margin
+SKEW_ADJ = ops(101, exp=6, log=1)   # per component: partials, softmax
+                                    # weights, the cotangents of c, ls, lnw
+SKEW_REG_ADJ = ops(3, exp=12, log=6)    # per component: the three
+                                        # regulators' derivatives
+SKEW_JVP = ops(9)   # sample body, per component: the tangent along dx
+LOGIT_PHI = ops(22, exp=1, log=2)   # per dimension, inormal solves
+# the plain mixture's solve (work()'s block solve): per component the
+# bracket, isigmoid's weighted-quantile start, a value pass of the other
+# starts and a Newton evaluation; per dimension a start's value pass and a
+# Newton evaluation's logs and iCDF pieces
+BRACKET, SIG_START = ops(4), ops(3)
+START_COMP, START_PASS = ops(11, exp=1), ops(12, exp=1, log=2)
+NEWTON_COMP, NEWTON_EVAL = ops(15, exp=1), ops(24, exp=2, log=4)
 
 
-def layer_work(name, n, k, d, ift, skew, per_row, n_groups, hid):
+def layer_work(name, n, k, d, ift, skew, per_row, n_groups, hid, slots=None):
     """(flops, bytes) of one per-layer kernel call on n rows, name as in
     gf_layer.LAUNCHES.  Per row and dimension: the mixture pass (plain:
-    MIX_OPS per component; skewed: SKEW_OPS), its iCDF pieces, and for a
-    solve the bracket, the start (two value passes unless the plain
-    isigmoid start), four Newton steps and, for the sample mode, the
-    log-derivative at the root; T7 adds the adjoint (and the JVP of the
-    sample body).  Preparation (regulators, log-softmax, exponents) counts
-    per row for per-row and lazy parameters, once for broadcast ones; the
-    lazy interface adds 2 P H + P per row for the parameter rows and, in
-    T7, dh = w^T dp and gw = sum_rows dp x hidden (2 P H each) and gb (P),
-    P = n_groups K d.  Bytes: each input read once, each output written
-    once."""
+    MIX per component; skewed: SKEW), its iCDF pieces, and for a solve the
+    bracket, the start (two value passes unless the plain isigmoid start),
+    four Newton steps and, for the sample mode, the log-derivative at the
+    root; T7 adds the adjoint (and the JVP of the sample body).
+    Preparation (regulators, log-softmax, exponents) and T7's regulator
+    derivatives count per row for per-row and lazy parameters, once for
+    broadcast ones; the lazy interface adds 2 P H + P per row for the
+    parameter rows and, in T7, dh = w^T dp and gw = sum_rows dp x hidden
+    (2 P H each) and gb (P), P = n_groups K d.  Bytes: each input read
+    once, each output written once.  With ``slots`` ({"exp": ops, "log":
+    ops}) each library call counts at those operations (the slot bound),
+    else at 1."""
+    def c(x):
+        return cost(x, slots)
+
     parts = name.split("_")
     mode, iface, bwd = parts[0], parts[-1], parts[1] == "bwd"
     p_rows = n_groups * k * d
-    mix_v = k * SKEW_VAL_OPS + SKEW_DIM_OPS
-    mix_p = k * (SKEW_OPS if skew else MIX_OPS) + \
-        (SKEW_DIM_OPS if skew else MIX_DIM_OPS)
-    icdf = ICDF_OPS.get(ift, ICDF_OPS["inormal_partly_precise"])
+    mix_v = k * c(SKEW_VAL) + c(SKEW_DIM)
+    mix_p = k * c(SKEW_MIX if skew else MIX) + \
+        c(SKEW_DIM if skew else MIX_DIM)
+    icdf = c(ICDF.get(ift, ICDF["inormal_partly_precise"]))
     row = 0
     n_eval = 4 + (mode == "sample")     # Newton steps (+ the root's ld)
     if mode == "forward" or bwd:
         row += d * (mix_p + icdf)
     elif not skew:                      # as work()'s block solve
-        start = 3 * k if ift == "isigmoid" else 2 * (12 * k + 15)
-        row += d * (4 * k + start + n_eval * (16 * k + 30))
+        start = k * c(SIG_START) if ift == "isigmoid" else \
+            2 * (k * c(START_COMP) + c(START_PASS))
+        row += d * (k * c(BRACKET) + start + n_eval * (
+            k * c(NEWTON_COMP) + c(NEWTON_EVAL)))
     else:
-        bracket = k * SKEW_BRACKET_OPS + SKEW_BRACKET_DIM_OPS + (
-            0 if ift == "isigmoid" else LOGIT_PHI_OPS)
+        bracket = k * c(SKEW_BRACKET) + c(SKEW_BRACKET_DIM) + (
+            0 if ift == "isigmoid" else c(LOGIT_PHI))
         start = 2 * (mix_v + icdf // 2) + 15
         row += d * (bracket + start + n_eval * (mix_p + icdf + 8))
+    prep = d * (k * (1 if iface == "prepared" else c(PREP)
+                     + (c(SKEW_PREP) if skew else 0)) + c(PREP_DIM))
     if bwd:
-        adj = SKEW_ADJ_OPS if skew else ADJ_OPS + PREP_ADJ_OPS
-        row += d * (k * adj + ADJ_DIM_OPS + ICDF_ADJ_OPS.get(
-            ift, ICDF_ADJ_OPS["inormal_partly_precise"]))
+        adj, reg = (SKEW_ADJ, SKEW_REG_ADJ) if skew else (ADJ, PREP_ADJ)
+        reg_per_row = per_row or iface == "lazy"
+        row += d * (k * (c(adj) + (c(reg) if reg_per_row else 0))
+                    + c(ADJ_DIM) + c(ICDF_ADJ.get(
+                        ift, ICDF_ADJ["inormal_partly_precise"])))
+        prep += 0 if reg_per_row else d * k * c(reg)
         if mode == "sample":
-            row += d * (k * (SKEW_JVP_OPS if skew else JVP_OPS) + JVP_DIM_OPS
-                        + ICDF_JVP_OPS.get(
-                            ift, ICDF_JVP_OPS["inormal_partly_precise"]))
-    prep = d * (k * (1 if iface == "prepared" else PREP_OPS
-                     + (SKEW_PREP_OPS if skew else 0)) + PREP_DIM_OPS)
+            row += d * (k * c(SKEW_JVP if skew else JVP) + c(JVP_DIM)
+                        + c(ICDF_JVP.get(
+                            ift, ICDF_JVP["inormal_partly_precise"])))
     n_io = 4 if bwd else (2 if mode == "inverse" else 3)
     byts = n_io * n * d * 4
     if iface == "lazy":
@@ -1680,7 +1763,9 @@ def centred_grads(label, p, params, opts, seed):
 
 def time_layer_call(call, card):
     """Kernel, plain version and bound of one recorded per-layer call, on its
-    own inputs; logs them and returns (ms, plain_ms, bound_ms, bound_by)."""
+    own inputs; logs them and returns (ms, plain_ms, bound_ms, bound_by,
+    tc_bound_ms, slot_bound): slot_bound(slots) is the call's bound with
+    each library call at ``slots`` operations (layer_work)."""
     from jammy_flows_tpu_torch.ops import gf_layer as gl
     name, mode, iface, kept, ift, prep, kd, _ = call
     if "_bwd_" in name:
@@ -1710,7 +1795,13 @@ def time_layer_call(call, card):
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of "
         f"{PLAIN_REPS}), bound {b_ms:.4f} ms ({b_by}: {flops:.4g} flop, "
         f"{byts:.4g} B), tensor-core bound {tc_ms:.4f} ms")
-    return ms, plain_ms, b_ms, b_by, tc_ms
+
+    def slot_bound(slots):
+        f, b = layer_work(name, x.shape[0], k, d, ift, skew, per_row,
+                          n_groups, hid, slots)
+        return bound_ms(f, b)[0]
+
+    return ms, plain_ms, b_ms, b_by, tc_ms, slot_bound
 
 
 def time_layer_kernels(calls, launches, errs, card, ptxas=None):
@@ -1718,14 +1809,15 @@ def time_layer_kernels(calls, launches, errs, card, ptxas=None):
     inputs (the unconditional serving or training paths): kernel, plain
     version, bound; returns the JSON rows.  The lazy rows also carry two
     yardsticks on the same inputs (their P x H products alone as
-    torch.matmul, and the materialized route), their registers, stack and
-    spills (``ptxas``: tools/tile_breakdown.layer_ptxas of the build's
+    torch.matmul, and the materialized route); the lazy and the T7 raw
+    rows their registers, stack and spills (``ptxas``:
+    tools/tile_breakdown.layer_ptxas / layer_raw_ptxas of the build's
     -Xptxas -v lines) and blocks per SM.  A per-row prepared call (the
     centred amortized block) is timed too, for the log."""
     rows = []
     for name in LAYER_ENTRY + LAYER_BWD:
         call = next(c for c in calls if c[0] == name)
-        ms, plain_ms, b_ms, b_by, tc_ms = time_layer_call(call, card)
+        ms, plain_ms, b_ms, b_by, tc_ms, slot = time_layer_call(call, card)
         by_path = {f"{cfg} {what}": n[name]
                    for cfg, paths in launches.items()
                    for what, n in paths.items() if n[name]}
@@ -1740,7 +1832,7 @@ def time_layer_kernels(calls, launches, errs, card, ptxas=None):
                      "max_abs_err": errs[name],
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                      "bound_by": b_by, "tc_bound_ms": tc_ms,
-                     "library_ms": None})
+                     "library_ms": None, "_slot": slot})
         if name in LAYER_TILE_KERNELS:
             x, (hidden, w, _) = call[3][:2]
             row = rows[-1]
@@ -1753,6 +1845,13 @@ def time_layer_kernels(calls, launches, errs, card, ptxas=None):
                 f"products alone as torch.matmul {row['products_matmul_ms']:.4f}"
                 f" ms, the materialized route (torch.matmul + raw per-row "
                 f"kernel) {row['materialized_ms']:.4f} ms; "
+                f"{row['blocks_per_sm']} blocks per SM; {row['ptxas']}")
+        if name in ("forward_bwd_raw", "sample_bwd_raw"):
+            row = rows[-1]
+            row["blocks_per_sm"] = layer_occupancy(name, 0)[0]
+            row["ptxas"] = (ptxas or {}).get(f"{name} broadcast (K=10, "
+                                             "skewed)")
+            log(f"{name} (broadcast, K=10, skewed): "
                 f"{row['blocks_per_sm']} blocks per SM; {row['ptxas']}")
     for name in ("forward_prepared", "inverse_prepared"):
         time_layer_call(next(c for c in calls if c[0] == name
@@ -1782,7 +1881,7 @@ def inverse_raw_row(args, card):
     if not (err < TOL_SAMPLE and torch.isfinite(root).all()):
         raise AssertionError(f"inverse_raw: kernel disagrees with its plain "
                              f"version ({err:.3e} >= {TOL_SAMPLE:g})")
-    ms, plain_ms, b_ms, b_by, tc_ms = time_layer_call(
+    ms, plain_ms, b_ms, b_by, tc_ms, slot = time_layer_call(
         ("inverse_raw", "inverse", "raw", (z, params), ift, prep, None,
          None), card)
     return {"name": "gf_inverse_raw", "route": "cuda",
@@ -1790,7 +1889,8 @@ def inverse_raw_row(args, card):
             "replaces": "jammy_flows_tpu/ops/pallas_gf.py:767",
             "launches": 0, "launches_by_path": {}, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "tc_bound_ms": tc_ms, "library_ms": None}
+            "bound_by": b_by, "tc_bound_ms": tc_ms, "library_ms": None,
+            "_slot": slot}
 
 
 def layer_phase(dev, card, ptxas=None):
@@ -2048,6 +2148,26 @@ def chain_phase(dev, card):
     return rows
 
 
+def add_slot_bounds(rows, chain_rows, card):
+    """Each per-layer row's slot_bound_ms: its layer_work count with every
+    library exp and log call at the multiply-add slots this run's T8 rows
+    measured (the multiply-add chain's rate over the op's chain's, less the
+    one multiply-add of its step), two operations a slot, at the FP32 rate,
+    or the bytes bound where larger."""
+    rate = {r["name"][len("chain_"):]: r["steps_per_s"] for r in chain_rows}
+    fma_slots = {kind: rate["fma"] / rate[kind] - 1.0
+                 for kind in ("exp", "log")}
+    log(f"library calls on {card} (T8 rows of this run): "
+        + ", ".join(f"{k} {v:.4g} multiply-add slots"
+                    for k, v in fma_slots.items()))
+    slots = {kind: 2.0 * v for kind, v in fma_slots.items()}
+    for row in rows:
+        row["slot_bound_ms"] = row.pop("_slot")(slots)
+        log(f"{row['name']}: slot bound {row['slot_bound_ms']:.4f} ms "
+            f"(bound {row['bound_ms']:.4f} ms), kernel {row['ms']:.4f} ms: "
+            f"{row['slot_bound_ms'] / row['ms']:.3f} of the slot bound")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2071,7 +2191,8 @@ def main():
     for line in ptxas_summary("".join(ptxas)):
         log(line)
     perm_ptxas = tile_breakdown.perm_ptxas("".join(ptxas))
-    layer_ptxas = tile_breakdown.layer_ptxas("".join(ptxas))
+    layer_ptxas = {**tile_breakdown.layer_ptxas("".join(ptxas)),
+                   **tile_breakdown.layer_raw_ptxas("".join(ptxas))}
     tile_kernel_report(built, card)
     dev = torch.device("cuda", torch.cuda.current_device())
     # the T1 perm kernels' reciprocal of 1 + e against the IEEE one, every
@@ -2112,8 +2233,8 @@ def main():
         rows.append(entry_row(name, args, {"unconditional": launch_u[name],
                                            "conditional": launch_c[name]},
                               errs[name], card, perm_ptxas))
-    rows.append(inverse_raw_row(
-        next(a for n, a, _, _ in calls_u if n == "sample_perm"), card))
+    layer_rows = [inverse_raw_row(
+        next(a for n, a, _, _ in calls_u if n == "sample_perm"), card)]
     del calls_u
 
     g = torch.Generator(device=dev).manual_seed(6)
@@ -2146,9 +2267,11 @@ def main():
     del p_u, p_c, par_u, par_c, x_u, x_c
     nan_check(dev)
 
-    rows += layer_phase(dev, card, layer_ptxas)
+    layer_rows += layer_phase(dev, card, layer_ptxas)
     rows += lazy_phase(dev, card)
-    rows += chain_phase(dev, card)
+    chain_rows = chain_phase(dev, card)
+    add_slot_bounds(layer_rows, chain_rows, card)
+    rows += layer_rows + chain_rows
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

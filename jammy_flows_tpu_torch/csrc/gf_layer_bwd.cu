@@ -27,10 +27,16 @@
 // tiles of rows walked by a fixed grid of persistent blocks, each adding
 // to its private partial of the summed gradients; a second kernel sums the
 // partials in block order.  Deterministic, no atomics.
-//   * raw broadcast: the parameter-row cotangents of one dimension are
-//     staged for the tile's rows in shared memory, STAGE rows at a time,
-//     and summed into the block's partial (128-row tiles); per-row raw
-//     slabs take their gradient per row;
+//   * raw broadcast (gf_layer_bcast_bwd_kernel, the perm backward's design):
+//     the regulator derivatives are the block's (LayerSrc<..., BWD>, once
+//     per block; the adjoints' FAC form); a row's cotangents of one
+//     dimension's piece are summed over the warp by shuffles (warp_sum.cuh)
+//     into the warp's own partial in shared memory, a parameter row always
+//     the same lane's, so the per-row body takes no barrier; at the end the
+//     block sums its warps' partials in warp order and writes its row of the
+//     partials once.  As many blocks as the SMs hold at once (the occupancy
+//     API's count);
+//   * raw per row: each row's thread writes its gradient slab rows;
 //   * lazy: the tile stage of tile_rows.cuh (LayerTileSrc), as the lazy2
 //     block backward: per dimension the block makes the piece's parameter
 //     rows by the forward's own tile product (the same bits), each row's
@@ -45,12 +51,12 @@
 #include <cuda_runtime.h>
 
 #include "gf_layer_src.cuh"
+#include "warp_sum.cuh"
 
 using namespace gf;
 
 namespace {
 
-constexpr int STAGE = 32;  // parameter rows staged per flush (<= threads)
 constexpr int SMEM_LIMIT = 227 * 1024;
 
 struct LayerBwdArgs {
@@ -64,43 +70,6 @@ struct LayerBwdArgs {
   float* scratch;   // lazy dh in global memory: (gridDim.x, H, T + 1), or null
   int G;            // broadcast: n_groups*K*D; lazy: P*H + P; per row: 0
 };
-
-struct Stage {
-  float* dp;  // (STAGE, blockDim.x)
-  int* prow;  // (STAGE,)
-};
-
-// Add the staged cotangents of cnt parameter rows to the block's partials
-// (broadcast slabs).
-__device__ void flush(const LayerBwdArgs& A, const Stage& st, int cnt) {
-  const int T = blockDim.x, tid = threadIdx.x;
-  float* part = A.partials + (size_t)blockIdx.x * A.G;
-  for (int j = tid; j < cnt; j += T) {
-    float acc = 0.0f;
-    for (int t = 0; t < T; ++t) acc += st.dp[j * T + t];
-    part[st.prow[j]] += acc;
-  }
-}
-
-// Stage this thread's n cotangents of dimension dd's parameter rows
-// (vals[g*K + k] for row g*K*D + k*D + dd) and flush them, STAGE at a time.
-// Every thread of the block calls it.
-__device__ void stage_flush(const LayerBwdArgs& A, const Stage& st,
-                            const float* vals, int n, int dd) {
-  const LayerArgs& a = A.a;
-  const int T = blockDim.x, tid = threadIdx.x;
-  for (int c0 = 0; c0 < n; c0 += STAGE) {
-    const int cnt = min(STAGE, n - c0);
-    for (int j = 0; j < cnt; ++j) st.dp[j * T + tid] = vals[c0 + j];
-    if (tid < cnt) {
-      const int jj = c0 + tid, g = jj / a.K, k = jj - g * a.K;
-      st.prow[tid] = (g * a.K + k) * a.D + dd;
-    }
-    __syncthreads();
-    flush(A, st, cnt);
-    __syncthreads();
-  }
-}
 
 // lazy: one piece's cotangents (the slab, each row's thread has written
 // its own column) into dh and the block's partial gw (3xTF32 tile
@@ -120,21 +89,36 @@ __device__ void layer_flush(const LayerBwdArgs& A, const Tile& tl, float* dh,
 
 // One row's adjoint of dimension dd (element i; rows past B: zero input
 // and cotangents): the cotangent of x into gx (valid rows), the parameter
-// rows' cotangents into vals.
-template <bool SKEW, bool SAMPLE, int N, int KT>
+// rows' cotangents into vals.  FAC (raw broadcast slabs): lw, ln, se hold
+// the block's parameter-only terms (LayerSrc<..., BWD>::load), vals is
+// zeroed by the caller and takes the order [means | log-widths | exponents
+// (skewed) | log-norms], every offset a compile-time one where K is
+// (AdjRows maps them to the slabs' rows).
+template <bool SKEW, bool SAMPLE, int N, int KT, bool FAC = false>
 __device__ __forceinline__ void row_adjoint(const LayerBwdArgs& A,
                                             const MixT<SKEW, N>& mx,
                                             const float* lw, const float* ln,
                                             const float* se, int K, size_t i,
                                             bool valid, float* vals) {
   const LayerArgs& a = A.a;
-  const int n_mix = a.n_groups * K;
+  [[maybe_unused]] const int n_mix = a.n_groups * K;
   const float xv = valid ? a.x[i] : 0.0f;
   const float g1 = valid ? A.g1[i] : 0.0f;
   const float g2 = valid ? A.g2[i] : 0.0f;
-  for (int j = 0; j < n_mix; ++j) vals[j] = 0.0f;
+  if constexpr (!FAC)
+    for (int j = 0; j < n_mix; ++j) vals[j] = 0.0f;
   float r;
-  if constexpr (SKEW)
+  if constexpr (FAC && SKEW)
+    r = skew_adjoint<N, KT, SAMPLE, true>(
+        xv, mx, nullptr, nullptr, nullptr, K, a.n_pos, a.fit_norm, a.wreg,
+        a.nreg, a.ereg, a.ift, g1, g2, vals, vals + K, vals + 3 * K,
+        vals + 2 * K, lw, ln, se);
+  else if constexpr (FAC)
+    r = mix_adjoint<N, KT, SAMPLE, true>(xv, mx, nullptr, nullptr, K,
+                                         a.fit_norm, a.wreg, a.nreg, a.ift,
+                                         g1, g2, vals, vals + K, vals + 2 * K,
+                                         lw, ln, se);
+  else if constexpr (SKEW)
     r = skew_adjoint<N, KT, SAMPLE>(
         xv, mx, lw, ln, se, K, a.n_pos, a.fit_norm, a.wreg, a.nreg, a.ereg,
         a.ift, g1, g2, vals, vals + K, vals + 2 * K,
@@ -146,6 +130,70 @@ __device__ __forceinline__ void row_adjoint(const LayerBwdArgs& A,
   if (valid) A.gx[i] = r;
 }
 
+// value j of row_adjoint<..., FAC>'s vals -> its parameter row of
+// dimension dd in the slabs' group order [means | log-widths | log-norms |
+// exponents]: row g K D + k D + dd for value g K + k, the exponents' and
+// the log-norms' groups swapped where both are there
+template <bool SKEW>
+struct AdjRows {
+  int K, D, dd;
+  bool swap;  // skewed and fit_norm
+  __device__ int operator()(int j) const {
+    if (SKEW && swap && j >= 2 * K) j += j < 3 * K ? K : -K;
+    return j * D + dd;
+  }
+};
+
+// T7 raw broadcast (the raw interface with (K, D) slabs).  At least 4
+// blocks per SM (128 registers, a few spilled) beat 3 and the unbounded
+// form on the skewed flagship's layer (PERF.md, tools/tile_breakdown.py
+// --part layer_raw).
+template <bool SKEW, bool SAMPLE, int KT>
+__global__ void __launch_bounds__(128, 4)
+    gf_layer_bcast_bwd_kernel(const LayerBwdArgs A) {
+  constexpr int N = KT > 0 ? KT : KMAX;
+  constexpr int NV = (SKEW ? 4 : 3) * N;
+  const LayerArgs& a = A.a;
+  const int T = blockDim.x, tid = threadIdx.x;
+  const int K = KT > 0 ? KT : a.K;
+  const int n_tiles = (a.B + T - 1) / T;
+  const int n_mix = a.n_groups * K;
+  extern __shared__ __align__(16) float smem[];
+  // after the source's arrays, one partial of G floats per warp
+  float* wparts = smem + layer_src_floats(a);
+  float* wpart = wparts + (size_t)(tid >> 5) * A.G;
+  for (int j = tid; j < (T >> 5) * A.G; j += T) wparts[j] = 0.0f;
+  // the source's set-up ends with a barrier, after which the zeroed
+  // partials are visible; the tiles need no other barrier
+  const LayerSrc<SKEW, N, KT, true> src(a, smem);
+  const bool swap = SKEW && a.fit_norm;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int row = tile * T + tid;
+    const bool valid = row < a.B;
+    for (int dd = 0; dd < a.D; ++dd) {
+      MixT<SKEW, N> mx;
+      float fw[N], fn[N], fx[N], vals[NV] = {};
+      src.load(a, row, dd, mx, fw, fn, fx);
+      row_adjoint<SKEW, SAMPLE, N, KT, true>(A, mx, fw, fn, fx, K,
+                                             (size_t)row * a.D + dd, valid,
+                                             vals);
+      if (!valid)
+        for (int j = 0; j < NV; ++j) vals[j] = 0.0f;
+      warp_flush<NV>(wpart, vals, n_mix, AdjRows<SKEW>{K, a.D, dd, swap});
+    }
+  }
+  // the block's partial: its warps' partials summed in warp order, written
+  // once (every block writes its row, tiles or not)
+  __syncthreads();
+  float* part = A.partials + (size_t)blockIdx.x * A.G;
+  for (int j = tid; j < A.G; j += T) {
+    float acc = 0.0f;
+    for (int w = 0; w < (T >> 5); ++w) acc += wparts[(size_t)w * A.G + j];
+    part[j] = acc;
+  }
+}
+
+// T7 lazy, and raw with per-row (K, D, B) slabs.
 template <bool LAZY, bool SKEW, bool SAMPLE, int KT>
 __global__ void __launch_bounds__(128) gf_layer_bwd_kernel(const LayerBwdArgs A) {
   constexpr int N = KT > 0 ? KT : KMAX;
@@ -186,9 +234,6 @@ __global__ void __launch_bounds__(128) gf_layer_bwd_kernel(const LayerBwdArgs A)
       }
     }
   } else {
-    Stage st;
-    st.dp = smem + layer_src_floats(a);
-    st.prow = reinterpret_cast<int*>(st.dp + STAGE * T);
     const LayerSrc<SKEW, N, KT> src(a, smem);
     for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
       const int row = tile * T + tid;
@@ -200,17 +245,11 @@ __global__ void __launch_bounds__(128) gf_layer_bwd_kernel(const LayerBwdArgs A)
         src.load(a, r_ld, dd, mx, lw, ln, se);
         row_adjoint<SKEW, SAMPLE, N, KT>(A, mx, lw, ln, se, K,
                                          (size_t)row * a.D + dd, valid, vals);
-        if (a.per_row) {
-          if (valid)
-            for (int j = 0; j < n_mix; ++j) {
-              const int g = j / K, k = j - g * K;
-              A.gslab[((size_t)(g * K + k) * a.D + dd) * a.B + row] = vals[j];
-            }
-        } else {
-          if (!valid)
-            for (int j = 0; j < n_mix; ++j) vals[j] = 0.0f;
-          stage_flush(A, st, vals, n_mix, dd);
-        }
+        if (valid)
+          for (int j = 0; j < n_mix; ++j) {
+            const int g = j / K, k = j - g * K;
+            A.gslab[((size_t)(g * K + k) * a.D + dd) * a.B + row] = vals[j];
+          }
       }
     }
   }
@@ -227,12 +266,12 @@ __global__ void reduce_partials(const float* partials, int n_blocks, int G,
   }
 }
 
-// Launch on `stream`, or with occupancy non-null write the kernel's
-// resident blocks per SM there instead (the CUDA occupancy API).
-template <bool LAZY, bool SKEW, bool SAMPLE, int KT>
-cudaError_t launch(const LayerBwdArgs& A, int blocks, int threads, size_t smem,
-                   cudaStream_t stream, int* occupancy) {
-  auto kernel = gf_layer_bwd_kernel<LAZY, SKEW, SAMPLE, KT>;
+// Launch kernel on `stream`, or with occupancy non-null write its resident
+// blocks per SM there instead (the CUDA occupancy API).
+template <class Kernel>
+cudaError_t launch(Kernel kernel, const LayerBwdArgs& A, int blocks,
+                   int threads, size_t smem, cudaStream_t stream,
+                   int* occupancy) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -245,12 +284,24 @@ cudaError_t launch(const LayerBwdArgs& A, int blocks, int threads, size_t smem,
   return cudaGetLastError();
 }
 
+// the kernel of a call: raw broadcast, raw per row, or lazy
+template <bool LAZY, bool SKEW, bool SAMPLE, int KT>
+cudaError_t launch_kt(const LayerBwdArgs& A, int blocks, int threads,
+                      size_t smem, cudaStream_t s, int* occ) {
+  if constexpr (!LAZY)
+    if (!A.a.per_row)
+      return launch(gf_layer_bcast_bwd_kernel<SKEW, SAMPLE, KT>, A, blocks,
+                    threads, smem, s, occ);
+  return launch(gf_layer_bwd_kernel<LAZY, SKEW, SAMPLE, KT>, A, blocks,
+                threads, smem, s, occ);
+}
+
 template <bool LAZY, bool SKEW, bool SAMPLE>
 cudaError_t dispatch_k(const LayerBwdArgs& A, int blocks, int threads,
                        size_t smem, cudaStream_t s, int* occ) {
   if (A.a.K == 10)
-    return launch<LAZY, SKEW, SAMPLE, 10>(A, blocks, threads, smem, s, occ);
-  return launch<LAZY, SKEW, SAMPLE, 0>(A, blocks, threads, smem, s, occ);
+    return launch_kt<LAZY, SKEW, SAMPLE, 10>(A, blocks, threads, smem, s, occ);
+  return launch_kt<LAZY, SKEW, SAMPLE, 0>(A, blocks, threads, smem, s, occ);
 }
 
 cudaError_t dispatch(bool sample, bool lazy, bool skew, const LayerBwdArgs& A,
@@ -272,16 +323,19 @@ cudaError_t dispatch(bool sample, bool lazy, bool skew, const LayerBwdArgs& A,
 
 // The block of a call: its rows (threads) and dynamic shared memory, and
 // for lazy a.tile (pieces of n_piece parameter rows) and where dh lives.
-// Broadcast and per-row raw: 128 rows, the source's floats and the staged
-// rows.  Lazy: the tile of layer_tile; dh in shared memory after it where
-// the tile keeps its rows and two blocks still fit an SM, else in the
-// block's global scratch (dh_global).  0 or cudaErrorInvalidValue.
+// Raw broadcast: 128 rows, the source's floats and a partial of the
+// n_piece * D summed gradients per warp; raw per row: 128 rows and none.
+// Lazy: the tile of layer_tile; dh in shared memory after it where the
+// tile keeps its rows and two blocks still fit an SM, else in the block's
+// global scratch (dh_global).  0 or cudaErrorInvalidValue.
 int tile_shape(LayerArgs& a, int lazy, int n_piece, int& threads,
                size_t& smem, bool& dh_global) {
   dh_global = false;
   if (!lazy) {
     threads = 128;
-    smem = (layer_src_floats(a) + (size_t)STAGE * threads + STAGE) * 4;
+    smem = a.per_row ? 0
+                     : (layer_src_floats(a) +
+                        (size_t)(threads / 32) * n_piece * a.D) * 4;
     return smem > SMEM_LIMIT ? (int)cudaErrorInvalidValue : 0;
   }
   a.tile = layer_tile(a.H, n_piece, false);
@@ -297,23 +351,40 @@ int tile_shape(LayerArgs& a, int lazy, int n_piece, int& threads,
 
 }  // namespace
 
-// The grid of a call: a fixed number of persistent blocks, two per
-// streaming multiprocessor and at most one per tile.  Each block
-// accumulates a private partial of the summed gradients, so the caller
-// allocates (blocks, G) zeros for gf_layer_bwd_launch.  n_piece: the
-// parameter rows of one dimension, n_groups * K (lazy; the tile's rows
-// depend on it).
+// The grid of a call: a fixed number of persistent blocks, at most one
+// per tile: for raw broadcast slabs as many as the SMs hold at once (the
+// occupancy API's blocks per SM for its kernel, times n_sm), else two per
+// SM.  Fixed for a card and a build, so the run is deterministic.  Each
+// block accumulates a private partial of the summed gradients, so the
+// caller allocates (blocks, G) floats for gf_layer_bwd_launch (zeros but
+// for raw broadcast slabs, where each block writes its row once).
+// n_piece: the parameter rows of one dimension, n_groups * K (the lazy
+// tile's rows and the broadcast partials depend on it); meta: the call's
+// gf_layer_bwd_launch meta.  0 when the call is not one the kernels take.
 extern "C" int gf_layer_bwd_blocks(int lazy, int B, int H, int n_sm,
-                                   int n_piece) {
-  LayerArgs a{};
+                                   int n_piece, const int* meta) {
+  LayerBwdArgs A{};
+  LayerArgs& a = A.a;
   a.H = H;
   a.per_row = 1;
+  const bool bcast = !lazy && !meta[4];
+  if (bcast) {
+    a.per_row = 0;
+    a.K = meta[6];
+    a.D = meta[7];
+    if (a.K < 1 || a.K > KMAX || a.D < 1 || a.D > DMAX) return 0;
+  }
   int threads;
   size_t smem;
   bool dh_global;
   if (tile_shape(a, lazy, n_piece, threads, smem, dh_global) != 0) return 0;
+  int per_sm = 2;
+  if (bcast && dispatch(meta[0] == 1, false, meta[2], A, 1, threads, smem,
+                        nullptr, &per_sm) != cudaSuccess)
+    return 0;
   const int n_tiles = (B + threads - 1) / threads;
-  const int blocks = n_tiles < 2 * n_sm ? n_tiles : 2 * n_sm;
+  const int cap = (per_sm > 1 ? per_sm : 1) * n_sm;
+  const int blocks = n_tiles < cap ? n_tiles : cap;
   return blocks > 1 ? blocks : 1;
 }
 
@@ -333,9 +404,10 @@ extern "C" int gf_layer_bwd_scratch(int lazy, int H, int n_piece) {
 }
 
 // Resident blocks per SM of the kernel a call of this (body, lazy, skew,
-// K, D, H, n_groups) launches, by cudaOccupancyMaxActiveBlocksPerMultiprocessor;
-// writes [blocks per SM, threads per block, dynamic shared memory bytes]
-// to out.  Returns 0 or a cudaError_t.
+// K, D, H, n_groups) launches, lazy or with raw broadcast slabs (lazy 0),
+// by cudaOccupancyMaxActiveBlocksPerMultiprocessor; writes [blocks per SM,
+// threads per block, dynamic shared memory bytes] to out.  Returns 0 or a
+// cudaError_t.
 extern "C" int gf_layer_bwd_occupancy(int body, int lazy, int skew, int K,
                                       int D, int H, int n_groups, int* out) {
   LayerBwdArgs A{};
@@ -343,7 +415,7 @@ extern "C" int gf_layer_bwd_occupancy(int body, int lazy, int skew, int K,
   a.K = K;
   a.D = D;
   a.H = H;
-  a.per_row = 1;
+  a.per_row = lazy;
   a.n_groups = n_groups;
   int threads;
   size_t smem;
@@ -366,8 +438,9 @@ extern "C" int gf_layer_bwd_occupancy(int body, int lazy, int skew, int K,
 //        ereg kind]; regs as gf_layer_launch.  x: the density input (body 0)
 // or the root (body 1); g1, g2: cotangents of (val or root, ld).  gslab:
 // per row, (n_groups, K, D, B) zeros; gh: lazy, (B, H); partials:
-// (n_blocks, G) zeros, G = n_groups*K*D (broadcast) or P*H + P (lazy,
-// P = n_groups*K*D); grads (G,): the sums over rows, packed [g slabs] or
+// (n_blocks, G) floats, zeros but for broadcast slabs, G = n_groups*K*D
+// (broadcast) or P*H + P (lazy, P = n_groups*K*D); n_blocks: as
+// gf_layer_bwd_blocks; grads (G,): the sums over rows, packed [g slabs] or
 // [gw (P, H) | gb (P)]; scratch: n_blocks * gf_layer_bwd_scratch(...)
 // floats, or null when that is 0.  Returns 0 or a cudaError_t; launches on
 // `stream` and does not synchronize.

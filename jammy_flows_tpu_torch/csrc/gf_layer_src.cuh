@@ -71,8 +71,12 @@ __device__ __forceinline__ void prep_layer_mix(MixT<SKEW, N>& mx, const float* l
 }
 
 // The prepared and raw interfaces: broadcast slabs prepared once per block
-// into shared memory, per-row slabs read per row.
-template <bool SKEW, int N, int KT>
+// into shared memory, per-row slabs read per row.  BWD (the raw broadcast
+// backward): the set-up also prepares the adjoint's parameter-only terms
+// (mix_adjoint / skew_adjoint FAC), iw reg_w'(lw), reg_n'(ln) and reg_e'(se)
+// in place of the raw values, and log(iw) for the plain mixture too; load
+// gives them where it gives the raw values.
+template <bool SKEW, int N, int KT, bool BWD = false>
 struct LayerSrc {
   float* sm;   // broadcast: the prepared arrays
 
@@ -94,13 +98,20 @@ struct LayerSrc {
           sm[kd + j] = mx.iw[k];
           sm[2 * kd + j] = mx.lnw[k];
           sm[3 * kd + j] = mx.nw[k];
-          sm[7 * kd + j] = lw[k];
-          sm[8 * kd + j] = ln[k];
+          if constexpr (BWD) {
+            sm[7 * kd + j] = mx.iw[k] * reg_deriv(a.wreg, lw[k]);
+            sm[8 * kd + j] = a.fit_norm ? reg_deriv(a.nreg, ln[k]) : 0.0f;
+          } else {
+            sm[7 * kd + j] = lw[k];
+            sm[8 * kd + j] = ln[k];
+          }
           if constexpr (SKEW) {
             sm[4 * kd + j] = mx.liw[k];
             sm[5 * kd + j] = mx.ls[k];
             sm[6 * kd + j] = mx.a[k];
-            sm[9 * kd + j] = se[k];
+            sm[9 * kd + j] = BWD ? reg_deriv(a.ereg, se[k]) : se[k];
+          } else if constexpr (BWD) {
+            sm[4 * kd + j] = logf(mx.iw[k]);
           }
         }
       }
@@ -129,10 +140,12 @@ struct LayerSrc {
 
   // The mixture of dimension dd of row `row`, and the raw values it was
   // prepared from (raw interface: lw, ln, se; the backward needs them).
+  // BWD, broadcast only: lw, ln, se take the adjoint's terms iw reg_w'(lw),
+  // reg_n'(ln), and reg_e'(se) (skewed) or log(iw).
   __device__ void load(const LayerArgs& a, int row, int dd, MixT<SKEW, N>& mx,
                        float* lw, float* ln, float* se) const {
     const int kk = KT > 0 ? KT : a.K;
-    if (a.per_row) {
+    if (!BWD && a.per_row) {
       read_global(a, row, dd, mx, lw, ln, se);
       prep_layer_mix<SKEW, N, KT>(mx, lw, ln, se, a);
     } else {
@@ -151,6 +164,8 @@ struct LayerSrc {
           mx.ls[k] = sm[5 * kd + j];
           mx.a[k] = sm[6 * kd + j];
           se[k] = sm[9 * kd + j];
+        } else if constexpr (BWD) {
+          se[k] = sm[4 * kd + j];
         }
       }
     }

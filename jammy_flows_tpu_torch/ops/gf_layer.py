@@ -149,7 +149,7 @@ def _declare_bwd(lib):
     lib.gf_layer_bwd_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p,
                                         p, p, p, p, i, p, p, p]
     lib.gf_layer_bwd_launch.restype = i
-    lib.gf_layer_bwd_blocks.argtypes = [i, i, i, i, i]
+    lib.gf_layer_bwd_blocks.argtypes = [i, i, i, i, i, p]
     lib.gf_layer_bwd_blocks.restype = i
     lib.gf_layer_bwd_scratch.argtypes = [i, i, i]
     lib.gf_layer_bwd_scratch.restype = i
@@ -262,14 +262,17 @@ def _launch_bwd(body, iface, x, params, g1, g2, ift, prep, kd):
         lib = cuda_build.load("gf_layer_bwd", _declare_bwd)
         n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
         lazy = int(iface == "lazy")
-        # the lazy tile depends on the parameter rows of one dimension
+        # the lazy tile and the broadcast partials depend on the parameter
+        # rows of one dimension; the broadcast grid on the kernel's
+        # occupancy
         n_piece = n_groups * k
-        n_blocks = lib.gf_layer_bwd_blocks(lazy, b_rows, hid, n_sm, n_piece)
+        c_ints, c_floats = _c_arrays([int(body == "sample")] + ints, floats)
+        n_blocks = lib.gf_layer_bwd_blocks(lazy, b_rows, hid, n_sm, n_piece,
+                                           c_ints)
         partials = torch.zeros((n_blocks, n_flat), **f32)
         # where the lazy dh columns do not stay in shared memory
         n_scratch = n_blocks * lib.gf_layer_bwd_scratch(lazy, hid, n_piece)
         scratch = torch.empty(n_scratch, **f32) if n_scratch else None
-        c_ints, c_floats = _c_arrays([int(body == "sample")] + ints, floats)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = lib.gf_layer_bwd_launch(
@@ -294,9 +297,10 @@ def _launch_bwd(body, iface, x, params, g1, g2, ift, prep, kd):
 
 def kernel_occupancy(name, k, d, hid, n_groups, skew=True):
     """(blocks per SM, threads per block, dynamic shared memory bytes) of
-    the lazy kernel ``name`` (a ``LAUNCHES`` key: forward_lazy,
-    sample_lazy, forward_bwd_lazy, sample_bwd_lazy) at a layer of K = k,
-    D = d, hidden width hid and n_groups parameter groups, from the CUDA
+    the kernel ``name`` (a ``LAUNCHES`` key: forward_lazy, sample_lazy,
+    forward_bwd_lazy, sample_bwd_lazy, and with broadcast slabs
+    forward_bwd_raw, sample_bwd_raw) at a layer of K = k, D = d, hidden
+    width hid (lazy) and n_groups parameter groups, from the CUDA
     occupancy API on the current device."""
     from . import cuda_build
     bwd = "_bwd_" in name
@@ -307,8 +311,8 @@ def kernel_occupancy(name, k, d, hid, n_groups, skew=True):
     fn.argtypes = [i, i, i, i, i, i, i, ctypes.c_void_p]
     fn.restype = i
     out = (ctypes.c_int * 3)()
-    rc = fn(int(name.startswith("sample")), 1, int(skew), k, d, hid,
-            n_groups, out)
+    rc = fn(int(name.startswith("sample")), int(name.endswith("_lazy")),
+            int(skew), k, d, hid, n_groups, out)
     if rc != 0:
         raise RuntimeError(f"occupancy query of {name} failed ({rc})")
     return tuple(out)

@@ -2,7 +2,8 @@
 again with parts of them switched off, on the card.
 
     python -m jammy_flows_tpu_torch.tools.tile_breakdown
-        [--part lazy2|perm|perm_fwd|layer_lazy|block_lazy|sass|bits]
+        [--part lazy2|perm|perm_fwd|layer_lazy|layer_raw|block_lazy|sass|
+                bits]
         [--csrc DIR [DIR ...]] [--rounds R]
 
 Builds ``csrc/gf_block.cu`` and ``csrc/gf_block_bwd.cu`` from a copy of the
@@ -21,7 +22,8 @@ backward with ``dh_product`` alone off; and with ``gw_product`` alone off.
 The differences are what each product, its loads and its barriers cost
 inside the kernel; the all-off time is the body (hidden layer, per-row
 mixture preparation, mixtures, adjoints, the stages' barriers).  The T1
-perm kernels are timed beside them.
+perm kernels are timed beside them; the backward kernels also as one of 10
+launches back to back.
 
 perm (the flagship's block 0, the T2 / T3 perm backward): as built, and
 with the adding of each row's parameter cotangents into the block's
@@ -31,8 +33,8 @@ difference is the flush and the rest the body (forward recomputation,
 adjoints; the compiler may drop work whose only use was the flush, so the
 body is a lower bound).  Each at two grids: two blocks per SM (the grid of
 the kernels before the perm redesign) and (blocks per SM from the
-occupancy API) x SMs.  With ``-Xptxas -v``: the perm kernels' registers,
-stack and spills.
+occupancy API) x SMs, the latter also as one of 10 launches back to back.
+With ``-Xptxas -v``: the perm kernels' registers, stack and spills.
 
 perm_fwd (the flagship's block 0, the T1 perm forward: ``density_perm``,
 ``sample_perm``), each timed alone and as one of 10 launches back to back
@@ -63,6 +65,29 @@ alone as ``torch.matmul`` and the materialized route (that product as
 per-row slabs, then the raw per-row kernel; T7 also ghidden and gw as
 matmuls).  With ``-Xptxas -v``: the lazy kernels' registers, stack and
 spills; blocks per SM where the sources have an occupancy query.
+
+layer_raw (T7 with raw broadcast slabs, both bodies: the skewed flagship's
+block-0 layer 0, K = 10, d = 4, four parameter groups (40 rows a
+dimension), and the same slabs without the exponents (the plain mixture,
+three groups); the density body at that layer's log_prob input, the sample
+body at its sample call's roots, 262,144 rows, cotangents from a seeded
+generator; builds ``csrc/gf_layer_bwd.cu``), each timed alone and as one
+of 10 launches back to back: as built; with the flush of each row's
+parameter cotangents off (``stage_flush`` before the redesign,
+``warp_flush`` after it, each reduced to adding the row's values into one
+float of the partials, so that the adjoint's values stay live); with the
+per-row adjoint off (``row_adjoint`` writing values
+made from the cotangents alone), which leaves the flush and the set-up;
+where the sources have them, the broadcast kernel's register caps (its
+``__launch_bounds__`` minimum of blocks per SM, 4 as built, made 1, the
+unbounded form, or 3) and its per-row factor multiplies off (the block's
+regulator derivatives read as 1: the per-row work that applying them once
+per block would save).
+As built, the skewed model's training step on those sampled rows, the
+four T7 raw launches of which are this kernel's (autograd of
+-log_prob().mean(); a ``train.fit`` Adam step).  With ``-Xptxas -v`` the
+raw kernels' registers, stack and spills, and each variant's blocks per SM
+(the occupancy API) and grid.
 
 block_lazy (the block's lazy mode, precomputed hidden activations, on
 the flagship with ``amortization_mlp_dims="64-64"``, block 2: K = 10,
@@ -117,6 +142,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import time
 
 from ..ops import cuda_build
 
@@ -165,6 +191,44 @@ _LAYER_FLUSH = {
     r"template <bool LAZY>\s*__device__ void flush\(const LayerBwdArgs[^)]*\)"
     r"\s*\{\n": "  if (LAZY) return;\n",
     r"__device__ void layer_flush\([^)]*\)\s*\{\n": "  return;\n"}
+# T7 raw broadcast: the flush of a row's parameter cotangents (the staged
+# per-thread flush before the redesign, the warp transpose-sums after it),
+# each reduced to adding the row's values into one float of the partials
+# (the values stay live, so the adjoint is not optimized away); the per-row
+# adjoint, writing values made from the cotangents alone (the flush and
+# the set-up remain); the broadcast kernel's register cap; its per-row
+# multiplies by the block's regulator derivatives (read as 1)
+_LAYER_RAW = {
+    "raw_flush": {
+        r"__device__ void stage_flush\(const LayerBwdArgs[^)]*\)\s*\{\n":
+            "  float s_ = 0.0f;\n  for (int j = 0; j < n; ++j) s_ += vals[j];\n"
+            "  if (threadIdx.x < n)\n"
+            "    A.partials[(size_t)blockIdx.x * A.G + threadIdx.x] += s_;\n"
+            "  return;\n",
+        r"__device__ __forceinline__ void warp_flush\([^)]*\)\s*\{\n":
+            "  float s_ = 0.0f;\n#pragma unroll\n"
+            "  for (int j = 0; j < NV; ++j) s_ += j < n ? vals[j] : 0.0f;\n"
+            "  if ((threadIdx.x & 31) < n) wpart[rows(threadIdx.x & 31)] += s_;\n"
+            "  return;\n"},
+    "raw_adjoint": {
+        r"__device__ __forceinline__ void row_adjoint\([^)]*\)\s*\{\n":
+            "  const float g1_ = valid ? A.g1[i] : 0.0f;\n"
+            "  const float g2_ = valid ? A.g2[i] : 0.0f;\n#pragma unroll\n"
+            "  for (int j = 0; j < (SKEW ? 4 : 3) * N; ++j)\n"
+            "    vals[j] = g1_ + (float)j * g2_;\n"
+            "  if (valid) A.gx[i] = g1_;\n  return;\n"},
+    "factors_off": {
+        r"bool FAC = false>\n__device__ __forceinline__ void row_adjoint"
+        r"\([^)]*\)\s*\{\n":
+            "  float one_[N];\n#pragma unroll\n"
+            "  for (int k = 0; k < N; ++k) one_[k] = 1.0f;\n"
+            "  if (FAC) {\n    lw = one_;\n    ln = one_;\n"
+            "    if (SKEW) se = one_;\n  }\n"}}
+# the broadcast kernel's register cap: its __launch_bounds__ minimum of
+# blocks per SM (as built 4) made 1 (the unbounded form) or 3
+_BOUNDS = re.compile(r"__launch_bounds__\(128, (\d+)\)"
+                     r"(\s*gf_layer_bcast_bwd_kernel)")
+_BOUNDS_MIN = (1, 3)
 # the block's lazy mode (T1 / T2 lazyh): its parameter product (before the
 # tile redesign LazySrc's per-thread loops over the hidden units, left so
 # that every parameter row is b; after it rows_product, as _OFF), its
@@ -206,6 +270,10 @@ VARIANTS = {
                    "product_off": (("layer_product",),
                                    ("gf_layer", "gf_layer_bwd")),
                    "flush_off": (("layer_flush",), ("gf_layer_bwd",))},
+    "layer_raw": {"as_built": ((), ("gf_layer", "gf_layer_bwd")),
+                  **{name: ((name,), ("gf_layer_bwd",))
+                     for name in ("raw_flush", "raw_adjoint", "factors_off",
+                                  *(f"bounds_{b}" for b in _BOUNDS_MIN))}},
     "block_lazy": {"as_built": ((), _BOTH),
                    "product_off": (("block_lazy_product",), _BOTH),
                    "flush_off": (("block_lazy_flush",), ("gf_block_bwd",)),
@@ -233,8 +301,19 @@ def _switches(src_dir, part):
              for head, body in _LAYER_PRODUCT.items()] + \
             [("layer_flush", head, body)
              for head, body in _LAYER_FLUSH.items()] + \
-            [(switch, head, body) for switch, heads in _BLOCK_LAZY.items()
+            [(switch, head, body) for switch, heads in
+             (*_BLOCK_LAZY.items(), *_LAYER_RAW.items())
              for head, body in heads.items()]
+        m = _BOUNDS.search(text)
+        if m:
+            text = "".join(
+                f"#{'el' if i else ''}if defined(GF_OFF_bounds_{b})\n"
+                f"#define GF_BCAST_MIN_BLOCKS {b}\n"
+                for i, b in enumerate(_BOUNDS_MIN)) + \
+                f"#else\n#define GF_BCAST_MIN_BLOCKS {m.group(1)}\n#endif\n" \
+                + _BOUNDS.sub(r"__launch_bounds__(128, GF_BCAST_MIN_BLOCKS)\2",
+                              text)
+            found += [f"bounds_{b}" for b in _BOUNDS_MIN]
         if path.name == "gf_block.cu":
             cases += [("perm_body", head, "break;\n") for head in _PERM_BODY]
             cases += [("perm_grid", _PERM_GRID, "  return n_tiles;\n")]
@@ -251,6 +330,10 @@ def _switches(src_dir, part):
                 "block_lazy_flush" not in found:
             raise RuntimeError(f"switches found {found}, expected the "
                                "block lazy product and flush")
+    elif part == "layer_raw":
+        if "raw_flush" not in found or "raw_adjoint" not in found:
+            raise RuntimeError(f"switches found {found}, expected the raw "
+                               "flush and the raw adjoint")
     elif part == "layer_lazy":
         if "layer_product" not in found or "layer_flush" not in found:
             raise RuntimeError(f"switches found {found}, expected the "
@@ -267,8 +350,9 @@ def build(part, trees, variants=None):
     """{(tree, variant, library): path} of the builds of every source tree
     in ``trees`` (a dict label -> csrc directory), all nvcc processes at
     once, and {tree: the -Xptxas -v report of its as-built libraries}
-    (also written to ptxas.txt beside each tree's copy).  ``variants``: the
-    part's variants to build (default all)."""
+    (also written to ptxas.txt beside each tree's copy; layer_raw also
+    {(tree, variant): each variant's report}).  ``variants``: the part's
+    variants to build (default all)."""
     shutil.rmtree(OUT, ignore_errors=True)
     procs = {}
     for i, (tree, csrc) in enumerate(trees.items()):
@@ -281,7 +365,8 @@ def build(part, trees, variants=None):
                 continue
             extra = [f"-DGF_OFF_{name}" for name in off]
             flags = [f for f in cuda_build.NVCC_FLAGS
-                     if variant == "as_built" or f not in ("-Xptxas", "-v")]
+                     if variant == "as_built" or part == "layer_raw" or
+                     f not in ("-Xptxas", "-v")]
             for lib in libs:
                 out = src.parent / f"lib{lib}_{variant}.so"
                 procs[(tree, variant, lib)] = (out, subprocess.Popen(
@@ -295,6 +380,7 @@ def build(part, trees, variants=None):
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {key}:\n{err}")
         paths[key] = out
+        report[key[:2]] += err
         if key[1] == "as_built":
             report[key[0]] += err
             with open(out.parent / "ptxas.txt", "a") as f:
@@ -367,6 +453,38 @@ def layer_ptxas(report):
                 shape = "K=10" if m.group(3) == "10" else "generic"
                 skew = ", skewed" if m.group(1) == "1" else ""
                 out[f"{kernel(m)} ({shape}{skew})"] = (
+                    f"{regs.group(1)} registers, stack {spill.group(1)} B, "
+                    f"spill stores {spill.group(2)} B, loads "
+                    f"{spill.group(3)} B")
+    return out
+
+
+# the per-layer raw backward's mangled names: gf_layer_bcast_bwd_kernel<
+# SKEW, SAMPLE, KT> (raw broadcast, after the redesign), gf_layer_bwd_kernel<
+# LAZY = false, SKEW, SAMPLE, KT> (raw broadcast and per row before it, per
+# row after it)
+_LAYER_RAW_KERNELS = (
+    (r"gf_layer_bcast_bwd_kernelILb(\d)ELb(\d)ELi(\d+)E", "broadcast"),
+    (r"gf_layer_bwd_kernelILb0ELb(\d)ELb(\d)ELi(\d+)E", "raw"))
+
+
+def layer_raw_ptxas(report):
+    """{kernel: "registers, stack, spills"} of the per-layer raw backward
+    kernels in an -Xptxas -v report (the broadcast kernel of the redesign,
+    and the raw kernel that before it took broadcast slabs too)."""
+    out = {}
+    for name, body in re.findall(r"Function properties for (\S+)\n(.*?)"
+                                 r"(?=ptxas info\s+: Compil|\Z)", report, re.S):
+        regs = re.search(r"Used (\d+) registers", body)
+        spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", body)
+        for pat, form in _LAYER_RAW_KERNELS:
+            m = re.search(pat, name)
+            if m and regs and spill:
+                kernel = ("forward_bwd_raw", "sample_bwd_raw")[int(m.group(2))]
+                shape = "K=10" if m.group(3) == "10" else "generic"
+                skew = ", skewed" if m.group(1) == "1" else ""
+                out[f"{kernel} {form} ({shape}{skew})"] = (
                     f"{regs.group(1)} registers, stack {spill.group(1)} B, "
                     f"spill stores {spill.group(2)} B, loads "
                     f"{spill.group(3)} B")
@@ -539,8 +657,9 @@ def _ms_back_to_back(fn, n=10):
 def _perm_case(gb, p, dev, g, n_sm):
     """The perm backward kernels (T2 both bodies, T3) on block 0 at
     262,144 rows: run(handle) times each at the grid of two blocks per SM
-    and at the occupancy API's blocks per SM x SMs; returns ({name: ms},
-    {name: blocks per SM})."""
+    and at the occupancy API's blocks per SM x SMs, and at the latter as
+    one of 10 launches back to back; returns ({name: ms}, {name: blocks
+    per SM})."""
     import torch
     prep, meta = p._block_meta[0]
     pvec = p.init_params(seed=0)["flow_0"]
@@ -558,13 +677,16 @@ def _perm_case(gb, p, dev, g, n_sm):
             name = "nll_perm" if kind == "nll" else f"{kind}_bwd_perm"
             occ[name] = gb.kernel_occupancy(name, prep, meta)[0]
             arg = y if kind == "sample" else x
+            fn = (lambda kind=kind, arg=arg: gb._launch_bwd(
+                kind, arg, (pvec,), None if kind == "nll" else g_out,
+                None if kind == "nll" else g_ld, prep, meta, "perm",
+                1.0 / x.shape[0], -1.0 / x.shape[0]))
             for grid, per_sm in (("2 per SM", 2), ("occupancy", occ[name])):
                 handle.gf_block_bwd_blocks = (
                     lambda *a, b=min(n_tiles, per_sm * n_sm): b)
-                times[f"{name} grid {grid}"] = _ms(lambda: gb._launch_bwd(
-                    kind, arg, (pvec,), None if kind == "nll" else g_out,
-                    None if kind == "nll" else g_ld, prep, meta, "perm",
-                    1.0 / x.shape[0], -1.0 / x.shape[0]))
+                times[f"{name} grid {grid}"] = _ms(fn)
+            times[f"{name} grid occupancy (10 back to back)"] = \
+                _ms_back_to_back(fn)
         handle.gf_block_bwd_blocks = choose
         return times, occ
 
@@ -595,7 +717,8 @@ def _perm_fwd_case(gb, p, dev, g):
 
 def _lazy2_case(gb, p, dev, g):
     """The flagship's lazy2 block 2 (and T1 perm beside it): run(lib,
-    variant) times the kernels of library ``lib``; returns {name: ms}."""
+    variant) times the kernels of library ``lib`` (the backward kernels
+    also as one of 10 launches back to back); returns {name: ms}."""
     import torch
     prep, meta = p._block_meta[2]
     prep0, meta0 = p._block_meta[0]
@@ -629,10 +752,13 @@ def _lazy2_case(gb, p, dev, g):
         else:
             for kind in ("density", "sample", "nll"):
                 name = "nll_lazy2" if kind == "nll" else f"{kind}_bwd_lazy2"
-                times[f"{name} {variant}"] = _ms(lambda: gb._launch_bwd(
+                fn = (lambda kind=kind: gb._launch_bwd(
                     kind, x2, par2, None if kind == "nll" else g_out,
                     None if kind == "nll" else g_ld, prep, meta, "lazy2",
                     1.0 / x2.shape[0], -1.0 / x2.shape[0]))
+                times[f"{name} {variant}"] = _ms(fn)
+                times[f"{name} {variant} (10 back to back)"] = \
+                    _ms_back_to_back(fn)
         return times
 
     return run
@@ -848,6 +974,106 @@ def _layer_lazy_case(gl, p, params, dev, g, n_fwd=1 << 20, n_bwd=1 << 18):
     return run, yardsticks, shapes
 
 
+def _layer_raw_case(gl, dev, g, n=1 << 18):
+    """T7 with raw broadcast slabs at the skewed flagship's block-0 layer 0
+    (K = 10, d = 4, four parameter groups; its permanent parameters and
+    MLPs jittered by 0.02 N(0, 1)), recorded from the model's ``sample``
+    and ``log_prob`` at n rows, and the same slabs without the exponents
+    (the plain mixture, three groups): the density body at the layer's
+    log_prob input, the sample body at its sample call's roots, cotangents
+    from ``g``.  run(variant) times the four calls single and as one of 10
+    launches back to back, and as built the model's training step on its n
+    sampled rows (autograd of -log_prob().mean(), median of 10; one
+    ``train.fit`` Adam step, host clock, mean of 20 after a one-step fit);
+    blocks() gives each call's kernel's blocks per SM and its grid on the
+    libraries loaded.  Returns (run, blocks, shapes)."""
+    import torch
+    from .. import pdf
+    p = pdf("e4+s2+e4", "gggg+f+gggg",
+            options_overwrite={"g": {"add_skewness": 1}}, device=dev)
+    params = {k: v + 0.02 * torch.randn(v.shape, generator=g, device=dev)
+              if k.startswith("mlp_") or k == "flow_0" else v
+              for k, v in p.init_params(seed=0).items()}
+    calls = {}
+    run_layer = gl._run
+
+    def record(mode, iface, x, ps, ift, prep, kd):
+        out = run_layer(mode, iface, x, ps, ift, prep, kd)
+        if iface == "raw" and ps[0].ndim == 2:
+            calls.setdefault(mode, []).append(
+                (x.clone(), tuple(t.clone() for t in ps), ift, prep,
+                 out[0].clone()))
+        return out
+
+    gl._run = record
+    try:
+        with torch.no_grad():
+            xs = p.sample(params, samplesize=n, generator=g)[0]
+            p.log_prob(params, xs)
+    finally:
+        gl._run = run_layer
+    # layer 0: the sample direction's first raw call; log_prob runs the
+    # block's layers in reverse, so its call of the same slabs
+    _, slabs, ift, prep, root = calls["sample"][0]
+    x = next(c[0] for c in calls["forward"] if torch.equal(c[1][0], slabs[0]))
+    del calls
+    mixes = {"skewed": (slabs, prep),
+             "plain": (slabs[:-1], tuple(prep[:3]) + (None, None))}
+    g1 = torch.randn(x.shape, generator=g, device=dev)
+    g2 = torch.randn(x.shape, generator=g, device=dev)
+
+    def cases():
+        for mix, (ps, pr) in mixes.items():
+            for body, arg in (("forward", x), ("sample", root)):
+                yield f"{body}_bwd_raw ({mix})", body, arg, ps, pr
+
+    def step():
+        # the model's training step on its n sampled rows, as chip_smoke
+        # times it
+        from .. import train
+        auto = _ms(lambda: p._value_and_grad(
+            lambda pp: -p.log_prob(pp, xs)[0].mean(), params))
+        train.fit(p, params, xs[:4096], num_steps=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train.fit(p, params, xs, num_steps=20)
+        torch.cuda.synchronize()
+        return {"autograd of -log_prob().mean()": auto,
+                "train.fit step (host clock, mean of 20)":
+                    (time.perf_counter() - t0) / 20 * 1e3}
+
+    def run(variant):
+        times = {}
+        for name, body, arg, ps, pr in cases():
+            fn = (lambda body=body, arg=arg, ps=ps, pr=pr: gl._launch_bwd(
+                body, "raw", arg, ps, g1, g2, ift, pr, None))
+            times[f"{name} {variant}"] = _ms(fn)
+            times[f"{name} {variant} (10 back to back)"] = \
+                _ms_back_to_back(fn)
+        if variant == "as_built":
+            times.update(step())
+        return times
+
+    def blocks(handle):
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        occ, grid = {}, {}
+        for name, body, arg, ps, pr in cases():
+            ints, floats, _, n_groups, _, k = gl._kernel_args(
+                "raw", arg, ps, ift, pr, None)
+            occ[name] = list(gl.kernel_occupancy(
+                name.split()[0], k, arg.shape[1], 0, n_groups,
+                skew=pr[3] is not None))
+            c_ints, _ = gl._c_arrays([int(body == "sample")] + ints, floats)
+            grid[name] = handle.gf_layer_bwd_blocks(0, arg.shape[0], 0, n_sm,
+                                                    n_groups * k, c_ints)
+        return occ, grid
+
+    shapes = {"K": slabs[0].shape[0], "d": slabs[0].shape[1],
+              "n_groups": {m: len(ps) for m, (ps, _) in mixes.items()},
+              "rows": x.shape[0], "ift": ift}
+    return run, blocks, shapes
+
+
 def _bits_outputs(dev, n=1 << 16):
     """({name: output on the CPU}, {model: kernels launched}) of seeded
     calls of every model of the ``bits`` part through the libraries
@@ -1013,6 +1239,15 @@ def main(argv=None):
     elif args.part == "block_lazy":
         torch.backends.cuda.matmul.allow_tf32 = False
         run, yardsticks, blocks, shapes = _block_lazy_case(gb, dev, g)
+    elif args.part == "layer_raw":
+        from ..ops import gf_layer as gl
+        # the model's path (recording the calls) on the first tree's
+        # as-built forward kernels
+        handle = ctypes.CDLL(str(paths[(next(iter(trees)), "as_built",
+                                        "gf_layer")]))
+        gl._declare(handle)
+        cuda_build._LOADED["gf_layer"] = handle
+        run, blocks, shapes = _layer_raw_case(gl, dev, g)
     elif args.part == "layer_lazy":
         from ..ops import gf_layer as gl
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -1056,6 +1291,22 @@ def main(argv=None):
                      "blocks_per_sm": {}}
         else:
             extra = {"rows_forward": 1 << 20, "rows_backward": 1 << 18}
+        if args.part == "layer_raw":
+            extra = {"shapes": shapes, "ptxas": {}, "blocks_per_sm": {},
+                     "grid": {}}
+            for (t, variant, lib), path in paths.items():
+                if t != tree or lib != "gf_layer_bwd":
+                    continue
+                handle = ctypes.CDLL(str(path))
+                gl._declare_bwd(handle)
+                cuda_build._LOADED[lib] = handle
+                extra["blocks_per_sm"][variant], extra["grid"][variant] = \
+                    blocks(handle)
+                extra["ptxas"][variant] = layer_raw_ptxas(report[(tree,
+                                                                  variant)])
+                times.update(run(variant))
+            cuda_build._LOADED.pop("gf_layer_bwd", None)
+            return times, extra
         if args.part == "layer_lazy":
             # every variant's libraries loaded together: a T7 variant
             # leaves the forward as built, and the reverse

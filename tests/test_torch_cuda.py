@@ -573,6 +573,61 @@ def test_layer_bwd_kernels_match_plain(dev, iface, per_row, skew, kd):
                 assert _rel(got, ref) < tol, (name, ift, _rel(got, ref))
 
 
+def _raw_bwd_blocks(body, params, prep, n, dev):
+    """The grid T7 takes with raw broadcast slabs for n rows (the occupancy
+    API's blocks per SM times the SMs, at most one block per tile)."""
+    from jammy_flows_tpu_torch.ops import cuda_build
+    lib = cuda_build.load("gf_layer_bwd", gl._declare_bwd)
+    one = torch.zeros((1, params[0].shape[1]), device=dev)
+    ints, floats, _, n_groups, _, k = gl._kernel_args("raw", one, params,
+                                                      "isigmoid", prep, None)
+    c_ints, _ = gl._c_arrays([int(body == "sample")] + ints, floats)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    return lib.gf_layer_bwd_blocks(0, n, 0, n_sm, n_groups * k, c_ints)
+
+
+@pytest.mark.parametrize("kd", [(10, 4), (7, 3)])
+@pytest.mark.parametrize("skew", [0, 1])
+@pytest.mark.parametrize("fit", [0, 1])
+def test_layer_raw_bcast_bwd_matches_plain_and_repeats(dev, kd, skew, fit):
+    """T7 with raw broadcast slabs (warp sums into warp-private partials,
+    the block's regulator derivatives), both bodies, against
+    layer_bwd_plain at the unchanged limits, on a batch of more tiles than
+    twice the grid's blocks (every block walks several; the last warp
+    ragged); two launches bit-equal.  K = 10 takes the compile-time
+    instantiation (20-40 values a piece: two warp passes when skewed with
+    fit_norm), K = 7, D = 3 the generic one."""
+    k, d = kd
+    seed = 200 + 20 * skew + 10 * fit + k
+    params, prep, _ = _layer_case("raw", False, skew, k, d, 1, dev,
+                                  seed=seed, fit=fit)
+    per_sm = {body: gl.kernel_occupancy(f"{body}_bwd_raw", k, d, 0,
+                                        len(params), skew=bool(skew))[0]
+              for body in ("forward", "sample")}
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    n = (2 * max(per_sm.values()) * n_sm + 1) * 128 + 77
+    rng = np.random.default_rng(seed + 1)
+    x, g1, g2 = (torch.as_tensor(rng.normal(size=(n, d)), dtype=torch.float32,
+                                 device=dev) for _ in range(3))
+    ift = ("isigmoid", "inormal_partly_precise")[(skew + fit) % 2]
+    for body in ("forward", "sample"):
+        assert _raw_bwd_blocks(body, params, prep, n, dev) == \
+            per_sm[body] * n_sm
+        res = x if body == "forward" else gl._run(
+            "sample", "raw", x, params, ift, prep, None)[0]
+        a, b = (gl._launch_bwd(body, "raw", res, params, g1, g2, ift, prep,
+                               None) for _ in range(2))
+        rgx, rgp = gl.layer_bwd_plain(body, "raw", res, params, g1, g2, ift,
+                                      prep)
+        torch.cuda.synchronize()
+        for u, v in zip((a[0], *a[1]), (b[0], *b[1])):
+            assert torch.equal(u, v), body
+        for got, ref in zip((a[0], *a[1]), (rgx, *rgp)):
+            assert got.shape == ref.shape and torch.isfinite(got).all()
+            tol = TOL_GRAD["density" if body == "forward" else "sample"]
+            assert _rel(got, ref) < tol, (body, _rel(got, ref))
+
+
 def test_gradients_through_layer_entry_points(dev):
     """autograd through gf_forward_raw / gf_sample_raw / gf_forward_lazy /
     gf_sample_lazy (T7) and gf_forward_pallas (the plain VJP) on the card
