@@ -651,8 +651,8 @@ def tile_kernel_report(built, card):
 
 def layer_occupancy(name, hid=128):
     """(blocks per SM, threads, shared memory bytes) of a per-layer lazy
-    kernel, or of T7 with raw broadcast slabs, at the skewed flagship's
-    layer (K = 10, d = 4, four groups)."""
+    kernel, or of T4, T5 or T7 with raw broadcast slabs (hid 0), at the
+    skewed flagship's layer (K = 10, d = 4, four groups)."""
     from jammy_flows_tpu_torch.ops import gf_layer as gl
     return gl.kernel_occupancy(name, 10, 4, hid, 4, skew=True)
 
@@ -1809,10 +1809,11 @@ def time_layer_kernels(calls, launches, errs, card, ptxas=None):
     inputs (the unconditional serving or training paths): kernel, plain
     version, bound; returns the JSON rows.  The lazy rows also carry two
     yardsticks on the same inputs (their P x H products alone as
-    torch.matmul, and the materialized route); the lazy and the T7 raw
-    rows their registers, stack and spills (``ptxas``:
-    tools/tile_breakdown.layer_ptxas / layer_raw_ptxas of the build's
-    -Xptxas -v lines) and blocks per SM.  A per-row prepared call (the
+    torch.matmul, and the materialized route); the lazy and the raw
+    broadcast (T4, T5, T7) rows their registers, stack and spills
+    (``ptxas``: tools/tile_breakdown.layer_ptxas / layer_raw_ptxas /
+    layer_fwd_raw_ptxas of the build's -Xptxas -v lines) and blocks per
+    SM.  A per-row prepared call (the
     centred amortized block) is timed too, for the log."""
     rows = []
     for name in LAYER_ENTRY + LAYER_BWD:
@@ -1846,11 +1847,13 @@ def time_layer_kernels(calls, launches, errs, card, ptxas=None):
                 f" ms, the materialized route (torch.matmul + raw per-row "
                 f"kernel) {row['materialized_ms']:.4f} ms; "
                 f"{row['blocks_per_sm']} blocks per SM; {row['ptxas']}")
-        if name in ("forward_bwd_raw", "sample_bwd_raw"):
+        if name in ("forward_raw", "sample_raw", "forward_bwd_raw",
+                    "sample_bwd_raw"):
             row = rows[-1]
             row["blocks_per_sm"] = layer_occupancy(name, 0)[0]
-            row["ptxas"] = (ptxas or {}).get(f"{name} broadcast (K=10, "
-                                             "skewed)")
+            row["ptxas"] = (ptxas or {}).get(
+                f"{name} {'broadcast ' if '_bwd_' in name else ''}(K=10, "
+                "skewed)")
             log(f"{name} (broadcast, K=10, skewed): "
                 f"{row['blocks_per_sm']} blocks per SM; {row['ptxas']}")
     for name in ("forward_prepared", "inverse_prepared"):
@@ -2192,7 +2195,8 @@ def main():
         log(line)
     perm_ptxas = tile_breakdown.perm_ptxas("".join(ptxas))
     layer_ptxas = {**tile_breakdown.layer_ptxas("".join(ptxas)),
-                   **tile_breakdown.layer_raw_ptxas("".join(ptxas))}
+                   **tile_breakdown.layer_raw_ptxas("".join(ptxas)),
+                   **tile_breakdown.layer_fwd_raw_ptxas("".join(ptxas))}
     tile_kernel_report(built, card)
     dev = torch.device("cuda", torch.cuda.current_device())
     # the T1 perm kernels' reciprocal of 1 + e against the IEEE one, every

@@ -54,9 +54,8 @@
 // wgmma and TMA for the tile products are later work.
 #include <cuda_runtime.h>
 
-#include <mutex>
-
 #include "gf_block_src.cuh"
+#include "occupancy.cuh"
 
 using namespace gf;
 
@@ -294,36 +293,6 @@ int block_shape(int mode, BlockArgs& a, int& threads, size_t& smem) {
   return smem > SMEM_LIMIT ? (int)cudaErrorInvalidValue : 0;
 }
 
-// Blocks per SM of a kernel (occupancy API), asked once per kernel,
-// threads, shared memory and device and then kept: the launch path does
-// not pay for the query at every call.
-cudaError_t blocks_per_sm(Kernel kernel, int threads, size_t smem, int dev,
-                          int& per_sm) {
-  struct Known {
-    Kernel kernel;
-    int threads;
-    size_t smem;
-    int dev, per_sm;
-  };
-  static Known known[64];
-  static int n_known = 0;
-  static std::mutex mu;
-  std::lock_guard<std::mutex> lock(mu);
-  for (int i = 0; i < n_known; ++i) {
-    const Known& k = known[i];
-    if (k.kernel == kernel && k.threads == threads && k.smem == smem &&
-        k.dev == dev) {
-      per_sm = k.per_sm;
-      return cudaSuccess;
-    }
-  }
-  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kernel, threads, smem);
-  if (e == cudaSuccess && n_known < 64)
-    known[n_known++] = Known{kernel, threads, smem, dev, per_sm};
-  return e;
-}
-
 // The perm kernel's grid for a.B rows on the current device (perm_grid).
 cudaError_t perm_blocks(Kernel kernel, const BlockArgs& a, int threads,
                         size_t smem, int& blocks) {
@@ -331,7 +300,8 @@ cudaError_t perm_blocks(Kernel kernel, const BlockArgs& a, int threads,
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess) e = blocks_per_sm(kernel, threads, smem, dev, per_sm);
+  if (e == cudaSuccess)
+    e = blocks_per_sm((const void*)kernel, threads, smem, dev, per_sm);
   blocks = perm_grid((a.B + PERM_THREADS - 1) / PERM_THREADS, per_sm, n_sm);
   return e;
 }

@@ -21,7 +21,18 @@
 //
 // Design: one thread per row, looping over the dimensions (the mixture of
 // one dimension in registers for K = 10, local memory otherwise), 128 rows
-// per block.  Prepared and raw calls: one block per 128-row tile.  Lazy
+// per block.  Raw broadcast forward and sample (T4 / T5 raw,
+// gf_layer_bcast_kernel): a grid of persistent blocks, as many as the SMs
+// hold at once, each preparing the mixtures once (BcastSrc, one
+// (dimension, component) pair a thread, with the row-independent terms a
+// row would compute again: MixF's lnw + log(iw) and nw * iw), then walking
+// its tiles one dimension at a time with that dimension's mixture in
+// registers; the plain mixture's solve and root log-derivative are one
+// rolled loop over one copy of the evaluation.  One block per tile
+// repeated the set-up 8,192 times at 1M rows on 4 of 128 threads (35% of
+// T4 skewed; PERF.md, tools/tile_breakdown.py --part layer_fwd_raw).
+// Prepared, raw per-row and solve-alone calls: one block per 128-row tile.
+// Lazy
 // calls: the tile stage of tile_rows.cuh (LayerStreamSrc): for each
 // dimension the block makes that dimension's n_groups * K parameter rows
 // for all its 128 rows as one 3xTF32 tile product, the hidden rows and w
@@ -38,6 +49,7 @@
 #include <cuda_runtime.h>
 
 #include "gf_layer_src.cuh"
+#include "occupancy.cuh"
 
 using namespace gf;
 
@@ -47,13 +59,19 @@ constexpr int FORWARD = 0, SAMPLE = 1, INVERSE = 2;
 constexpr int SMEM_LIMIT = 227 * 1024;
 
 // One row's pass of dimension dd (element i of x): the value (FORWARD) or
-// the root (SAMPLE, INVERSE) into out, and the log-derivative into ld.
-template <bool SKEW, int MODE, int N, int KT>
-__device__ __forceinline__ void row_pass(const LayerArgs& a,
-                                         const MixT<SKEW, N>& mx, int K,
-                                         size_t i) {
+// the root (SAMPLE, INVERSE) into out, and the log-derivative into ld.  M:
+// the source's mixture (MixT), or one with its row-independent terms
+// prepared (MixFT).  ROLLED (the raw broadcast sample): the plain
+// mixture's solve and root log-derivative as one rolled loop
+// (solve_log_deriv_rolled: the same bits as the unrolled form), its
+// bracket keeping a NaN as the plain version does.  The skewed solve
+// stays unrolled: at 96 registers (5 blocks per SM) its rolled loop was
+// 11% slower (PERF.md).
+template <bool SKEW, int MODE, int N, int KT, bool ROLLED = false, class M>
+__device__ __forceinline__ void row_pass(const LayerArgs& a, const M& mx,
+                                         int K, size_t i) {
   const float xv = a.x[i];
-  if (MODE == FORWARD) {
+  if constexpr (MODE == FORWARD) {
     float lg;
     float val;
     if constexpr (SKEW)
@@ -61,6 +79,10 @@ __device__ __forceinline__ void row_pass(const LayerArgs& a,
     else
       val = density_pass<N, KT>(xv, mx, K, a.ift, lg);
     a.out[i] = val;
+    a.ld[i] = lg;
+  } else if constexpr (ROLLED && !SKEW && MODE == SAMPLE) {
+    float lg;
+    a.out[i] = solve_log_deriv_rolled<N, KT, true>(xv, mx, K, a.ift, lg);
     a.ld[i] = lg;
   } else {
     float root;
@@ -80,6 +102,8 @@ __device__ __forceinline__ void row_pass(const LayerArgs& a,
   }
 }
 
+// T4-T6 lazy, prepared, raw per row, and the solve alone (T6) on raw
+// broadcast slabs: one block per 128-row tile.
 template <bool LAZY, bool SKEW, int MODE, int KT>
 __global__ void __launch_bounds__(128) gf_layer_kernel(const LayerArgs a) {
   constexpr int N = KT > 0 ? KT : KMAX;
@@ -114,67 +138,161 @@ __global__ void __launch_bounds__(128) gf_layer_kernel(const LayerArgs a) {
   }
 }
 
+// The raw broadcast forward's register cap, the launch bounds' minimum of
+// resident blocks per SM (tools/tile_breakdown.py --part layer_fwd_raw)
+constexpr int BCAST_MIN_BLOCKS_FORWARD = 4, BCAST_MIN_BLOCKS_SAMPLE = 5;
+
+// T4 / T5 on raw broadcast slabs (gf_forward_raw, gf_sample_raw): a grid of
+// persistent blocks (persistent_grid), each preparing the mixtures once
+// (BcastSrc: one (dimension, component) a thread, with the row-independent
+// terms of MixF), then, one dimension at a time, walking the tiles
+// blockIdx.x, blockIdx.x + gridDim.x, ... of 128 rows, a row a thread, with
+// that dimension's mixture in registers; the plain mixture's solve rolled.
+// No barrier follows the set-up.
+template <bool SKEW, int MODE, int KT>
+__global__ void __launch_bounds__(128, MODE == SAMPLE ? BCAST_MIN_BLOCKS_SAMPLE : BCAST_MIN_BLOCKS_FORWARD)
+    gf_layer_bcast_kernel(const LayerArgs a) {
+  constexpr int N = KT > 0 ? KT : KMAX;
+  extern __shared__ __align__(16) float smem[];
+  const int K = KT > 0 ? KT : a.K;
+  const BcastSrc<SKEW, N, KT> src(a, smem);
+  const int n_tiles = (a.B + blockDim.x - 1) / blockDim.x;
+  for (int dd = 0; dd < a.D; ++dd) {
+    MixFT<SKEW, N> mx;
+    src.load(a, dd, mx);
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const int row = tile * blockDim.x + threadIdx.x;
+      if (row >= a.B) break;
+      row_pass<SKEW, MODE, N, KT, true>(a, mx, K, (size_t)row * a.D + dd);
+    }
+  }
+}
+
+// a call the broadcast kernel takes: the raw broadcast forward and sample
+inline bool bcast_call(bool lazy, int mode, const LayerArgs& a) {
+  return !lazy && mode != INVERSE && !a.per_row && !a.prepared;
+}
+
+// The kernel of a call and its grid: the broadcast kernel's persistent
+// blocks (blocks per SM x SMs, at most one per tile), else one block per
+// tile.  0 or a cudaError_t.
+template <bool LAZY, bool SKEW, int MODE, int KT>
+cudaError_t kernel_grid(const LayerArgs& a, int threads, size_t smem,
+                        const void*& kernel, int& blocks) {
+  const int n_tiles = (a.B + threads - 1) / threads;
+  blocks = n_tiles;
+  if (!bcast_call(LAZY, MODE, a)) {
+    kernel = (const void*)gf_layer_kernel<LAZY, SKEW, MODE, KT>;
+    return cudaSuccess;
+  }
+  if constexpr (!LAZY && MODE != INVERSE) {
+    kernel = (const void*)gf_layer_bcast_kernel<SKEW, MODE, KT>;
+    return persistent_grid(kernel, threads, smem, n_tiles, blocks);
+  }
+  return cudaErrorInvalidValue;
+}
+
 // Launch on `stream`, or with occupancy non-null write the kernel's
-// resident blocks per SM there instead (the CUDA occupancy API).
+// resident blocks per SM there instead (the CUDA occupancy API), or with
+// grid non-null write the call's [blocks, threads] there.
 template <bool LAZY, bool SKEW, int MODE, int KT>
 cudaError_t launch(const LayerArgs& a, int threads, size_t smem,
-                   cudaStream_t stream, int* occupancy) {
-  auto kernel = gf_layer_kernel<LAZY, SKEW, MODE, KT>;
+                   cudaStream_t stream, int* occupancy, int* grid) {
+  const void* kernel = nullptr;
+  int blocks = 0;
+  cudaError_t e = kernel_grid<LAZY, SKEW, MODE, KT>(a, threads, smem, kernel,
+                                                     blocks);
+  if (e != cudaSuccess) return e;
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
     if (e != cudaSuccess) return e;
   }
   if (occupancy)
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(occupancy, kernel,
                                                          threads, smem);
-  const int blocks = (a.B + threads - 1) / threads;
-  kernel<<<blocks, threads, smem, stream>>>(a);
+  if (grid) {
+    grid[0] = blocks;
+    grid[1] = threads;
+    return cudaSuccess;
+  }
+  if (bcast_call(LAZY, MODE, a)) {
+    if constexpr (!LAZY && MODE != INVERSE)
+      gf_layer_bcast_kernel<SKEW, MODE, KT><<<blocks, threads, smem, stream>>>(a);
+  } else {
+    gf_layer_kernel<LAZY, SKEW, MODE, KT><<<blocks, threads, smem, stream>>>(a);
+  }
   return cudaGetLastError();
 }
 
 template <bool LAZY, bool SKEW, int MODE>
 cudaError_t dispatch_k(const LayerArgs& a, int threads, size_t smem,
-                       cudaStream_t s, int* occ) {
-  if (a.K == 10) return launch<LAZY, SKEW, MODE, 10>(a, threads, smem, s, occ);
-  return launch<LAZY, SKEW, MODE, 0>(a, threads, smem, s, occ);
+                       cudaStream_t s, int* occ, int* grid) {
+  if (a.K == 10)
+    return launch<LAZY, SKEW, MODE, 10>(a, threads, smem, s, occ, grid);
+  return launch<LAZY, SKEW, MODE, 0>(a, threads, smem, s, occ, grid);
 }
 
 template <bool LAZY, bool SKEW>
 cudaError_t dispatch_mode(int mode, const LayerArgs& a, int threads,
-                          size_t smem, cudaStream_t s, int* occ) {
+                          size_t smem, cudaStream_t s, int* occ, int* grid) {
   if (mode == FORWARD)
-    return dispatch_k<LAZY, SKEW, FORWARD>(a, threads, smem, s, occ);
+    return dispatch_k<LAZY, SKEW, FORWARD>(a, threads, smem, s, occ, grid);
   if (mode == SAMPLE)
-    return dispatch_k<LAZY, SKEW, SAMPLE>(a, threads, smem, s, occ);
+    return dispatch_k<LAZY, SKEW, SAMPLE>(a, threads, smem, s, occ, grid);
   if constexpr (LAZY) {
     return cudaErrorInvalidValue;  // the lazy interface has no solve-alone
   } else {
-    return dispatch_k<LAZY, SKEW, INVERSE>(a, threads, smem, s, occ);
+    return dispatch_k<LAZY, SKEW, INVERSE>(a, threads, smem, s, occ, grid);
   }
 }
 
 cudaError_t dispatch(int mode, bool lazy, bool skew, const LayerArgs& a,
-                     int threads, size_t smem, cudaStream_t s, int* occ) {
+                     int threads, size_t smem, cudaStream_t s, int* occ,
+                     int* grid) {
   if (lazy)
-    return skew ? dispatch_mode<true, true>(mode, a, threads, smem, s, occ)
-                : dispatch_mode<true, false>(mode, a, threads, smem, s, occ);
-  return skew ? dispatch_mode<false, true>(mode, a, threads, smem, s, occ)
-              : dispatch_mode<false, false>(mode, a, threads, smem, s, occ);
+    return skew ? dispatch_mode<true, true>(mode, a, threads, smem, s, occ, grid)
+                : dispatch_mode<true, false>(mode, a, threads, smem, s, occ, grid);
+  return skew ? dispatch_mode<false, true>(mode, a, threads, smem, s, occ, grid)
+              : dispatch_mode<false, false>(mode, a, threads, smem, s, occ, grid);
 }
 
 // A call's rows per block and dynamic shared memory (the lazy tile:
 // a.tile); 0 or cudaErrorInvalidValue when none fits.
-int block_shape(LayerArgs& a, bool lazy, int& threads, size_t& smem) {
+int block_shape(LayerArgs& a, bool lazy, int mode, int& threads,
+                size_t& smem) {
   threads = 128;
   if (lazy) {
     a.stream = layer_stream_shape(a.n_groups * a.K);
     threads = a.stream.T;
     smem = a.stream.floats() * 4;
   } else {
-    smem = layer_src_floats(a) * 4;
+    smem = layer_src_floats(a, bcast_call(lazy, mode, a)) * 4;
   }
   return smem > SMEM_LIMIT ? (int)cudaErrorInvalidValue : 0;
+}
+
+// A call's arguments from its meta ints (gf_layer_launch); 0 or
+// cudaErrorInvalidValue when the kernels do not take them.
+int parse_meta(const int* meta, LayerArgs& a) {
+  const int mode = meta[0], lazy = meta[1], skew = meta[2];
+  a.prepared = meta[3];
+  a.per_row = meta[4];
+  a.B = meta[5];
+  a.K = meta[6];
+  a.D = meta[7];
+  a.H = meta[8];
+  a.fit_norm = meta[9];
+  a.n_pos = meta[10];
+  a.ift = meta[11];
+  a.n_groups = a.prepared ? 3 : 2 + a.fit_norm + skew;
+  if (mode < 0 || mode > 2 || a.K < 1 || a.K > KMAX || a.D < 1 ||
+      a.D > DMAX || a.B < 0 || a.ift < 0 || a.ift > 3 ||
+      a.n_pos < 0 || a.n_pos > a.K || (a.prepared && (skew || lazy)) ||
+      (lazy && (a.H < 1 || mode == 2)))
+    return (int)cudaErrorInvalidValue;
+  return 0;
 }
 
 }  // namespace
@@ -195,6 +313,7 @@ extern "C" int gf_layer_launch(const int* meta, const float* regs,
                                const float* b, void* stream) {
   const int mode = meta[0], lazy = meta[1], skew = meta[2];
   LayerArgs a{};
+  if (parse_meta(meta, a) != 0) return (int)cudaErrorInvalidValue;
   a.x = x;
   a.out = out;
   a.ld = ld;
@@ -205,24 +324,11 @@ extern "C" int gf_layer_launch(const int* meta, const float* regs,
   a.hidden = hidden;
   a.w = w;
   a.b = b;
-  a.prepared = meta[3];
-  a.per_row = meta[4];
-  a.B = meta[5];
-  a.K = meta[6];
-  a.D = meta[7];
-  a.H = meta[8];
-  a.fit_norm = meta[9];
-  a.n_pos = meta[10];
-  a.ift = meta[11];
   a.wreg = Reg{meta[12], regs[0], regs[1], regs[2], regs[3], regs[4]};
   a.nreg = Reg{meta[13], regs[5], regs[6], regs[7], regs[8], regs[9]};
   a.ereg = Reg{meta[14], regs[10], regs[11], regs[12], regs[13], regs[14]};
-  a.n_groups = a.prepared ? 3 : 2 + a.fit_norm + skew;
-  if (mode < 0 || mode > 2 || a.K < 1 || a.K > KMAX || a.D < 1 ||
-      a.D > DMAX || a.B < 0 || a.ift < 0 || a.ift > 3 ||
-      a.n_pos < 0 || a.n_pos > a.K || (a.prepared && (skew || lazy)) ||
-      (lazy && (a.H < 1 || hidden == nullptr || w == nullptr || b == nullptr)) ||
-      (mode != 2 && ld == nullptr) || (lazy && mode == 2))
+  if ((lazy && (hidden == nullptr || w == nullptr || b == nullptr)) ||
+      (mode != 2 && ld == nullptr))
     return (int)cudaErrorInvalidValue;
   if (!lazy)
     for (int g = 0; g < a.n_groups; ++g)
@@ -231,16 +337,29 @@ extern "C" int gf_layer_launch(const int* meta, const float* regs,
 
   int threads;
   size_t smem;
-  if (block_shape(a, lazy, threads, smem) != 0)
+  if (block_shape(a, lazy, mode, threads, smem) != 0)
     return (int)cudaErrorInvalidValue;
   return (int)dispatch(mode, lazy, skew, a, threads, smem,
-                       (cudaStream_t)stream, nullptr);
+                       (cudaStream_t)stream, nullptr, nullptr);
+}
+
+// The grid a call of these meta ints (gf_layer_launch's) launches on the
+// current device: out = [blocks, threads per block].  0 or a cudaError_t.
+extern "C" int gf_layer_grid(const int* meta, int* out) {
+  LayerArgs a{};
+  int threads;
+  size_t smem;
+  if (parse_meta(meta, a) != 0 || a.B < 1 ||
+      block_shape(a, meta[1], meta[0], threads, smem) != 0)
+    return (int)cudaErrorInvalidValue;
+  return (int)dispatch(meta[0], meta[1], meta[2], a, threads, smem, nullptr,
+                       nullptr, out);
 }
 
 // Resident blocks per SM of the kernel a call of this (mode, lazy, skew,
-// K, D, H, n_groups) launches, by cudaOccupancyMaxActiveBlocksPerMultiprocessor;
-// writes [blocks per SM, threads per block, dynamic shared memory bytes]
-// to out.  Returns 0 or a cudaError_t.
+// K, D, H, n_groups) launches, by cudaOccupancyMaxActiveBlocksPerMultiprocessor
+// (lazy 0: raw broadcast slabs); writes [blocks per SM, threads per block,
+// dynamic shared memory bytes] to out.  Returns 0 or a cudaError_t.
 extern "C" int gf_layer_occupancy(int mode, int lazy, int skew, int K, int D,
                                   int H, int n_groups, int* out) {
   LayerArgs a{};
@@ -249,15 +368,15 @@ extern "C" int gf_layer_occupancy(int mode, int lazy, int skew, int K, int D,
   a.D = D;
   a.H = H;
   a.n_groups = n_groups;
-  a.per_row = 1;
+  a.per_row = lazy;
   int threads;
   size_t smem;
   if (mode < 0 || mode > 2 || K < 1 || K > KMAX || D < 1 || D > DMAX ||
-      (lazy && H < 1) || block_shape(a, lazy, threads, smem) != 0)
+      (lazy && H < 1) || block_shape(a, lazy, mode, threads, smem) != 0)
     return (int)cudaErrorInvalidValue;
   int n = 0;
   const cudaError_t e =
-      dispatch(mode, lazy, skew, a, threads, smem, nullptr, &n);
+      dispatch(mode, lazy, skew, a, threads, smem, nullptr, &n, nullptr);
   out[0] = n;
   out[1] = threads;
   out[2] = (int)smem;

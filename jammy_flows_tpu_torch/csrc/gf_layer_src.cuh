@@ -11,7 +11,7 @@
 // Prepared and raw slabs are broadcast (K, D) or per row (K, D, B), B minor,
 // so the threads of a warp (one row each) read neighbouring floats.
 // Broadcast slabs are prepared once per block into shared memory
-// (LayerSrc).  Lazy blocks take the tile stage of tile_rows.cuh: the block
+// (LayerSrc; the raw broadcast forward's BcastSrc).  Lazy blocks take the tile stage of tile_rows.cuh: the block
 // makes one dimension's piece of parameter rows at a time for all its rows
 // (the n_groups * K rows g K D + k D + dd, in the group order of the slabs)
 // as a 3xTF32 tile product on the tensor cores, into a slab whose column
@@ -49,6 +49,10 @@ constexpr int BCAST_ARRAYS = 10;
 
 template <bool SKEW, int N>
 using MixT = typename std::conditional<SKEW, SkewMix<N>, Mix<N>>::type;
+// the raw broadcast forward's mixture: the plain one with its
+// row-independent terms prepared (MixF), the skewed one as LayerSrc's
+template <bool SKEW, int N>
+using MixFT = typename std::conditional<SKEW, SkewMix<N>, MixF<N>>::type;
 
 // Prepare a mixture from loaded values: raw (regulators, log-softmax and,
 // when skewed, the exponents) or prepared (weights from the log weights).
@@ -172,6 +176,91 @@ struct LayerSrc {
   }
 };
 
+// The raw broadcast forward's source (T4 / T5 raw, gf_layer_bcast_kernel):
+// the block's mixtures prepared once into shared memory, K * D floats an
+// array, value k of dimension dd at k * D + dd, by one (dimension,
+// component) pair a thread in two passes: the per-component terms
+// (regulators, exponents), then, after a barrier, each pair's log-softmax
+// over its dimension's regulated log-norms (every pair of a dimension sums
+// them in the same order) and the terms that need it, MixF's lnw + log(iw)
+// and nw * iw for the plain mixture.  prep_mix's and prep_skew's f32
+// expressions, so the mixture's bits are those of LayerSrc's one thread a
+// dimension (the parent's set-up, which the other broadcast calls keep).
+enum BcastArray {
+  BA_M, BA_IW, BA_LNW, BA_NW, BA_LIW, BA_LS, BA_A, BA_LP, BA_NWIW, BA_L,
+  BCAST_FWD_ARRAYS
+};
+
+template <bool SKEW, int N, int KT>
+struct BcastSrc {
+  float* sm;
+
+  // Every thread of the block calls it (it synchronizes).
+  __device__ BcastSrc(const LayerArgs& a, float* smem) : sm(smem) {
+    const int T = blockDim.x, tid = threadIdx.x;
+    const int kd = a.K * a.D;
+    for (int j = tid; j < kd; j += T) {
+      const float iw = expf(-apply_reg(a.wreg, __ldg(a.p[1] + j)));
+      sm[BA_M * kd + j] = __ldg(a.p[0] + j);
+      sm[BA_IW * kd + j] = iw;
+      if (a.fit_norm) sm[BA_L * kd + j] = apply_reg(a.nreg, __ldg(a.p[2] + j));
+      if constexpr (SKEW) {
+        const float ls = apply_reg(a.ereg, __ldg(a.p[2 + a.fit_norm] + j));
+        sm[BA_LIW * kd + j] = logf(iw);
+        sm[BA_LS * kd + j] = ls;
+        sm[BA_A * kd + j] = expf(ls);
+      }
+    }
+    __syncthreads();
+    const int kk = KT > 0 ? KT : a.K;
+    for (int j = tid; j < kd; j += T) {
+      const int dd = j % a.D;
+      float lnw;
+      if (a.fit_norm) {
+        const float* l = sm + BA_L * kd + dd;
+        float mmax = -INFINITY;
+        for (int k = 0; k < kk; ++k) mmax = fmaxf(mmax, l[k * a.D]);
+        float s = 0.0f;
+        for (int k = 0; k < kk; ++k) s += expf(l[k * a.D] - mmax);
+        lnw = l[j - dd] - (mmax + logf(s));
+      } else {
+        lnw = (float)(-log((double)kk));
+      }
+      const float nw = expf(lnw);
+      sm[BA_LNW * kd + j] = lnw;
+      sm[BA_NW * kd + j] = nw;
+      if constexpr (!SKEW) {
+        const float iw = sm[BA_IW * kd + j];
+        sm[BA_LP * kd + j] = lnw + logf(iw);
+        sm[BA_NWIW * kd + j] = nw * iw;
+      }
+    }
+    __syncthreads();
+  }
+
+  // dimension dd's mixture (the skewed mixture's weights nw are not read)
+  __device__ void load(const LayerArgs& a, int dd, MixFT<SKEW, N>& mx) const {
+    const int kk = KT > 0 ? KT : a.K;
+    const int kd = a.K * a.D;
+#pragma unroll
+    for (int k = 0; k < kk; ++k) {
+      const int j = k * a.D + dd;
+      mx.m[k] = sm[BA_M * kd + j];
+      mx.iw[k] = sm[BA_IW * kd + j];
+      mx.lnw[k] = sm[BA_LNW * kd + j];
+      if constexpr (SKEW) {
+        mx.liw[k] = sm[BA_LIW * kd + j];
+        mx.ls[k] = sm[BA_LS * kd + j];
+        mx.a[k] = sm[BA_A * kd + j];
+      } else {
+        mx.nw[k] = sm[BA_NW * kd + j];
+        mx.lp[k] = sm[BA_LP * kd + j];
+        mx.nwiw[k] = sm[BA_NWIW * kd + j];
+      }
+    }
+  }
+};
+
 // the parameter rows of dimension dd's piece: slab column j = g K + k is
 // row g K D + k D + dd = j D + dd
 struct PieceRows {
@@ -276,9 +365,12 @@ struct LayerTileSrc {
 };
 
 // Shared memory floats a broadcast or per-row call's block needs for its
-// source.
-__host__ __device__ inline size_t layer_src_floats(const LayerArgs& a) {
-  return a.per_row ? 0 : (size_t)BCAST_ARRAYS * a.K * a.D;
+// source (LayerSrc; the raw broadcast forward's BcastSrc: bcast).
+__host__ __device__ inline size_t layer_src_floats(const LayerArgs& a,
+                                                   bool bcast = false) {
+  return a.per_row ? 0
+                   : (size_t)(bcast ? BCAST_FWD_ARRAYS : BCAST_ARRAYS) *
+                         a.K * a.D;
 }
 
 // The lazy forward's streamed tile for pieces of n parameter rows: 128

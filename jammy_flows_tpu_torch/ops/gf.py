@@ -183,11 +183,18 @@ def implicit_step(s, mix, ift, gs, gld):
     the solve output s, fp = dval/ds and lx = dld/ds, the cotangent of the
     layer's input is c = (gs + gld * lx) / fp, and the mixture parameters
     take the VJP of (val, ld) with cotangents (-c, gld).  Returns (c, val,
-    ld) with val and ld still attached to ``mix``'s graph; s is constant."""
+    ld) with val and ld still attached to ``mix``'s graph; s is constant.
+
+    fp and lx are tangents, which the JAX package (``jax.jvp``) and the
+    kernels take in forward mode, where a NaN primal reaches them; reverse
+    mode drops it where the mixture rule gates every component's
+    coordinate (a NaN root: |c| < 60 is false) and gives fp = 0, c = +-inf.
+    So fp is NaN wherever the pass's value or log-derivative is."""
     s = s.detach().requires_grad_()
     val, ld = mixture_value_deriv(s, mix, "log", ift)
     fp, = torch.autograd.grad(val.sum(), s, retain_graph=True)
     lx, = torch.autograd.grad(ld.sum(), s, retain_graph=True)
+    fp = torch.where(torch.isnan(val) | torch.isnan(ld), torch.nan, fp)
     return (gs + gld * lx) / fp, val, ld
 
 

@@ -299,7 +299,8 @@ def kernel_occupancy(name, k, d, hid, n_groups, skew=True):
     """(blocks per SM, threads per block, dynamic shared memory bytes) of
     the kernel ``name`` (a ``LAUNCHES`` key: forward_lazy, sample_lazy,
     forward_bwd_lazy, sample_bwd_lazy, and with broadcast slabs
-    forward_bwd_raw, sample_bwd_raw) at a layer of K = k, D = d, hidden
+    forward_raw, sample_raw, forward_bwd_raw, sample_bwd_raw) at a layer
+    of K = k, D = d, hidden
     width hid (lazy) and n_groups parameter groups, from the CUDA
     occupancy API on the current device."""
     from . import cuda_build
@@ -315,6 +316,28 @@ def kernel_occupancy(name, k, d, hid, n_groups, skew=True):
             int(skew), k, d, hid, n_groups, out)
     if rc != 0:
         raise RuntimeError(f"occupancy query of {name} failed ({rc})")
+    return tuple(out)
+
+
+def bcast_grid(mode, n, params, prep):
+    """(blocks, rows per tile) of the grid T4 / T5 take with raw broadcast
+    slabs for n rows on the current device: persistent blocks, the
+    occupancy API's blocks per SM x SMs at most, each walking tiles of
+    rows."""
+    from . import cuda_build
+    lib = cuda_build.load("gf_layer", _declare)
+    lib.gf_layer_grid.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.gf_layer_grid.restype = ctypes.c_int
+    one = torch.zeros((1, params[0].shape[1]), device=params[0].device)
+    ints, _, _, _, _, _ = _kernel_args("raw", one, params, "isigmoid", prep,
+                                       None)
+    ints[4] = n     # the rows (B), after lazy, skew, prepared, per_row
+    c_ints, _ = _c_arrays([_MODES[mode]] + ints, [])
+    out = (ctypes.c_int * 2)()
+    with torch.cuda.device(params[0].device):
+        rc = lib.gf_layer_grid(c_ints, out)
+    if rc != 0:
+        raise RuntimeError(f"gf_layer grid query failed ({rc})")
     return tuple(out)
 
 

@@ -38,6 +38,10 @@ ERFINV_CUBIC = math.pi / 12.0
 # central seam of the erfinv argument reconstruction (ln_fac > -1 uses the
 # difference form cdf - sf; see the JAX module for the derivation)
 LIN_SEAM_LNFAC = -1.0
+# the mixture's fallback lanes: taken where every component lies beyond
+# this many width-units (|c| > FALLBACK_SEAM), as csrc/gf_common.cuh
+# FALLBACK_SEAM; read at each call, so that a probe can move it
+FALLBACK_SEAM = 55.0
 LOG_SEAM = math.log(4.0 * PADE_BOUND * (1.0 - PADE_BOUND))
 
 
@@ -54,8 +58,8 @@ def _linear_logs_primal(common, norm_w, log_norm_w, inv_widths,
     sig = e * r
     F = torch.sum(norm_w * sig, dim=0)
     SF = torch.sum(norm_w * r, dim=0)
-    neg_all = torch.amax(common, dim=0) < -55.0
-    pos_all = torch.amin(common, dim=0) > 55.0
+    neg_all = torch.amax(common, dim=0) < -FALLBACK_SEAM
+    pos_all = torch.amin(common, dim=0) > FALLBACK_SEAM
     mc = torch.amax(log_norm_w + torch.clamp(common, max=0.0), dim=0)
     ms = torch.amax(log_norm_w - torch.clamp(common, min=0.0), dim=0)
     log_cdf = torch.where(neg_all, mc, torch.log(torch.clamp(F, min=tiny)))
@@ -63,7 +67,7 @@ def _linear_logs_primal(common, norm_w, log_norm_w, inv_widths,
     if not need_pdf:
         return (log_cdf, log_sf, None), None
     P = torch.sum((norm_w * inv_widths) * (sig * r), dim=0)
-    far = torch.amin(torch.abs(common), dim=0) > 55.0
+    far = torch.amin(torch.abs(common), dim=0) > FALLBACK_SEAM
     mp = torch.amax(log_norm_w + log_inv_widths - torch.abs(common), dim=0)
     log_pdf = torch.where(far, mp, torch.log(torch.clamp(P, min=tiny)))
     return (log_cdf, log_sf, log_pdf), (sig, r, F, SF, P, neg_all, pos_all,

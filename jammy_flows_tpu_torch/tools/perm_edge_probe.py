@@ -43,11 +43,14 @@ excluded from the 3e-4 limit only where the float64 s or c of some layer
 lies within its band; every other row is held to 3e-4.  Per draw: the
 bands, the rows excluded, the rows past the limit and whether each of them
 was an excluded one, and the largest |kernel - plain| over the rows held.
-Where rows are past the limit, the plain version runs twice more with its
-iCDF switch moved by +- FLIP_BANDS bands of s, so that the rows near that
-seam take the other branch: each such row's |kernel - plain| beside its
-least |kernel - flipped plain|, which is small where the row's gap is the
-seam's jump carried through the later layers and nothing else.
+Where rows are past the limit, the plain version runs four times more:
+with its iCDF switch (``gf._LOG_SEAM``) moved by +- FLIP_BANDS bands of s,
+and with its fallback lanes' switch (``logistic_kde.FALLBACK_SEAM``)
+moved by +- FLIP_BANDS bands of c, so that the rows near either seam take
+the other branch: each such row's |kernel - plain| beside its least
+|kernel - flipped plain| over the four runs (and over each seam's two),
+which is small where the row's gap is a seam's jump carried through the
+later layers and nothing else.
 
 Prints one JSON line per process and a summary line with the card's name
 and power limit.  Needs a CUDA device.
@@ -66,7 +69,6 @@ SEED = 5
 # sqrt(2) erfinv(2 PADE_BOUND - 1), PADE_BOUND = 0.5e-7
 SEAM = -5.326723886384500
 LIMIT = 3e-4                # kernel vs plain, the density direction
-FALLBACK = 55.0             # the mixture's fallback lanes: min |c| beyond
 BAND_FACTOR = 2.0           # a seam's band: this many float32 spreads
 FLIP_BANDS = 2.0            # the flipped plain version's switch: moved by
                             # this many bands of s
@@ -108,7 +110,7 @@ def seam_distances(x, mix, ift):
     from ..ops import gf, logistic_kde as lk
     means, iw, lnw = gf._unpack_mix(mix)[:3]
     common = (x[None] - means) * iw
-    c = common.abs().amin(dim=0) - FALLBACK
+    c = common.abs().amin(dim=0) - lk.FALLBACK_SEAM
     if ift != "inormal_partly_precise":
         return torch.full_like(c, float("inf")), c
     log_cdf, log_sf, _ = lk.mixture_linear_logs(
@@ -142,28 +144,36 @@ def rows_off(a, b):
                         .amax(dim=1) for u, v in zip(a, b)]).amax(dim=0)
 
 
-def flipped(fn, shift):
-    """fn's result with the plain version's normal iCDF switch moved by
-    shift in s: the rows whose s lies between 0 and shift take the other
-    branch."""
-    from ..ops import gf
-    seam = gf._LOG_SEAM
-    gf._LOG_SEAM = seam + shift
+def flipped(fn, shift, seam="icdf"):
+    """fn's result with one switch of the plain version moved by shift:
+    the normal iCDF's in s (``gf._LOG_SEAM``) or the fallback lanes' in c
+    (``logistic_kde.FALLBACK_SEAM``); the rows whose s or c lies between
+    0 and shift take the other branch."""
+    from ..ops import gf, logistic_kde as lk
+    mod, name = (gf, "_LOG_SEAM") if seam == "icdf" else \
+        (lk, "FALLBACK_SEAM")
+    at = getattr(mod, name)
+    setattr(mod, name, at + shift)
     try:
         return fn()
     finally:
-        gf._LOG_SEAM = seam
+        setattr(mod, name, at)
 
 
 def flip_check(kernel, plain, flips):
     """The rows of one draw past the limit: each one's |kernel - plain| and
-    its least |kernel - flipped plain| over the flipped runs."""
+    its least |kernel - flipped plain| over every flipped run and over
+    each seam's (``flips``: {seam: [flipped runs]})."""
     import torch
     kp = rows_off(kernel, plain)
     over = torch.nonzero(kp >= LIMIT).flatten()
-    kf = torch.stack([rows_off(kernel, f) for f in flips]).amin(dim=0)
+    by_seam = {seam: torch.stack([rows_off(kernel, f) for f in runs])
+               .amin(dim=0) for seam, runs in flips.items()}
+    kf = torch.stack(list(by_seam.values())).amin(dim=0)
     return {"over_limit_vs_plain": kp[over].tolist()[:20],
-            "over_limit_vs_flipped_plain": kf[over].tolist()[:20]}
+            "over_limit_vs_flipped_plain": kf[over].tolist()[:20],
+            **{f"over_limit_vs_{seam}_flipped_plain": v[over].tolist()[:20]
+               for seam, v in by_seam.items()}}
 
 
 def by_branch(kernel, plain, f64, seen32, seen64):
@@ -258,9 +268,11 @@ def child(index, n_draws):
         if branch["rows_over_limit"]:
             run_plain = lambda: gb.block_plain("density", x, (pvec,), prep,
                                                meta, "perm")
-            branch.update(flip_check(k1, plain, [
-                flipped(run_plain, sign * FLIP_BANDS * branch["icdf_band"])
-                for sign in (1, -1)]))
+            branch.update(flip_check(k1, plain, {
+                seam: [flipped(run_plain,
+                               sign * FLIP_BANDS * branch[f"{seam}_band"],
+                               seam) for sign in (1, -1)]
+                for seam in ("icdf", "fallback")}))
         out["by_branch"].append(branch)
     print(json.dumps(out), flush=True)
     return 0
@@ -324,6 +336,10 @@ def main(argv=None):
         "over_limit_rows_within_limit_of_flipped_plain": sum(
             v < LIMIT for b in branch
             for v in b.get("over_limit_vs_flipped_plain", [])),
+        **{f"over_limit_rows_within_limit_of_{seam}_flipped_plain": sum(
+            v < LIMIT for b in branch
+            for v in b.get(f"over_limit_vs_{seam}_flipped_plain", []))
+           for seam in ("icdf", "fallback")},
         **{k: span(k) for k in ("rows_excluded", "icdf_band",
                                 "fallback_band", "kernel_vs_f64_away_max",
                                 "plain_vs_f64_away_max")}}

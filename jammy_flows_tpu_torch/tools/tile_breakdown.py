@@ -2,9 +2,9 @@
 again with parts of them switched off, on the card.
 
     python -m jammy_flows_tpu_torch.tools.tile_breakdown
-        [--part lazy2|perm|perm_fwd|layer_lazy|layer_raw|block_lazy|sass|
-                bits]
-        [--csrc DIR [DIR ...]] [--rounds R]
+        [--part lazy2|perm|perm_fwd|layer_lazy|layer_raw|layer_fwd_raw|
+                block_lazy|sass|bits]
+        [--csrc DIR [DIR ...]] [--rounds R] [--variants V [V ...]]
 
 Builds ``csrc/gf_block.cu`` and ``csrc/gf_block_bwd.cu`` from a copy of the
 sources (``--csrc``, by default the package's own: a parent tree's sources
@@ -89,6 +89,26 @@ four T7 raw launches of which are this kernel's (autograd of
 raw kernels' registers, stack and spills, and each variant's blocks per SM
 (the occupancy API) and grid.
 
+layer_fwd_raw (T4 ``forward_raw`` and T5 ``sample_raw`` with raw
+broadcast slabs: the skewed flagship's block-0 layer 0, K = 10, d = 4,
+four parameter groups, and the same slabs without the exponents (the
+plain mixture, three groups); T4 at that layer's log_prob input, T5 at its
+sample call's targets, 1,048,576 rows; builds ``csrc/gf_layer.cu``), each
+timed alone and as one of 10 launches back to back: as built; with the
+per-row body off (``row_pass`` reduced to the row's load and store, so
+that the block's set-up and the loads remain); with the set-up skipped
+(``LayerSrc``'s or ``BcastSrc``'s set-up replaced by a fill of its arrays
+with a plain mixture of unit widths at the raw means); T5's solve and
+root log-derivative as one rolled loop over one copy of the mixture
+evaluation (``fwd_rolled``) and unrolled (``fwd_unrolled``: ``skew_solve``
++ ``skew_density_pass``, ``solve`` + ``solve_log_deriv``); the kernel's
+register cap, its ``__launch_bounds__`` minimum of blocks per SM made
+2-6.  As built, the skewed model's ``sample`` and ``log_prob`` at
+1,048,576 rows with that tree's library.  For every variant: the raw
+broadcast kernels' registers, stack and spills (``-Xptxas -v``), their
+``cuobjdump -sass`` instruction counts (as ``perm_fwd``), blocks per SM
+(the occupancy API) and grid.
+
 block_lazy (the block's lazy mode, precomputed hidden activations, on
 the flagship with ``amortization_mlp_dims="64-64"``, block 2: K = 10,
 d = 4, P = 548, H = 64; T1 ``density_lazyh`` / ``sample_lazyh``, T2
@@ -122,9 +142,11 @@ with ``{"g": {"center_mean": 1}}`` and with ``{"g": {"add_skewness":
 ``amortization_mlp_dims="64-64"`` (the block's lazy mode); each model's
 ``sample`` and ``log_prob`` at 65,536 rows, the fused
 ``nll_value_and_grad``, and the gradients of ``-log_prob().mean()`` and of
-a sample objective, with the kernels each model launched; and the
-per-layer lazy kernels (T4, T5, both T7 bodies) called directly on seeded
-inputs, skewed and not, at K = 10 and at the generic shape.
+a sample objective, with the kernels each model launched; the per-layer
+lazy kernels (T4, T5, both T7 bodies) called directly on seeded inputs,
+skewed and not, at K = 10 and at the generic shape; and the per-layer
+prepared and raw kernels (T4, T5, T6, both T7 raw broadcast bodies), the
+slabs broadcast (one value NaN) and per row, every iCDF type.
 
 Forward at 1,048,576 rows, backward at 262,144; CUDA events, median of
 10.  Prints one JSON line with the card's name and power limit.  Needs a
@@ -251,6 +273,158 @@ _BLOCK_LAZY = {
     "lazy_dh_global": {r"bool lazy_dh_shared\([^)]*\)\s*\{\n":
                        "  return false;\n"},
 }
+# T4 / T5 raw broadcast (layer_fwd_raw), in the sources before and after
+# their redesign: the per-row body (row_pass) reduced to each row's load
+# and store and two of its mixture's values, so that the set-up and the
+# loads remain; the set-up (LayerSrc's before, BcastSrc's after) replaced
+# by a fill of the block's arrays with a plain mixture of unit widths at
+# the raw means (every array, so the body runs on finite values); the sample
+# mode's solve and root log-derivative as one rolled loop over one copy of
+# the mixture evaluation (fwd_rolled, helpers defined after the sources'
+# `using namespace gf;`) or unrolled as the parent's row_pass has it
+# (skew_solve + skew_density_pass, solve + solve_log_deriv; fwd_unrolled)
+_ROW_PASS = r"__device__ __forceinline__ void row_pass\([^)]*\)\s*\{\n"
+_FWD_SETUP = (r"__device__ LayerSrc\(const LayerArgs& a, float\* smem\)"
+              r"\s*:\s*sm\(smem\)\s*\{\n")
+_FWD_FILL = """  if (!a.per_row) {
+    const int kd_ = a.K * a.D;
+    for (int j = threadIdx.x; j < kd_; j += blockDim.x)
+      for (int q = 0; q < BCAST_ARRAYS; ++q)
+        sm[q * kd_ + j] = q == 0 ? __ldg(a.p[0] + j)
+                        : q == 2 ? -logf((float)a.K)
+                        : (q == 3 || q == 11) ? 1.0f / (float)a.K
+                        : (q == 1 || q == 6 || q == 10) ? 1.0f : 0.0f;
+  }
+  __syncthreads();
+  return;
+"""
+_FWD_SETUP_BCAST = (r"__device__ BcastSrc\(const LayerArgs& a, float\* smem\)"
+                    r"\s*:\s*sm\(smem\)\s*\{\n")
+_FWD_FILL_BCAST = """  {
+    const int kd_ = a.K * a.D;
+    for (int j = threadIdx.x; j < kd_; j += blockDim.x)
+      for (int q = 0; q < BCAST_FWD_ARRAYS; ++q)
+        sm[q * kd_ + j] = q == BA_M ? __ldg(a.p[0] + j)
+                        : (q == BA_LNW || q == BA_LP) ? -logf((float)a.K)
+                        : (q == BA_NW || q == BA_NWIW) ? 1.0f / (float)a.K
+                        : (q == BA_IW || q == BA_A) ? 1.0f : 0.0f;
+  }
+  __syncthreads();
+  return;
+"""
+_FWD_ROLLED_HELPERS = """template <int N, int KT, class M>
+__device__ __forceinline__ float gf_rolled_plain(float target, const M& mx,
+                                                 int K, int ift, float& ld) {
+  float lo, hi, x;
+  solve_start<N, KT>(target, mx, K, ift, lo, hi, x);
+#pragma unroll 1
+  for (int it = 0;; ++it) {
+    const MixOut o = mixture_eval<N, KT, false, true>(x, mx, K);
+    if (it == N_NEWTON) {
+      ld = icdf_log_deriv(o.log_cdf, o.log_sf, o.log_pdf, ift);
+      return x;
+    }
+    float deriv;
+    const float val = solve_value<true>(o, ift, deriv);
+    newton_step(val, deriv, target, x, lo, hi);
+  }
+}
+template <int N, int KT, class M>
+__device__ __forceinline__ float gf_rolled_skew(float target, const M& mx,
+                                                int K, int n_pos, int ift,
+                                                float& ld) {
+  const int kk = KT > 0 ? KT : K;
+  const float t = ift == ISIGMOID ? target : logit_phi(target);
+  const float log_q = -softplus(-t), log_1mq = -softplus(t);
+  float lo = INFINITY, hi = -INFINITY;
+#pragma unroll
+  for (int k = 0; k < kk; ++k) {
+    const bool pos = k < n_pos;
+    const float log_p = (pos ? log_q : log_1mq) / mx.a[k];
+    const float u = fminf(log_p, -TINY);
+    float l1me;
+    if (u > -0.1f)
+      l1me = logf(-u) + log1pf(u * (0.5f + u * (1.0f / 6.0f + u * (1.0f / 24.0f))));
+    else
+      l1me = log1pf(-expf(u));
+    const float logit_p = log_p - l1me;
+    const float q = mx.m[k] + (pos ? logit_p : -logit_p) / mx.iw[k];
+    lo = fminf(lo, q);
+    hi = fmaxf(hi, q);
+  }
+  const float margin = 0.05f * (hi - lo) + 0.5f;
+  lo = lo - margin;
+  hi = hi + margin;
+  float unused;
+  const float vlo = skew_solve_eval<N, KT, false>(lo, mx, K, n_pos, ift, unused);
+  const float vhi = skew_solve_eval<N, KT, false>(hi, mx, K, n_pos, ift, unused);
+  const bool good = (vlo <= target) && (vhi >= target);
+  const float tt = (target - vlo) / fmaxf(vhi - vlo, 1e-30f);
+  const float x_rf = lo + tt * (hi - lo);
+  lo = good ? lo : SOLVE_LO;
+  hi = good ? hi : SOLVE_HI;
+  float x = good ? x_rf : 0.0f;
+#pragma unroll 1
+  for (int it = 0;; ++it) {
+    const MixOut o = skew_eval<N, KT, true>(x, mx, K, n_pos);
+    if (it == N_NEWTON) {
+      ld = icdf_log_deriv(o.log_cdf, o.log_sf, o.log_pdf, ift);
+      return x;
+    }
+    const float val = icdf_pass(o.log_cdf, o.log_sf, ift);
+    const float deriv =
+        ift == ISIGMOID
+            ? expf((o.log_pdf - o.log_cdf) - o.log_sf)
+            : expf(icdf_log_deriv(o.log_cdf, o.log_sf, o.log_pdf, ift));
+    newton_step(val, deriv, target, x, lo, hi);
+  }
+}
+"""
+_FWD_ROLLED = """  if constexpr (MODE == 1) {
+    float lg_;
+    float root_;
+    if constexpr (SKEW)
+      root_ = gf_rolled_skew<N, KT>(a.x[i], mx, K, a.n_pos, a.ift, lg_);
+    else
+      root_ = gf_rolled_plain<N, KT>(a.x[i], mx, K, a.ift, lg_);
+    a.out[i] = root_;
+    a.ld[i] = lg_;
+    return;
+  }
+"""
+_FWD_UNROLLED = """  if constexpr (MODE == 1) {
+    float lg_;
+    float root_;
+    if constexpr (SKEW) {
+      root_ = skew_solve<N, KT>(a.x[i], mx, K, a.n_pos, a.ift);
+      skew_density_pass<N, KT>(root_, mx, K, a.n_pos, a.ift, lg_);
+    } else {
+      root_ = solve<N, KT>(a.x[i], mx, K, a.ift);
+      lg_ = solve_log_deriv<N, KT>(root_, mx, K, a.ift);
+    }
+    a.out[i] = root_;
+    a.ld[i] = lg_;
+    return;
+  }
+"""
+_LAYER_FWD_RAW = {
+    "fwd_body_off": {_ROW_PASS: "  a.out[i] = a.x[i] + mx.m[0];\n"
+                                "  if (MODE != 2) a.ld[i] = mx.iw[0];\n"
+                                "  return;\n"},
+    "fwd_setup_off": {_FWD_SETUP: _FWD_FILL,
+                      _FWD_SETUP_BCAST: _FWD_FILL_BCAST},
+    "fwd_rolled": {r"using namespace gf;\n": _FWD_ROLLED_HELPERS,
+                   _ROW_PASS: _FWD_ROLLED},
+    "fwd_unrolled": {_ROW_PASS: _FWD_UNROLLED}}
+# the raw broadcast forward kernel's register cap: the __launch_bounds__ of
+# gf_layer_bcast_kernel where the sources have it, else of gf_layer_kernel
+# (before the redesign one kernel for every non-lazy call), its minimum of
+# blocks per SM made n
+_FWD_BOUNDS = (re.compile(r"(__launch_bounds__\(128(?:, [^()]*)?\))"
+                          r"(?=\s*gf_layer_bcast_kernel\()"),
+               re.compile(r"(__launch_bounds__\(128(?:, [^()]*)?\))"
+                          r"(?=\s*gf_layer_kernel\()"))
+_FWD_BOUNDS_MIN = (2, 3, 4, 5, 6)
 _BOTH = ("gf_block", "gf_block_bwd")
 # part -> variant -> (the switches on, the libraries built); a variant
 # whose switch the sources do not have is left out (perm_grid)
@@ -274,6 +448,11 @@ VARIANTS = {
                   **{name: ((name,), ("gf_layer_bwd",))
                      for name in ("raw_flush", "raw_adjoint", "factors_off",
                                   *(f"bounds_{b}" for b in _BOUNDS_MIN))}},
+    "layer_fwd_raw": {"as_built": ((), ("gf_layer",)),
+                      **{name: ((name,), ("gf_layer",))
+                         for name in (*_LAYER_FWD_RAW,
+                                      *(f"fwd_bounds_{b}"
+                                        for b in _FWD_BOUNDS_MIN))}},
     "block_lazy": {"as_built": ((), _BOTH),
                    "product_off": (("block_lazy_product",), _BOTH),
                    "flush_off": (("block_lazy_flush",), ("gf_block_bwd",)),
@@ -302,7 +481,8 @@ def _switches(src_dir, part):
             [("layer_flush", head, body)
              for head, body in _LAYER_FLUSH.items()] + \
             [(switch, head, body) for switch, heads in
-             (*_BLOCK_LAZY.items(), *_LAYER_RAW.items())
+             (*_BLOCK_LAZY.items(), *_LAYER_RAW.items(),
+              *_LAYER_FWD_RAW.items())
              for head, body in heads.items()]
         m = _BOUNDS.search(text)
         if m:
@@ -314,6 +494,17 @@ def _switches(src_dir, part):
                 + _BOUNDS.sub(r"__launch_bounds__(128, GF_BCAST_MIN_BLOCKS)\2",
                               text)
             found += [f"bounds_{b}" for b in _BOUNDS_MIN]
+        if path.name == "gf_layer.cu":
+            pat = next((b for b in _FWD_BOUNDS if b.search(text)), None)
+            if pat is not None:
+                text = "".join(
+                    f"#{'el' if i else ''}if defined(GF_OFF_fwd_bounds_{b})"
+                    f"\n#define GF_FWD_MIN_BLOCKS {b}\n"
+                    for i, b in enumerate(_FWD_BOUNDS_MIN)) + "#endif\n" + \
+                    pat.sub(lambda m: "\n#ifdef GF_FWD_MIN_BLOCKS\n"
+                            "__launch_bounds__(128, GF_FWD_MIN_BLOCKS)\n"
+                            f"#else\n{m.group(1)}\n#endif\n", text, count=1)
+                found += [f"fwd_bounds_{b}" for b in _FWD_BOUNDS_MIN]
         if path.name == "gf_block.cu":
             cases += [("perm_body", head, "break;\n") for head in _PERM_BODY]
             cases += [("perm_grid", _PERM_GRID, "  return n_tiles;\n")]
@@ -334,6 +525,12 @@ def _switches(src_dir, part):
         if "raw_flush" not in found or "raw_adjoint" not in found:
             raise RuntimeError(f"switches found {found}, expected the raw "
                                "flush and the raw adjoint")
+    elif part == "layer_fwd_raw":
+        missing = [n for n in _LAYER_FWD_RAW if n not in found]
+        if missing or "fwd_bounds_2" not in found:
+            raise RuntimeError(f"switches found {found}, expected "
+                               f"{sorted(_LAYER_FWD_RAW)} and the forward's "
+                               "launch bounds")
     elif part == "layer_lazy":
         if "layer_product" not in found or "layer_flush" not in found:
             raise RuntimeError(f"switches found {found}, expected the "
@@ -359,13 +556,22 @@ def build(part, trees, variants=None):
         src = OUT / f"tree{i}" / "csrc"
         shutil.copytree(csrc, src)
         found = _switches(src, part)
-        for variant, (off, libs) in VARIANTS[part].items():
+        # a requested "a+b" combines the switches of the part's variants a
+        # and b (their libraries the union)
+        table = dict(VARIANTS[part])
+        for combo in (v for v in variants or () if "+" in v):
+            parts = [VARIANTS[part][v] for v in combo.split("+")]
+            table[combo] = (tuple(o for off, _ in parts for o in off),
+                            tuple(sorted({lb for _, libs in parts
+                                          for lb in libs})))
+        for variant, (off, libs) in table.items():
             if not set(off) <= found or (variants and
                                          variant not in variants):
                 continue
             extra = [f"-DGF_OFF_{name}" for name in off]
             flags = [f for f in cuda_build.NVCC_FLAGS
-                     if variant == "as_built" or part == "layer_raw" or
+                     if variant == "as_built" or
+                     part in ("layer_raw", "layer_fwd_raw") or
                      f not in ("-Xptxas", "-v")]
             for lib in libs:
                 out = src.parent / f"lib{lib}_{variant}.so"
@@ -491,6 +697,46 @@ def layer_raw_ptxas(report):
     return out
 
 
+# T4 / T5 with raw broadcast slabs: gf_layer_bcast_kernel<SKEW, MODE, KT>
+# after the redesign, gf_layer_kernel<LAZY = false, SKEW, MODE, KT> (every
+# non-lazy call) before it
+_LAYER_FWD_RAW_KERNELS = (r"gf_layer_bcast_kernelILb(\d)ELi([01])ELi(\d+)E",
+                          r"gf_layer_kernelILb0ELb(\d)ELi([01])ELi(\d+)E")
+
+
+def _layer_fwd_raw_kernel(name, bcast=True):
+    """The label of a T4 / T5 raw broadcast kernel's mangled name (forward
+    or sample, K = 10 or generic, skewed or plain), or None; ``bcast``:
+    the sources have the broadcast kernel (their gf_layer_kernel no longer
+    takes broadcast slabs)."""
+    for pat in _LAYER_FWD_RAW_KERNELS[:1] if bcast else \
+            _LAYER_FWD_RAW_KERNELS[1:]:
+        m = re.search(pat, name)
+        if m:
+            return (f"{('forward_raw', 'sample_raw')[int(m.group(2))]} "
+                    f"({'K=10' if m.group(3) == '10' else 'generic'}"
+                    f"{', skewed' if m.group(1) == '1' else ''})")
+    return None
+
+
+def layer_fwd_raw_ptxas(report):
+    """{kernel: "registers, stack, spills"} of the T4 / T5 raw broadcast
+    kernels in an -Xptxas -v report."""
+    out = {}
+    bcast = "gf_layer_bcast_kernel" in report
+    for name, body in re.findall(r"Function properties for (\S+)\n(.*?)"
+                                 r"(?=ptxas info\s+: Compil|\Z)", report, re.S):
+        which = _layer_fwd_raw_kernel(name, bcast)
+        regs = re.search(r"Used (\d+) registers", body)
+        spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", body)
+        if which and regs and spill:
+            out[which] = (f"{regs.group(1)} registers, stack {spill.group(1)} "
+                          f"B, spill stores {spill.group(2)} B, loads "
+                          f"{spill.group(3)} B")
+    return out
+
+
 # the block's lazy-mode kernels' mangled names: gf_block_density_kernel /
 # gf_block_sample_kernel<MODE = 2, KT, DT>, gf_block_bwd_kernel<KIND, MODE
 # = 2, DHG, KT, DT>
@@ -555,24 +801,32 @@ _SASS_OPS = ("MUFU.EX2", "MUFU.LG2", "MUFU.RCP", "MUFU.RSQ", "MUFU.SQRT",
              "FFMA", "FMUL", "FADD", "FCHK", "CALL", "LDS", "LDL", "STL")
 
 
-def perm_fwd_sass(lib):
-    """{kernel: {instruction class: count}} of the perm forward kernels in
-    the SASS of a built library (cuobjdump -sass)."""
+def perm_fwd_sass(lib, label=None):
+    """{kernel: {instruction class: count}} of the perm forward kernels (or
+    of the kernels ``label`` names: mangled name -> label or None) in the
+    SASS of a built library (cuobjdump -sass)."""
     tool = pathlib.Path(cuda_build.nvcc_path()).parent / "cuobjdump"
     sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                           text=True, check=True, timeout=600).stdout
     out = {}
     for fn, body in re.findall(r"Function : (\S+)\n(.*?)(?=Function : |\Z)",
                                sass, re.S):
-        which = _perm_kernel(fn)
-        if which is None or which[0] not in ("density_perm", "sample_perm"):
-            continue
+        if label is None:
+            which = _perm_kernel(fn)
+            if which is None or which[0] not in ("density_perm",
+                                                 "sample_perm"):
+                continue
+            which = f"{which[0]} ({which[1]})"
+        else:
+            which = label(fn)
+            if which is None:
+                continue
         ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)",
                          body)
         counts = {op: sum(1 for o in ops if o == op or o.startswith(op + "."))
                   for op in _SASS_OPS}
         counts["instructions"] = len(ops)
-        out[f"{which[0]} ({which[1]})"] = counts
+        out[which] = counts
     return out
 
 
@@ -1074,6 +1328,99 @@ def _layer_raw_case(gl, dev, g, n=1 << 18):
     return run, blocks, shapes
 
 
+def _layer_fwd_raw_case(gl, dev, g, n=1 << 20):
+    """T4 / T5 with raw broadcast slabs at the skewed flagship's block-0
+    layer 0 (K = 10, d = 4, four parameter groups; its permanent
+    parameters and MLPs jittered by 0.02 N(0, 1)), recorded from the
+    model's ``sample`` and ``log_prob`` at n rows, and the same slabs
+    without the exponents (the plain mixture, three groups): T4 at the
+    layer's log_prob input, T5 at its sample call's targets.  run(variant)
+    times the four calls single and as one of 10 launches back to back,
+    and as built the model's ``sample`` and ``log_prob`` at n rows (median
+    of 10, the libraries loaded); blocks(handle) gives each call's
+    kernel's blocks per SM (the occupancy API) and grid (the sources'
+    ``gf_layer_grid`` where they have one, else one block per tile).
+    Returns (run, blocks, shapes)."""
+    import torch
+    from .. import pdf
+    p = pdf("e4+s2+e4", "gggg+f+gggg",
+            options_overwrite={"g": {"add_skewness": 1}}, device=dev)
+    params = {k: v + 0.02 * torch.randn(v.shape, generator=g, device=dev)
+              if k.startswith("mlp_") or k == "flow_0" else v
+              for k, v in p.init_params(seed=0).items()}
+    calls = {}
+    run_layer = gl._run
+
+    def record(mode, iface, x, ps, ift, prep, kd):
+        if iface == "raw" and ps[0].ndim == 2:
+            calls.setdefault(mode, []).append(
+                (x.clone(), tuple(t.clone() for t in ps), ift, prep))
+        return run_layer(mode, iface, x, ps, ift, prep, kd)
+
+    gl._run = record
+    try:
+        with torch.no_grad():
+            xs = p.sample(params, samplesize=n, generator=g)[0]
+            p.log_prob(params, xs)
+    finally:
+        gl._run = run_layer
+    # layer 0: the sample direction's first raw call; log_prob runs the
+    # block's layers in reverse, so its call of the same slabs
+    z, slabs, ift, prep = calls["sample"][0]
+    x = next(c[0] for c in calls["forward"] if torch.equal(c[1][0], slabs[0]))
+    del calls
+    mixes = {"skewed": (slabs, prep),
+             "plain": (slabs[:-1], tuple(prep[:3]) + (None, None))}
+
+    def cases():
+        for mix, (ps, pr) in mixes.items():
+            for mode, arg in (("forward", x), ("sample", z)):
+                yield f"{mode}_raw ({mix})", mode, arg, ps, pr
+
+    def run(variant):
+        times = {}
+        for name, mode, arg, ps, pr in cases():
+            fn = (lambda mode=mode, arg=arg, ps=ps, pr=pr: gl._launch(
+                mode, "raw", arg, ps, ift, pr, None))
+            times[f"{name} {variant}"] = _ms(fn)
+            times[f"{name} {variant} (10 back to back)"] = \
+                _ms_back_to_back(fn)
+        if variant == "as_built":
+            with torch.no_grad():
+                times[f"skewed model sample, {n} rows"] = _ms(
+                    lambda: p.sample(params, samplesize=n, generator=g))
+                times[f"skewed model log_prob, {n} rows"] = _ms(
+                    lambda: p.log_prob(params, xs))
+        return times
+
+    def blocks(handle):
+        occ, grid = {}, {}
+        for name, mode, arg, ps, pr in cases():
+            ints, floats, _, n_groups, _, k = gl._kernel_args(
+                "raw", arg, ps, ift, pr, None)
+            occ[name] = list(gl.kernel_occupancy(
+                f"{mode}_raw", k, arg.shape[1], 0, n_groups,
+                skew=pr[3] is not None))
+            fn = getattr(handle, "gf_layer_grid", None)
+            if fn is None:
+                grid[name] = (arg.shape[0] + 127) // 128
+                continue
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            c_ints, _ = gl._c_arrays([gl._MODES[mode]] + ints, floats)
+            out = (ctypes.c_int * 2)()
+            with torch.cuda.device(dev):
+                if fn(c_ints, out) != 0:
+                    raise RuntimeError(f"grid query of {name} failed")
+            grid[name] = out[0]
+        return occ, grid
+
+    shapes = {"K": slabs[0].shape[0], "d": slabs[0].shape[1],
+              "n_groups": {m: len(ps) for m, (ps, _) in mixes.items()},
+              "rows": x.shape[0], "ift": ift}
+    return run, blocks, shapes
+
+
 def _bits_outputs(dev, n=1 << 16):
     """({name: output on the CPU}, {model: kernels launched}) of seeded
     calls of every model of the ``bits`` part through the libraries
@@ -1118,6 +1465,7 @@ def _bits_outputs(dev, n=1 << 16):
         out.update({f"{label} {k}": v.detach().cpu().contiguous()
                     for k, v in got.items()})
     out.update(_layer_lazy_bits(dev, n))
+    out.update(_layer_raw_bits(dev, n))
     return out, launched
 
 
@@ -1164,6 +1512,72 @@ def _layer_lazy_bits(dev, n, hid=64):
     return out
 
 
+def _layer_raw_bits(dev, n):
+    """{name: output on the CPU} of the per-layer prepared and raw kernels
+    called directly on seeded inputs (the slabs broadcast and per row,
+    skewed and not, K = 10, d = 4 and the generic K = 7, d = 3, every iCDF
+    type, one component of one broadcast slab NaN): T4, T5 and T6, and T7
+    with raw broadcast slabs (both bodies)."""
+    import numpy as np
+    import torch
+    from ..ops import gf_layer as gl
+    from ..ops.special import log_bounded_exp_fn, width_regulator_fn
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    out = {}
+    for skew in (0, 1):
+        for k, d in ((10, 4), (7, 3)):
+            for per_row in (False, True):
+                rng = np.random.default_rng(200 + 100 * skew + 10 * k +
+                                            per_row)
+                m = 512 if per_row else n
+                shp = (k, d, m) if per_row else (k, d)
+                signs = tuple([1.0] * (k // 2) + [-1.0] * (k - k // 2))
+                prep = (width_regulator_fn(0, 1, 0.01, 100, 0), None, True,
+                        log_bounded_exp_fn(0.1, 9.0, center=True) if skew
+                        else None, signs if skew else None)
+                raw = [t(rng.normal(size=shp)),
+                       t(-1.0 + 0.5 * rng.normal(size=shp)),
+                       t(rng.normal(size=shp))] + \
+                    [t(0.8 * rng.normal(size=shp))] * skew
+                if not per_row:
+                    raw[1][3, d - 1] = float("nan")
+                ln = rng.normal(size=shp)
+                prepared = (t(rng.normal(size=shp)),
+                            t(1.0 / (0.3 + rng.uniform(size=shp))),
+                            t(ln - np.log(np.exp(ln).sum(0, keepdims=True))))
+                x, g1, g2 = (t(rng.normal(size=(m, d))) for _ in range(3))
+                for ift in ("isigmoid", "inormal_partly_precise",
+                            "inormal_partly_crude", "inormal_full_pade"):
+                    got = {}
+                    for mode in ("forward", "sample", "inverse"):
+                        got[f"{mode}_raw"] = gl._run(mode, "raw", x,
+                                                     tuple(raw), ift, prep,
+                                                     None)
+                    if not skew:
+                        for mode in ("forward", "inverse"):
+                            got[f"{mode}_prepared"] = gl._run(
+                                mode, "prepared", x, prepared, ift, None,
+                                None)
+                    if not per_row:
+                        for body, res in (("forward", x),
+                                          ("sample",
+                                           got["sample_raw"][0])):
+                            gx, gp = gl._run_bwd(body, "raw", res,
+                                                 tuple(raw), g1, g2, ift,
+                                                 prep, None)
+                            got[f"{body}_bwd_raw"] = (gx, *gp)
+                    for name, vals in got.items():
+                        vals = vals if isinstance(vals, tuple) else (vals,)
+                        out.update({
+                            f"layer raw skew={skew} K={k} per_row={per_row}"
+                            f" {ift} {name} {i}": v.detach().cpu()
+                            .contiguous() for i, v in enumerate(vals)})
+    return out
+
+
 def _bits_compare(ref, got):
     """{name: "equal" or how the outputs differ} of ``got`` against
     ``ref``, bit for bit (a NaN equal to a NaN of the same bits)."""
@@ -1191,7 +1605,8 @@ def main(argv=None):
     ap.add_argument("--csrc", type=pathlib.Path, nargs="+",
                     default=[cuda_build.CSRC])
     ap.add_argument("--variants", nargs="+", default=None,
-                    help="build and time only these variants of the part")
+                    help="build and time only these variants of the part "
+                    "(a+b: the switches of a and b together)")
     ap.add_argument("--rounds", type=int, default=1,
                     help="time the trees this often, alternately in order "
                     "and in reverse")
@@ -1248,6 +1663,15 @@ def main(argv=None):
         gl._declare(handle)
         cuda_build._LOADED["gf_layer"] = handle
         run, blocks, shapes = _layer_raw_case(gl, dev, g)
+    elif args.part == "layer_fwd_raw":
+        from ..ops import gf_layer as gl
+        # the model's path (recording the calls) on the first tree's
+        # as-built library
+        handle = ctypes.CDLL(str(paths[(next(iter(trees)), "as_built",
+                                        "gf_layer")]))
+        gl._declare(handle)
+        cuda_build._LOADED["gf_layer"] = handle
+        run, blocks, shapes = _layer_fwd_raw_case(gl, dev, g)
     elif args.part == "layer_lazy":
         from ..ops import gf_layer as gl
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -1291,6 +1715,24 @@ def main(argv=None):
                      "blocks_per_sm": {}}
         else:
             extra = {"rows_forward": 1 << 20, "rows_backward": 1 << 18}
+        if args.part == "layer_fwd_raw":
+            extra = {"shapes": shapes, "ptxas": {}, "blocks_per_sm": {},
+                     "grid": {}, "sass": {}}
+            for (t, variant, lib), path in paths.items():
+                if t != tree:
+                    continue
+                handle = ctypes.CDLL(str(path))
+                gl._declare(handle)
+                cuda_build._LOADED[lib] = handle
+                extra["blocks_per_sm"][variant], extra["grid"][variant] = \
+                    blocks(handle)
+                extra["ptxas"][variant] = layer_fwd_raw_ptxas(
+                    report[(tree, variant)])
+                bcast = "gf_layer_bcast_kernel" in report[(tree, variant)]
+                extra["sass"][variant] = perm_fwd_sass(
+                    path, label=lambda n, b=bcast: _layer_fwd_raw_kernel(n, b))
+                times.update(run(variant))
+            return times, extra
         if args.part == "layer_raw":
             extra = {"shapes": shapes, "ptxas": {}, "blocks_per_sm": {},
                      "grid": {}}
