@@ -53,6 +53,7 @@ of JAX.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import math
@@ -649,12 +650,13 @@ def tile_kernel_report(built, card):
             f"memory a block")
 
 
-def layer_occupancy(name, hid=128):
+def layer_occupancy(name, hid=128, n_groups=4, skew=True):
     """(blocks per SM, threads, shared memory bytes) of a per-layer lazy
-    kernel, or of T4, T5 or T7 with raw broadcast slabs (hid 0), at the
-    skewed flagship's layer (K = 10, d = 4, four groups)."""
+    kernel, or of T4-T7 with broadcast slabs (hid 0), at the skewed
+    flagship's layer (K = 10, d = 4, four groups), or with ``n_groups``
+    and ``skew`` given, a layer of the plain mixture."""
     from jammy_flows_tpu_torch.ops import gf_layer as gl
-    return gl.kernel_occupancy(name, 10, 4, hid, 4, skew=True)
+    return gl.kernel_occupancy(name, 10, 4, hid, n_groups, skew=skew)
 
 
 def entry_row(name, args, by_path, err, card, ptxas=None):
@@ -1121,12 +1123,50 @@ def train(label, p, params, seed, opts=None):
             (step_fused, step_auto))
 
 
+def nan_report(what, outs):
+    """Each (name, kernel's outputs, plain version's, kernel's without the
+    NaN, per row) of ``outs``: NaN in exactly the plain version's places,
+    at least one, and (per row) every row the plain version keeps free of
+    NaN equal to the kernel's result without the NaN, bit for bit."""
+    torch.cuda.synchronize()
+    for name, got, ref, want, per_row in outs:
+        n_nan = [int(torch.isnan(a).sum()) for a in got]
+        same = all(torch.equal(torch.isnan(a), torch.isnan(r))
+                   for a, r in zip(got, ref))
+        kept = True
+        if per_row:
+            rows = ~torch.isnan(ref[0]).any(dim=1)
+            kept = all(torch.equal(a[rows], c[rows])
+                       for a, c in zip(got, want))
+        log(f"NaN in {what}: {name}: NaN entries {n_nan} (plain "
+            f"{[int(torch.isnan(r).sum()) for r in ref]}), in the same "
+            f"places {same}" + (f", rows without NaN equal to the "
+                                f"clean run's {kept}" if per_row else ""))
+        if not (same and kept and sum(n_nan)):
+            raise AssertionError(f"NaN in {what}: {name} does not keep "
+                                 "the NaN as its plain version does")
+
+
+def mean_row(meta, layer, comp, dim):
+    """The row of a block's mixture mean (layer, component, dimension) in
+    its (P,) parameter vector and its MLP's final rows."""
+    from jammy_flows_tpu_torch.ops import gf_block as gb
+    k, d, layers = meta
+    idx = torch.arange(gb.block_rows(k, d, layers), dtype=torch.float64)
+    means = gb._make_slabs([idx[:, None]], k, d, layers, "perm")[layer][2][0]
+    return int(means[comp, dim, 0])
+
+
 def nan_check(dev):
     """One NaN made on the card as 0/0 (0x7fffffff) in the summary or in w
     of the flagship's lazy2 block, through T1 lazy2 (both directions) and
-    T3 lazy2: NaN in exactly the outputs where the plain version has it,
-    and every row it does not reach equal to the kernel's result without
-    the NaN, bit for bit (the 3xTF32 split and the mixtures keep a NaN)."""
+    T3 lazy2; and one mixture mean (the last layer's component 3 of
+    dimension 2) made NaN in flow_0 or in the lazy2 block's final bias,
+    through T1 sample_perm and sample_lazy2 (the solve's bracket keeps it,
+    as the plain version's does): NaN in exactly the outputs where the
+    plain version has it, and every row it does not reach equal to the
+    kernel's result without the NaN, bit for bit (the 3xTF32 split and
+    the mixtures keep a NaN)."""
     from jammy_flows_tpu_torch import pdf
     from jammy_flows_tpu_torch.ops import gf_block as gb
     p = pdf(*FLAGSHIP, device=dev)
@@ -1164,23 +1204,20 @@ def nan_check(dev):
                      (*ref[:3], ref[3][0]), (*want[:3], want[3][0]), True))
         outs.append(("nll_lazy2 broadcast", got[3][1:], ref[3][1:], None,
                      False))
-        torch.cuda.synchronize()
-        for name, got, ref, want, per_row in outs:
-            n_nan = [int(torch.isnan(a).sum()) for a in got]
-            same = all(torch.equal(torch.isnan(a), torch.isnan(r))
-                       for a, r in zip(got, ref))
-            kept = True
-            if per_row:
-                rows = ~torch.isnan(ref[0]).any(dim=1)
-                kept = all(torch.equal(a[rows], c[rows])
-                           for a, c in zip(got, want))
-            log(f"NaN in {what}: {name}: NaN entries {n_nan} (plain "
-                f"{[int(torch.isnan(r).sum()) for r in ref]}), in the same "
-                f"places {same}" + (f", rows without NaN equal to the "
-                                    f"clean run's {kept}" if per_row else ""))
-            if not (same and kept and sum(n_nan)):
-                raise AssertionError(f"NaN in {what}: {name} does not keep "
-                                     "the NaN as its plain version does")
+        nan_report(what, outs)
+    outs = []
+    for mode, blk, ps in (("perm", 0, (par["flow_0"].contiguous(),)),
+                          ("lazy2", 2, clean)):
+        prep_b, meta_b = p._block_meta[blk]
+        bad = list(ps)
+        bad[-1] = bad[-1].clone()
+        bad[-1][mean_row(meta_b, len(meta_b[2]) - 1, 3, 2)] = zero / zero
+        bad = tuple(bad)
+        outs.append((f"sample_{mode}",
+                     gb._launch(x, bad, prep_b, meta_b, mode, "sample"),
+                     gb.block_plain("sample", x, bad, prep_b, meta_b, mode),
+                     gb._launch(x, ps, prep_b, meta_b, mode, "sample"), True))
+    nan_report("a component's mean", outs)
 
 
 def perm_repeat_check(calls):
@@ -1388,12 +1425,17 @@ def layer_nan_check(calls):
     """One NaN made on the card as 0/0 in hidden or in w of the first
     recorded forward_lazy call (the skewed flagship's layer, its first
     N_NAN rows), through T4 lazy, T5 lazy (at the same rows as targets) and
-    T7 lazy's density body; and one row of x made NaN in the first
-    recorded broadcast forward_bwd_raw / sample_bwd_raw call (its first
-    N_NAN rows), through T7 raw: NaN in exactly the outputs where the plain
-    version has it (that row's gx and every broadcast gradient), and every
-    row whose per-row outputs it does not reach equal to the kernel's
-    result without the NaN, bit for bit."""
+    T7 lazy's density body; one row of x made NaN in the first recorded
+    broadcast forward_bwd_raw / sample_bwd_raw call (its first N_NAN rows),
+    through T7 raw; and one component's mean made NaN in the first recorded
+    inverse_prepared calls (the centred flagship's, their first N_NAN
+    rows; broadcast, and per row at row 5), through T6 prepared with the
+    isigmoid iCDF (its start's bracket keeps the NaN; a regula-falsi start
+    bisects to a finite root, in the plain version too): NaN in exactly
+    the outputs where the plain version has it (for T7 that row's gx and
+    every broadcast gradient), and every row whose per-row outputs it does
+    not reach equal to the kernel's result without the NaN, bit for
+    bit."""
     from jammy_flows_tpu_torch.ops import gf_layer as gl
     _, _, _, kept, ift, prep, kd, _ = next(c for c in calls
                                            if c[0] == "forward_lazy")
@@ -1462,6 +1504,23 @@ def layer_nan_check(calls):
         check("a row of x", name, 1, kernel(x), kernel(x_clean),
               bwd(gl.layer_bwd_plain(body, "raw", x, params, g1, g2, ift,
                                      prep)))
+    for per_row in (False, True):
+        kept = next(c[3] for c in calls if c[0] == "inverse_prepared"
+                    and (c[3][1][0].ndim == 3) == per_row)
+        x = kept[0][:N_NAN].contiguous()
+        clean = tuple(t[..., :N_NAN].contiguous() if per_row else t
+                      for t in kept[1])
+        bad = tuple(t.clone() for t in clean)
+        bad[0][(3, 1, 5) if per_row else (3, 1)] = zero / zero
+
+        def kernel(ps):
+            return (gl._launch("inverse", "prepared", x, ps, "isigmoid",
+                               None, None),)
+
+        check("a component's mean", "inverse_prepared "
+              f"({'per row' if per_row else 'broadcast'})", 1, kernel(bad),
+              kernel(clean), (gl.layer_plain("inverse", "prepared", x, bad,
+                                             "isigmoid"),))
 
 
 def layer_width_check(dev):
@@ -1729,7 +1788,8 @@ def layer_model(opts, cond, dev, seed):
 def centred_grads(label, p, params, opts, seed):
     """The centred model's gradients of log_prob and of the sample objective
     on N_CROSS rows, each path with its own launch counts and recorded calls,
-    against the port's f64 CPU path; returns (launches, recorded calls)."""
+    against the port's f64 CPU path; returns (launches, recorded calls,
+    prepared launches by form)."""
     dev = p.device
     g = torch.Generator(device=dev).manual_seed(seed)
     ci = None if p.conditional_input_dim is None else torch.randn(
@@ -1738,7 +1798,7 @@ def centred_grads(label, p, params, opts, seed):
         x = p.sample(params, samplesize=N_CROSS, conditional_input=ci,
                      generator=g)[0]
     z = torch.randn((N_CROSS, p.total_base_dim), generator=g, device=dev)
-    launches, calls = {}, []
+    launches, calls, forms = {}, [], {}
     for what, fn in (("log_prob_grad", lambda: p._value_and_grad(
             lambda pp: -p.log_prob(pp, x, ci)[0].mean(), params)),
                      ("sample_grad", lambda: p._value_and_grad(
@@ -1756,9 +1816,25 @@ def centred_grads(label, p, params, opts, seed):
         for k, v in grads.items():
             if not torch.isfinite(v).all():
                 raise AssertionError(f"{label}: non-finite gradient {k}")
+        forms[what] = prepared_forms(label, what, got, launches[what])
         calls += got
     card_vs_f64_grads(label, p, params, x, z, ci, opts, sample_f32=True)
-    return launches, calls
+    return launches, calls, forms
+
+
+def prepared_forms(label, what, calls, launches):
+    """{(name, per row): launches} of the prepared entry points among one
+    path's recorded per-layer calls (broadcast slabs run the persistent
+    kernel, per-row slabs one block per tile; one counter for both),
+    checked against the path's launch counts."""
+    forms = collections.Counter(
+        (c[0], c[3][1][0].ndim == 3) for c in calls
+        if c[0] in ("forward_prepared", "inverse_prepared"))
+    for name in ("forward_prepared", "inverse_prepared"):
+        if forms[(name, False)] + forms[(name, True)] != launches[name]:
+            raise AssertionError(f"{label} {what}: {name} calls {forms} for "
+                                 f"{launches[name]} launches")
+    return dict(forms)
 
 
 def time_layer_call(call, card):
@@ -1804,28 +1880,42 @@ def time_layer_call(call, card):
     return ms, plain_ms, b_ms, b_by, tc_ms, slot_bound
 
 
-def time_layer_kernels(calls, launches, errs, card, ptxas=None):
+def time_layer_kernels(calls, launches, forms, errs, card, ptxas=None):
     """Each per-layer entry point and T7 body on its first recorded call's
     inputs (the unconditional serving or training paths): kernel, plain
-    version, bound; returns the JSON rows.  The lazy rows also carry two
-    yardsticks on the same inputs (their P x H products alone as
-    torch.matmul, and the materialized route); the lazy and the raw
-    broadcast (T4, T5, T7) rows their registers, stack and spills
-    (``ptxas``: tools/tile_breakdown.layer_ptxas / layer_raw_ptxas /
-    layer_fwd_raw_ptxas of the build's -Xptxas -v lines) and blocks per
-    SM.  A per-row prepared call (the
-    centred amortized block) is timed too, for the log."""
+    version, bound; returns the JSON rows.  The prepared entry points take
+    two rows, one for broadcast slabs (the centred block 0, the persistent
+    kernel) and one for per-row slabs (the centred block 2, ``_per_row``),
+    their launches by form from ``forms`` (prepared_forms).  The lazy rows
+    also carry two yardsticks on the same inputs (their P x H products
+    alone as torch.matmul, and the materialized route); the lazy and the
+    broadcast (T4-T7) rows their registers, stack and spills (``ptxas``:
+    tools/tile_breakdown.layer_ptxas / layer_raw_ptxas /
+    layer_fwd_raw_ptxas / layer_prep_ptxas of the build's -Xptxas -v
+    lines) and blocks per SM, the per-row prepared rows their kernel's
+    registers."""
     rows = []
-    for name in LAYER_ENTRY + LAYER_BWD:
-        call = next(c for c in calls if c[0] == name)
+    entries = [(name, None) for name in LAYER_ENTRY + LAYER_BWD]
+    entries[:2] = [(name, per_row) for name in LAYER_ENTRY[:2]
+                   for per_row in (False, True)]
+    for name, per_row in entries:
+        call = next(c for c in calls if c[0] == name and (
+            per_row is None or (c[3][1][0].ndim == 3) == per_row))
         ms, plain_ms, b_ms, b_by, tc_ms, slot = time_layer_call(call, card)
-        by_path = {f"{cfg} {what}": n[name]
-                   for cfg, paths in launches.items()
-                   for what, n in paths.items() if n[name]}
+        if per_row is None:
+            by_path = {f"{cfg} {what}": n[name]
+                       for cfg, paths in launches.items()
+                       for what, n in paths.items() if n[name]}
+        else:
+            by_path = {f"{cfg} {what}": f[(name, per_row)]
+                       for cfg, paths in forms.items()
+                       for what, f in paths.items()
+                       if f.get((name, per_row))}
         source, replaces = ("gf_layer_bwd.cu", "730") if "_bwd_" in name \
             else ("gf_layer.cu", {"forward": "754", "sample": "761",
                                   "inverse": "767"}[name.split("_")[0]])
-        rows.append({"name": f"gf_{name}", "route": "cuda",
+        rows.append({"name": f"gf_{name}{'_per_row' if per_row else ''}",
+                     "route": "cuda",
                      "source": f"jammy_flows_tpu_torch/csrc/{source}",
                      "replaces": f"jammy_flows_tpu/ops/pallas_gf.py:{replaces}",
                      "launches": sum(by_path.values()),
@@ -1856,19 +1946,28 @@ def time_layer_kernels(calls, launches, errs, card, ptxas=None):
                 "skewed)")
             log(f"{name} (broadcast, K=10, skewed): "
                 f"{row['blocks_per_sm']} blocks per SM; {row['ptxas']}")
-    for name in ("forward_prepared", "inverse_prepared"):
-        time_layer_call(next(c for c in calls if c[0] == name
-                             and c[3][1][0].ndim == 3), card)
+        if per_row is not None:
+            row = rows[-1]
+            mode = name.split("_")[0]
+            if per_row:
+                row["ptxas"] = (ptxas or {}).get(
+                    f"{mode} one block per tile (K=10)")
+            else:
+                row["blocks_per_sm"] = layer_occupancy(name, 0, 3, False)[0]
+                row["ptxas"] = (ptxas or {}).get(f"{name} broadcast (K=10)")
+            log(f"{row['name']} (K=10): {row.get('blocks_per_sm', '-')} "
+                f"blocks per SM; {row['ptxas']}")
     return rows
 
 
-def inverse_raw_row(args, card):
+def inverse_raw_row(args, card, ptxas=None):
     """T6's raw interface (gf_inverse_raw) has no caller in either package:
     it is timed once at the serving batch on the flagship's first g layer
     (block 0, layer 0: its means, log-widths and log-norms as broadcast raw
     slabs, K = 10, d = 4) and the recorded sample_perm call's input
     (``args``), which that layer solves first; held against its plain
-    version there.  Returns its JSON row (no launches on any path)."""
+    version there.  Returns its JSON row (no launches on any path), with
+    its broadcast kernel's blocks per SM and registers (``ptxas``)."""
     from jammy_flows_tpu_torch.ops import gf_block as gb, gf_layer as gl
     _, _, z, (pvec,), prep, meta = split_args("sample_perm", args)
     k, d, layers = meta
@@ -1887,13 +1986,16 @@ def inverse_raw_row(args, card):
     ms, plain_ms, b_ms, b_by, tc_ms, slot = time_layer_call(
         ("inverse_raw", "inverse", "raw", (z, params), ift, prep, None,
          None), card)
+    occ = layer_occupancy("inverse_raw", 0, len(params), False)[0]
+    regs = (ptxas or {}).get("inverse_raw broadcast (K=10)")
+    log(f"inverse_raw (broadcast, K=10): {occ} blocks per SM; {regs}")
     return {"name": "gf_inverse_raw", "route": "cuda",
             "source": "jammy_flows_tpu_torch/csrc/gf_layer.cu",
             "replaces": "jammy_flows_tpu/ops/pallas_gf.py:767",
             "launches": 0, "launches_by_path": {}, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "tc_bound_ms": tc_ms, "library_ms": None,
-            "_slot": slot}
+            "blocks_per_sm": occ, "ptxas": regs, "_slot": slot}
 
 
 def layer_phase(dev, card, ptxas=None):
@@ -1901,7 +2003,7 @@ def layer_phase(dev, card, ptxas=None):
     skewed ones, gradients of the centred ones, the lazy kernels' repeat,
     NaN and width checks, kernel times; returns the kernels' JSON rows."""
     t_phase = time.time()
-    launches, errs, calls = {}, {}, []
+    launches, errs, calls, forms = {}, {}, [], {}
 
     def merge(e):
         for k, v in e.items():
@@ -1922,6 +2024,8 @@ def layer_phase(dev, card, ptxas=None):
         merge(check_layer_calls(label, layer_calls))
         cross_check(label, p, params, x, ci, opts)
         launches[label] = {"serving": launch}
+        forms[label] = {"serving": prepared_forms(label, "serving",
+                                                  layer_calls, launch)}
         if cond is None or opts is SKEW:
             # whole-call times on this path's own inputs
             g = torch.Generator(device=dev).manual_seed(50 + i)
@@ -1949,14 +2053,15 @@ def layer_phase(dev, card, ptxas=None):
             del layer_calls
             torch.cuda.empty_cache()
         else:
-            l_g, layer_calls = centred_grads(label, p, params, opts,
-                                             seed=60 + i)
+            l_g, layer_calls, f_g = centred_grads(label, p, params, opts,
+                                                  seed=60 + i)
             launches[label].update(l_g)
+            forms[label].update(f_g)
             merge(check_layer_calls(label, layer_calls))
     layer_repeat_check(calls)
     layer_nan_check(calls)
     merge(layer_width_check(dev))
-    rows = time_layer_kernels(calls, launches, errs, card, ptxas)
+    rows = time_layer_kernels(calls, launches, forms, errs, card, ptxas)
     log(f"per-layer phase {time.time() - t_phase:.1f} s")
     return rows
 
@@ -2196,7 +2301,8 @@ def main():
     perm_ptxas = tile_breakdown.perm_ptxas("".join(ptxas))
     layer_ptxas = {**tile_breakdown.layer_ptxas("".join(ptxas)),
                    **tile_breakdown.layer_raw_ptxas("".join(ptxas)),
-                   **tile_breakdown.layer_fwd_raw_ptxas("".join(ptxas))}
+                   **tile_breakdown.layer_fwd_raw_ptxas("".join(ptxas)),
+                   **tile_breakdown.layer_prep_ptxas("".join(ptxas))}
     tile_kernel_report(built, card)
     dev = torch.device("cuda", torch.cuda.current_device())
     # the T1 perm kernels' reciprocal of 1 + e against the IEEE one, every
@@ -2238,7 +2344,8 @@ def main():
                                            "conditional": launch_c[name]},
                               errs[name], card, perm_ptxas))
     layer_rows = [inverse_raw_row(
-        next(a for n, a, _, _ in calls_u if n == "sample_perm"), card)]
+        next(a for n, a, _, _ in calls_u if n == "sample_perm"), card,
+        layer_ptxas)]
     del calls_u
 
     g = torch.Generator(device=dev).manual_seed(6)

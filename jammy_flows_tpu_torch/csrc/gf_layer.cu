@@ -21,17 +21,18 @@
 //
 // Design: one thread per row, looping over the dimensions (the mixture of
 // one dimension in registers for K = 10, local memory otherwise), 128 rows
-// per block.  Raw broadcast forward and sample (T4 / T5 raw,
-// gf_layer_bcast_kernel): a grid of persistent blocks, as many as the SMs
-// hold at once, each preparing the mixtures once (BcastSrc, one
-// (dimension, component) pair a thread, with the row-independent terms a
-// row would compute again: MixF's lnw + log(iw) and nw * iw), then walking
-// its tiles one dimension at a time with that dimension's mixture in
-// registers; the plain mixture's solve and root log-derivative are one
-// rolled loop over one copy of the evaluation.  One block per tile
-// repeated the set-up 8,192 times at 1M rows on 4 of 128 threads (35% of
-// T4 skewed; PERF.md, tools/tile_breakdown.py --part layer_fwd_raw).
-// Prepared, raw per-row and solve-alone calls: one block per 128-row tile.
+// per block.  Broadcast slabs (T4 / T5 / T6 raw, gf_layer_bcast_kernel;
+// T4 / T6 prepared, gf_layer_prep_kernel): a grid of persistent blocks, as
+// many as the SMs hold at once, each preparing the mixtures once
+// (BcastSrc, one (dimension, component) pair a thread, with the
+// row-independent terms a row would compute again: MixF's lnw + log(iw)
+// and nw * iw), then walking its tiles one dimension at a time with that
+// dimension's mixture in registers; the plain mixture's solve (and the
+// root's log-derivative) is one rolled loop over one copy of the
+// evaluation.  One block per tile repeated the set-up 8,192 times at 1M
+// rows on 4 of 128 threads (35% of T4 skewed; PERF.md,
+// tools/tile_breakdown.py --part layer_fwd_raw / layer_prep).  Per-row
+// calls: one block per 128-row tile.
 // Lazy
 // calls: the tile stage of tile_rows.cuh (LayerStreamSrc): for each
 // dimension the block makes that dimension's n_groups * K parameter rows
@@ -61,12 +62,11 @@ constexpr int SMEM_LIMIT = 227 * 1024;
 // One row's pass of dimension dd (element i of x): the value (FORWARD) or
 // the root (SAMPLE, INVERSE) into out, and the log-derivative into ld.  M:
 // the source's mixture (MixT), or one with its row-independent terms
-// prepared (MixFT).  ROLLED (the raw broadcast sample): the plain
-// mixture's solve and root log-derivative as one rolled loop
-// (solve_log_deriv_rolled: the same bits as the unrolled form), its
-// bracket keeping a NaN as the plain version does.  The skewed solve
-// stays unrolled: at 96 registers (5 blocks per SM) its rolled loop was
-// 11% slower (PERF.md).
+// prepared (MixFT).  ROLLED (the broadcast kernels): the plain mixture's
+// solve, and in SAMPLE its root's log-derivative, as one rolled loop
+// (solve_rolled, solve_log_deriv_rolled: the same bits as the unrolled
+// forms).  The skewed solve stays unrolled: at 96 registers (5 blocks per
+// SM) its rolled loop was 11% slower (PERF.md).
 template <bool SKEW, int MODE, int N, int KT, bool ROLLED = false, class M>
 __device__ __forceinline__ void row_pass(const LayerArgs& a, const M& mx,
                                          int K, size_t i) {
@@ -82,8 +82,10 @@ __device__ __forceinline__ void row_pass(const LayerArgs& a, const M& mx,
     a.ld[i] = lg;
   } else if constexpr (ROLLED && !SKEW && MODE == SAMPLE) {
     float lg;
-    a.out[i] = solve_log_deriv_rolled<N, KT, true>(xv, mx, K, a.ift, lg);
+    a.out[i] = solve_log_deriv_rolled<N, KT>(xv, mx, K, a.ift, lg);
     a.ld[i] = lg;
+  } else if constexpr (ROLLED && !SKEW && MODE == INVERSE) {
+    a.out[i] = solve_rolled<N, KT>(xv, mx, K, a.ift);
   } else {
     float root;
     if constexpr (SKEW)
@@ -102,8 +104,8 @@ __device__ __forceinline__ void row_pass(const LayerArgs& a, const M& mx,
   }
 }
 
-// T4-T6 lazy, prepared, raw per row, and the solve alone (T6) on raw
-// broadcast slabs: one block per 128-row tile.
+// T4-T6 lazy and per row (prepared or raw): one block per 128-row tile;
+// T6's plain solve rolled.
 template <bool LAZY, bool SKEW, int MODE, int KT>
 __global__ void __launch_bounds__(128) gf_layer_kernel(const LayerArgs a) {
   constexpr int N = KT > 0 ? KT : KMAX;
@@ -133,24 +135,32 @@ __global__ void __launch_bounds__(128) gf_layer_kernel(const LayerArgs a) {
       MixT<SKEW, N> mx;
       float lw[N], ln[N], se[N];
       src.load(a, row, dd, mx, lw, ln, se);
-      row_pass<SKEW, MODE, N, KT>(a, mx, K, (size_t)row * a.D + dd);
+      // the plain solve alone (T6 per row): the broadcast kernels' rolled
+      // solve on the row's mixture with its row-independent terms made once
+      if constexpr (MODE == INVERSE && !SKEW)
+        row_pass<SKEW, MODE, N, KT, true>(a, with_row_terms<N, KT>(mx, K), K,
+                                          (size_t)row * a.D + dd);
+      else
+        row_pass<SKEW, MODE, N, KT>(a, mx, K, (size_t)row * a.D + dd);
     }
   }
 }
 
-// The raw broadcast forward's register cap, the launch bounds' minimum of
-// resident blocks per SM (tools/tile_breakdown.py --part layer_fwd_raw)
+// The broadcast forward kernels' register caps, the launch bounds' minimum
+// of resident blocks per SM (tools/tile_breakdown.py --part layer_fwd_raw,
+// layer_prep)
 constexpr int BCAST_MIN_BLOCKS_FORWARD = 4, BCAST_MIN_BLOCKS_SAMPLE = 5;
+constexpr int BCAST_MIN_BLOCKS_INVERSE = 5;
 
-// T4 / T5 on raw broadcast slabs (gf_forward_raw, gf_sample_raw): a grid of
-// persistent blocks (persistent_grid), each preparing the mixtures once
-// (BcastSrc: one (dimension, component) a thread, with the row-independent
-// terms of MixF), then, one dimension at a time, walking the tiles
-// blockIdx.x, blockIdx.x + gridDim.x, ... of 128 rows, a row a thread, with
-// that dimension's mixture in registers; the plain mixture's solve rolled.
-// No barrier follows the set-up.
+// T4 / T5 / T6 on raw broadcast slabs (gf_forward_raw, gf_sample_raw,
+// gf_inverse_raw): a grid of persistent blocks (persistent_grid), each
+// preparing the mixtures once (BcastSrc: one (dimension, component) a
+// thread, with the row-independent terms of MixF), then, one dimension at a
+// time, walking the tiles blockIdx.x, blockIdx.x + gridDim.x, ... of 128
+// rows, a row a thread, with that dimension's mixture in registers; the
+// plain mixture's solve rolled.  No barrier follows the set-up.
 template <bool SKEW, int MODE, int KT>
-__global__ void __launch_bounds__(128, MODE == SAMPLE ? BCAST_MIN_BLOCKS_SAMPLE : BCAST_MIN_BLOCKS_FORWARD)
+__global__ void __launch_bounds__(128, MODE == SAMPLE ? BCAST_MIN_BLOCKS_SAMPLE : MODE == INVERSE ? BCAST_MIN_BLOCKS_INVERSE : BCAST_MIN_BLOCKS_FORWARD)
     gf_layer_bcast_kernel(const LayerArgs a) {
   constexpr int N = KT > 0 ? KT : KMAX;
   extern __shared__ __align__(16) float smem[];
@@ -168,12 +178,35 @@ __global__ void __launch_bounds__(128, MODE == SAMPLE ? BCAST_MIN_BLOCKS_SAMPLE 
   }
 }
 
-// a call the broadcast kernel takes: the raw broadcast forward and sample
-inline bool bcast_call(bool lazy, int mode, const LayerArgs& a) {
-  return !lazy && mode != INVERSE && !a.per_row && !a.prepared;
+// T4 / T6 on prepared broadcast slabs (gf_forward_pallas,
+// gf_inverse_pallas): gf_layer_bcast_kernel's design on BcastSrc's
+// prepared set-up (PREP).  A kernel of its own, so that the raw broadcast
+// kernels keep their code.
+template <int MODE, int KT>
+__global__ void __launch_bounds__(128, MODE == INVERSE ? BCAST_MIN_BLOCKS_INVERSE : BCAST_MIN_BLOCKS_FORWARD)
+    gf_layer_prep_kernel(const LayerArgs a) {
+  constexpr int N = KT > 0 ? KT : KMAX;
+  extern __shared__ __align__(16) float smem[];
+  const int K = KT > 0 ? KT : a.K;
+  const BcastSrc<false, N, KT, true> src(a, smem);
+  const int n_tiles = (a.B + blockDim.x - 1) / blockDim.x;
+  for (int dd = 0; dd < a.D; ++dd) {
+    MixF<N> mx;
+    src.load(a, dd, mx);
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const int row = tile * blockDim.x + threadIdx.x;
+      if (row >= a.B) break;
+      row_pass<false, MODE, N, KT, true>(a, mx, K, (size_t)row * a.D + dd);
+    }
+  }
 }
 
-// The kernel of a call and its grid: the broadcast kernel's persistent
+// a call the broadcast kernels take: broadcast slabs, prepared or raw
+inline bool bcast_call(bool lazy, const LayerArgs& a) {
+  return !lazy && !a.per_row;
+}
+
+// The kernel of a call and its grid: the broadcast kernels' persistent
 // blocks (blocks per SM x SMs, at most one per tile), else one block per
 // tile.  0 or a cudaError_t.
 template <bool LAZY, bool SKEW, int MODE, int KT>
@@ -181,11 +214,17 @@ cudaError_t kernel_grid(const LayerArgs& a, int threads, size_t smem,
                         const void*& kernel, int& blocks) {
   const int n_tiles = (a.B + threads - 1) / threads;
   blocks = n_tiles;
-  if (!bcast_call(LAZY, MODE, a)) {
+  if (!bcast_call(LAZY, a)) {
     kernel = (const void*)gf_layer_kernel<LAZY, SKEW, MODE, KT>;
     return cudaSuccess;
   }
-  if constexpr (!LAZY && MODE != INVERSE) {
+  if constexpr (!LAZY) {
+    if constexpr (!SKEW) {
+      if (a.prepared) {
+        kernel = (const void*)gf_layer_prep_kernel<MODE, KT>;
+        return persistent_grid(kernel, threads, smem, n_tiles, blocks);
+      }
+    }
     kernel = (const void*)gf_layer_bcast_kernel<SKEW, MODE, KT>;
     return persistent_grid(kernel, threads, smem, n_tiles, blocks);
   }
@@ -217,13 +256,9 @@ cudaError_t launch(const LayerArgs& a, int threads, size_t smem,
     grid[1] = threads;
     return cudaSuccess;
   }
-  if (bcast_call(LAZY, MODE, a)) {
-    if constexpr (!LAZY && MODE != INVERSE)
-      gf_layer_bcast_kernel<SKEW, MODE, KT><<<blocks, threads, smem, stream>>>(a);
-  } else {
-    gf_layer_kernel<LAZY, SKEW, MODE, KT><<<blocks, threads, smem, stream>>>(a);
-  }
-  return cudaGetLastError();
+  void* args[] = {const_cast<LayerArgs*>(&a)};
+  return cudaLaunchKernel(kernel, dim3(blocks), dim3(threads), args, smem,
+                          stream);
 }
 
 template <bool LAZY, bool SKEW, int MODE>
@@ -260,15 +295,14 @@ cudaError_t dispatch(int mode, bool lazy, bool skew, const LayerArgs& a,
 
 // A call's rows per block and dynamic shared memory (the lazy tile:
 // a.tile); 0 or cudaErrorInvalidValue when none fits.
-int block_shape(LayerArgs& a, bool lazy, int mode, int& threads,
-                size_t& smem) {
+int block_shape(LayerArgs& a, bool lazy, int& threads, size_t& smem) {
   threads = 128;
   if (lazy) {
     a.stream = layer_stream_shape(a.n_groups * a.K);
     threads = a.stream.T;
     smem = a.stream.floats() * 4;
   } else {
-    smem = layer_src_floats(a, bcast_call(lazy, mode, a)) * 4;
+    smem = layer_src_floats(a, bcast_call(lazy, a)) * 4;
   }
   return smem > SMEM_LIMIT ? (int)cudaErrorInvalidValue : 0;
 }
@@ -337,7 +371,7 @@ extern "C" int gf_layer_launch(const int* meta, const float* regs,
 
   int threads;
   size_t smem;
-  if (block_shape(a, lazy, mode, threads, smem) != 0)
+  if (block_shape(a, lazy, threads, smem) != 0)
     return (int)cudaErrorInvalidValue;
   return (int)dispatch(mode, lazy, skew, a, threads, smem,
                        (cudaStream_t)stream, nullptr, nullptr);
@@ -350,18 +384,20 @@ extern "C" int gf_layer_grid(const int* meta, int* out) {
   int threads;
   size_t smem;
   if (parse_meta(meta, a) != 0 || a.B < 1 ||
-      block_shape(a, meta[1], meta[0], threads, smem) != 0)
+      block_shape(a, meta[1], threads, smem) != 0)
     return (int)cudaErrorInvalidValue;
   return (int)dispatch(meta[0], meta[1], meta[2], a, threads, smem, nullptr,
                        nullptr, out);
 }
 
 // Resident blocks per SM of the kernel a call of this (mode, lazy, skew,
-// K, D, H, n_groups) launches, by cudaOccupancyMaxActiveBlocksPerMultiprocessor
-// (lazy 0: raw broadcast slabs); writes [blocks per SM, threads per block,
-// dynamic shared memory bytes] to out.  Returns 0 or a cudaError_t.
+// K, D, H, n_groups, prepared) launches, by
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor (lazy 0: broadcast slabs,
+// raw or prepared); writes [blocks per SM, threads per block, dynamic
+// shared memory bytes] to out.  Returns 0 or a cudaError_t.
 extern "C" int gf_layer_occupancy(int mode, int lazy, int skew, int K, int D,
-                                  int H, int n_groups, int* out) {
+                                  int H, int n_groups, int* out,
+                                  int prepared) {
   LayerArgs a{};
   a.B = 1;
   a.K = K;
@@ -369,10 +405,12 @@ extern "C" int gf_layer_occupancy(int mode, int lazy, int skew, int K, int D,
   a.H = H;
   a.n_groups = n_groups;
   a.per_row = lazy;
+  a.prepared = prepared;
   int threads;
   size_t smem;
   if (mode < 0 || mode > 2 || K < 1 || K > KMAX || D < 1 || D > DMAX ||
-      (lazy && H < 1) || block_shape(a, lazy, mode, threads, smem) != 0)
+      (lazy && H < 1) || (prepared && (lazy || skew)) ||
+      block_shape(a, lazy, threads, smem) != 0)
     return (int)cudaErrorInvalidValue;
   int n = 0;
   const cudaError_t e =

@@ -11,7 +11,7 @@
 // Prepared and raw slabs are broadcast (K, D) or per row (K, D, B), B minor,
 // so the threads of a warp (one row each) read neighbouring floats.
 // Broadcast slabs are prepared once per block into shared memory
-// (LayerSrc; the raw broadcast forward's BcastSrc).  Lazy blocks take the tile stage of tile_rows.cuh: the block
+// (LayerSrc; the broadcast forward's BcastSrc).  Lazy blocks take the tile stage of tile_rows.cuh: the block
 // makes one dimension's piece of parameter rows at a time for all its rows
 // (the n_groups * K rows g K D + k D + dd, in the group order of the slabs)
 // as a 3xTF32 tile product on the tensor cores, into a slab whose column
@@ -176,22 +176,25 @@ struct LayerSrc {
   }
 };
 
-// The raw broadcast forward's source (T4 / T5 raw, gf_layer_bcast_kernel):
-// the block's mixtures prepared once into shared memory, K * D floats an
-// array, value k of dimension dd at k * D + dd, by one (dimension,
-// component) pair a thread in two passes: the per-component terms
-// (regulators, exponents), then, after a barrier, each pair's log-softmax
-// over its dimension's regulated log-norms (every pair of a dimension sums
-// them in the same order) and the terms that need it, MixF's lnw + log(iw)
-// and nw * iw for the plain mixture.  prep_mix's and prep_skew's f32
+// The broadcast forward's source (T4 / T5 / T6 raw, gf_layer_bcast_kernel;
+// T4 / T6 prepared, gf_layer_prep_kernel, PREP): the block's mixtures
+// prepared once into shared memory, K * D floats an array, value k of
+// dimension dd at k * D + dd, by one (dimension, component) pair a thread.
+// Raw slabs in two passes: the per-component terms (regulators,
+// exponents), then, after a barrier, each pair's log-softmax over its
+// dimension's regulated log-norms (every pair of a dimension sums them in
+// the same order) and the terms that need it, MixF's lnw + log(iw) and
+// nw * iw for the plain mixture.  prep_mix's and prep_skew's f32
 // expressions, so the mixture's bits are those of LayerSrc's one thread a
-// dimension (the parent's set-up, which the other broadcast calls keep).
+// dimension (the set-up the per-row and lazy calls keep).  PREP (prepared
+// slabs: means, inverse widths, log weights) in one pass: nw = exp(lnw)
+// and MixF's terms, prep_layer_mix's expressions.
 enum BcastArray {
   BA_M, BA_IW, BA_LNW, BA_NW, BA_LIW, BA_LS, BA_A, BA_LP, BA_NWIW, BA_L,
   BCAST_FWD_ARRAYS
 };
 
-template <bool SKEW, int N, int KT>
+template <bool SKEW, int N, int KT, bool PREP = false>
 struct BcastSrc {
   float* sm;
 
@@ -199,6 +202,20 @@ struct BcastSrc {
   __device__ BcastSrc(const LayerArgs& a, float* smem) : sm(smem) {
     const int T = blockDim.x, tid = threadIdx.x;
     const int kd = a.K * a.D;
+    if constexpr (PREP) {
+      for (int j = tid; j < kd; j += T) {
+        const float iw = __ldg(a.p[1] + j), lnw = __ldg(a.p[2] + j);
+        const float nw = expf(lnw);
+        sm[BA_M * kd + j] = __ldg(a.p[0] + j);
+        sm[BA_IW * kd + j] = iw;
+        sm[BA_LNW * kd + j] = lnw;
+        sm[BA_NW * kd + j] = nw;
+        sm[BA_LP * kd + j] = lnw + logf(iw);
+        sm[BA_NWIW * kd + j] = nw * iw;
+      }
+      __syncthreads();
+      return;
+    }
     for (int j = tid; j < kd; j += T) {
       const float iw = expf(-apply_reg(a.wreg, __ldg(a.p[1] + j)));
       sm[BA_M * kd + j] = __ldg(a.p[0] + j);
@@ -365,7 +382,7 @@ struct LayerTileSrc {
 };
 
 // Shared memory floats a broadcast or per-row call's block needs for its
-// source (LayerSrc; the raw broadcast forward's BcastSrc: bcast).
+// source (LayerSrc; the broadcast forward's BcastSrc: bcast).
 __host__ __device__ inline size_t layer_src_floats(const LayerArgs& a,
                                                    bool bcast = false) {
   return a.per_row ? 0

@@ -299,37 +299,39 @@ def kernel_occupancy(name, k, d, hid, n_groups, skew=True):
     """(blocks per SM, threads per block, dynamic shared memory bytes) of
     the kernel ``name`` (a ``LAUNCHES`` key: forward_lazy, sample_lazy,
     forward_bwd_lazy, sample_bwd_lazy, and with broadcast slabs
-    forward_raw, sample_raw, forward_bwd_raw, sample_bwd_raw) at a layer
-    of K = k, D = d, hidden
-    width hid (lazy) and n_groups parameter groups, from the CUDA
-    occupancy API on the current device."""
+    forward_raw, sample_raw, inverse_raw, forward_prepared,
+    inverse_prepared, forward_bwd_raw, sample_bwd_raw) at a layer of K = k,
+    D = d, hidden width hid (lazy) and n_groups parameter groups, from the
+    CUDA occupancy API on the current device."""
     from . import cuda_build
     bwd = "_bwd_" in name
     lib = (cuda_build.load("gf_layer_bwd", _declare_bwd) if bwd
            else cuda_build.load("gf_layer", _declare))
     fn = lib.gf_layer_bwd_occupancy if bwd else lib.gf_layer_occupancy
     i = ctypes.c_int
-    fn.argtypes = [i, i, i, i, i, i, i, ctypes.c_void_p]
+    fn.argtypes = [i, i, i, i, i, i, i, ctypes.c_void_p] + [i] * (not bwd)
     fn.restype = i
     out = (ctypes.c_int * 3)()
-    rc = fn(int(name.startswith("sample")), int(name.endswith("_lazy")),
-            int(skew), k, d, hid, n_groups, out)
+    prepared = name.endswith("_prepared")
+    rc = fn(_MODES[name.split("_")[0]], int(name.endswith("_lazy")),
+            int(skew and not prepared), k, d, hid, n_groups, out,
+            *[int(prepared)] * (not bwd))
     if rc != 0:
         raise RuntimeError(f"occupancy query of {name} failed ({rc})")
     return tuple(out)
 
 
-def bcast_grid(mode, n, params, prep):
-    """(blocks, rows per tile) of the grid T4 / T5 take with raw broadcast
-    slabs for n rows on the current device: persistent blocks, the
-    occupancy API's blocks per SM x SMs at most, each walking tiles of
-    rows."""
+def bcast_grid(mode, n, params, prep, iface="raw"):
+    """(blocks, rows per tile) of the grid T4-T6 take with broadcast slabs
+    (raw, or prepared: prep None) for n rows on the current device:
+    persistent blocks, the occupancy API's blocks per SM x SMs at most,
+    each walking tiles of rows."""
     from . import cuda_build
     lib = cuda_build.load("gf_layer", _declare)
     lib.gf_layer_grid.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     lib.gf_layer_grid.restype = ctypes.c_int
     one = torch.zeros((1, params[0].shape[1]), device=params[0].device)
-    ints, _, _, _, _, _ = _kernel_args("raw", one, params, "isigmoid", prep,
+    ints, _, _, _, _, _ = _kernel_args(iface, one, params, "isigmoid", prep,
                                        None)
     ints[4] = n     # the rows (B), after lazy, skew, prepared, per_row
     c_ints, _ = _c_arrays([_MODES[mode]] + ints, [])

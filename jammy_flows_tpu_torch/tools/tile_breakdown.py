@@ -3,7 +3,7 @@ again with parts of them switched off, on the card.
 
     python -m jammy_flows_tpu_torch.tools.tile_breakdown
         [--part lazy2|perm|perm_fwd|layer_lazy|layer_raw|layer_fwd_raw|
-                block_lazy|sass|bits]
+                layer_prep|block_lazy|sass|bits]
         [--csrc DIR [DIR ...]] [--rounds R] [--variants V [V ...]]
 
 Builds ``csrc/gf_block.cu`` and ``csrc/gf_block_bwd.cu`` from a copy of the
@@ -108,6 +108,25 @@ register cap, its ``__launch_bounds__`` minimum of blocks per SM made
 broadcast kernels' registers, stack and spills (``-Xptxas -v``), their
 ``cuobjdump -sass`` instruction counts (as ``perm_fwd``), blocks per SM
 (the occupancy API) and grid.
+
+layer_prep (T4 ``forward_prepared`` and T6 ``inverse_prepared``, the
+per-layer calls of the flagship with ``{"g": {"center_mean": 1}}``: its
+block-0 layer 0 with broadcast slabs and its block-2 layer 0 with per-row
+slabs, K = 10, d = 4, recorded from the model's ``sample`` at 1,048,576
+rows, T6 at the layer's targets and T4 at T6's roots; and T6
+``inverse_raw`` on the block-0 layer's mixture as raw broadcast slabs:
+means, -log of the inverse widths and the log weights under identity
+regulators; builds ``csrc/gf_layer.cu``), each timed alone and as one of
+10 launches back to back: as built; with the per-row body off and the
+set-up skipped (the switches of layer_fwd_raw; a per-row call's body off
+also drops its slab loads but the first component's); T6's solve rolled
+(``inv_rolled``) and unrolled (``inv_unrolled``: ``solve``), by text
+injected into ``row_pass``; the register caps (``bounds_2`` - ``bounds_6``:
+the ``__launch_bounds__`` minimum of blocks per SM of every non-lazy
+forward kernel made 2-6).  For every variant: those kernels' registers,
+stack and spills (``-Xptxas -v``), their ``cuobjdump -sass`` instruction
+counts (as ``perm_fwd``), blocks per SM (from the registers: the occupancy
+API of an older library does not answer for these calls) and grid.
 
 block_lazy (the block's lazy mode, precomputed hidden activations, on
 the flagship with ``amortization_mlp_dims="64-64"``, block 2: K = 10,
@@ -416,6 +435,38 @@ _LAYER_FWD_RAW = {
     "fwd_rolled": {r"using namespace gf;\n": _FWD_ROLLED_HELPERS,
                    _ROW_PASS: _FWD_ROLLED},
     "fwd_unrolled": {_ROW_PASS: _FWD_UNROLLED}}
+# T6 (layer_prep): the solve alone as one rolled loop over one copy of the
+# mixture evaluation (inv_rolled, the helper defined after the sources'
+# `using namespace gf;`) or unrolled (inv_unrolled: solve), injected into
+# row_pass for the plain mixture
+_INV_ROLLED_HELPER = """template <int N, int KT, class M>
+__device__ __forceinline__ float gf_rolled_solve(float target, const M& mx,
+                                                 int K, int ift) {
+  float lo, hi, x;
+  solve_start<N, KT>(target, mx, K, ift, lo, hi, x);
+#pragma unroll 1
+  for (int it = 0; it < N_NEWTON; ++it) {
+    float deriv;
+    const float val = solve_eval<N, KT, true>(x, mx, K, ift, deriv);
+    newton_step(val, deriv, target, x, lo, hi);
+  }
+  return x;
+}
+"""
+_LAYER_PREP = {
+    "inv_rolled": {r"using namespace gf;\n": _INV_ROLLED_HELPER,
+                   _ROW_PASS: "  if constexpr (MODE == 2 && !SKEW) {\n"
+                              "    a.out[i] = gf_rolled_solve<N, KT>(a.x[i], "
+                              "mx, K, a.ift);\n    return;\n  }\n"},
+    "inv_unrolled": {_ROW_PASS: "  if constexpr (MODE == 2 && !SKEW) {\n"
+                                "    a.out[i] = solve<N, KT>(a.x[i], mx, K, "
+                                "a.ift);\n    return;\n  }\n"}}
+# the non-lazy forward kernels' register cap (layer_prep): the
+# __launch_bounds__ of gf_layer_kernel and gf_layer_prep_kernel, their
+# minimum of blocks per SM made n (with fwd_bounds_n for the raw broadcast
+# kernel)
+_PREP_BOUNDS = re.compile(r"(__launch_bounds__\(128(?:, [^()]*)?\))"
+                          r"(?=\s*(?:gf_layer_kernel|gf_layer_prep_kernel)\()")
 # the raw broadcast forward kernel's register cap: the __launch_bounds__ of
 # gf_layer_bcast_kernel where the sources have it, else of gf_layer_kernel
 # (before the redesign one kernel for every non-lazy call), its minimum of
@@ -453,6 +504,13 @@ VARIANTS = {
                          for name in (*_LAYER_FWD_RAW,
                                       *(f"fwd_bounds_{b}"
                                         for b in _FWD_BOUNDS_MIN))}},
+    "layer_prep": {"as_built": ((), ("gf_layer",)),
+                   **{name: ((name,), ("gf_layer",))
+                      for name in ("fwd_body_off", "fwd_setup_off",
+                                   *_LAYER_PREP)},
+                   **{f"bounds_{b}": ((f"fwd_bounds_{b}", f"prep_bounds_{b}"),
+                                      ("gf_layer",))
+                      for b in _FWD_BOUNDS_MIN}},
     "block_lazy": {"as_built": ((), _BOTH),
                    "product_off": (("block_lazy_product",), _BOTH),
                    "flush_off": (("block_lazy_flush",), ("gf_block_bwd",)),
@@ -482,7 +540,7 @@ def _switches(src_dir, part):
              for head, body in _LAYER_FLUSH.items()] + \
             [(switch, head, body) for switch, heads in
              (*_BLOCK_LAZY.items(), *_LAYER_RAW.items(),
-              *_LAYER_FWD_RAW.items())
+              *_LAYER_FWD_RAW.items(), *_LAYER_PREP.items())
              for head, body in heads.items()]
         m = _BOUNDS.search(text)
         if m:
@@ -494,6 +552,15 @@ def _switches(src_dir, part):
                 + _BOUNDS.sub(r"__launch_bounds__(128, GF_BCAST_MIN_BLOCKS)\2",
                               text)
             found += [f"bounds_{b}" for b in _BOUNDS_MIN]
+        if path.name == "gf_layer.cu" and _PREP_BOUNDS.search(text):
+            text = "".join(
+                f"#{'el' if i else ''}if defined(GF_OFF_prep_bounds_{b})\n"
+                f"#define GF_PREP_MIN_BLOCKS {b}\n"
+                for i, b in enumerate(_FWD_BOUNDS_MIN)) + "#endif\n" + \
+                _PREP_BOUNDS.sub(lambda m: "\n#ifdef GF_PREP_MIN_BLOCKS\n"
+                                 "__launch_bounds__(128, GF_PREP_MIN_BLOCKS)\n"
+                                 f"#else\n{m.group(1)}\n#endif\n", text)
+            found += [f"prep_bounds_{b}" for b in _FWD_BOUNDS_MIN]
         if path.name == "gf_layer.cu":
             pat = next((b for b in _FWD_BOUNDS if b.search(text)), None)
             if pat is not None:
@@ -531,6 +598,11 @@ def _switches(src_dir, part):
             raise RuntimeError(f"switches found {found}, expected "
                                f"{sorted(_LAYER_FWD_RAW)} and the forward's "
                                "launch bounds")
+    elif part == "layer_prep":
+        missing = [n for n in ("fwd_body_off", "fwd_setup_off", *_LAYER_PREP,
+                               "prep_bounds_2") if n not in found]
+        if missing:
+            raise RuntimeError(f"switches found {found}, missing {missing}")
     elif part == "layer_lazy":
         if "layer_product" not in found or "layer_flush" not in found:
             raise RuntimeError(f"switches found {found}, expected the "
@@ -571,7 +643,7 @@ def build(part, trees, variants=None):
             extra = [f"-DGF_OFF_{name}" for name in off]
             flags = [f for f in cuda_build.NVCC_FLAGS
                      if variant == "as_built" or
-                     part in ("layer_raw", "layer_fwd_raw") or
+                     part in ("layer_raw", "layer_fwd_raw", "layer_prep") or
                      f not in ("-Xptxas", "-v")]
             for lib in libs:
                 out = src.parent / f"lib{lib}_{variant}.so"
@@ -735,6 +807,53 @@ def layer_fwd_raw_ptxas(report):
                           f"B, spill stores {spill.group(2)} B, loads "
                           f"{spill.group(3)} B")
     return out
+
+
+# T4 / T6 prepared and T6 raw (layer_prep): gf_layer_prep_kernel<MODE, KT>
+# and gf_layer_bcast_kernel<SKEW = false, MODE = 2, KT> (broadcast, after
+# the redesign), gf_layer_kernel<LAZY = false, SKEW = false, MODE, KT>
+# (per row; before the redesign every such call)
+_LAYER_PREP_KERNELS = (
+    (r"gf_layer_prep_kernelILi([02])ELi(\d+)E", "{}_prepared broadcast"),
+    (r"gf_layer_bcast_kernelILb0ELi(2)ELi(\d+)E", "{}_raw broadcast"),
+    (r"gf_layer_kernelILb0ELb0ELi([02])ELi(\d+)E", "{} one block per tile"))
+
+
+def _layer_prep_kernel(name):
+    """The label of a layer_prep kernel's mangled name, or None."""
+    for pat, label in _LAYER_PREP_KERNELS:
+        m = re.search(pat, name)
+        if m:
+            mode = ("forward", "sample", "inverse")[int(m.group(1))]
+            return (f"{label.format(mode)} "
+                    f"({'K=10' if m.group(2) == '10' else 'generic'})")
+    return None
+
+
+def layer_prep_ptxas(report):
+    """{kernel: "registers, stack, spills"} of the layer_prep kernels in an
+    -Xptxas -v report."""
+    out = {}
+    for name, body in re.findall(r"Function properties for (\S+)\n(.*?)"
+                                 r"(?=ptxas info\s+: Compil|\Z)", report, re.S):
+        which = _layer_prep_kernel(name)
+        regs = re.search(r"Used (\d+) registers", body)
+        spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", body)
+        if which and regs and spill:
+            out[which] = (f"{regs.group(1)} registers, stack {spill.group(1)} "
+                          f"B, spill stores {spill.group(2)} B, loads "
+                          f"{spill.group(3)} B")
+    return out
+
+
+def _blocks_from_registers(ptxas_line, threads=128):
+    """Resident blocks per SM that a kernel's registers allow (65,536 a SM,
+    allocated per warp in units of 256, 16 blocks of 128 threads at
+    most)."""
+    regs = int(ptxas_line.split()[0])
+    per_warp = -(-regs * 32 // 256) * 256
+    return min(65536 // per_warp // (threads // 32), 2048 // threads)
 
 
 # the block's lazy-mode kernels' mangled names: gf_block_density_kernel /
@@ -1421,6 +1540,80 @@ def _layer_fwd_raw_case(gl, dev, g, n=1 << 20):
     return run, blocks, shapes
 
 
+def _layer_prep_case(gl, dev, g, n=1 << 20):
+    """T4 / T6 prepared at the centred flagship's block-0 layer 0 (broadcast
+    slabs) and block-2 layer 0 (per-row slabs), K = 10, d = 4 (its
+    permanent parameters and MLPs jittered by 0.02 N(0, 1)), recorded from
+    the model's ``sample`` at n rows: T6 at the layer's targets, T4 at T6's
+    roots (the call that follows it); and T6 raw on the block-0 layer's
+    mixture as raw broadcast slabs (means, -log inverse widths, log
+    weights; identity regulators).  run(variant) times the five calls
+    single and as one of 10 launches back to back; grid(handle) gives each
+    call's grid (``gf_layer_grid``).  Returns (run, grid, shapes)."""
+    import torch
+    from .. import pdf
+    from ..ops.special import IDENTITY
+    p = pdf("e4+s2+e4", "gggg+f+gggg",
+            options_overwrite={"g": {"center_mean": 1}}, device=dev)
+    params = {k: v + 0.02 * torch.randn(v.shape, generator=g, device=dev)
+              if k.startswith("mlp_") or k == "flow_0" else v
+              for k, v in p.init_params(seed=0).items()}
+    calls = {}
+    run_layer = gl._run
+
+    def record(mode, iface, x, ps, ift, prep, kd):
+        if iface == "prepared":
+            key = (mode, "per-row" if ps[0].ndim == 3 else "broadcast")
+            if key not in calls and (mode == "inverse" or
+                                     ("inverse", key[1]) in calls):
+                calls[key] = (x.clone(), tuple(t.clone() for t in ps), ift)
+        return run_layer(mode, iface, x, ps, ift, prep, kd)
+
+    gl._run = record
+    try:
+        with torch.no_grad():
+            p.sample(params, samplesize=n, generator=g)
+    finally:
+        gl._run = run_layer
+    ift = calls[("inverse", "broadcast")][2]
+    means, iw, lnw = calls[("inverse", "broadcast")][1]
+    raw = ((means, -torch.log(iw), lnw), (IDENTITY, None, True, None, None))
+    cases = [(f"{mode}_prepared ({form})", mode, "prepared", x, ps, None)
+             for (mode, form), (x, ps, _) in sorted(calls.items())]
+    cases.append(("inverse_raw (broadcast)", "inverse", "raw",
+                  calls[("inverse", "broadcast")][0], *raw))
+
+    def run(variant):
+        times = {}
+        for name, mode, iface, arg, ps, prep in cases:
+            fn = (lambda mode=mode, iface=iface, arg=arg, ps=ps, prep=prep:
+                  gl._launch(mode, iface, arg, ps, ift, prep, None))
+            times[f"{name} {variant}"] = _ms(fn)
+            times[f"{name} {variant} (10 back to back)"] = \
+                _ms_back_to_back(fn)
+        return times
+
+    def grid(handle):
+        out = {}
+        fn = handle.gf_layer_grid
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        for name, mode, iface, arg, ps, prep in cases:
+            ints, floats, _, _, _, _ = gl._kernel_args(iface, arg, ps, ift,
+                                                       prep, None)
+            c_ints, _ = gl._c_arrays([gl._MODES[mode]] + ints, floats)
+            res = (ctypes.c_int * 2)()
+            with torch.cuda.device(dev):
+                if fn(c_ints, res) != 0:
+                    raise RuntimeError(f"grid query of {name} failed")
+            out[name] = res[0]
+        return out
+
+    shapes = {"K": means.shape[0], "d": means.shape[1], "rows": n,
+              "ift": ift}
+    return run, grid, shapes
+
+
 def _bits_outputs(dev, n=1 << 16):
     """({name: output on the CPU}, {model: kernels launched}) of seeded
     calls of every model of the ``bits`` part through the libraries
@@ -1672,6 +1865,13 @@ def main(argv=None):
         gl._declare(handle)
         cuda_build._LOADED["gf_layer"] = handle
         run, blocks, shapes = _layer_fwd_raw_case(gl, dev, g)
+    elif args.part == "layer_prep":
+        from ..ops import gf_layer as gl
+        handle = ctypes.CDLL(str(paths[(next(iter(trees)), "as_built",
+                                        "gf_layer")]))
+        gl._declare(handle)
+        cuda_build._LOADED["gf_layer"] = handle
+        run, grid, shapes = _layer_prep_case(gl, dev, g)
     elif args.part == "layer_lazy":
         from ..ops import gf_layer as gl
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -1731,6 +1931,24 @@ def main(argv=None):
                 bcast = "gf_layer_bcast_kernel" in report[(tree, variant)]
                 extra["sass"][variant] = perm_fwd_sass(
                     path, label=lambda n, b=bcast: _layer_fwd_raw_kernel(n, b))
+                times.update(run(variant))
+            return times, extra
+        if args.part == "layer_prep":
+            extra = {"shapes": shapes, "ptxas": {}, "blocks_per_sm": {},
+                     "grid": {}, "sass": {}}
+            for (t, variant, lib), path in paths.items():
+                if t != tree:
+                    continue
+                handle = ctypes.CDLL(str(path))
+                gl._declare(handle)
+                cuda_build._LOADED[lib] = handle
+                extra["grid"][variant] = grid(handle)
+                ptx = layer_prep_ptxas(report[(tree, variant)])
+                extra["ptxas"][variant] = ptx
+                extra["blocks_per_sm"][variant] = {
+                    k: _blocks_from_registers(v) for k, v in ptx.items()}
+                extra["sass"][variant] = perm_fwd_sass(
+                    path, label=_layer_prep_kernel)
                 times.update(run(variant))
             return times, extra
         if args.part == "layer_raw":
