@@ -19,6 +19,17 @@ in parallel), then drives the flagship ``pdf("e4+s2+e4", "gggg+f+gggg")``:
   and log_prob timed, 1,048,576 / 262,144 rows), the skewed models'
   training paths as above (T4 / T5 and both T7 bodies per layer), and the
   centred models' gradients at the cross-check size;
+* the remaining Euclidean options, each on the flagship at full width:
+  the angles rotation (unconditional, served and trained like the skewed
+  model, and conditional: the plain-mixture instances of T4 / T5 raw and
+  lazy and of T7), high_precision_tail_newton (unconditional and
+  conditional: T6 / T4 prepared at the roots refined in float64 on the
+  card; skewed, unconditional: T4 raw at the refined roots, the skew kept),
+  the rq_splines stretch (unconditional) and ``"t+f+t"`` with a full
+  covariance (conditional), both plain PyTorch: serving at the same row
+  counts, exact launch counts, every kernel call against its plain
+  version, log_prob against the port's f64 CPU path, sample and log_prob
+  timed;
 * the block's lazy mode (precomputed hidden activations, T1 / T2), on the
   flagship with two-hidden-layer ``amortization_mlp_dims="64-64"`` MLPs,
   unconditional and conditional, serving and training as the flagship;
@@ -175,6 +186,45 @@ EXPECTED_TRAIN_LAUNCHES.update({
 EXPECTED_CENTRED_GRAD = {"log_prob_grad": {"forward_prepared": 8},
                          "sample_grad": {"inverse_prepared": 8,
                                          "forward_prepared": 8}}
+# the remaining Euclidean options, each on the flagship at full width (the
+# affine model puts `t` where the flagship has its g blocks): (label,
+# definitions, options, conditional input dim, trained).  The angles and
+# tail-Newton models run the per-layer kernels on the plain (unskewed)
+# mixture, the skewed tail-Newton model T4 raw at the refined roots;
+# rq_splines and `t` have no kernel in either package
+ANGLES = {"g": {"rotation_mode": "angles"}}
+TAIL = {"g": {"high_precision_tail_newton": 2}}    # tests/test_tail_precision.py:63
+SKEW_TAIL = {"g": {"add_skewness": 1, "high_precision_tail_newton": 2}}
+SPLINES = {"g": {"nonlinear_stretch_type": "rq_splines"}}
+AFFINE = ("e4+s2+e4", "t+f+t")
+EUCLID_MODELS = (
+    ("rotated unconditional", FLAGSHIP, ANGLES, None, True),
+    ("rotated conditional", FLAGSHIP, ANGLES, 3, False),
+    ("tail-Newton unconditional", FLAGSHIP, TAIL, None, False),
+    ("tail-Newton conditional", FLAGSHIP, TAIL, 3, False),
+    ("skewed tail-Newton unconditional", FLAGSHIP, SKEW_TAIL, None, False),
+    ("splines unconditional", FLAGSHIP, SPLINES, None, False),
+    ("affine conditional", AFFINE, {"t": {"cov_type": "full"}}, 3, False))
+# launches of one sample + log_prob: the angles rotation keeps the skewed
+# models' interfaces (raw broadcast block 0, lazy rows elsewhere); tail
+# Newton solves with T6 prepared and takes T4 prepared at the refined root
+# (its amortized rows materialized: per row), log_prob T4 raw; with skew the
+# solve is the plain one and both density passes T4 raw (skewed); rq_splines
+# and `t` launch nothing
+_TAIL = {"inverse_prepared": 8, "forward_prepared": 8, "forward_raw": 8}
+EXPECTED_LAUNCHES.update({
+    "rotated unconditional": SKEW_U,
+    "rotated conditional": {"sample_lazy": 8, "forward_lazy": 8},
+    "tail-Newton unconditional": _TAIL, "tail-Newton conditional": _TAIL,
+    "skewed tail-Newton unconditional": {"forward_raw": 16},
+    "splines unconditional": {}, "affine conditional": {}})
+EXPECTED_TRAIN_LAUNCHES["rotated unconditional"] = \
+    EXPECTED_TRAIN_LAUNCHES["skewed unconditional"]
+# the per-layer entry points and T7 bodies that run on the plain mixture
+# in the rotated and tail-Newton models, timed on the rotated unconditional
+# flagship's first calls (rows "..._unskewed")
+UNSKEWED = ("forward_raw", "sample_raw", "forward_lazy", "sample_lazy") \
+    + LAYER_BWD
 # the block's lazy mode: the flagship with two-hidden-layer MLPs (the JAX
 # package's own test of the mode, tests/test_tpu_kernels.py:90-91); the
 # unconditional block 0 stays perm, every amortized block takes "lazy"
@@ -763,10 +813,11 @@ def serve(label, p, params, n, ci, seed):
 
 
 def cpu_twin(p, opts=None):
-    """The flagship of p's configuration (options, conditional input, MLP
-    widths) on the CPU."""
+    """p's model (its definitions, options, conditional input, MLP widths)
+    on the CPU."""
     from jammy_flows_tpu_torch import pdf
-    return pdf(*FLAGSHIP, options_overwrite=opts,
+    return pdf("+".join(p.pdf_defs_list), "+".join(p.flow_defs_list),
+               options_overwrite=opts,
                conditional_input_dim=p.conditional_input_dim,
                amortization_mlp_dims=p.amortization_mlp_dims, device="cpu")
 
@@ -1005,8 +1056,8 @@ def ragged_layer_check(label, layer_calls):
         if not (e_fwd < TOL_DENSITY and rel < TOL_GRAD["density"]):
             raise AssertionError(f"{label} forward_{iface}: ragged batch "
                                  "disagrees")
-        errs[f"forward_{iface}"] = e_fwd
-        errs[f"forward_bwd_{iface}"] = absd
+        errs[err_key(f"forward_{iface}", iface, prep)] = e_fwd
+        errs[err_key(f"forward_bwd_{iface}", iface, prep)] = absd
     return errs
 
 
@@ -1363,9 +1414,16 @@ def layer_per_row(iface, params):
     return (True,) + tuple(t.ndim == 3 for t in params)
 
 
+def err_key(name, iface, prep):
+    """The key of a per-layer call's largest |diff|: its name, with
+    "_unskewed" for a raw or lazy call on the plain mixture."""
+    return name if iface == "prepared" or prep[3] is not None \
+        else f"{name}_unskewed"
+
+
 def check_layer_calls(label, calls):
     """Each recorded per-layer call against its plain version on the same
-    inputs; returns the largest |diff| per entry point / body."""
+    inputs; returns the largest |diff| per entry point / body (err_key)."""
     from jammy_flows_tpu_torch.ops import gf_layer as gl
     errs = {}
     for name, mode, iface, kept, ift, prep, kd, outs in calls:
@@ -1394,7 +1452,8 @@ def check_layer_calls(label, calls):
         if not ok:
             raise AssertionError(f"{label} {name}: kernel disagrees with its "
                                  f"plain version")
-        errs[name] = max(errs.get(name, 0.0), err)
+        key = err_key(name, iface, prep)
+        errs[key] = max(errs.get(key, 0.0), err)
     return errs
 
 
@@ -1772,12 +1831,13 @@ def layer_work(name, n, k, d, ift, skew, per_row, n_groups, hid, slots=None):
     return row * n + prep + (p_rows * n if bwd else 0), byts
 
 
-def layer_model(opts, cond, dev, seed):
-    """The flagship with one GF option; its weights are init_params(seed=0)
-    with every MLP weight and the permanent flow_0 (skew exponents included)
-    moved by 0.02 N(0, 1); a centred model's means then scaled."""
+def layer_model(opts, cond, dev, seed, defs=FLAGSHIP):
+    """The flagship (or ``defs``) with one layer option; its weights are
+    init_params(seed=0) with every MLP weight and the permanent flow_0
+    (skew exponents and rotation angles included) moved by 0.02 N(0, 1); a
+    centred model's means then scaled."""
     from jammy_flows_tpu_torch import pdf
-    p = pdf(*FLAGSHIP, options_overwrite=opts, conditional_input_dim=cond,
+    p = pdf(*defs, options_overwrite=opts, conditional_input_dim=cond,
             device=dev)
     params = jittered_params(p, seed, flow_scale=0.02)
     if opts is CENTRE:
@@ -1880,10 +1940,30 @@ def time_layer_call(call, card):
     return ms, plain_ms, b_ms, b_by, tc_ms, slot_bound
 
 
-def time_layer_kernels(calls, launches, forms, errs, card, ptxas=None):
+def layer_row(label, call, by_path, err, card):
+    """The JSON row ``label`` of one recorded per-layer call, timed on its
+    own inputs (time_layer_call), its launches those of ``by_path``."""
+    name = call[0]
+    ms, plain_ms, b_ms, b_by, tc_ms, slot = time_layer_call(call, card)
+    source, replaces = ("gf_layer_bwd.cu", "730") if "_bwd_" in name \
+        else ("gf_layer.cu", {"forward": "754", "sample": "761",
+                              "inverse": "767"}[name.split("_")[0]])
+    return {"name": label, "route": "cuda",
+            "source": f"jammy_flows_tpu_torch/csrc/{source}",
+            "replaces": f"jammy_flows_tpu/ops/pallas_gf.py:{replaces}",
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "tc_bound_ms": tc_ms,
+            "library_ms": None, "_slot": slot}
+
+
+def time_layer_kernels(calls, launches, forms, errs, skewed, card,
+                       ptxas=None):
     """Each per-layer entry point and T7 body on its first recorded call's
     inputs (the unconditional serving or training paths): kernel, plain
-    version, bound; returns the JSON rows.  The prepared entry points take
+    version, bound; returns the JSON rows.  The raw, lazy and T7 rows are
+    the skewed instances: their launches those of the models whose
+    ``skewed`` is true.  The prepared entry points take
     two rows, one for broadcast slabs (the centred block 0, the persistent
     kernel) and one for per-row slabs (the centred block 2, ``_per_row``),
     their launches by form from ``forms`` (prepared_forms).  The lazy rows
@@ -1901,29 +1981,17 @@ def time_layer_kernels(calls, launches, forms, errs, card, ptxas=None):
     for name, per_row in entries:
         call = next(c for c in calls if c[0] == name and (
             per_row is None or (c[3][1][0].ndim == 3) == per_row))
-        ms, plain_ms, b_ms, b_by, tc_ms, slot = time_layer_call(call, card)
         if per_row is None:
             by_path = {f"{cfg} {what}": n[name]
-                       for cfg, paths in launches.items()
+                       for cfg, paths in launches.items() if skewed[cfg]
                        for what, n in paths.items() if n[name]}
         else:
             by_path = {f"{cfg} {what}": f[(name, per_row)]
                        for cfg, paths in forms.items()
                        for what, f in paths.items()
                        if f.get((name, per_row))}
-        source, replaces = ("gf_layer_bwd.cu", "730") if "_bwd_" in name \
-            else ("gf_layer.cu", {"forward": "754", "sample": "761",
-                                  "inverse": "767"}[name.split("_")[0]])
-        rows.append({"name": f"gf_{name}{'_per_row' if per_row else ''}",
-                     "route": "cuda",
-                     "source": f"jammy_flows_tpu_torch/csrc/{source}",
-                     "replaces": f"jammy_flows_tpu/ops/pallas_gf.py:{replaces}",
-                     "launches": sum(by_path.values()),
-                     "launches_by_path": by_path,
-                     "max_abs_err": errs[name],
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                     "bound_by": b_by, "tc_bound_ms": tc_ms,
-                     "library_ms": None, "_slot": slot})
+        rows.append(layer_row(f"gf_{name}{'_per_row' if per_row else ''}",
+                              call, by_path, errs[name], card))
         if name in LAYER_TILE_KERNELS:
             x, (hidden, w, _) = call[3][:2]
             row = rows[-1]
@@ -1958,6 +2026,87 @@ def time_layer_kernels(calls, launches, forms, errs, card, ptxas=None):
             log(f"{row['name']} (K=10): {row.get('blocks_per_sm', '-')} "
                 f"blocks per SM; {row['ptxas']}")
     return rows
+
+
+def time_unskewed_rows(calls, launches, errs, skewed, card, ptxas=None):
+    """The plain-mixture instances of T4 / T5 raw broadcast and lazy and of
+    both T7 bodies (raw broadcast, lazy), each on its first recorded call
+    in ``calls`` (the rotated unconditional flagship's serving and
+    training paths): kernel, plain version, bound, launches by path over
+    the models whose ``skewed`` is false, blocks per SM and registers;
+    returns the JSON rows (``gf_<name>_unskewed``)."""
+    rows = []
+    for name in UNSKEWED:
+        call = next(c for c in calls if c[0] == name and c[5][3] is None
+                    and (c[2] == "lazy" or c[3][1][0].ndim == 2))
+        by_path = {f"{cfg} {what}": n[name]
+                   for cfg, paths in launches.items() if not skewed[cfg]
+                   for what, n in paths.items() if n[name]}
+        row = layer_row(f"gf_{name}_unskewed", call, by_path,
+                        errs[f"{name}_unskewed"], card)
+        lazy = name.endswith("_lazy")
+        row["blocks_per_sm"] = layer_occupancy(
+            name, call[3][1][0].shape[1] if lazy else 0, 3, False)[0]
+        row["ptxas"] = (ptxas or {}).get(
+            f"{name} {'broadcast ' if '_bwd_' in name and not lazy else ''}"
+            "(K=10)")
+        log(f"{name} (unskewed, {'lazy' if lazy else 'broadcast'}, K=10): "
+            f"{row['blocks_per_sm']} blocks per SM; {row['ptxas']}")
+        rows.append(row)
+    return rows
+
+
+def euclid_phase(dev, card, launches, forms, merge, skewed):
+    """The remaining Euclidean options (EUCLID_MODELS): each model served
+    (sample, then log_prob of the samples, with its exact launch counts),
+    every recorded per-layer call against its plain version, log_prob
+    against the port's f64 CPU path, sample and log_prob timed; the rotated
+    unconditional model also trained (train()).  Adds each model's
+    launches, prepared forms and skew to ``launches`` / ``forms`` /
+    ``skewed`` and its errors through ``merge``; returns the rotated
+    unconditional model's first recorded per-layer calls."""
+    t_phase = time.time()
+    unskewed_calls = []
+    for i, (label, defs, opts, cond, trained) in enumerate(EUCLID_MODELS):
+        p, params = layer_model(opts, cond, dev, seed=90 + i, defs=defs)
+        skewed[label] = bool(opts.get("g", {}).get("add_skewness"))
+        n = N_SAMPLE_UNCOND if cond is None else N_COND
+        ci = None if cond is None else torch.randn(
+            (n, cond), generator=torch.Generator(device=dev).manual_seed(
+                100 + i), device=dev)
+        x, launch, block_calls, layer_calls = serve(label, p, params, n, ci,
+                                                    seed=110 + i)
+        if block_calls:
+            raise AssertionError(f"{label}: a block kernel ran")
+        merge(check_layer_calls(label, layer_calls))
+        cross_check(label, p, params, x, ci, opts)
+        launches[label] = {"serving": launch}
+        forms[label] = {"serving": prepared_forms(label, "serving",
+                                                  layer_calls, launch)}
+        g = torch.Generator(device=dev).manual_seed(120 + i)
+        sample_ms = cuda_ms(lambda: p.sample(
+            params, samplesize=n, conditional_input=ci, generator=g), 5)
+        log_prob_ms = cuda_ms(lambda: p.log_prob(params, x, ci), 5)
+        for what, ms in (("sample", sample_ms), ("log_prob", log_prob_ms)):
+            log(f"{label} {what} on {card}: {ms:.3f} ms per {n} rows = "
+                f"{n / ms * 1e3:.6g} rows/s (median of 5)")
+        if trained:
+            unskewed_calls += first_calls(layer_calls)
+        del layer_calls, x
+        torch.cuda.empty_cache()
+        if trained:
+            l_t, e, _, layer_calls, (step_nll, step_auto) = train(
+                label, p, params, seed=130 + i, opts=opts)
+            launches[label].update(l_t)
+            merge(e)
+            log(f"{label} training step on {card}: nll_value_and_grad "
+                f"{step_nll:.3f} ms, autograd of -log_prob().mean() "
+                f"{step_auto:.3f} ms per {N_TRAIN} rows")
+            unskewed_calls += layer_calls
+            del layer_calls
+            torch.cuda.empty_cache()
+    log(f"Euclidean options phase {time.time() - t_phase:.1f} s")
+    return unskewed_calls
 
 
 def inverse_raw_row(args, card, ptxas=None):
@@ -2000,10 +2149,13 @@ def inverse_raw_row(args, card, ptxas=None):
 
 def layer_phase(dev, card, ptxas=None):
     """The per-layer route: serving of the four models, training of the
-    skewed ones, gradients of the centred ones, the lazy kernels' repeat,
-    NaN and width checks, kernel times; returns the kernels' JSON rows."""
+    skewed ones, gradients of the centred ones, the remaining Euclidean
+    options (euclid_phase), the lazy kernels' repeat, NaN and width checks,
+    kernel times (the plain-mixture instances' from the rotated model);
+    returns the kernels' JSON rows."""
     t_phase = time.time()
     launches, errs, calls, forms = {}, {}, [], {}
+    skewed = {label: opts is SKEW for label, opts, _ in LAYER_MODELS}
 
     def merge(e):
         for k, v in e.items():
@@ -2058,10 +2210,14 @@ def layer_phase(dev, card, ptxas=None):
             launches[label].update(l_g)
             forms[label].update(f_g)
             merge(check_layer_calls(label, layer_calls))
+    unskewed_calls = euclid_phase(dev, card, launches, forms, merge, skewed)
     layer_repeat_check(calls)
     layer_nan_check(calls)
     merge(layer_width_check(dev))
-    rows = time_layer_kernels(calls, launches, forms, errs, card, ptxas)
+    rows = time_layer_kernels(calls, launches, forms, errs, skewed, card,
+                              ptxas)
+    rows += time_unskewed_rows(unskewed_calls, launches, errs, skewed, card,
+                               ptxas)
     log(f"per-layer phase {time.time() - t_phase:.1f} s")
     return rows
 

@@ -1,10 +1,12 @@
-"""Householder rotations, in row and column form.
+"""Rotations of the `g` flow: householder (row and column form), givens
+angles and cayley.
 
-PyTorch counterpart of the householder parts of
-``jammy_flows_tpu/ops/rotations.py``.  The other rotation modes (givens
-angles, cayley, xyz, quaternion) wait for the layers that use them.
+PyTorch counterpart of ``jammy_flows_tpu/ops/rotations.py``.  The xyz and
+quaternion modes wait for the spherical layers that use them.
 """
 from __future__ import annotations
+
+import itertools
 
 import torch
 
@@ -41,3 +43,42 @@ def householder_apply_cols(vs_cols, cols, inverse=False):
             dot = dot + v[j] * cols[j]
         cols = [c - 2.0 * vj * dot for c, vj in zip(cols, v)]
     return tuple(cols)
+
+
+def givens_matrix(angles, d):
+    """The product of Givens rotations over every pair i < j, the pair's
+    rotation applied after those of the pairs before it: angles (Bp,
+    d (d - 1) / 2) -> (Bp, d, d)."""
+    b = angles.shape[0]
+    eye = torch.eye(d, dtype=angles.dtype, device=angles.device)
+    prev = eye.expand(b, d, d)
+    for ind, (i, j) in enumerate(itertools.combinations(range(d), 2)):
+        c = torch.cos(angles[:, ind, None])
+        s = torch.sin(angles[:, ind, None])
+        rows = list(prev.unbind(1))
+        rows[i], rows[j] = c * rows[i] + s * rows[j], c * rows[j] - s * rows[i]
+        prev = torch.stack(rows, dim=1)
+    return prev
+
+
+def cayley_matrix(param):
+    """The 2-D Cayley rotation of t = param[:, 0] (Bp, 1):
+    1 / (1 + t^2) [[1 - t^2, -2t], [2t, 1 - t^2]] -> (Bp, 2, 2)."""
+    t = param[:, 0]
+    mult = 1.0 / (1.0 + t**2)
+    a = (1.0 - t**2) * mult
+    off = 2.0 * t * mult
+    row0 = torch.stack([a, -off], dim=-1)
+    row1 = torch.stack([off, a], dim=-1)
+    return torch.stack([row0, row1], dim=1)
+
+
+def apply_rotation(mat, x, inverse=False):
+    """R x (R^T x when ``inverse``) for each row of x (B, d); mat (Bp, d, d)
+    with Bp in {1, B}: a shared matrix is one 2-D product."""
+    if mat.shape[0] == 1:
+        m = mat[0]
+        return torch.matmul(x, m if inverse else m.T)
+    if inverse:
+        return torch.einsum("bji,bj->bi", mat, x)
+    return torch.einsum("bij,bj->bi", mat, x)

@@ -2,8 +2,10 @@
 
 PyTorch counterpart of ``jammy_flows_tpu/registry.py``: the same option
 tables, defaults and validators (tests/test_torch_registry.py holds the two
-equal).  Layer classes are imported lazily; symbols whose layer has not been
-ported yet raise ``NotImplementedError`` naming the ROADMAP item.
+equal).  Layer classes are imported lazily.  Every Euclidean symbol (`g`,
+`h`, `t`, `x`) and the s2 `f` layer are ported; the other symbols (S1,
+interval, simplex, `v` and `c`) raise ``NotImplementedError`` naming the
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -167,8 +169,9 @@ OPTS = {
     "w": ("a", _PKG + ".simplex", "InnerLoopSimplex", {}),
 }
 
-# layer classes the port has; everything else is a ROADMAP Queue-1 item
-_PORTED = {"GaussianizationFlow", "FisherVonMises2D"}
+# layer classes the port has; everything else is ROADMAP Queue 1 item 4
+_PORTED = {"GaussianizationFlow", "MultivariateNormal", "EuclideanIdentity",
+            "FisherVonMises2D"}
 
 
 def obtain_default_options(flow_abbreviation):

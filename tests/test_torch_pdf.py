@@ -5,8 +5,10 @@
   f64 CPU path (per-layer bisection/Newton and the s2 column path);
 * float32: the block route (plain block op on the CPU) matches the JAX
   package with its whole-block Pallas kernels in interpret mode;
-* the frozen torch-reference fixtures parity_e1_g, parity_s2_f_default and
-  parity_e2_gg_skew.
+* the frozen torch-reference fixtures parity_e1_g, parity_s2_f_default,
+  parity_e2_gg_skew and the Euclidean ones (the pade iCDF, `h`, a
+  conditional pdf, the rq_splines stretch, angles, `t` full / diagonal,
+  `x` with an offset), each at its stored tolerance.
 
 Inputs are made with numpy from a seed and handed to both packages."""
 import json
@@ -155,7 +157,10 @@ def test_f32_wide_summary_takes_the_block_op(interpret_mode, monkeypatch,
     assert float(np.abs(got.numpy() - np.asarray(ref)).max()) < tol
 
 
-@pytest.mark.parametrize("name", ["e1_g", "s2_f_default", "e2_gg_skew"])
+@pytest.mark.parametrize("name", ["e1_g", "s2_f_default", "e2_gg_skew",
+                                  "e2_g_pade", "e2_hh", "cond_e1e2",
+                                  "e2_g_rqsplines", "e3_gg_angles",
+                                  "e10_t_full", "e4_t_diag", "e2_x_offset"])
 def test_frozen_reference_fixture(name):
     with np.load(FIXTURES / f"parity_{name}.npz", allow_pickle=False) as f:
         data = {k: f[k] for k in f.files}
@@ -167,12 +172,17 @@ def test_frozen_reference_fixture(name):
               if k.startswith("param_")}
     assert sorted(params) == sorted(p.init_params(seed=0))
     tol = float(data["tol"])
-    lp = p.log_prob(params, torch.as_tensor(data["x_eval"]))[0].numpy()
+    ci = torch.as_tensor(data["conditional_input"]) \
+        if "conditional_input" in data else None
+    lp = p.log_prob(params, torch.as_tensor(data["x_eval"]),
+                    conditional_input=ci)[0].numpy()
     assert np.abs(lp - data["logprob_ref"]).max() < tol
     z = torch.as_tensor(data["z_base"])
     x, ld = p.all_layer_forward(params, z, torch.zeros(z.shape[0],
-                                                       dtype=z.dtype))
+                                                       dtype=z.dtype), ci)
     assert np.abs(x.numpy() - data["x_fwd_ref"]).max() < 10 * tol
+    if bool(data["skip_fwd_logpdf"]):
+        return
     lp_fwd = data["logpdf_base_ref"] - ld.numpy()
     assert np.abs(lp_fwd - data["logpdf_target_ref"]).max() < tol
 
@@ -200,8 +210,7 @@ def test_f32_sample_roundtrip_on_cpu(cond):
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
-        tpdf("e2", "gg", options_overwrite={"g": {"rotation_mode": "angles"}},
-             device="cpu")
+        tpdf("e2+s1", "gg+y", device="cpu")
     with pytest.raises(NotImplementedError):
         tpdf("s2", "f", options_overwrite={
             "f": {"add_vertical_rq_spline_flow": 1}}, device="cpu")

@@ -43,6 +43,8 @@ def test_validators_accept_and_reject_the_same_values(sym):
 def test_unported_layers_raise_not_implemented():
     assert treg.get_layer_class("g").__name__ == "GaussianizationFlow"
     assert treg.get_layer_class("f").__name__ == "FisherVonMises2D"
-    for sym in ("m", "o", "v", "c", "y", "r", "z", "u", "w", "t", "x"):
+    assert treg.get_layer_class("t").__name__ == "MultivariateNormal"
+    assert treg.get_layer_class("x").__name__ == "EuclideanIdentity"
+    for sym in ("m", "o", "v", "c", "y", "r", "z", "u", "w"):
         with pytest.raises(NotImplementedError):
             treg.get_layer_class(sym)
