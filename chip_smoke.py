@@ -2056,6 +2056,18 @@ def time_unskewed_rows(calls, launches, errs, skewed, card, ptxas=None):
     return rows
 
 
+def euclid_model(i, dev):
+    """EUCLID_MODELS[i] on ``dev``: (model, parameters, rows, conditional
+    input or None)."""
+    _, defs, opts, cond, _ = EUCLID_MODELS[i]
+    p, params = layer_model(opts, cond, dev, seed=90 + i, defs=defs)
+    n = N_SAMPLE_UNCOND if cond is None else N_COND
+    ci = None if cond is None else torch.randn(
+        (n, cond), generator=torch.Generator(device=dev).manual_seed(100 + i),
+        device=dev)
+    return p, params, n, ci
+
+
 def euclid_phase(dev, card, launches, forms, merge, skewed):
     """The remaining Euclidean options (EUCLID_MODELS): each model served
     (sample, then log_prob of the samples, with its exact launch counts),
@@ -2067,13 +2079,9 @@ def euclid_phase(dev, card, launches, forms, merge, skewed):
     unconditional model's first recorded per-layer calls."""
     t_phase = time.time()
     unskewed_calls = []
-    for i, (label, defs, opts, cond, trained) in enumerate(EUCLID_MODELS):
-        p, params = layer_model(opts, cond, dev, seed=90 + i, defs=defs)
+    for i, (label, _, opts, _, trained) in enumerate(EUCLID_MODELS):
+        p, params, n, ci = euclid_model(i, dev)
         skewed[label] = bool(opts.get("g", {}).get("add_skewness"))
-        n = N_SAMPLE_UNCOND if cond is None else N_COND
-        ci = None if cond is None else torch.randn(
-            (n, cond), generator=torch.Generator(device=dev).manual_seed(
-                100 + i), device=dev)
         x, launch, block_calls, layer_calls = serve(label, p, params, n, ci,
                                                     seed=110 + i)
         if block_calls:

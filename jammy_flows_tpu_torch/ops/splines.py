@@ -21,9 +21,9 @@ import torch
 
 from .special import softplus
 
-DEFAULT_MIN_BIN_WIDTH = 1e-3
-DEFAULT_MIN_BIN_HEIGHT = 1e-3
-DEFAULT_MIN_DERIVATIVE = 1e-3
+MIN_BIN_WIDTH = 1e-3
+MIN_BIN_HEIGHT = 1e-3
+MIN_DERIVATIVE = 1e-3
 
 
 def _bin_positions(unnormalized, num_bins, rel_min, low, high):
@@ -43,11 +43,10 @@ def _bin_positions(unnormalized, num_bins, rel_min, low, high):
     return cum[..., 1:] - cum[..., :-1], cum
 
 
-def _searchsorted(edges, x, eps=1e-6):
-    """The bin of x among edges (..., K + 1): the count of edges (the top
-    one raised by eps) at or below x, less one, clipped to [0, K - 1]."""
-    shifted = torch.cat([edges[..., :-1], edges[..., -1:] + eps], dim=-1)
-    idx = torch.sum(x[..., None] >= shifted, dim=-1) - 1
+def _searchsorted(edges, x):
+    """The bin of x among edges (..., K + 1): the count of edges at or
+    below x, less one, clipped to [0, K - 1]."""
+    idx = torch.sum(x[..., None] >= edges, dim=-1) - 1
     return torch.clamp(idx, 0, edges.shape[-1] - 2)
 
 
@@ -100,23 +99,20 @@ def _rq_core(inputs, idx, cumwidths, widths, cumheights, heights, derivatives,
 
 def rq_spline_linear_ext(inputs, unnormalized_widths, unnormalized_heights,
                          unnormalized_derivatives, left, right, bottom, top,
-                         inverse=False,
-                         rel_min_bin_width=DEFAULT_MIN_BIN_WIDTH,
-                         rel_min_bin_height=DEFAULT_MIN_BIN_HEIGHT,
-                         min_derivative=DEFAULT_MIN_DERIVATIVE):
+                         inverse=False):
     """The RQ spline on the box [left, right] x [bottom, top], continued
     outside it by lines of the end derivatives: a bijection of R."""
     num_bins = unnormalized_widths.shape[-1]
     widths, cumwidths = _bin_positions(
-        unnormalized_widths, num_bins, rel_min_bin_width, left[..., None],
+        unnormalized_widths, num_bins, MIN_BIN_WIDTH, left[..., None],
         right[..., None])
     heights, cumheights = _bin_positions(
-        unnormalized_heights, num_bins, rel_min_bin_height, bottom[..., None],
+        unnormalized_heights, num_bins, MIN_BIN_HEIGHT, bottom[..., None],
         top[..., None])
-    derivatives = min_derivative + softplus(unnormalized_derivatives)
+    derivatives = MIN_DERIVATIVE + softplus(unnormalized_derivatives)
 
     edges = cumheights if inverse else cumwidths
-    idx = _searchsorted(edges, inputs, eps=0.0)
+    idx = _searchsorted(edges, inputs)
     outputs, logabsdet = _rq_core(inputs, idx, cumwidths, widths, cumheights,
                                   heights, derivatives, inverse)
 

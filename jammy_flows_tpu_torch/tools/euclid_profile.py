@@ -1,40 +1,27 @@
-"""Where the time of the flagship with one Euclidean option goes on the card.
+"""Where the time of chip_smoke.py's Euclidean-option models goes on the card.
 
-    python -m jammy_flows_tpu_torch.tools.euclid_profile [--models M ...]
+    python -m jammy_flows_tpu_torch.tools.euclid_profile [--models LABEL ...]
         [--top N]
 
-For each model (chip_smoke.py's Euclidean models: the flagship with the
-angles rotation, tail Newton with and without skew, or the rq_splines
-stretch, at 1,048,576 rows; ``"t+f+t"`` with a full covariance and a
-3-wide conditional input at 262,144 rows; weights init_params(seed=0)
-moved by 0.02 N(0, 1)), one ``sample`` and one ``log_prob`` of its samples
-under ``torch.profiler`` (CPU and CUDA activity), each after an unprofiled
-warm-up call.  Prints the host-clock time of the profiled call (it ends in
-a synchronise), the device time (the sum of every kernel's CUDA time) and
-the kernels with the most device time, then one JSON line per model.  Needs one
+Run from the root of a checkout: the models, their weights, row counts and
+conditional inputs are chip_smoke.py's (``EUCLID_MODELS``, built by its
+``euclid_model``), so this profiles what its Euclidean phase serves.  For
+each model, one ``sample`` and one ``log_prob`` of its samples under
+``torch.profiler`` (CPU and CUDA activity), each after an unprofiled warm-up
+call.  Prints the host-clock time of the profiled call (it ends in a
+synchronise), the device time (the sum of every kernel's CUDA time) and the
+kernels with the most device time, then one JSON line per model.  Needs one
 CUDA device.
 """
 from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import time
 
 import torch
 
-FLAGSHIP = ("e4+s2+e4", "gggg+f+gggg")
-MODELS = {
-    "rotated": (FLAGSHIP, {"g": {"rotation_mode": "angles"}}, None),
-    "tail-newton": (FLAGSHIP, {"g": {"high_precision_tail_newton": 2}},
-                    None),
-    "skewed-tail-newton": (FLAGSHIP, {"g": {
-        "add_skewness": 1, "high_precision_tail_newton": 2}}, None),
-    "splines": (FLAGSHIP, {"g": {"nonlinear_stretch_type": "rq_splines"}},
-                None),
-    "affine": (("e4+s2+e4", "t+f+t"), {"t": {"cov_type": "full"}}, 3),
-}
-ROWS = {None: 1_048_576, 3: 262_144}
+import chip_smoke
 
 
 def _device_ms(event):
@@ -66,19 +53,14 @@ def profile_call(fn, top):
         [(e.key[:100], _device_ms(e), e.count) for e in ranked]
 
 
-def run(models, top, dev, card):
-    """Profile each of ``models`` on ``dev``; prints as the module says."""
-    from jammy_flows_tpu_torch import pdf
-    for name in models:
-        defs, opts, cond = MODELS[name]
-        n = ROWS[cond]
-        p = pdf(*defs, options_overwrite=opts, conditional_input_dim=cond,
-                device=dev)
+def run(labels, top, dev, card):
+    """Profile each EUCLID_MODELS entry named in ``labels`` on ``dev``;
+    prints as the module says."""
+    for i, (name, *_) in enumerate(chip_smoke.EUCLID_MODELS):
+        if name not in labels:
+            continue
+        p, params, n, ci = chip_smoke.euclid_model(i, dev)
         g = torch.Generator(device=dev).manual_seed(0)
-        params = {k: v + 0.02 * torch.randn(v.shape, generator=g, device=dev)
-                  for k, v in p.init_params(seed=0).items()}
-        ci = None if cond is None else torch.randn(
-            (n, cond), generator=g, device=dev)
         out = {"model": name, "rows": n, "card": card}
         with torch.no_grad():
             x = p.sample(params, samplesize=n, conditional_input=ci,
@@ -96,19 +78,19 @@ def run(models, top, dev, card):
                 out[what] = {"host_ms": host, "device_ms": device,
                              "top": [[op, ms, calls] for op, ms, calls in ops]}
         print(json.dumps(out), flush=True)
+        del p, params, x
+        torch.cuda.empty_cache()
 
 
 def main(argv=None):
+    labels = [m[0] for m in chip_smoke.EUCLID_MODELS]
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--models", nargs="+", default=list(MODELS),
-                    choices=list(MODELS))
+    ap.add_argument("--models", nargs="+", default=labels, choices=labels)
     ap.add_argument("--top", type=int, default=12)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("euclid_profile: no CUDA device")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
+    card = chip_smoke.card_line()
     print(card, flush=True)
     run(args.models, args.top,
         torch.device("cuda", torch.cuda.current_device()), card)

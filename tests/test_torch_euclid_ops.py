@@ -71,7 +71,7 @@ def _spline_inputs(params, inverse, seed):
     then rows inside it."""
     uw, uh, _, left, right, bottom, top = [torch.as_tensor(p) for p in params]
     u, lo, hi = (uh, bottom, top) if inverse else (uw, left, right)
-    _, edges = tspl._bin_positions(u, K, tspl.DEFAULT_MIN_BIN_WIDTH,
+    _, edges = tspl._bin_positions(u, K, tspl.MIN_BIN_WIDTH,
                                    lo[..., None], hi[..., None])
     edges = np.broadcast_to(edges.numpy(), (B, D, K + 1))
     u = np.random.default_rng(seed).uniform(0.0, 1.0, size=(B, D))
@@ -149,11 +149,12 @@ def test_spline_bin_search_puts_ties_and_nan_in_the_jax_bins():
     x[K + 1] = np.nan
     x[K + 2, 0] = -np.inf
     x[K + 2, 1] = np.inf
-    for eps in (0.0, 1e-6):
-        got = tspl._searchsorted(edges, torch.as_tensor(x), eps=eps).numpy()
-        ref = np.asarray(jax.jit(jspl._searchsorted, static_argnums=2)(
-            jnp.asarray(e), jnp.asarray(x), eps))
-        np.testing.assert_array_equal(got, ref)
+    # the linear-extension form's search, eps = 0 (jammy_flows_tpu
+    # ops/splines.py rq_spline_linear_ext)
+    got = tspl._searchsorted(edges, torch.as_tensor(x)).numpy()
+    ref = np.asarray(jax.jit(jspl._searchsorted, static_argnums=2)(
+        jnp.asarray(e), jnp.asarray(x), 0.0))
+    np.testing.assert_array_equal(got, ref)
     assert (got[K + 1] == 0).all()
 
 

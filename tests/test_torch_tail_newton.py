@@ -11,15 +11,19 @@ the refined root.
   samples and with the JAX float64 path on the same base draws; the JAX
   float32 path (its Pallas kernels in interpret mode) does not.
 * The refinement does its job: a twin of tests/test_tail_precision.py's
-  true-quantile test on the port alone (the f32 samples' distance from the
-  float64 map on the same base draws, q999, at least halved by 3 steps).
-  The port's float32 solve is the kernels' (T1 / T6: the bracket and 4
-  Newton steps), which the JAX package also takes when its kernels run
-  (interpret mode); that test runs its XLA solve (18 bisection and 8
-  Newton steps), since x64 turns its kernels off.  On these hard mixtures
-  the 4-step solve leaves a part of the rows off by more than 1e-3, in both
-  packages alike, and three Newton steps from there do not repair them:
-  the q999 is taken over the other rows.
+  true-quantile test (the f32 samples' distance from the float64 map on
+  the same base draws, q999, at least halved by 3 steps).  The port's
+  float32 solve is the kernels' (T1 / T6: the bracket and 4 Newton steps),
+  which the JAX package also takes when its kernels run (interpret mode
+  here); tests/test_tail_precision.py runs its XLA solve (18 bisection and
+  8 Newton steps), since x64 turns its kernels off on a TPU.  On these hard
+  mixtures the 4-step solve leaves a part of the rows off by more than
+  1e-3, and three Newton steps from there repair only some of them: the
+  q999 is taken over the other rows.  Those misses are the reference's:
+  the JAX package's float32 path (interpret mode) on the same draws gives
+  the port's samples on every row, the missed ones included, within the
+  float32 sample tolerance, and so misses the same share of rows by the
+  same amounts (printed, with ``-s``).
 
 Inputs are made with numpy from a seed."""
 import jax
@@ -39,6 +43,7 @@ SKEW_TN = {"g": {"add_skewness": 1, "high_precision_tail_newton": 2}}
 TOL_ROUNDTRIP_Q999 = 1e-3      # tests/test_tpu_kernels.py
 TOL_VS_F64 = 1e-3              # chip_smoke.py TOL_CROSS
 GAP_NATS = 1.0
+TOL_SAMPLE = 3e-3              # tests/test_torch_layer_f32.py, sample
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -103,22 +108,40 @@ def _hard_params(p, dtype):
     return {"flow_0": torch.as_tensor(v).to(dtype)}
 
 
-def test_tail_refinement_improves_true_quantiles():
+def test_tail_refinement_improves_true_quantiles(interpret_mode):
     opts = {"rotation_mode": "none", "skip_model_offset": 1}
-    z = torch.as_tensor(np.random.default_rng(0).normal(size=(4096, 4)))
+    n = 4096
+    z = np.random.default_rng(0).normal(size=(n, 4))
     p64 = tpdf("e4", "gggg", options_overwrite={"g": opts}, device="cpu")
-    x64, _ = p64.all_layer_forward(_hard_params(p64, torch.float64), z,
-                                   torch.zeros(z.shape[0],
-                                               dtype=torch.float64))
-    # rows the unrefined solve left within 1e-3 in every coordinate
+    x64, _ = p64.all_layer_forward(_hard_params(p64, torch.float64),
+                                   torch.as_tensor(z),
+                                   torch.zeros(n, dtype=torch.float64))
+    x64 = x64.numpy()
     errs, converged = {}, None
     for n_ref in (0, 3):
-        p = tpdf("e4", "gggg", options_overwrite={
-            "g": dict(opts, high_precision_tail_newton=n_ref)}, device="cpu")
-        x, _ = p.all_layer_forward(_hard_params(p, torch.float32), z.float(),
-                                   torch.zeros(z.shape[0]))
-        err = (x.double() - x64).abs()
+        o = {"g": dict(opts, high_precision_tail_newton=n_ref)}
+        p = tpdf("e4", "gggg", options_overwrite=o, device="cpu")
+        par = _hard_params(p, torch.float32)
+        x = p.all_layer_forward(par, torch.as_tensor(z.astype(np.float32)),
+                                torch.zeros(n))[0].numpy()
+        jp = jpdf("e4", "gggg", options_overwrite=o)
+        xj = np.asarray(jax.jit(lambda pp, zz: jp.all_layer_forward(
+            pp, zz, jnp.zeros(n, jnp.float32)))(
+                {"flow_0": jnp.asarray(par["flow_0"].numpy())},
+                jnp.asarray(z.astype(np.float32)))[0])
+        err = np.abs(x.astype(np.float64) - x64)
+        err_j = np.abs(xj.astype(np.float64) - x64)
+        missed = (err >= 1e-3).any(axis=1)
+        print(f"high_precision_tail_newton={n_ref}: rows off the float64 "
+              f"map by >= 1e-3: port {missed.mean():.4f} (max "
+              f"{err.max():.4g}), JAX float32 path "
+              f"{(err_j >= 1e-3).any(axis=1).mean():.4f} (max "
+              f"{err_j.max():.4g}) of {n}; port vs JAX max "
+              f"{np.abs(x - xj).max():.3g}")
+        # the misses are the reference's: the same samples on every row
+        assert np.abs(x - xj).max() < TOL_SAMPLE
+        # rows the unrefined solve left within 1e-3 in every coordinate
         if converged is None:
-            converged = (err < 1e-3).all(dim=1)
-        errs[n_ref] = torch.quantile(err[converged].flatten(), 0.999).item()
+            converged = ~missed
+        errs[n_ref] = np.quantile(err[converged], 0.999)
     assert errs[3] <= 0.5 * errs[0], errs
