@@ -30,6 +30,16 @@ in parallel), then drives the flagship ``pdf("e4+s2+e4", "gggg+f+gggg")``:
   counts, exact launch counts, every kernel call against its plain
   version, log_prob against the port's f64 CPU path, sample and log_prob
   timed;
+* the circle and interval layers, on the repo's examples at full width
+  (``"s1+s2+e2", "m+f+gg"`` with conditional_input_dim=2, ``"e2+s1",
+  "gg+o"`` and ``"i1_-5.5_10.0", "r"`` with conditional_input_dim=2): their
+  gg blocks through T1 lazy2 / perm, the circle and interval layers plain
+  PyTorch; serving at 262,144 / 1,048,576 / 262,144 rows with exact launch
+  counts, every block call against its plain version, log_prob against
+  the port's f64 CPU path, sample and log_prob timed and censused by
+  torch.profiler; the first model trained as the conditional flagship
+  (T3 / T2 lazy2, its Moebius solve's implicit gradient in the sample
+  objective's);
 * the block's lazy mode (precomputed hidden activations, T1 / T2), on the
   flagship with two-hidden-layer ``amortization_mlp_dims="64-64"`` MLPs,
   unconditional and conditional, serving and training as the flagship;
@@ -220,6 +230,29 @@ EXPECTED_LAUNCHES.update({
     "splines unconditional": {}, "affine conditional": {}})
 EXPECTED_TRAIN_LAUNCHES["rotated unconditional"] = \
     EXPECTED_TRAIN_LAUNCHES["skewed unconditional"]
+# the circle and interval layers on the repo's examples
+# (examples/examples.ipynb): (label, definitions, flows, conditional input
+# dim, trained), each at its layers' default options and the default
+# 128-wide MLP; the `m` layer's sampling direction is a bisection + Newton
+# solve in plain PyTorch, as the circle and interval layers are (no kernel
+# in either package)
+CIRCLE_MODELS = (
+    ("s1+s2+e2 conditional", "s1+s2+e2", "m+f+gg", 2, True),
+    ("e2+s1 unconditional", "e2+s1", "gg+o", None, False),
+    ("interval conditional", "i1_-5.5_10.0", "r", 2, False))
+# launches of one sample + log_prob: the gg block runs lazy2 on a 7-wide
+# summary (conditional input 2, the circle's embedding 2, the sphere's 3)
+# or perm; the interval model launches nothing.  Training takes the
+# conditional flagship's table with one lazy2 block
+EXPECTED_LAUNCHES.update({
+    "s1+s2+e2 conditional": {"density_lazy2": 1, "sample_lazy2": 1},
+    "e2+s1 unconditional": {"density_perm": 1, "sample_perm": 1},
+    "interval conditional": {}})
+EXPECTED_TRAIN_LAUNCHES["s1+s2+e2 conditional"] = {
+    "nll": {"nll_lazy2": 1},
+    "log_prob_grad": {"density_lazy2": 1, "density_bwd_lazy2": 1},
+    "sample_grad": {"sample_lazy2": 1, "sample_bwd_lazy2": 1},
+    "fit": {"nll_lazy2": TRAIN_STEPS}}
 # the per-layer entry points and T7 bodies that run on the plain mixture
 # in the rotated and tail-Newton models, timed on the rotated unconditional
 # flagship's first calls (rows "..._unskewed")
@@ -2117,6 +2150,104 @@ def euclid_phase(dev, card, launches, forms, merge, skewed):
     return unskewed_calls
 
 
+def kernel_census(fn):
+    """(CUDA events, their summed device time in ms, the host's wall time in
+    ms) of one call of fn under torch.profiler, after a warm-up call; None
+    where the profiler records no device event."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) * 1e3
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        return None
+    return len(dev), sum(e.time_range.elapsed_us() for e in dev) / 1e3, wall
+
+
+def circle_phase(dev, card):
+    """The circle and interval layers (CIRCLE_MODELS): each model served
+    (sample, then log_prob of the samples, with its exact launch counts),
+    every recorded block call against its plain version, log_prob against
+    the port's f64 CPU path, sample and log_prob timed, and one sample and
+    log_prob censused by torch.profiler; the first model also trained
+    (train()).  Returns (launches by model and path, errors per kernel)."""
+    from jammy_flows_tpu_torch import pdf
+    t_phase = time.time()
+    launches, errs = {}, {}
+    for i, (label, defs, flows, cond, trained) in enumerate(CIRCLE_MODELS):
+        p = pdf(defs, flows, conditional_input_dim=cond, device=dev)
+        params = jittered_params(p, seed=140 + i)
+        n = N_SAMPLE_UNCOND if cond is None else N_COND
+        ci = None if cond is None else torch.randn(
+            (n, cond), generator=torch.Generator(device=dev).manual_seed(
+                150 + i), device=dev)
+        x, launch, calls, layer_calls = serve(label, p, params, n, ci,
+                                              seed=160 + i)
+        if layer_calls:
+            raise AssertionError(f"{label}: a per-layer kernel ran")
+        for k, v in check_calls(label, calls).items():
+            errs[k] = max(errs.get(k, 0.0), v)
+        del calls
+        cross_check(label, p, params, x, ci)
+        launches[label] = {"serving": launch}
+        g = torch.Generator(device=dev).manual_seed(170 + i)
+
+        def sample():
+            return p.sample(params, samplesize=n, conditional_input=ci,
+                            generator=g)
+
+        def log_prob():
+            return p.log_prob(params, x, ci)
+
+        for what, fn in (("sample", sample), ("log_prob", log_prob)):
+            ms = cuda_ms(fn, 5)
+            log(f"{label} {what} on {card}: {ms:.3f} ms per {n} rows = "
+                f"{n / ms * 1e3:.6g} rows/s (median of 5)")
+            census = kernel_census(fn)
+            log(f"{label} {what}: " + (
+                "torch.profiler recorded no device event (not measured)"
+                if census is None else
+                f"{census[0]} CUDA events (kernels, copies, fills) summing "
+                f"to {census[1]:.3f} ms on the device, {census[2]:.3f} ms on "
+                f"the host's clock under the profiler (one call)"))
+        del x
+        torch.cuda.empty_cache()
+        if trained:
+            l_t, e, _, _, (step_nll, step_auto) = train(label, p, params,
+                                                        seed=180 + i)
+            launches[label].update(l_t)
+            for k, v in e.items():
+                errs[k] = max(errs.get(k, 0.0), v)
+            log(f"{label} training step on {card}: nll_value_and_grad "
+                f"{step_nll:.3f} ms, autograd of -log_prob().mean() "
+                f"{step_auto:.3f} ms per {N_TRAIN} rows")
+            torch.cuda.empty_cache()
+    log(f"circle and interval phase {time.time() - t_phase:.1f} s")
+    return launches, errs
+
+
+def add_phase_launches(rows, launches, errs):
+    """The block rows (T1-T3) gain a phase's launches (``launches``: model
+    -> path -> counts) under "<model> <path>" and its kernel-vs-plain
+    errors."""
+    for row in rows:
+        name = row["name"][len("gf_block_"):]
+        key = counter(name) if name in ENTRY_POINTS else name
+        for label, paths in launches.items():
+            for what, n in paths.items():
+                if n.get(key):
+                    row["launches_by_path"][f"{label} {what}"] = n[key]
+        row["launches"] = sum(row["launches_by_path"].values())
+        if name in errs:
+            row["max_abs_err"] = max(row["max_abs_err"], errs[name])
+
+
 def inverse_raw_row(args, card, ptxas=None):
     """T6's raw interface (gf_inverse_raw) has no caller in either package:
     it is timed once at the serving batch on the flagship's first g layer
@@ -2541,6 +2672,7 @@ def main():
     log(f"training phase {time.time() - t_train:.1f} s")
     del p_u, p_c, par_u, par_c, x_u, x_c
     nan_check(dev)
+    add_phase_launches(rows, *circle_phase(dev, card))
 
     layer_rows += layer_phase(dev, card, layer_ptxas)
     rows += lazy_phase(dev, card)

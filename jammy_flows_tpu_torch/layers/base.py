@@ -7,7 +7,7 @@ static configuration object that owns no tensors; its parameters arrive as a
     forward(params, x, log_det)  -> (y, log_det')   # base -> target (sampling)
     inverse(params, y, log_det)  -> (x, log_det')   # target -> base (density)
 
-Spherical layers run on the (z, phi) column path instead
+S2 layers run on the (z, phi) column path instead
 (``forward_cols_z``/``inverse_cols_z``, layers/sphere.py).
 """
 from __future__ import annotations

@@ -1,20 +1,37 @@
-"""Spherical layer base: plane <-> sphere projection and embedding rotation.
+"""Spherical layers: the base (plane <-> sphere projection and embedding
+rotation), the circle flows Moebius (`m`) and CircularRQSpline (`o`), and
+SphericalIdentity (`y`).
 
-PyTorch counterpart of ``SphereLayer`` in
-``jammy_flows_tpu/layers/sphere.py`` for S2 layers with householder
-rotations, on the (z, phi) column path: coordinates travel as tuples of (B,)
-columns and parameters as a transposed (P, Bp) slab, and z = cos(theta) rides
-between layers, so the rotations' log(sin) terms vanish (dA = dz dphi).  The
-(theta, phi) column twins and the row path are not ported; neither are
-Moebius, CircularRQSpline and SphericalIdentity (ROADMAP.md, Queue 1:
-remaining layers).
+PyTorch counterpart of ``jammy_flows_tpu/layers/sphere.py`` for layers with
+householder rotations.  S1 layers run on (B, 1) rows of angles in [0, 2 pi)
+with (Bp, P) parameter slabs (``forward`` / ``inverse``), the JAX package's
+row form; its column twins, which exist for the TPU's tile padding, are not
+ported.  S2 layers run on the (z, phi) column path: coordinates travel as
+tuples of (B,) columns and parameters as a transposed (P, Bp) slab, and
+z = cos(theta) rides between layers, so the rotations' log(sin) terms vanish
+(dA = dz dphi).  The S2 row path and (theta, phi) columns are not ported.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
+import torch
 
 from .base import FlowLayer
 from ..ops import manifold, rotations
+from ..ops.inverse import make_inverse_fn
+from ..ops.special import logaddexp
+from ..ops.splines import rq_spline, rq_spline_smooth_circular
+
+PI = math.pi
+TWO_PI = 2.0 * math.pi
+_TODO = "is not ported yet (ROADMAP.md, Queue 1: remaining layers)"
+
+
+def safe_angle_within_2pi(x, margin=1e-7):
+    """Clamp an angle into [margin, 2 pi - margin]."""
+    return torch.clamp(x, margin, TWO_PI - margin)
 
 
 class SphereLayer(FlowLayer):
@@ -25,14 +42,11 @@ class SphereLayer(FlowLayer):
                  num_householder_iter=-1,
                  always_parametrize_in_embedding_space=0):
         super().__init__(dimension, always_parametrize_in_embedding_space)
-        if dimension != 2:
-            raise NotImplementedError(
-                "S1 layers are not ported yet (ROADMAP.md, Queue 1: "
-                "remaining layers)")
+        if dimension not in (1, 2):
+            raise ValueError(f"spherical layers are S1 or S2, not S{dimension}")
         if always_parametrize_in_embedding_space:
             raise NotImplementedError(
-                "embedding-space parametrization is not ported yet "
-                "(ROADMAP.md, Queue 1: remaining layers)")
+                f"embedding-space parametrization {_TODO}")
         self.euclidean_to_sphere_as_first = int(euclidean_to_sphere_as_first)
         self.add_rotation = int(add_rotation)
         self.rotation_mode = rotation_mode
@@ -41,13 +55,54 @@ class SphereLayer(FlowLayer):
         if self.add_rotation:
             if rotation_mode != "householder":
                 raise NotImplementedError(
-                    f"sphere rotation_mode={rotation_mode!r} is not ported "
-                    "yet (ROADMAP.md, Queue 1: remaining layers)")
+                    f"sphere rotation_mode={rotation_mode!r} {_TODO}")
             emb = dimension + 1
             it = emb if num_householder_iter == -1 else num_householder_iter
             self.householder_iter = it
             self.num_rotation_params = it * emb
         self.num_params += self.num_rotation_params
+
+    # -- S1 row protocol ----------------------------------------------------
+    def _apply_embedding_rotation(self, rot, x, inverse):
+        """The householder rotation of the circle's (cos, sin) embedding;
+        measure-preserving, so no log-det term."""
+        if not self.add_rotation:
+            return x
+        vs = rot.reshape(-1, self.householder_iter, self.dimension + 1)
+        e = rotations.householder_apply(vs, manifold.spherical_to_eucl(x),
+                                        inverse=inverse)
+        return manifold.circle_eucl_to_spherical(e)
+
+    def _check_row_path(self):
+        if self.dimension != 1:
+            raise NotImplementedError(
+                f"the S2 row path {_TODO}: s2 stacks run on the (z, phi) "
+                "columns (forward_cols_z / inverse_cols_z)")
+
+    def forward(self, params, x, log_det):
+        self._check_row_path()
+        rot = params[:, :self.num_rotation_params]
+        child = params[:, self.num_rotation_params:]
+        if self.euclidean_to_sphere_as_first:
+            x, log_det = manifold.plane_to_circle(x, log_det)
+        x, log_det = self._forward(child, x, log_det)
+        return self._apply_embedding_rotation(rot, x, inverse=False), log_det
+
+    def inverse(self, params, x, log_det):
+        self._check_row_path()
+        rot = params[:, :self.num_rotation_params]
+        child = params[:, self.num_rotation_params:]
+        x = self._apply_embedding_rotation(rot, x, inverse=True)
+        x, log_det = self._inverse(child, x, log_det)
+        if self.euclidean_to_sphere_as_first:
+            x, log_det = manifold.circle_to_plane(x, log_det)
+        return x, log_det
+
+    def _forward(self, child, x, log_det):
+        raise NotImplementedError
+
+    def _inverse(self, child, x, log_det):
+        raise NotImplementedError
 
     # -- (z, phi)-carrier column protocol -----------------------------------
     def _rot_vs_cols(self, rot_slab):
@@ -109,3 +164,253 @@ class SphereLayer(FlowLayer):
 
     def _default_params(self, rng):
         return rng.standard_normal(self.num_params - self.num_rotation_params)
+
+
+# ---------------------------------------------------------------------------
+# Moebius flow on S1 - symbol "m"
+# ---------------------------------------------------------------------------
+
+MIN_OMEGA_RADIUS = 0.001
+MAX_OMEGA_RADIUS = 0.999
+
+
+def _moebius_omega(omega_pars, use_xyz=True):
+    """The components' centres omega (Bp, K, 2), their radius (Bp, K, 1)
+    held in (0.001, 0.999) by a sigmoid: omega_pars (Bp, K, 4) [x, y,
+    log-length, log-norm], or (Bp, K, 3) [angle, log-length, log-norm]."""
+    log_length_par = omega_pars[:, :, -2:-1]
+    denom = logaddexp(0.0, -log_length_par)
+    omega_length = MIN_OMEGA_RADIUS + torch.exp(
+        math.log(MAX_OMEGA_RADIUS - MIN_OMEGA_RADIUS) - denom)
+    if use_xyz:
+        normed = omega_pars[:, :, :2] / torch.sqrt(
+            torch.sum(omega_pars[:, :, :2]**2, dim=2, keepdim=True))
+        return normed * omega_length, omega_length
+    angle = omega_pars[:, :, 0:1]
+    return torch.cat([torch.cos(angle) * omega_length,
+                      torch.sin(angle) * omega_length], dim=2), omega_length
+
+
+def moebius_trafo(x, omega_pars, use_xyz=True):
+    """The convex combination of K Moebius transforms of x (B, 1) in
+    (-pi, pi], each rotated to fix f(-pi) = -pi, weighted by the softmax of
+    the log-norms; (B, 1)."""
+    cos_x = torch.cos(x)[:, None, :]
+    sin_x = torch.sin(x)[:, None, :]
+    omega_vec, omega_length = _moebius_omega(omega_pars, use_xyz)
+    ox, oy = omega_vec[:, :, 0:1], omega_vec[:, :, 1:2]
+    o_m_o_sq = 1.0 - omega_length**2
+
+    def xy_vals(cx, sx):
+        o_p_o = 1.0 + omega_length**2 - 2.0 * (cx * ox + sx * oy)
+        return (o_m_o_sq * (cx - ox) - ox * o_p_o,
+                o_m_o_sq * (sx - oy) - oy * o_p_o)
+
+    x_m_pi, y_m_pi = xy_vals(math.cos(-PI), math.sin(-PI))
+    rot = -PI - torch.atan2(y_m_pi, x_m_pi)
+    x_val, y_val = xy_vals(cos_x, sin_x)
+    x_p = torch.cos(rot) * x_val - torch.sin(rot) * y_val
+    y_p = torch.sin(rot) * x_val + torch.cos(rot) * y_val
+    arc = torch.atan2(y_p, x_p)[:, :, -1:] + PI
+    log_norms = omega_pars[:, :, -1:]
+    weights = torch.exp(log_norms - torch.logsumexp(log_norms, dim=1,
+                                                    keepdim=True))
+    return torch.sum(arc * weights, dim=1) - PI
+
+
+def moebius_trafo_deriv(x, omega_pars, use_xyz=True):
+    """d moebius_trafo / dx (> 0), (B, 1)."""
+    cos_x = torch.cos(x)[:, None, :]
+    sin_x = torch.sin(x)[:, None, :]
+    omega_vec, omega_length = _moebius_omega(omega_pars, use_xyz)
+    o_m_o_sq = 1.0 - omega_length**2
+    o_p_o = 1.0 + omega_length**2 - 2.0 * (cos_x * omega_vec[:, :, 0:1]
+                                           + sin_x * omega_vec[:, :, 1:2])
+    log_norms = omega_pars[:, :, -1:]
+    weighted = (torch.log(o_m_o_sq / o_p_o) + log_norms) \
+        - torch.logsumexp(log_norms, dim=1, keepdim=True)
+    return torch.exp(torch.logsumexp(weighted, dim=1))
+
+
+class Moebius(SphereLayer):
+    """Moebius circle flow - symbol "m": K components of 4 parameters (3
+    without the xyz parametrization).  The map is analytic in the density
+    direction (``natural_direction=0``) or in the sampling one; the other
+    direction solves it on [-pi, pi] by 20 bisection and 20 Newton steps,
+    with the implicit-function gradient (ops/inverse.py)."""
+
+    def __init__(self, dimension=1, euclidean_to_sphere_as_first=1,
+                 add_rotation=0, natural_direction=0,
+                 use_moebius_xyz_parametrization=True, num_basis_functions=5,
+                 **kwargs):
+        super().__init__(1, euclidean_to_sphere_as_first, add_rotation,
+                         rotation_mode="householder", **kwargs)
+        self.use_xyz = bool(use_moebius_xyz_parametrization)
+        self.num_basis_functions = num_basis_functions
+        self.num_omega_pars = 4 if self.use_xyz else 3
+        self.natural_direction = int(natural_direction)
+        self.num_params += num_basis_functions * self.num_omega_pars
+        self._solve = make_inverse_fn(
+            lambda xx, p: moebius_trafo(xx, p[0], self.use_xyz),
+            lambda xx, p: (moebius_trafo(xx, p[0], self.use_xyz),
+                           moebius_trafo_deriv(xx, p[0], self.use_xyz)),
+            lo=-PI, hi=PI, num_bisection_iter=20, num_newton_iter=20)
+
+    def _apply(self, params, x, log_det, sampling):
+        mp = params.reshape(-1, self.num_basis_functions, self.num_omega_pars)
+        x = torch.where(x > PI, x - TWO_PI, x)
+        if bool(self.natural_direction) == sampling:
+            log_deriv = torch.sum(torch.log(
+                moebius_trafo_deriv(x, mp, self.use_xyz)), dim=-1)
+            x = moebius_trafo(x, mp, self.use_xyz)
+        else:
+            x = self._solve(x, (mp,))
+            log_deriv = -torch.sum(torch.log(
+                moebius_trafo_deriv(x, mp, self.use_xyz)), dim=-1)
+        return torch.where(x < 0.0, x + TWO_PI, x), log_det + log_deriv
+
+    def _forward(self, params, x, log_det):
+        return self._apply(params, x, log_det, sampling=True)
+
+    def _inverse(self, params, x, log_det):
+        return self._apply(params, x, log_det, sampling=False)
+
+
+# ---------------------------------------------------------------------------
+# Circular RQ-spline on S1 - symbol "o"
+# ---------------------------------------------------------------------------
+
+class CircularRQSpline(SphereLayer):
+    """Circular rational-quadratic spline on [0, 2 pi] - symbol "o": the
+    C^2-smooth two-bin spline (the default), or K bins with a periodic
+    derivative at the seam or both boundary derivatives fixed.  Parameter
+    layout after the rotation: widths, heights, derivatives; the first
+    width and height (and the second width) may be pinned to 0, and the
+    heights may be parametrized as offsets from the widths.  The spline
+    runs forward in the sampling direction (``natural_direction=1``) or in
+    the density one."""
+
+    def __init__(self, dimension=1, euclidean_to_sphere_as_first=1,
+                 add_rotation=1, natural_direction=1, num_basis_functions=2,
+                 min_width=1e-4, min_height=1e-4, min_derivative=1e-4,
+                 fix_boundary_derivatives=-1.0, smooth_second_derivative=1,
+                 fix_first_width_n_height_to_zero=0,
+                 also_fix_second_width_to_zero=0,
+                 independent_width_height_parametrization=0, **kwargs):
+        super().__init__(1, euclidean_to_sphere_as_first, add_rotation,
+                         rotation_mode="householder", **kwargs)
+        k = num_basis_functions
+        self.num_basis_functions = k
+        self.natural_direction = int(natural_direction)
+        self.min_width = min_width
+        self.min_height = min_height
+        self.min_derivative = min_derivative
+        self.fix_boundary_derivatives = fix_boundary_derivatives
+        self.smooth_second_derivative = int(smooth_second_derivative)
+        self.fix_first = int(fix_first_width_n_height_to_zero)
+        self.fix_second_w = int(also_fix_second_width_to_zero)
+        self.independent_wh = int(independent_width_height_parametrization)
+
+        self.num_width_params = k
+        self.num_height_params = k
+        if self.fix_first:
+            self.num_width_params = k - 1
+            self.num_height_params = k - 1
+            if self.fix_second_w:
+                self.num_width_params -= 1
+
+        self.boundary_log_derivs_fixed_value = None
+        if self.smooth_second_derivative == 1:
+            if k != 2:
+                raise ValueError("smooth circular spline needs 2 bins")
+            bd_sub = 3
+        elif fix_boundary_derivatives > 0.0:
+            if not fix_boundary_derivatives > min_derivative:
+                raise ValueError("fix_boundary_derivatives must exceed "
+                                 "min_derivative")
+            bd_sub = 2
+            self.boundary_log_derivs_fixed_value = float(np.log(
+                np.exp(fix_boundary_derivatives - min_derivative) - 1.0))
+        else:
+            bd_sub = 1  # periodic: the seam's derivative is shared
+        self.num_derivative_params = k + 1 - bd_sub
+        self.num_params += (self.num_width_params + self.num_height_params
+                            + self.num_derivative_params)
+
+    def _unpack(self, params):
+        nw, nh = self.num_width_params, self.num_height_params
+        w, h, d = params[:, :nw], params[:, nw:nw + nh], params[:, nw + nh:]
+        if self.fix_first:
+            zero = torch.zeros_like(h[:, :1])
+            h = torch.cat([zero, h], dim=1)
+            w = torch.cat([zero, zero, w] if self.fix_second_w
+                          else [zero, w], dim=1)
+        if self.independent_wh:
+            h = w + h
+        return w, h, d
+
+    def _apply(self, params, x, log_det, sampling):
+        x = safe_angle_within_2pi(x)
+        w, h, d = self._unpack(params)
+        use_inverse = not sampling if self.natural_direction else sampling
+        if self.smooth_second_derivative == 0:
+            if self.fix_boundary_derivatives > 0.0:
+                fixed = torch.full_like(d[:, :1],
+                                        self.boundary_log_derivs_fixed_value)
+                d = torch.cat([fixed, d, fixed], dim=1)
+            else:
+                d = torch.cat([d, d[:, :1]], dim=1)  # periodic seam
+            res, ld = rq_spline(
+                x, w[:, None, :], h[:, None, :], d[:, None, :],
+                inverse=use_inverse, left=0.0, right=TWO_PI, bottom=0.0,
+                top=TWO_PI, rel_min_bin_width=self.min_width,
+                rel_min_bin_height=self.min_height,
+                min_derivative=self.min_derivative)
+        else:
+            res, ld = rq_spline_smooth_circular(
+                x, w[:, None, :], h[:, None, :], inverse=use_inverse,
+                rel_min_bin_width=self.min_width,
+                rel_min_bin_height=self.min_height, shift_to_middle=True)
+        return safe_angle_within_2pi(res), log_det + torch.sum(ld, dim=-1)
+
+    def _forward(self, params, x, log_det):
+        return self._apply(params, x, log_det, sampling=True)
+
+    def _inverse(self, params, x, log_det):
+        return self._apply(params, x, log_det, sampling=False)
+
+    def _default_params(self, rng):
+        n = (self.num_width_params + self.num_height_params
+             + self.num_derivative_params)
+        if self.smooth_second_derivative:
+            return np.zeros(n)
+        return np.full(n, 0.54)
+
+
+# ---------------------------------------------------------------------------
+# Spherical identity - symbol "y"
+# ---------------------------------------------------------------------------
+
+class SphericalIdentity(SphereLayer):
+    """Identity spherical flow - symbol "y": the base's projection and
+    optional rotation only."""
+
+    def __init__(self, dimension=1, euclidean_to_sphere_as_first=1,
+                 add_rotation=0, **kwargs):
+        super().__init__(dimension, euclidean_to_sphere_as_first, add_rotation,
+                         rotation_mode="householder", **kwargs)
+
+    def _forward(self, params, x, log_det):
+        return x, log_det
+
+    def _inverse(self, params, x, log_det):
+        return x, log_det
+
+    def _forward_cols_z(self, child_slab, cols, log_det):
+        return cols, log_det
+
+    def _inverse_cols_z(self, child_slab, cols, log_det):
+        return cols, log_det
+
+    def _default_params(self, rng):
+        return np.zeros(0)

@@ -18,10 +18,11 @@ with permanent parameters ("perm"), the fused one-hidden-layer tanh MLP
 activations of any other MLP that splits at its final matrix ("lazy"); an
 amortizing MLP whose final hidden width exceeds gf_block.MAX_KERNEL_H (1024)
 sends its block layer by layer, with materialized rows.  An s2 stack runs on
-the (z, phi) column path; other Euclidean stacks run layer by layer (float32
+the (z, phi) column path; other stacks run layer by layer on rows (float32
 `g` layers through the per-layer kernels of ops/gf_layer.py, with the
 amortization MLP's final product in the kernel when its rows stay factored
-as LazyParams).
+as LazyParams; circle and interval layers in plain PyTorch, their amortized
+parameters materialized).
 
 Entry points run on the card unless the caller passes ``device="cpu"``; with
 no device given and no CUDA, the constructor raises.
@@ -79,8 +80,15 @@ def resolve_device(device=None):
 
 
 def _parse_subspace(token):
-    """'e4' -> ('e', 4)."""
-    return token.split("_")[0][0], int(token.split("_")[0][1:])
+    """'e4' -> ('e', 4, None); 'i1_-1.0_1.0' -> ('i', 1, (-1.0, 1.0)), an
+    interval without bounds (0, 1)."""
+    parts = token.split("_")
+    mtype, dim = parts[0][0], int(parts[0][1:])
+    if mtype != "i":
+        return mtype, dim, None
+    if len(parts) >= 3:
+        return mtype, dim, (float(parts[1]), float(parts[2]))
+    return mtype, dim, (0.0, 1.0)
 
 
 def _resolve_flow_options(flow_defs_list, options_overwrite):
@@ -185,11 +193,12 @@ class PDF:
         """Instantiate the layers with the auto-injected options: the last
         Euclidean layer gets an offset, the first `g` layer of a stack swaps
         isigmoid for inormal_partly_precise, the first spherical layer
-        projects from the plane."""
+        projects from the plane and the first interval layer from the real
+        line, every interval layer taking the sub-manifold's bounds."""
         self.layer_list = []
         self.num_parameter_list = []
         for sub_idx, sub_def in enumerate(self.pdf_defs_list):
-            mtype, dim = _parse_subspace(sub_def)
+            mtype, dim, bounds = _parse_subspace(sub_def)
             flow_str = self.flow_defs_list[sub_idx]
             layers = []
             for layer_ind, sym in enumerate(flow_str):
@@ -199,6 +208,10 @@ class PDF:
                 kwargs = dict(self.flow_opts[sub_idx][layer_ind])
                 if mtype == "s":
                     kwargs["euclidean_to_sphere_as_first"] = int(layer_ind == 0)
+                elif mtype == "i":
+                    kwargs["low_boundary"], kwargs["high_boundary"] = bounds
+                    kwargs["euclidean_to_interval_as_first"] = int(
+                        layer_ind == 0)
                 elif mtype == "e" and sym != "x":
                     if layer_ind == len(flow_str) - 1 and \
                             kwargs.get("skip_model_offset", 0) == 0:
@@ -493,7 +506,7 @@ class PDF:
         with torch.enable_grad():
             value = fn(leaves)
             got = torch.autograd.grad(value, list(leaves.values()),
-                                      allow_unused=True)
+                                      allow_unused=True) if leaves else ()
         grads = {k: torch.zeros_like(v) if g is None else g
                  for (k, v), g in zip(leaves.items(), got)}
         return value.detach(), grads

@@ -1,9 +1,11 @@
-"""S2 coordinate conversions with exact log-determinants.
+"""Circle, S2 and interval coordinate conversions with exact
+log-determinants.
 
-PyTorch counterpart of the S2 parts of ``jammy_flows_tpu/ops/manifold.py``:
-the angle clamps, the embedding and the (z, phi) column converters used by
-the `f` layer's column path.  Coordinates are tuples of flat (B,) columns; the
-log-det accumulator is (B,).
+PyTorch counterpart of the S1, S2 and interval parts of
+``jammy_flows_tpu/ops/manifold.py``: the angle clamps; the circle's and the
+interval's Gaussian-CDF projections from the real line, on (B, 1) rows; the
+embedding; and the (z, phi) column converters used by the s2 layers' column
+path, on tuples of flat (B,) columns.  The log-det accumulator is (B,).
 """
 from __future__ import annotations
 
@@ -11,8 +13,11 @@ import math
 
 import torch
 
+from .special import LOG_SQRT_2PI
+
 PI = math.pi
 TWO_PI = 2.0 * math.pi
+SQRT2 = math.sqrt(2.0)
 
 
 def _safe_acos_arg(x, margin=None):
@@ -33,14 +38,63 @@ def safe_costheta(x, margin=None):
     return torch.clamp(x, -1.0 + margin, 1.0 - margin)
 
 
+def plane_to_circle(x, log_det):
+    """R -> [0, 2 pi) through the Gaussian CDF of |x|: x (B, 1), positive
+    reals to (0, pi], negative ones to (pi, 2 pi)."""
+    radius = torch.abs(x)
+    log_det = log_det + LOG_SQRT_2PI - 0.5 * radius[:, 0]**2
+    angle = PI * (1.0 - torch.erf(radius / SQRT2))
+    return torch.where(x >= 0, angle, TWO_PI - angle), log_det
+
+
+def circle_to_plane(x, log_det):
+    """[0, 2 pi) -> R, the inverse of plane_to_circle; the folded angle is
+    kept eps away from 0 and 2 pi (1e-8 in float64, 1e-5 otherwise)."""
+    negative = x > PI
+    folded = torch.where(negative, TWO_PI - x, x)
+    eps = 1e-8 if x.dtype == torch.float64 else 1e-5
+    folded = torch.clamp(folded, eps, TWO_PI - eps)
+    r = SQRT2 * torch.special.erfinv(1.0 - folded / PI)
+    log_det = log_det - LOG_SQRT_2PI + 0.5 * r[:, 0]**2
+    return torch.where(negative, -r, r), log_det
+
+
+def real_line_to_interval(x, log_det, low, high):
+    """R -> [low, high] through the Gaussian CDF: x (B, 1)."""
+    width = high - low
+    res = 0.5 + 0.5 * torch.erf(x / SQRT2)
+    log_det = log_det - 0.5 * x[:, 0]**2 - LOG_SQRT_2PI + math.log(width)
+    return res * width + low, log_det
+
+
+def interval_to_real_line(x, log_det, low, high):
+    """[low, high] -> R, the inverse of real_line_to_interval."""
+    width = high - low
+    u = (x - low) / width
+    res = torch.special.erfinv(2.0 * u - 1.0) * SQRT2
+    log_det = log_det + 0.5 * res[:, 0]**2 + LOG_SQRT_2PI - math.log(width)
+    return res, log_det
+
+
 def spherical_to_eucl(x):
-    """(B, 2) intrinsic (theta, phi) -> (B, 3) embedded unit vector (the
-    log-det term is not needed by the callers)."""
+    """Intrinsic angles -> embedded unit vector: (B, 1) circle angle ->
+    (B, 2) (cos, sin), or (B, 2) (theta, phi) -> (B, 3) (the S2 log-det term
+    is not needed by the callers)."""
+    if x.shape[1] == 1:
+        return torch.cat([torch.cos(x), torch.sin(x)], dim=1)
     theta = safe_angle_within_pi(x[:, :1])
     phi = x[:, 1:2]
     st = torch.sin(theta)
     return torch.cat([st * torch.cos(phi), st * torch.sin(phi),
                       torch.cos(theta)], dim=1)
+
+
+def circle_eucl_to_spherical(x):
+    """(B, 2) embedded point of the circle -> (B, 1) angle in [0, 2 pi]
+    (measure-preserving: no log-det term)."""
+    norm = torch.sqrt(torch.sum(x**2, dim=1, keepdim=True))
+    ang = torch.arccos(_safe_acos_arg(x[:, :1] / norm))
+    return torch.where(x[:, 1:2] < 0, TWO_PI - ang, ang)
 
 
 def _phi_from_xy(x0, x1, r):

@@ -1,21 +1,28 @@
-"""Rational-quadratic spline with linear tails on all of R (the `g` flow's
-rq_splines stretch).
+"""Rational-quadratic splines: the standard one on a box, the one with
+linear tails on all of R (the `g` flow's rq_splines stretch), the C^2-smooth
+one and the C^2-smooth circular one on [0, 2 pi].
 
-PyTorch counterpart of ``rq_spline_linear_ext`` in
-``jammy_flows_tpu/ops/splines.py`` and the helpers it uses.  Inputs are
+PyTorch counterpart of ``rq_spline``, ``rq_spline_linear_ext``,
+``rq_spline_smooth`` and ``rq_spline_smooth_circular`` in
+``jammy_flows_tpu/ops/splines.py`` and the helpers they use.  Inputs are
 (B, D); unnormalized widths / heights are (Bp, D, K), derivatives (Bp, D,
-K + 1), the box edges left / right / bottom / top (Bp, D), with Bp in {1,
-B}.  Returns (outputs (B, D), log|d outputs / d inputs| (B, D)).
+K + 1) (the smooth spline's two boundary ones (Bp, D, 2)), with Bp in {1,
+B}; the box edges are floats, or (Bp, D) tensors for the linear-tail
+spline.  Returns (outputs (B, D), log|d outputs / d inputs| (B, D)).
 
 The bin search is the JAX package's masked count (a row's bin is the
 number of edges at or below it, less one, clipped to the bins), so ties on
-an edge and NaN inputs land in the same bin as there; the per-bin values
-are read with ``torch.gather`` where the JAX package contracts a one-hot,
-which gives the same values and gradients.  The other spline variants
-(``rq_spline``, the smooth, circular and column forms) come with the
-spherical and interval layers.
+an edge and NaN inputs land in the same bin as there: the JAX package's
+small margin on the top edge (``eps``) moves no row to another bin once
+the count is clipped, so it is left out.  The per-bin values are read with
+``torch.gather`` where the JAX package contracts a one-hot, which gives the
+same values and gradients.  The JAX package's column twins (one (B,)
+tensor per bin, for the TPU's tile padding) are not ported: the circle and
+interval layers call these row forms.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -24,11 +31,25 @@ from .special import softplus
 MIN_BIN_WIDTH = 1e-3
 MIN_BIN_HEIGHT = 1e-3
 MIN_DERIVATIVE = 1e-3
+TWO_PI = 2.0 * math.pi
+
+
+def _restrict_ratio(unnormalized, num_bins, ratio):
+    """Logits squashed into a range that keeps the largest / smallest bin
+    ratio at most ``ratio``; unchanged for ratio <= 0."""
+    if ratio <= 0.0:
+        return unnormalized
+    ln_max_allowed = (math.log(ratio) - math.log(num_bins - 1)) / 2.0
+    if not ln_max_allowed > 0:
+        raise ValueError("Allowed max/min ratio for widths/heights is too "
+                         f"small: {ratio:.3e}")
+    return 2.0 * torch.sigmoid(unnormalized) * ln_max_allowed - ln_max_allowed
 
 
 def _bin_positions(unnormalized, num_bins, rel_min, low, high):
     """softmax -> floored widths -> the K + 1 edges in [low, high], the end
-    edges pinned to low / high; returns (widths, edges)."""
+    edges pinned to low / high (floats, or tensors broadcasting against the
+    edges); returns (widths, edges)."""
     w = torch.softmax(unnormalized, dim=-1)
     w = rel_min + (1.0 - rel_min * num_bins) * w
     # the scan over the K bins runs along the leading dimension: CUDA's scan
@@ -38,8 +59,9 @@ def _bin_positions(unnormalized, num_bins, rel_min, low, high):
     cum = torch.cat([torch.zeros_like(cum[..., :1]), cum], dim=-1)
     cum = (high - low) * cum + low
     shape = cum[..., :1].shape
-    cum = torch.cat([low.expand(shape), cum[..., 1:-1], high.expand(shape)],
-                    dim=-1)
+    ends = [torch.as_tensor(v, dtype=cum.dtype, device=cum.device).expand(
+        shape) for v in (low, high)]
+    cum = torch.cat([ends[0], cum[..., 1:-1], ends[1]], dim=-1)
     return cum[..., 1:] - cum[..., :-1], cum
 
 
@@ -97,18 +119,29 @@ def _rq_core(inputs, idx, cumwidths, widths, cumheights, heights, derivatives,
     return outputs, logabsdet
 
 
+def _box_bins(unnormalized_widths, unnormalized_heights, left, right, bottom,
+              top, rel_min_bin_width, rel_min_bin_height, ratio):
+    """The bins of the box [left, right] x [bottom, top]: (widths,
+    cumwidths, heights, cumheights), the logits restricted by ``ratio``."""
+    num_bins = unnormalized_widths.shape[-1]
+    uw = _restrict_ratio(unnormalized_widths, num_bins, ratio)
+    uh = _restrict_ratio(unnormalized_heights, num_bins, ratio)
+    widths, cumwidths = _bin_positions(uw, num_bins, rel_min_bin_width, left,
+                                       right)
+    heights, cumheights = _bin_positions(uh, num_bins, rel_min_bin_height,
+                                         bottom, top)
+    return widths, cumwidths, heights, cumheights
+
+
 def rq_spline_linear_ext(inputs, unnormalized_widths, unnormalized_heights,
                          unnormalized_derivatives, left, right, bottom, top,
                          inverse=False):
     """The RQ spline on the box [left, right] x [bottom, top], continued
     outside it by lines of the end derivatives: a bijection of R."""
-    num_bins = unnormalized_widths.shape[-1]
-    widths, cumwidths = _bin_positions(
-        unnormalized_widths, num_bins, MIN_BIN_WIDTH, left[..., None],
-        right[..., None])
-    heights, cumheights = _bin_positions(
-        unnormalized_heights, num_bins, MIN_BIN_HEIGHT, bottom[..., None],
-        top[..., None])
+    widths, cumwidths, heights, cumheights = _box_bins(
+        unnormalized_widths, unnormalized_heights, left[..., None],
+        right[..., None], bottom[..., None], top[..., None], MIN_BIN_WIDTH,
+        MIN_BIN_HEIGHT, -1.0)
     derivatives = MIN_DERIVATIVE + softplus(unnormalized_derivatives)
 
     edges = cumheights if inverse else cumwidths
@@ -134,4 +167,135 @@ def rq_spline_linear_ext(inputs, unnormalized_widths, unnormalized_heights,
     outputs = torch.where(below, out_lo, torch.where(above, out_hi, outputs))
     logabsdet = torch.where(below, ld_lo,
                             torch.where(above, ld_hi, logabsdet))
+    return outputs, logabsdet
+
+
+def rq_spline(inputs, unnormalized_widths, unnormalized_heights,
+              unnormalized_derivatives, inverse=False, left=0.0, right=1.0,
+              bottom=0.0, top=1.0, rel_min_bin_width=MIN_BIN_WIDTH,
+              rel_min_bin_height=MIN_BIN_HEIGHT,
+              min_derivative=MIN_DERIVATIVE,
+              restrict_max_min_width_height_ratio=-1.0):
+    """The monotone RQ spline on the box [left, right] x [bottom, top];
+    K + 1 derivatives."""
+    widths, cumwidths, heights, cumheights = _box_bins(
+        unnormalized_widths, unnormalized_heights, left, right, bottom, top,
+        rel_min_bin_width, rel_min_bin_height,
+        restrict_max_min_width_height_ratio)
+    derivatives = min_derivative + softplus(unnormalized_derivatives)
+    idx = _searchsorted(cumheights if inverse else cumwidths, inputs)
+    return _rq_core(inputs, idx, cumwidths, widths, cumheights, heights,
+                    derivatives, inverse)
+
+
+def _solve_c2_derivatives(widths, heights, boundary_derivatives,
+                          solution_index=0):
+    """The K + 1 knot derivatives of a C^2 spline of K <= 3 bins from its
+    two (positive) boundary ones; at K = 3 the spline is taken mirrored, so
+    both interior derivatives are equal."""
+    k = widths.shape[-1]
+    bd0, bd1 = boundary_derivatives[..., :1], boundary_derivatives[..., 1:]
+    if k == 1:
+        return boundary_derivatives
+    if k == 2:
+        h1, h2 = heights[..., :1], heights[..., 1:]
+        w1, w2 = widths[..., :1], widths[..., 1:]
+        hsum = h1 + h2
+        lower_p = h1 / hsum
+        higher_p = h2 / hsum
+        neg_p_half = 0.5 * (lower_p * (h2 / w2 - bd1)
+                            + higher_p * (h1 / w1 - bd0))
+        q = -(h1 * h2) * (lower_p / w1**2 + higher_p / w2**2)
+        disc = torch.sqrt(torch.clamp(neg_p_half**2 - q, min=0.0))
+        res = neg_p_half + disc if solution_index == 0 else neg_p_half - disc
+        return torch.cat([bd0, res, bd1], dim=-1)
+    if k == 3:
+        w1, w2 = widths[..., 0:1], widths[..., 1:2]
+        h1, h2 = heights[..., 0:1], heights[..., 1:2]
+        common = w1 * w2 * (2.0 * h1 + h2)
+        p = h2 * (bd0 * w1 * w2 - h1 * (w1 + w2)) / common
+        q = -h1 * h2 * (h1 * w2**2 + h2 * w1**2) / (common * w1 * w2)
+        neg_p_half = -p / 2.0
+        res = neg_p_half + torch.sqrt(torch.clamp(neg_p_half**2 - q, min=0.0))
+        return torch.cat([bd0, res, res, bd1], dim=-1)
+    raise NotImplementedError("smooth RQ spline supports <=3 bins")
+
+
+def rq_spline_smooth(inputs, unnormalized_widths, unnormalized_heights,
+                     unnormalized_boundary_derivatives, inverse=False,
+                     left=0.0, right=1.0, bottom=0.0, top=1.0,
+                     rel_min_bin_width=MIN_BIN_WIDTH,
+                     rel_min_bin_height=MIN_BIN_HEIGHT,
+                     min_derivative=MIN_DERIVATIVE,
+                     restrict_max_min_width_height_ratio=-1.0,
+                     solution_index=0):
+    """The C^2-smooth RQ spline on the box: only its two boundary
+    derivatives are free, the interior ones solved for (K <= 3)."""
+    widths, cumwidths, heights, cumheights = _box_bins(
+        unnormalized_widths, unnormalized_heights, left, right, bottom, top,
+        rel_min_bin_width, rel_min_bin_height,
+        restrict_max_min_width_height_ratio)
+    boundary_d = min_derivative + softplus(unnormalized_boundary_derivatives)
+    derivatives = _solve_c2_derivatives(widths, heights, boundary_d,
+                                        solution_index)
+    idx = _searchsorted(cumheights if inverse else cumwidths, inputs)
+    return _rq_core(inputs, idx, cumwidths, widths, cumheights, heights,
+                    derivatives, inverse)
+
+
+def rq_spline_smooth_circular(inputs, unnormalized_widths,
+                              unnormalized_heights, inverse=False,
+                              rel_min_bin_width=MIN_BIN_WIDTH,
+                              rel_min_bin_height=MIN_BIN_HEIGHT,
+                              restrict_max_min_width_height_ratio=-1.0,
+                              shift_to_middle=True):
+    """The C^2-smooth circular RQ spline of 2 bins on [0, 2 pi]: its three
+    knot derivatives are equal (solved in closed form), so value and
+    derivative match at the seam.  With ``shift_to_middle`` the spline is
+    shifted so that its first bin is centred on pi, and the inputs 0 and
+    2 pi map to themselves exactly."""
+    if unnormalized_widths.shape[-1] != 2:
+        raise ValueError("circular smooth spline requires exactly 2 bins")
+    widths, cumwidths, heights, cumheights = _box_bins(
+        unnormalized_widths, unnormalized_heights, 0.0, TWO_PI, 0.0, TWO_PI,
+        rel_min_bin_width, rel_min_bin_height,
+        restrict_max_min_width_height_ratio)
+
+    w1, w2 = widths[..., :1], widths[..., 1:]
+    h1, h2 = heights[..., :1], heights[..., 1:]
+    h_prod = h1 * h2
+    w_prod = w1 * w2
+    sqrt_fac = torch.sqrt(
+        h_prod * (8.0 * ((h2 * w1)**2 + (h1 * w2)**2)
+                  + (9.0 * (w1 + w2)**2 - 16.0 * w_prod) * h_prod))
+    denom = 4.0 * (h1 + h2) * w_prod
+    res = (h_prod * (w1 + w2) + sqrt_fac) / denom
+    derivatives = torch.cat([res, res, res], dim=-1)
+
+    used_inputs = inputs
+    if shift_to_middle:
+        w1mx = -math.pi + w1 / 2.0
+        w1mx_p_w2 = w1mx + w2
+        nom = h2 * w1mx * (w1mx * h1 - res * w1 * w1mx_p_w2)
+        den = h1 * w2**2 + 2.0 * (h1 - res * w1) * w1mx * w1mx_p_w2
+        corrective = TWO_PI - (h1 + nom / den)
+        if inverse:
+            used_inputs = inputs - corrective[..., 0]
+        else:
+            used_inputs = inputs - (math.pi - widths[..., 0] / 2.0)
+        used_inputs = torch.where(used_inputs < 0.0, used_inputs + TWO_PI,
+                                  used_inputs)
+
+    idx = _searchsorted(cumheights if inverse else cumwidths, used_inputs)
+    outputs, logabsdet = _rq_core(used_inputs, idx, cumwidths, widths,
+                                  cumheights, heights, derivatives, inverse)
+
+    if shift_to_middle:
+        if inverse:
+            outputs = outputs + (math.pi - widths[..., 0] / 2.0)
+        else:
+            outputs = outputs + corrective[..., 0]
+        outputs = torch.where(outputs > TWO_PI, outputs - TWO_PI, outputs)
+        outputs = torch.where(inputs == 0.0, 0.0, outputs)
+        outputs = torch.where(inputs == TWO_PI, TWO_PI, outputs)
     return outputs, logabsdet

@@ -8,7 +8,9 @@
 * the frozen torch-reference fixtures parity_e1_g, parity_s2_f_default,
   parity_e2_gg_skew and the Euclidean ones (the pade iCDF, `h`, a
   conditional pdf, the rq_splines stretch, angles, `t` full / diagonal,
-  `x` with an offset), each at its stored tolerance.
+  `x` with an offset), the circle ones (`m`, `o` smooth and not, `y`, and
+  `o` amortized from an e2 block) and the interval ones (`r`, `z`), each at
+  its stored tolerance.
 
 Inputs are made with numpy from a seed and handed to both packages."""
 import json
@@ -160,7 +162,9 @@ def test_f32_wide_summary_takes_the_block_op(interpret_mode, monkeypatch,
 @pytest.mark.parametrize("name", ["e1_g", "s2_f_default", "e2_gg_skew",
                                   "e2_g_pade", "e2_hh", "cond_e1e2",
                                   "e2_g_rqsplines", "e3_gg_angles",
-                                  "e10_t_full", "e4_t_diag", "e2_x_offset"])
+                                  "e10_t_full", "e4_t_diag", "e2_x_offset",
+                                  "s1_m", "s1_o", "s1_o_nonsmooth", "s1_y",
+                                  "joint_e2s1", "i1_r", "i1_z"])
 def test_frozen_reference_fixture(name):
     with np.load(FIXTURES / f"parity_{name}.npz", allow_pickle=False) as f:
         data = {k: f[k] for k in f.files}
@@ -210,12 +214,12 @@ def test_f32_sample_roundtrip_on_cpu(cond):
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
-        tpdf("e2+s1", "gg+y", device="cpu")
+        tpdf("e2+a2", "gg+u", device="cpu")
     with pytest.raises(NotImplementedError):
         tpdf("s2", "f", options_overwrite={
             "f": {"add_vertical_rq_spline_flow": 1}}, device="cpu")
     with pytest.raises(NotImplementedError):
-        tpdf("s1", "m", device="cpu")
+        tpdf("s2", "v", device="cpu")
     with pytest.raises(NotImplementedError):
         tpdf("e2", "gg", amortization_mlp_highway_mode=1,
              conditional_input_dim=2, device="cpu")

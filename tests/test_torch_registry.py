@@ -45,6 +45,10 @@ def test_unported_layers_raise_not_implemented():
     assert treg.get_layer_class("f").__name__ == "FisherVonMises2D"
     assert treg.get_layer_class("t").__name__ == "MultivariateNormal"
     assert treg.get_layer_class("x").__name__ == "EuclideanIdentity"
-    for sym in ("m", "o", "v", "c", "y", "r", "z", "u", "w"):
+    for sym, cls in (("m", "Moebius"), ("o", "CircularRQSpline"),
+                     ("y", "SphericalIdentity"), ("r", "RQSplineInterval"),
+                     ("z", "IntervalIdentity")):
+        assert treg.get_layer_class(sym).__name__ == cls
+    for sym in ("v", "c", "u", "w"):
         with pytest.raises(NotImplementedError):
             treg.get_layer_class(sym)
