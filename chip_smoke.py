@@ -1015,13 +1015,17 @@ def rel_norm(a, b):
     return (a - b).norm().item() / max(b.norm().item(), 1e-300)
 
 
-def card_vs_f64_grads(label, p, params, xs, zs, cis, opts, sample_f32=False):
+def card_vs_f64_grads(label, p, params, xs, zs, cis, opts, sample_f32=False,
+                      f32_reading=False):
     """The card's f32 gradients of the NLL and of the sample objective on
     N_CROSS rows against the port's f64 CPU path, as relative norms.  With
     ``sample_f32`` the sample objective's gradient is held against the
     port's f32 CPU path instead, and its distance to f64 only printed (the
     centred models: there the JAX package's own f32 path lies up to 1.0e-3
-    from its f64 path, PERF.md)."""
+    from its f64 path, PERF.md).  With ``f32_reading`` the f64 limit holds
+    and the card's and the f32 CPU path's distances to each other and to
+    f64 are printed beside it: they tell an f32 algorithm's own distance
+    from one the card adds."""
     from jammy_flows_tpu_torch.utils.convert import params_from_jax
     p_cpu = cpu_twin(p, opts)
     par64 = params_from_jax({k: v.cpu().numpy() for k, v in params.items()},
@@ -1034,17 +1038,20 @@ def card_vs_f64_grads(label, p, params, xs, zs, cis, opts, sample_f32=False):
     _, gs_cpu = p_cpu._value_and_grad(
         lambda pp: sample_objective(p_cpu, pp, zs.double().cpu(), cis64),
         par64)
-    checks = [("NLL", "f64", gn_card, gn_cpu, True),
-              ("sample", "f64", gs_card, gs_cpu, not sample_f32)]
-    if sample_f32:
+    checks = [("card f32", "NLL", "f64", gn_card, gn_cpu, True),
+              ("card f32", "sample", "f64", gs_card, gs_cpu, not sample_f32)]
+    if sample_f32 or f32_reading:
         par32 = {k: v.cpu() for k, v in params.items()}
         _, gs_32 = p_cpu._value_and_grad(
             lambda pp: sample_objective(p_cpu, pp, zs.cpu(), None if cis is None
                                         else cis.cpu()), par32)
-        checks.append(("sample", "f32", gs_card, gs_32, True))
-    for what, ref, a, b, held in checks:
+        checks.append(("card f32", "sample", "f32", gs_card, gs_32,
+                       sample_f32))
+    if f32_reading:
+        checks.append(("CPU f32", "sample", "f64", gs_32, gs_cpu, False))
+    for who, what, ref, a, b, held in checks:
         rels = {k: rel_norm(a[k], b[k]) for k in a}
-        log(f"{label}: card f32 vs CPU {ref} {what} gradient on "
+        log(f"{label}: {who} vs CPU {ref} {what} gradient on "
             f"{xs.shape[0]} rows: relative norms "
             f"{', '.join(f'{k} {v:.3e}' for k, v in rels.items())}"
             + (f" (limit {TOL_CROSS_GRAD:g})" if held else " (printed)"))
@@ -1094,10 +1101,10 @@ def ragged_layer_check(label, layer_calls):
     return errs
 
 
-def train(label, p, params, seed, opts=None):
+def train(label, p, params, seed, opts=None, f32_reading=False):
     """The training phase of one configuration; returns (launches per path,
     errors per kernel, recorded block calls, recorded per-layer calls, step
-    times)."""
+    times).  ``f32_reading``: card_vs_f64_grads's."""
     from jammy_flows_tpu_torch import train as ttrain
     dev = p.device
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -1168,7 +1175,8 @@ def train(label, p, params, seed, opts=None):
 
     # card f32 against the port's f64 CPU path, N_CROSS rows
     card_vs_f64_grads(label, p, params, x[:N_CROSS], z[:N_CROSS],
-                      None if ci is None else ci[:N_CROSS], opts)
+                      None if ci is None else ci[:N_CROSS], opts,
+                      f32_reading=f32_reading)
 
     # train.fit: TRAIN_STEPS full-batch Adam steps from init_params(seed=0)
     # on the rows sampled from the jittered model
@@ -2219,8 +2227,10 @@ def circle_phase(dev, card):
         del x
         torch.cuda.empty_cache()
         if trained:
-            l_t, e, _, _, (step_nll, step_auto) = train(label, p, params,
-                                                        seed=180 + i)
+            # the sample gradient's distance to f64 read against the f32
+            # CPU path too: the f32 Moebius solve's own, or the card's
+            l_t, e, _, _, (step_nll, step_auto) = train(
+                label, p, params, seed=180 + i, f32_reading=True)
             launches[label].update(l_t)
             for k, v in e.items():
                 errs[k] = max(errs.get(k, 0.0), v)

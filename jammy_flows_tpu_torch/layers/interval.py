@@ -11,7 +11,8 @@ import torch
 
 from .base import FlowLayer
 from ..ops import manifold
-from ..ops.splines import rq_spline, rq_spline_smooth
+from ..ops.splines import (SplineParamLayout, fixed_log_derivative,
+                           rq_spline, rq_spline_smooth)
 
 
 class IntervalLayer(FlowLayer):
@@ -76,29 +77,14 @@ class RQSplineInterval(IntervalLayer):
         self.min_height = min_height
         self.min_derivative = min_derivative
         self.restrict_ratio = restrict_max_min_width_height_ratio
-        self.fix_first = int(fix_first_width_n_height_to_zero)
-        self.fix_second_w = int(also_fix_second_width_to_zero)
-        self.independent_wh = int(independent_width_height_parametrization)
         self.smooth_second_derivative = int(smooth_second_derivative)
         self.fix_boundary_derivatives = fix_boundary_derivatives
-
-        self.num_width_params = k
-        self.num_height_params = k
-        if self.fix_first:
-            self.num_width_params = k - 1
-            self.num_height_params = k - 1
-            if self.fix_second_w:
-                self.num_width_params -= 1
-
         self.boundary_log_derivs_fixed_value = None
         if fix_boundary_derivatives > 0.0:
-            if not fix_boundary_derivatives > min_derivative:
-                raise ValueError("fix_boundary_derivatives must exceed "
-                                 "min_derivative")
-            # softplus^-1: the spline sees exactly the requested derivative
-            self.boundary_log_derivs_fixed_value = float(np.log(
-                np.exp(fix_boundary_derivatives - min_derivative) - 1.0))
+            self.boundary_log_derivs_fixed_value = fixed_log_derivative(
+                fix_boundary_derivatives, min_derivative)
 
+        self.mirrored = False
         if self.smooth_second_derivative == 1:
             if k not in (2, 3):
                 raise ValueError("smooth 2nd derivative needs 2 or 3 bins")
@@ -106,28 +92,21 @@ class RQSplineInterval(IntervalLayer):
                 bd_sub = 3 if k == 2 else 4
             else:
                 bd_sub = 1 if k == 2 else 2
-            if k == 3:
-                # mirrored: the first width / height stand for the third
-                self.num_width_params -= 1
-                self.num_height_params -= 1
+            # K = 3 is mirrored: the first width / height stand for the third
+            self.mirrored = k == 3
         else:
             bd_sub = 2 if fix_boundary_derivatives > 0.0 else 0
+        self.layout = SplineParamLayout(
+            k - self.mirrored, fix_first_width_n_height_to_zero,
+            also_fix_second_width_to_zero,
+            independent_width_height_parametrization)
         self.num_derivative_params = k + 1 - bd_sub
-
-        self.num_params = (self.num_width_params + self.num_height_params
+        self.num_params = (self.layout.num_widths + self.layout.num_heights
                            + self.num_derivative_params)
 
     def _unpack(self, params):
-        nw, nh = self.num_width_params, self.num_height_params
-        w, h, d = params[:, :nw], params[:, nw:nw + nh], params[:, nw + nh:]
-        if self.fix_first:
-            zero = torch.zeros_like(h[:, :1])
-            h = torch.cat([zero, h], dim=1)
-            w = torch.cat([zero, zero, w] if self.fix_second_w
-                          else [zero, w], dim=1)
-        if self.independent_wh:
-            h = w + h
-        if self.smooth_second_derivative == 1 and self.num_basis_functions == 3:
+        w, h, d = self.layout.unpack(params)
+        if self.mirrored:
             w = torch.cat([w, w[:, :1]], dim=1)
             h = torch.cat([h, h[:, :1]], dim=1)
         return w, h, d

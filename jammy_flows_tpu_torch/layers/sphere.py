@@ -22,16 +22,20 @@ from .base import FlowLayer
 from ..ops import manifold, rotations
 from ..ops.inverse import make_inverse_fn
 from ..ops.special import logaddexp
-from ..ops.splines import rq_spline, rq_spline_smooth_circular
+from ..ops.splines import (SplineParamLayout, fixed_log_derivative,
+                           rq_spline, rq_spline_smooth_circular)
 
 PI = math.pi
 TWO_PI = 2.0 * math.pi
 _TODO = "is not ported yet (ROADMAP.md, Queue 1: remaining layers)"
 
 
-def safe_angle_within_2pi(x, margin=1e-7):
-    """Clamp an angle into [margin, 2 pi - margin]."""
-    return torch.clamp(x, margin, TWO_PI - margin)
+ANGLE_MARGIN = 1e-7
+
+
+def safe_angle_within_2pi(x):
+    """Clamp an angle into [ANGLE_MARGIN, 2 pi - ANGLE_MARGIN]."""
+    return torch.clamp(x, ANGLE_MARGIN, TWO_PI - ANGLE_MARGIN)
 
 
 class SphereLayer(FlowLayer):
@@ -307,17 +311,10 @@ class CircularRQSpline(SphereLayer):
         self.min_derivative = min_derivative
         self.fix_boundary_derivatives = fix_boundary_derivatives
         self.smooth_second_derivative = int(smooth_second_derivative)
-        self.fix_first = int(fix_first_width_n_height_to_zero)
-        self.fix_second_w = int(also_fix_second_width_to_zero)
-        self.independent_wh = int(independent_width_height_parametrization)
-
-        self.num_width_params = k
-        self.num_height_params = k
-        if self.fix_first:
-            self.num_width_params = k - 1
-            self.num_height_params = k - 1
-            if self.fix_second_w:
-                self.num_width_params -= 1
+        self.layout = SplineParamLayout(
+            k, fix_first_width_n_height_to_zero,
+            also_fix_second_width_to_zero,
+            independent_width_height_parametrization)
 
         self.boundary_log_derivs_fixed_value = None
         if self.smooth_second_derivative == 1:
@@ -325,33 +322,18 @@ class CircularRQSpline(SphereLayer):
                 raise ValueError("smooth circular spline needs 2 bins")
             bd_sub = 3
         elif fix_boundary_derivatives > 0.0:
-            if not fix_boundary_derivatives > min_derivative:
-                raise ValueError("fix_boundary_derivatives must exceed "
-                                 "min_derivative")
             bd_sub = 2
-            self.boundary_log_derivs_fixed_value = float(np.log(
-                np.exp(fix_boundary_derivatives - min_derivative) - 1.0))
+            self.boundary_log_derivs_fixed_value = fixed_log_derivative(
+                fix_boundary_derivatives, min_derivative)
         else:
             bd_sub = 1  # periodic: the seam's derivative is shared
         self.num_derivative_params = k + 1 - bd_sub
-        self.num_params += (self.num_width_params + self.num_height_params
+        self.num_params += (self.layout.num_widths + self.layout.num_heights
                             + self.num_derivative_params)
-
-    def _unpack(self, params):
-        nw, nh = self.num_width_params, self.num_height_params
-        w, h, d = params[:, :nw], params[:, nw:nw + nh], params[:, nw + nh:]
-        if self.fix_first:
-            zero = torch.zeros_like(h[:, :1])
-            h = torch.cat([zero, h], dim=1)
-            w = torch.cat([zero, zero, w] if self.fix_second_w
-                          else [zero, w], dim=1)
-        if self.independent_wh:
-            h = w + h
-        return w, h, d
 
     def _apply(self, params, x, log_det, sampling):
         x = safe_angle_within_2pi(x)
-        w, h, d = self._unpack(params)
+        w, h, d = self.layout.unpack(params)
         use_inverse = not sampling if self.natural_direction else sampling
         if self.smooth_second_derivative == 0:
             if self.fix_boundary_derivatives > 0.0:
@@ -370,7 +352,7 @@ class CircularRQSpline(SphereLayer):
             res, ld = rq_spline_smooth_circular(
                 x, w[:, None, :], h[:, None, :], inverse=use_inverse,
                 rel_min_bin_width=self.min_width,
-                rel_min_bin_height=self.min_height, shift_to_middle=True)
+                rel_min_bin_height=self.min_height)
         return safe_angle_within_2pi(res), log_det + torch.sum(ld, dim=-1)
 
     def _forward(self, params, x, log_det):
@@ -380,7 +362,7 @@ class CircularRQSpline(SphereLayer):
         return self._apply(params, x, log_det, sampling=False)
 
     def _default_params(self, rng):
-        n = (self.num_width_params + self.num_height_params
+        n = (self.layout.num_widths + self.layout.num_heights
              + self.num_derivative_params)
         if self.smooth_second_derivative:
             return np.zeros(n)

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from .special import softplus
@@ -243,23 +244,58 @@ def rq_spline_smooth(inputs, unnormalized_widths, unnormalized_heights,
                     derivatives, inverse)
 
 
+def fixed_log_derivative(derivative, min_derivative):
+    """The unnormalized derivative that ``min_derivative + softplus`` maps
+    to ``derivative`` exactly (a spline's fixed boundary derivative)."""
+    if not derivative > min_derivative:
+        raise ValueError("fix_boundary_derivatives must exceed min_derivative")
+    return float(np.log(np.exp(derivative - min_derivative) - 1.0))
+
+
+class SplineParamLayout:
+    """A spline layer's parameter row (the circle's `o`, the interval's
+    `r`): widths, heights, then the free derivatives.  Of ``num_bins``
+    free bins, the first width and height (and with ``fix_second_w`` the
+    second width) may be pinned to 0 and left out of the row, and the
+    heights may be parametrized as offsets from the widths."""
+
+    def __init__(self, num_bins, fix_first=0, fix_second_w=0,
+                 independent_wh=0):
+        self.fix_first = int(fix_first)
+        self.fix_second_w = int(fix_second_w)
+        self.independent_wh = int(independent_wh)
+        self.num_heights = num_bins - self.fix_first
+        self.num_widths = self.num_heights - self.fix_first * self.fix_second_w
+
+    def unpack(self, params):
+        """(widths, heights, derivatives) of (Bp, P) rows, with the pinned
+        zeros put back."""
+        nw, nh = self.num_widths, self.num_heights
+        w, h, d = params[:, :nw], params[:, nw:nw + nh], params[:, nw + nh:]
+        if self.fix_first:
+            zero = torch.zeros_like(h[:, :1])
+            h = torch.cat([zero, h], dim=1)
+            w = torch.cat([zero, zero, w] if self.fix_second_w
+                          else [zero, w], dim=1)
+        if self.independent_wh:
+            h = w + h
+        return w, h, d
+
+
 def rq_spline_smooth_circular(inputs, unnormalized_widths,
                               unnormalized_heights, inverse=False,
                               rel_min_bin_width=MIN_BIN_WIDTH,
-                              rel_min_bin_height=MIN_BIN_HEIGHT,
-                              restrict_max_min_width_height_ratio=-1.0,
-                              shift_to_middle=True):
+                              rel_min_bin_height=MIN_BIN_HEIGHT):
     """The C^2-smooth circular RQ spline of 2 bins on [0, 2 pi]: its three
     knot derivatives are equal (solved in closed form), so value and
-    derivative match at the seam.  With ``shift_to_middle`` the spline is
-    shifted so that its first bin is centred on pi, and the inputs 0 and
-    2 pi map to themselves exactly."""
+    derivative match at the seam.  The spline is shifted so that its first
+    bin is centred on pi, and the inputs 0 and 2 pi map to themselves
+    exactly."""
     if unnormalized_widths.shape[-1] != 2:
         raise ValueError("circular smooth spline requires exactly 2 bins")
     widths, cumwidths, heights, cumheights = _box_bins(
         unnormalized_widths, unnormalized_heights, 0.0, TWO_PI, 0.0, TWO_PI,
-        rel_min_bin_width, rel_min_bin_height,
-        restrict_max_min_width_height_ratio)
+        rel_min_bin_width, rel_min_bin_height, -1.0)
 
     w1, w2 = widths[..., :1], widths[..., 1:]
     h1, h2 = heights[..., :1], heights[..., 1:]
@@ -272,30 +308,26 @@ def rq_spline_smooth_circular(inputs, unnormalized_widths,
     res = (h_prod * (w1 + w2) + sqrt_fac) / denom
     derivatives = torch.cat([res, res, res], dim=-1)
 
-    used_inputs = inputs
-    if shift_to_middle:
-        w1mx = -math.pi + w1 / 2.0
-        w1mx_p_w2 = w1mx + w2
-        nom = h2 * w1mx * (w1mx * h1 - res * w1 * w1mx_p_w2)
-        den = h1 * w2**2 + 2.0 * (h1 - res * w1) * w1mx * w1mx_p_w2
-        corrective = TWO_PI - (h1 + nom / den)
-        if inverse:
-            used_inputs = inputs - corrective[..., 0]
-        else:
-            used_inputs = inputs - (math.pi - widths[..., 0] / 2.0)
-        used_inputs = torch.where(used_inputs < 0.0, used_inputs + TWO_PI,
-                                  used_inputs)
+    # the shift that centres the first bin on pi, in the input and the
+    # output coordinates
+    w1mx = -math.pi + w1 / 2.0
+    w1mx_p_w2 = w1mx + w2
+    nom = h2 * w1mx * (w1mx * h1 - res * w1 * w1mx_p_w2)
+    den = h1 * w2**2 + 2.0 * (h1 - res * w1) * w1mx * w1mx_p_w2
+    shift_out = (TWO_PI - (h1 + nom / den))[..., 0]
+    shift_in = math.pi - widths[..., 0] / 2.0
+    if inverse:
+        shift_in, shift_out = shift_out, shift_in
+    used_inputs = inputs - shift_in
+    used_inputs = torch.where(used_inputs < 0.0, used_inputs + TWO_PI,
+                              used_inputs)
 
     idx = _searchsorted(cumheights if inverse else cumwidths, used_inputs)
     outputs, logabsdet = _rq_core(used_inputs, idx, cumwidths, widths,
                                   cumheights, heights, derivatives, inverse)
 
-    if shift_to_middle:
-        if inverse:
-            outputs = outputs + (math.pi - widths[..., 0] / 2.0)
-        else:
-            outputs = outputs + corrective[..., 0]
-        outputs = torch.where(outputs > TWO_PI, outputs - TWO_PI, outputs)
-        outputs = torch.where(inputs == 0.0, 0.0, outputs)
-        outputs = torch.where(inputs == TWO_PI, TWO_PI, outputs)
+    outputs = outputs + shift_out
+    outputs = torch.where(outputs > TWO_PI, outputs - TWO_PI, outputs)
+    outputs = torch.where(inputs == 0.0, 0.0, outputs)
+    outputs = torch.where(inputs == TWO_PI, TWO_PI, outputs)
     return outputs, logabsdet
