@@ -40,6 +40,17 @@ in parallel), then drives the flagship ``pdf("e4+s2+e4", "gggg+f+gggg")``:
   torch.profiler; the first model trained as the conditional flagship
   (T3 / T2 lazy2, its Moebius solve's implicit gradient in the sample
   objective's);
+* the simplex layers and the amortization machinery under them, at full
+  width: ``"a2", "w"`` with conditional_input_dim=2 (the outer MLP predicts
+  the `w` layer's 8,316 parameters per row: its inner pdf's MLP runs
+  per-row weights; 262,144 rows, trained), ``"a3", "w"`` and ``"a2", "u"``
+  (1,048,576 rows), all plain PyTorch, and ``fully_amortized_pdf("e2+s1",
+  "gg+o", conditional_input_dim=3)`` at its defaults (262,144 rows; its gg
+  block's parameters arrive per row: T4 / T5 raw per row, the T7 density
+  body in its log_prob gradient): serving with exact launch counts, every
+  per-layer call against its plain version, log_prob (and the gradients)
+  against the port's f64 CPU path, sample and log_prob timed and censused,
+  each model's peak device memory;
 * the block's lazy mode (precomputed hidden activations, T1 / T2), on the
   flagship with two-hidden-layer ``amortization_mlp_dims="64-64"`` MLPs,
   unconditional and conditional, serving and training as the flagship;
@@ -253,6 +264,41 @@ EXPECTED_TRAIN_LAUNCHES["s1+s2+e2 conditional"] = {
     "log_prob_grad": {"density_lazy2": 1, "density_bwd_lazy2": 1},
     "sample_grad": {"sample_lazy2": 1, "sample_bwd_lazy2": 1},
     "fit": {"nll_lazy2": TRAIN_STEPS}}
+# the simplex layers and the fully amortized model: (label, constructor,
+# definitions, flows, conditional input dim, rows, training), each at the
+# default 128-wide MLPs; "fit" trains as the flagship, "grad" takes
+# autograd of -log_prob().mean()
+SIMPLEX_MODELS = (
+    ("a2 w conditional", "pdf", "a2", "w", 2, N_COND, "fit"),
+    ("a3 w unconditional", "pdf", "a3", "w", None, N_SAMPLE_UNCOND, None),
+    ("a2 u unconditional", "pdf", "a2", "u", None, N_SAMPLE_UNCOND, None),
+    ("fully amortized e2+s1", "fully_amortized_pdf", "e2+s1", "gg+o", 3,
+     N_COND, "grad"))
+# the simplex layers launch nothing (no kernel in either package).  The
+# fully amortized model's gg block gets its parameters as per-row slabs,
+# which the block op does not take (models/pdf.py _try_block), so each of
+# its two g layers runs on its own (layers/euclidean.py): one T4
+# gf_forward_raw in log_prob, one T5 gf_sample_raw in sample, and in the
+# gradient of log_prob T4 again and one T7 density body
+EXPECTED_LAUNCHES.update({
+    "a2 w conditional": {}, "a3 w unconditional": {},
+    "a2 u unconditional": {},
+    "fully amortized e2+s1": {"forward_raw": 2, "sample_raw": 2}})
+EXPECTED_TRAIN_LAUNCHES.update({
+    "a2 w conditional": {"nll": {}, "log_prob_grad": {}, "sample_grad": {},
+                         "fit": {}},
+    "fully amortized e2+s1": {"log_prob_grad": {"forward_raw": 2,
+                                                "forward_bwd_raw": 2}}})
+# the `u` layer's float32 sample is its d intrinsic coordinates: near a
+# vertex the remainder 1 - sum(x) falls below their resolution and log_prob
+# of the sample is ill-conditioned, in the JAX package's float32 path as in
+# the port's (at this run's weights, temperature 0.69: a roundtrip q999 of
+# ~1.8e-2 and 1.9e-3 from float64 on 4,096 samples in both packages on the
+# CPU; PERF.md). Its roundtrip and log_prob are held against the port's
+# float32 CPU path on the same inputs, the float64 distance printed
+F32_HELD = ("a2 u unconditional",)
+# the per-row raw instances it runs, timed on its first recorded calls
+PER_ROW_RAW = ("forward_raw", "sample_raw", "forward_bwd_raw")
 # the per-layer entry points and T7 bodies that run on the plain mixture
 # in the rotated and tail-Newton models, timed on the rotated unconditional
 # flagship's first calls (rows "..._unskewed")
@@ -803,29 +849,40 @@ def jittered_params(p, seed, flow_scale=0.0):
             if scale[k] else v for k, v in params.items()}
 
 
+def sample_rows(p, params, n, ci, g):
+    """p.sample of n rows (a fully amortized pdf draws one row for each
+    conditional input row)."""
+    if hasattr(p, "inner_pdf"):
+        return p.sample(params, conditional_input=ci, generator=g)
+    return p.sample(params, samplesize=n, conditional_input=ci, generator=g)
+
+
 def roundtrip(p, params, n, ci, seed):
-    """sample n rows, then log_prob of them; returns (x, |dlogp|)."""
+    """sample n rows, then log_prob of them; returns (x, base draws,
+    |dlogp|)."""
     g = torch.Generator(device=p.device).manual_seed(seed)
-    x, z, lp_sample, _ = p.sample(params, samplesize=n, conditional_input=ci,
-                                  generator=g)
+    x, z, lp_sample, _ = sample_rows(p, params, n, ci, g)
     lp_eval, _, _ = p.log_prob(params, x, conditional_input=ci)
     torch.cuda.synchronize()
     for name, t in (("x", x), ("log_pdf", lp_sample), ("log_prob", lp_eval)):
         if t.shape[0] != n or not torch.isfinite(t).all():
             raise AssertionError(f"non-finite or misshapen {name}")
-    if x.shape[1] != p.total_target_dim:
+    if x.shape[1] != getattr(p, "inner_pdf", p).total_target_dim:
         raise AssertionError(f"samples have width {x.shape[1]}")
-    return x, (lp_eval - lp_sample).abs()
+    return x, z, (lp_eval - lp_sample).abs()
 
 
-def serve(label, p, params, n, ci, seed):
+def serve(label, p, params, n, ci, seed, f32_twin=None):
     """One serving path (sample, then log_prob of the samples) with the
     launch counts set to 0 just before it and read just after; returns
-    (samples, launches, recorded block calls, recorded per-layer calls)."""
+    (samples, launches, recorded block calls, recorded per-layer calls).
+    The roundtrip's q999 is held below TOL_ROUNDTRIP_Q999, or, with
+    ``f32_twin`` (the model and its parameters on the CPU, float32), within
+    TOL_ROUNDTRIP_Q999 of that path's roundtrip on the same base draws."""
     calls, layer_calls = [], []
     reset_counts()
     with recording(calls), recording_layer(layer_calls):
-        x, d = roundtrip(p, params, n, ci, seed)
+        x, z, d = roundtrip(p, params, n, ci, seed)
     torch.cuda.synchronize()
     launches = counts()
     log(f"{label} ({n} rows): launches "
@@ -838,10 +895,26 @@ def serve(label, p, params, n, ci, seed):
                              f"entry-point calls for "
                              f"{sum(launches.values())} launches")
     q999 = torch.quantile(d.float(), 0.999).item()
+    if f32_twin is None:
+        log(f"{label}: sample->log_prob |dlogp| q999 {q999:.3e} max "
+            f"{d.max().item():.3e} (limit q999 < {TOL_ROUNDTRIP_Q999:g})")
+        if not q999 < TOL_ROUNDTRIP_Q999:
+            raise AssertionError(f"{label}: roundtrip q999 {q999:.3e}")
+        return x, launches, calls, layer_calls
+    from jammy_flows_tpu_torch.ops.special import std_normal_log_prob
+    twin, twin_params = f32_twin
+    zc = z.cpu()
+    xc, ldc = twin.all_layer_forward(twin_params, zc, torch.zeros(n))
+    dc = (twin.log_prob(twin_params, xc)[0]
+          - (std_normal_log_prob(zc) - ldc)).abs()
+    q_cpu = torch.quantile(dc, 0.999).item()
     log(f"{label}: sample->log_prob |dlogp| q999 {q999:.3e} max "
-        f"{d.max().item():.3e} (limit q999 < {TOL_ROUNDTRIP_Q999:g})")
-    if not q999 < TOL_ROUNDTRIP_Q999:
-        raise AssertionError(f"{label}: roundtrip q999 {q999:.3e}")
+        f"{d.max().item():.3e}; the port's CPU f32 path on the same base "
+        f"draws q999 {q_cpu:.3e} max {dc.max().item():.3e} (limit |q999 - "
+        f"its| < {TOL_ROUNDTRIP_Q999:g})")
+    if not abs(q999 - q_cpu) < TOL_ROUNDTRIP_Q999:
+        raise AssertionError(f"{label}: roundtrip q999 {q999:.3e}, the CPU "
+                             f"f32 path's {q_cpu:.3e}")
     return x, launches, calls, layer_calls
 
 
@@ -855,23 +928,35 @@ def cpu_twin(p, opts=None):
                amortization_mlp_dims=p.amortization_mlp_dims, device="cpu")
 
 
-def cross_check(label, p, params, x, ci, opts=None):
+def cross_check(label, p, params, x, ci, opts=None, p_cpu=None,
+                f32_held=False):
     """The card's f32 log_prob of N_CROSS samples against the port's f64
-    CPU path."""
+    CPU path (``p_cpu``, by default cpu_twin(p, opts)); with ``f32_held``
+    against its f32 CPU path, the f64 distance printed."""
     from jammy_flows_tpu_torch.utils.convert import params_from_jax
     xs = x[:N_CROSS]
     cis = None if ci is None else ci[:N_CROSS]
     lp_gpu = p.log_prob(params, xs, conditional_input=cis)[0].double().cpu()
-    p_cpu = cpu_twin(p, opts)
+    p_cpu = p_cpu or cpu_twin(p, opts)
     par64 = params_from_jax({k: v.cpu().numpy() for k, v in params.items()},
                             dtype=torch.float64)
-    lp_cpu = p_cpu.log_prob(par64, xs.double().cpu(), conditional_input=(
-        None if cis is None else cis.double().cpu()))[0]
+    ci64 = None if cis is None else cis.double().cpu()
+    lp_cpu = p_cpu.log_prob(par64, xs.double().cpu(),
+                            conditional_input=ci64)[0]
     cross = (lp_gpu - lp_cpu).abs().max().item()
     log(f"{label}: card f32 vs CPU f64 log_prob on {N_CROSS} samples: "
-        f"max|diff| {cross:.3e} (limit {TOL_CROSS:g})")
+        f"max|diff| {cross:.3e} " + ("(printed)" if f32_held
+                                     else f"(limit {TOL_CROSS:g})"))
+    if f32_held:
+        lp_32 = p_cpu.log_prob({k: v.float() for k, v in par64.items()},
+                               xs.cpu(), conditional_input=None if ci64 is None
+                               else ci64.float())[0].double()
+        cross = (lp_gpu - lp_32).abs().max().item()
+        log(f"{label}: card f32 vs CPU f32 log_prob on {N_CROSS} samples: "
+            f"max|diff| {cross:.3e} (limit {TOL_CROSS:g}); CPU f32 vs f64 "
+            f"{(lp_32 - lp_cpu).abs().max().item():.3e} (printed)")
     if not cross < TOL_CROSS:
-        raise AssertionError(f"{label}: card vs CPU f64 log_prob differ by "
+        raise AssertionError(f"{label}: card vs CPU log_prob differ by "
                              f"{cross:.3e}")
 
 
@@ -2178,6 +2263,30 @@ def kernel_census(fn):
     return len(dev), sum(e.time_range.elapsed_us() for e in dev) / 1e3, wall
 
 
+def time_serving(label, p, params, x, n, ci, seed, card):
+    """sample (n rows) and log_prob (of x) timed, median of 5, and one call
+    of each censused by torch.profiler (kernel_census)."""
+    g = torch.Generator(device=p.device).manual_seed(seed)
+
+    def sample():
+        return sample_rows(p, params, n, ci, g)
+
+    def log_prob():
+        return p.log_prob(params, x, ci)
+
+    for what, fn in (("sample", sample), ("log_prob", log_prob)):
+        ms = cuda_ms(fn, 5)
+        log(f"{label} {what} on {card}: {ms:.3f} ms per {n} rows = "
+            f"{n / ms * 1e3:.6g} rows/s (median of 5)")
+        census = kernel_census(fn)
+        log(f"{label} {what}: " + (
+            "torch.profiler recorded no device event (not measured)"
+            if census is None else
+            f"{census[0]} CUDA events (kernels, copies, fills) summing "
+            f"to {census[1]:.3f} ms on the device, {census[2]:.3f} ms on "
+            f"the host's clock under the profiler (one call)"))
+
+
 def circle_phase(dev, card):
     """The circle and interval layers (CIRCLE_MODELS): each model served
     (sample, then log_prob of the samples, with its exact launch counts),
@@ -2204,26 +2313,7 @@ def circle_phase(dev, card):
         del calls
         cross_check(label, p, params, x, ci)
         launches[label] = {"serving": launch}
-        g = torch.Generator(device=dev).manual_seed(170 + i)
-
-        def sample():
-            return p.sample(params, samplesize=n, conditional_input=ci,
-                            generator=g)
-
-        def log_prob():
-            return p.log_prob(params, x, ci)
-
-        for what, fn in (("sample", sample), ("log_prob", log_prob)):
-            ms = cuda_ms(fn, 5)
-            log(f"{label} {what} on {card}: {ms:.3f} ms per {n} rows = "
-                f"{n / ms * 1e3:.6g} rows/s (median of 5)")
-            census = kernel_census(fn)
-            log(f"{label} {what}: " + (
-                "torch.profiler recorded no device event (not measured)"
-                if census is None else
-                f"{census[0]} CUDA events (kernels, copies, fills) summing "
-                f"to {census[1]:.3f} ms on the device, {census[2]:.3f} ms on "
-                f"the host's clock under the profiler (one call)"))
+        time_serving(label, p, params, x, n, ci, 170 + i, card)
         del x
         torch.cuda.empty_cache()
         if trained:
@@ -2240,6 +2330,130 @@ def circle_phase(dev, card):
             torch.cuda.empty_cache()
     log(f"circle and interval phase {time.time() - t_phase:.1f} s")
     return launches, errs
+
+
+def simplex_model(i, dev):
+    """SIMPLEX_MODELS[i]'s model on ``dev``."""
+    import jammy_flows_tpu_torch as jft
+    _, ctor, defs, flows, cond, _, _ = SIMPLEX_MODELS[i]
+    return getattr(jft, ctor)(defs, flows, conditional_input_dim=cond,
+                              device=dev)
+
+
+def simplex_params(p, seed):
+    """init_params(seed=0) with every parameter moved by 0.02 N(0, 1) (the
+    `u` layer's four permanent ones by 0.3): the amortized parameters then
+    differ from row to row, and so do the `w` layer's inner pdf's."""
+    g = torch.Generator(device=p.device).manual_seed(seed)
+    return {k: v + (0.3 if v.numel() < 8 else 0.02) * torch.randn(
+        v.shape, generator=g, device=v.device)
+        for k, v in p.init_params(seed=0).items()}
+
+
+def peak_memory(label, what):
+    gb = torch.cuda.max_memory_allocated() / 2**30
+    log(f"{label}: peak device memory of {what} {gb:.3f} GiB "
+        "(torch.cuda.max_memory_allocated)")
+    torch.cuda.reset_peak_memory_stats()
+
+
+def fully_amortized_grad(label, i, p, params, card):
+    """Autograd of -log_prob().mean() of the fully amortized model at
+    N_TRAIN rows (drawn from another jittered model): its launches, the
+    gradient on N_CROSS rows against the port's f64 CPU path, the step
+    timed; returns (launches, recorded per-layer calls)."""
+    from jammy_flows_tpu_torch import PDF
+    g = torch.Generator(device=p.device).manual_seed(220 + i)
+    ci = torch.randn((N_TRAIN, p.conditional_input_dim), generator=g,
+                     device=p.device)
+    with torch.no_grad():
+        x = p.sample(simplex_params(p, 230 + i), conditional_input=ci,
+                     generator=g)[0]
+
+    def step(pp, x=x, ci=ci):
+        return PDF._value_and_grad(
+            lambda q: -p.log_prob(q, x, ci)[0].mean(), pp)
+
+    (_, grads), launch, _, calls = train_path(label, "log_prob_grad", p,
+                                              lambda: step(params))
+    p_cpu = simplex_model(i, "cpu")
+    par64 = {k: v.double().cpu() for k, v in params.items()}
+    xs, cis = x[:N_CROSS], ci[:N_CROSS]
+    _, g_card = step(params, xs, cis)
+    _, g_cpu = PDF._value_and_grad(lambda q: -p_cpu.log_prob(
+        q, xs.double().cpu(), cis.double().cpu())[0].mean(), par64)
+    rels = {k: rel_norm(g_card[k], g_cpu[k]) for k in g_card}
+    log(f"{label}: card f32 vs CPU f64 log_prob gradient on {N_CROSS} rows: "
+        f"relative norms {', '.join(f'{k} {v:.3e}' for k, v in rels.items())}"
+        f" (limit {TOL_CROSS_GRAD:g})")
+    if not (max(rels.values()) < TOL_CROSS_GRAD
+            and all(torch.isfinite(v).all() for v in grads.values())):
+        raise AssertionError(f"{label}: card vs CPU f64 gradient")
+    ms = cuda_ms(lambda: step(params), 10)
+    log(f"{label} value-and-grad step at {N_TRAIN} rows on {card}: autograd "
+        f"of -log_prob().mean() {ms:.3f} ms (median of 10)")
+    return launch, calls
+
+
+def simplex_phase(dev, card):
+    """The simplex layers and the fully amortized model (SIMPLEX_MODELS):
+    each served (sample, then log_prob of the samples, with exact launch
+    counts; every recorded per-layer call against its plain version),
+    log_prob against the port's f64 CPU path, sample and log_prob timed and
+    censused, its peak device memory; the conditional `w` model trained as
+    the flagship (train()), the fully amortized one's log_prob gradient
+    (fully_amortized_grad).  Returns the JSON rows of the per-row raw
+    kernels it runs (PER_ROW_RAW), timed on its first recorded calls."""
+    t_phase = time.time()
+    launches, errs, calls = {}, {}, []
+    for i, (label, _, _, _, cond, n, trained) in enumerate(SIMPLEX_MODELS):
+        torch.cuda.reset_peak_memory_stats()
+        p = simplex_model(i, dev)
+        params = simplex_params(p, seed=190 + i)
+        ci = None if cond is None else torch.randn(
+            (n, cond), generator=torch.Generator(device=dev).manual_seed(
+                200 + i), device=dev)
+        p_cpu = simplex_model(i, "cpu")
+        held = label in F32_HELD
+        x, launch, block_calls, layer_calls = serve(
+            label, p, params, n, ci, seed=210 + i, f32_twin=(p_cpu, {
+                k: v.cpu() for k, v in params.items()}) if held else None)
+        if block_calls:
+            raise AssertionError(f"{label}: a block kernel ran")
+        cross_check(label, p, params, x, ci, p_cpu=p_cpu, f32_held=held)
+        launches[label] = {"serving": launch}
+        time_serving(label, p, params, x, n, ci, 240 + i, card)
+        peak_memory(label, f"serving {n} rows")
+        del x
+        if trained == "fit":
+            l_t, _, _, _, (step_nll, step_auto) = train(label, p, params,
+                                                        seed=250 + i)
+            launches[label].update(l_t)
+            log(f"{label} training step on {card}: nll_value_and_grad "
+                f"{step_nll:.3f} ms, autograd of -log_prob().mean() "
+                f"{step_auto:.3f} ms per {N_TRAIN} rows")
+            peak_memory(label, f"training at {N_TRAIN} rows")
+        elif trained == "grad":
+            l_g, g_calls = fully_amortized_grad(label, i, p, params, card)
+            launches[label]["log_prob_grad"] = l_g
+            layer_calls += g_calls
+            peak_memory(label, f"the log_prob gradient at {N_TRAIN} rows")
+        for name, err in check_layer_calls(label, layer_calls).items():
+            errs[name] = max(errs.get(name, 0.0), err)
+        calls += first_calls(layer_calls)
+        del layer_calls
+        torch.cuda.empty_cache()
+    rows = []
+    for name in PER_ROW_RAW:
+        call = next(c for c in calls if c[0] == name and c[3][1][0].ndim == 3)
+        by_path = {f"{cfg} {what}": n[name] for cfg, paths in launches.items()
+                   for what, n in paths.items() if n[name]}
+        rows.append(layer_row(f"gf_{name}_per_row_unskewed", call, by_path,
+                              errs[f"{name}_unskewed"], card))
+    del calls
+    torch.cuda.empty_cache()
+    log(f"simplex and fully amortized phase {time.time() - t_phase:.1f} s")
+    return rows
 
 
 def add_phase_launches(rows, launches, errs):
@@ -2683,6 +2897,7 @@ def main():
     del p_u, p_c, par_u, par_c, x_u, x_c
     nan_check(dev)
     add_phase_launches(rows, *circle_phase(dev, card))
+    layer_rows += simplex_phase(dev, card)
 
     layer_rows += layer_phase(dev, card, layer_ptxas)
     rows += lazy_phase(dev, card)

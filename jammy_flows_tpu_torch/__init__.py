@@ -1,7 +1,14 @@
 """PyTorch/CUDA port of jammy_flows_tpu: normalizing flows over products of
-manifolds, with the whole-block Gaussianization-flow kernel hand-written in
-CUDA for Hopper (csrc/).  The serving path (``log_prob``, ``sample``) of the
-`e4+s2+e4 / gggg+f+gggg` model is ported; see ROADMAP.md for the rest."""
-from .models.pdf import PDF, pdf
+manifolds, with the Gaussianization-flow kernels hand-written in CUDA for
+Hopper (csrc/).
 
-__all__ = ["PDF", "pdf"]
+Main entry points:
+    pdf                 - joint autoregressive manifold pdf (two-string DSL)
+    fully_amortized_pdf - one outer MLP predicts every parameter of an inner
+                          pdf
+
+See ROADMAP.md for what is not ported yet."""
+from .models.pdf import PDF, pdf
+from .models.fully_amortized import FullyAmortizedPDF, fully_amortized_pdf
+
+__all__ = ["PDF", "pdf", "FullyAmortizedPDF", "fully_amortized_pdf"]

@@ -1,12 +1,17 @@
 """AmortizableMLP: an MLP whose whole weight set is one flat vector.
 
-PyTorch counterpart of ``jammy_flows_tpu/models/amortizable_mlp.py`` for
-highway mode 0 (a plain chain of linear maps with tanh between them).  The
-packed layout - per matrix [u (out*in) | v | bias] with the final bias last -
-and the numpy initialization are identical, so a JAX ``mlp_<k>`` vector loads
-1:1 and ``default_init`` reproduces JAX's values from the same seed.  The
-highway modes 1-4 and precise custom structures are not ported yet (ROADMAP.md,
-Queue 1).
+PyTorch counterpart of ``jammy_flows_tpu/models/amortizable_mlp.py``: the
+five highway modes (0: a plain chain of linear maps with tanh between them;
+1: that chain plus a linear highway from the input; 2-4: one two-matrix
+block per hidden layer, fed the input, the running sum or both, summed
+with a linear highway) and per-matrix low-rank U V factors.  The packed
+layout - per matrix [u (out*in) | v | bias], the blocks in order, the
+linear highway last, so the final bias is last - and the numpy
+initialization are identical, so a JAX ``mlp_<k>`` vector loads 1:1 and
+``default_init`` reproduces JAX's values from the same seed.  Parameters
+arrive as (Bp, num_params) with Bp in {1, B}: shared weights, or one weight
+set per row (an amortized MLP).  The JAX package's ``precise_mlp_structure``
+has no caller in either package and is not ported.
 """
 from __future__ import annotations
 
@@ -61,20 +66,29 @@ def _make_block(inputs, outputs, low_rank, add_final_bias, svd_mode):
                 used_ranks=used_ranks, num_params=total)
 
 
+def _matvec(w, rows, cols, vec):
+    """vec @ W.T for the packed (Bp, rows * cols) matrix W: one 2-D product
+    for shared weights, a batched product on a (B, rows, cols) view of the
+    slab's columns for per-row ones (no copy of the slab)."""
+    if w.shape[0] == 1:
+        return torch.matmul(vec, w[0].view(rows, cols).T)
+    return torch.bmm(w.view(-1, rows, cols), vec[:, :, None])[:, :, 0]
+
+
 class AmortizableMLP:
     """Static MLP configuration; parameters always arrive packed."""
 
     def __init__(self, input_dim, hidden_dims, output_dim, highway_mode=0,
                  low_rank_approximations=0, svd_mode="smart"):
-        if highway_mode != 0:
-            raise NotImplementedError(
-                f"amortization MLP highway_mode={highway_mode} is not ported "
-                "yet (ROADMAP.md, Queue 1)")
+        if highway_mode not in (0, 1, 2, 3, 4):
+            raise ValueError(f"highway_mode {highway_mode} is not 0-4")
         self.input_dim = input_dim
         self.output_dim = output_dim
+        self.highway_mode = highway_mode
         hidden = list_from_str(hidden_dims)
         self.hidden_dims = hidden
-        n_mat = len(hidden) + 1
+        n_mat = {0: len(hidden) + 1, 1: len(hidden) + 2}.get(
+            highway_mode, 2 * len(hidden) + 1)
         if isinstance(low_rank_approximations, int):
             ranks = [low_rank_approximations] * n_mat
         elif isinstance(low_rank_approximations, str):
@@ -83,48 +97,86 @@ class AmortizableMLP:
             ranks = list(low_rank_approximations)
         if len(ranks) != n_mat:
             raise ValueError(f"{len(ranks)} ranks for {n_mat} matrices")
-        self.block = _make_block([input_dim] + hidden, hidden + [output_dim],
-                                 ranks, True, svd_mode)
-        self.num_params = self.block["num_params"]
+        self.mlp_list = []
+        self.linear_highway = None
+        if highway_mode < 2:
+            ins, outs = [input_dim] + hidden, hidden + [output_dim]
+            if highway_mode == 0:
+                self.mlp_list.append(_make_block(ins, outs, ranks, True,
+                                                 svd_mode))
+            else:
+                if hidden:
+                    self.mlp_list.append(_make_block(ins, outs, ranks[:-1],
+                                                     False, svd_mode))
+                self.linear_highway = _make_block(
+                    [input_dim], [output_dim], ranks[-1:], True, svd_mode)
+        else:
+            mlp_start = {2: input_dim, 3: output_dim,
+                         4: input_dim + output_dim}[highway_mode]
+            for i, h in enumerate(hidden):
+                self.mlp_list.append(_make_block(
+                    [input_dim if i == 0 else mlp_start, h], [h, output_dim],
+                    ranks[2 * i:2 * i + 2], False, svd_mode))
+            self.linear_highway = _make_block(
+                [input_dim], [output_dim], ranks[-1:], True, svd_mode)
+        self.blocks = self.mlp_list + ([self.linear_highway]
+                                       if self.linear_highway else [])
+        self.num_params = sum(b["num_params"] for b in self.blocks)
+        # every packed piece's width, in packing order: one split of the
+        # flat parameters gives them all (its backward is one concatenation,
+        # where a slice per piece would make a slab-sized gradient each)
+        self._sizes = [n for b in self.blocks
+                       for i in range(len(b["inputs"]))
+                       for n in (b["num_u"][i], b["num_v"][i], b["num_b"][i])]
 
-    def _apply_block(self, block, x, params):
-        """Run one chain of (optionally low-rank) linear maps with broadcast
-        (1, num_params) weights."""
-        idx = 0
+    @property
+    def block(self):
+        """The one block of a highway-mode-0 MLP."""
+        return self.mlp_list[0]
+
+    @staticmethod
+    def _apply_block(block, x, pieces):
+        """Run one chain of (optionally low-rank) linear maps on the next
+        [u, v, b] pieces of ``pieces`` (an iterator of (Bp, n) tensors)."""
         prev = x
         n = len(block["inputs"])
-        flat = params[0]
-
-        def take(m):
-            nonlocal idx
-            out = flat[idx:idx + m]
-            idx += m
-            return out
-
         for i in range(n):
-            u = take(block["num_u"][i])
-            v = take(block["num_v"][i])
-            b = take(block["num_b"][i])
+            u, v, b = next(pieces), next(pieces), next(pieces)
             out_d, in_d = block["outputs"][i], block["inputs"][i]
             if block["full_flags"][i]:
-                out = torch.matmul(prev, u.reshape(out_d, in_d).T)
+                out = _matvec(u, out_d, in_d, prev)
             else:
                 r = block["used_ranks"][i]
-                out = torch.matmul(torch.matmul(prev, v.reshape(r, in_d).T),
-                                   u.reshape(out_d, r).T)
-            if b.numel():
+                out = _matvec(u, out_d, r, _matvec(v, r, in_d, prev))
+            if b.shape[1]:
                 out = out + b
             prev = out if i == n - 1 else torch.tanh(out)
         return prev
 
     def apply(self, flat_params, x):
-        """flat_params: (1, num_params) or (num_params,); x: (B, In)."""
+        """flat_params: (num_params,) or (Bp, num_params), Bp in {1, B};
+        x: (B, In)."""
         if flat_params.ndim == 1:
             flat_params = flat_params[None, :]
-        if flat_params.shape != (1, self.num_params):
+        if flat_params.shape[1] != self.num_params or \
+                flat_params.shape[0] not in (1, x.shape[0]):
             raise ValueError(f"MLP parameters of shape {tuple(flat_params.shape)}"
-                             f", expected (1, {self.num_params})")
-        return self._apply_block(self.block, x, flat_params)
+                             f" for {x.shape[0]} rows, expected (1 or "
+                             f"{x.shape[0]}, {self.num_params})")
+        pieces = torch.split(flat_params, self._sizes, dim=1)
+        n_lin = 3 * len(self.linear_highway["inputs"]) \
+            if self.linear_highway is not None else 0
+        out = None
+        if n_lin:
+            out = self._apply_block(self.linear_highway, x,
+                                    iter(pieces[len(pieces) - n_lin:]))
+        head = iter(pieces[:len(pieces) - n_lin])
+        for j, block in enumerate(self.mlp_list):
+            feed = x if j == 0 else {2: x, 3: out, 4: torch.cat(
+                [x, out], dim=1)}[self.highway_mode]
+            nonlinear = self._apply_block(block, feed, head)
+            out = nonlinear if out is None else out + nonlinear
+        return out
 
     __call__ = apply
 
@@ -132,12 +184,16 @@ class AmortizableMLP:
         """True when ``apply`` factorizes as ``hidden(x) @ w.T + b`` with a
         full-rank final matrix and a final bias: the per-layer kernels' lazy
         interface then runs the final product itself
-        (``amortizable_mlp.py:237-254`` of the JAX package)."""
-        return self.block["full_flags"][-1] and self.block["num_b"][-1] > 0
+        (``amortizable_mlp.py:237-254`` of the JAX package).  False for
+        every highway mode but 0: such an MLP takes the materialized route."""
+        return (self.highway_mode == 0 and self.block["full_flags"][-1]
+                and self.block["num_b"][-1] > 0)
 
     def supports_full_fusion(self):
         """True for a plain one-hidden-layer full-rank tanh MLP with both
         biases: the whole-block kernel then runs both matmuls itself."""
+        if self.highway_mode != 0:
+            return False
         blk = self.block
         return (len(blk["inputs"]) == 2 and all(blk["full_flags"])
                 and blk["num_b"][0] > 0 and blk["num_b"][-1] > 0)
@@ -155,8 +211,9 @@ class AmortizableMLP:
             return x
         sub = {key: (val[:-1] if isinstance(val, list) else val)
                for key, val in blk.items()}
-        hidden = self._apply_block(sub, x, flat_params)
-        return torch.tanh(hidden)
+        pieces = torch.split(flat_params, self._sizes[:3 * (n - 1)] + [
+            self.num_params - sum(self._sizes[:3 * (n - 1)])], dim=1)
+        return torch.tanh(self._apply_block(sub, x, iter(pieces)))
 
     def first_layer_weights(self, flat_params):
         """(w1 (H, In), b1 (H,)) with hidden = tanh(x @ w1.T + b1)."""
@@ -196,23 +253,24 @@ class AmortizableMLP:
         upstream parameters."""
         rng = rng or np.random.default_rng(0)
         init = rng.standard_normal(self.num_params)
-        block = self.block
         idx = 0
-        for i in range(len(block["inputs"])):
-            nu, nv, nb = block["num_u"][i], block["num_v"][i], block["num_b"][i]
-            if block["full_flags"][i]:
-                fan_in = block["inputs"][i]
-                gain = math.sqrt(2.0 / (1.0 + 5.0))
-                bound = math.sqrt(3.0) * gain / math.sqrt(fan_in)
-                init[idx:idx + nu] = rng.uniform(-bound, bound, nu)
-                if nb > 0:
-                    bb = 1.0 / math.sqrt(fan_in)
-                    init[idx + nu + nv:idx + nu + nv + nb] = rng.uniform(
-                        -bb, bb, nb)
-            idx += nu + nv + nb
+        for block in self.blocks:
+            for i in range(len(block["inputs"])):
+                nu, nv, nb = (block["num_u"][i], block["num_v"][i],
+                              block["num_b"][i])
+                if block["full_flags"][i]:
+                    fan_in = block["inputs"][i]
+                    gain = math.sqrt(2.0 / (1.0 + 5.0))
+                    bound = math.sqrt(3.0) * gain / math.sqrt(fan_in)
+                    init[idx:idx + nu] = rng.uniform(-bound, bound, nu)
+                    if nb > 0:
+                        bb = 1.0 / math.sqrt(fan_in)
+                        init[idx + nu + nv:idx + nu + nv + nb] = rng.uniform(
+                            -bb, bb, nb)
+                idx += nu + nv + nb
         if fix_final_bias is not None:
             init = init / prev_damping_factor
-            nb_final = block["num_b"][-1]
+            nb_final = self.blocks[-1]["num_b"][-1]
             if nb_final != len(fix_final_bias):
                 raise ValueError((nb_final, len(fix_final_bias)))
             init[-nb_final:] = np.asarray(fix_final_bias)

@@ -10,6 +10,14 @@ dict loads 1:1 (utils/convert.params_from_jax):
     "flow_0"  : (P0,)  permanent parameters of sub-pdf 0 (unconditional pdfs)
     "mlp_<k>" : (Pk,)  packed AmortizableMLP predicting sub-pdf k
 
+With ``amortize_everything`` the dict is empty: every parameter (sub-pdf
+0's layers, then each later MLP's flat weights) arrives per call as the
+(Bp, total_number_amortizable_params) slab ``amortization_parameters``
+(Bp in {1, B}), sliced by a running counter as in the JAX package
+(``pdf.py:418-474``); the simplex layer `w` and the fully amortized model
+(models/fully_amortized.py) run such inner pdfs, the `w` layer's as a
+passthrough (no projection from the base space on a first layer).
+
 Routing per sub-manifold, as in the JAX package (``pdf.py:488-524``): a
 float32 stack of `g` layers that ops/gf_block.block_meta accepts runs as one
 whole-block op (the CUDA kernel on the card, its plain version on the CPU)
@@ -21,8 +29,8 @@ sends its block layer by layer, with materialized rows.  An s2 stack runs on
 the (z, phi) column path; other stacks run layer by layer on rows (float32
 `g` layers through the per-layer kernels of ops/gf_layer.py, with the
 amortization MLP's final product in the kernel when its rows stay factored
-as LazyParams; circle and interval layers in plain PyTorch, their amortized
-parameters materialized).
+as LazyParams; circle, interval and simplex layers in plain PyTorch, their
+amortized parameters materialized).
 
 Entry points run on the card unless the caller passes ``device="cpu"``; with
 no device given and no CUDA, the constructor raises.
@@ -46,10 +54,8 @@ UNPORTED_DEFAULTS = {
     "predict_log_normalization": False,
     "join_poisson_and_pdf_description": False,
     "hidden_mlp_dims_poisson": "128", "rank_of_mlp_mappings_poisson": 0,
-    "amortization_mlp_use_custom_mode": False, "amortize_everything": False,
-    "use_as_passthrough_instead_of_pdf": False,
     "skip_mlp_initialization": False, "verbose": False, "data": None,
-    "amortization_parameters": None, "force_embedding_coordinates": False,
+    "force_embedding_coordinates": False,
     "force_intrinsic_coordinates": False,
     "failsafe_crosscheck_tolerance": None, "failsafe_rounds": 3,
     "optimizer": None, "checkpoint_every": None}
@@ -157,9 +163,6 @@ class PDF:
             join_poisson_and_pdf_description=join_poisson_and_pdf_description,
             hidden_mlp_dims_poisson=hidden_mlp_dims_poisson,
             rank_of_mlp_mappings_poisson=rank_of_mlp_mappings_poisson,
-            amortization_mlp_use_custom_mode=amortization_mlp_use_custom_mode,
-            amortize_everything=amortize_everything,
-            use_as_passthrough_instead_of_pdf=use_as_passthrough_instead_of_pdf,
             skip_mlp_initialization=skip_mlp_initialization, verbose=verbose)
         self.device = resolve_device(device)
         self.pdf_defs_list = pdf_defs.split("+")
@@ -171,6 +174,12 @@ class PDF:
             raise NotImplementedError(f"per-sub-pdf conditional inputs {_TODO}")
         self.conditional_input_dim = conditional_input_dim
         self.amortization_mlp_highway_mode = amortization_mlp_highway_mode
+        # accepted with no effect, as in the JAX PDF: only the fully
+        # amortized model reads it
+        self.amortization_mlp_use_custom_mode = amortization_mlp_use_custom_mode
+        self.amortize_everything = amortize_everything
+        self.use_as_passthrough_instead_of_pdf = \
+            use_as_passthrough_instead_of_pdf
         n_sub = len(self.pdf_defs_list)
         self.amortization_mlp_dims = [amortization_mlp_dims] * n_sub \
             if isinstance(amortization_mlp_dims, str) \
@@ -193,8 +202,11 @@ class PDF:
         """Instantiate the layers with the auto-injected options: the last
         Euclidean layer gets an offset, the first `g` layer of a stack swaps
         isigmoid for inormal_partly_precise, the first spherical layer
-        projects from the plane and the first interval layer from the real
-        line, every interval layer taking the sub-manifold's bounds."""
+        projects from the plane, the first interval layer from the real line
+        and the first simplex layer from the Gaussian (none of the three
+        in a passthrough pdf), every interval layer taking the
+        sub-manifold's bounds."""
+        first = int(not self.use_as_passthrough_instead_of_pdf)
         self.layer_list = []
         self.num_parameter_list = []
         for sub_idx, sub_def in enumerate(self.pdf_defs_list):
@@ -207,11 +219,17 @@ class PDF:
                                      f"{sub_def}")
                 kwargs = dict(self.flow_opts[sub_idx][layer_ind])
                 if mtype == "s":
-                    kwargs["euclidean_to_sphere_as_first"] = int(layer_ind == 0)
+                    kwargs["euclidean_to_sphere_as_first"] = int(
+                        layer_ind == 0) * first
                 elif mtype == "i":
                     kwargs["low_boundary"], kwargs["high_boundary"] = bounds
                     kwargs["euclidean_to_interval_as_first"] = int(
-                        layer_ind == 0)
+                        layer_ind == 0) * first
+                elif mtype == "a":
+                    kwargs["project_from_gauss_to_simplex"] = int(
+                        layer_ind == 0) * first
+                    if sym == "w":    # its inner pdf runs on this pdf's device
+                        kwargs["device"] = self.device
                 elif mtype == "e" and sym != "x":
                     if layer_ind == len(flow_str) - 1 and \
                             kwargs.get("skip_model_offset", 0) == 0:
@@ -245,8 +263,12 @@ class PDF:
 
     def _build_mlps(self):
         """Per-sub-pdf amortization MLPs: sub-pdf k reads [conditional
-        input, embeddings of sub-pdfs < k]."""
+        input, embeddings of sub-pdfs < k].  With ``amortize_everything``,
+        total_number_amortizable_params counts the slab: sub-pdf 0's layer
+        parameters when it has no MLP, then every MLP's flat weights."""
         self.mlp_predictors = []
+        self.total_number_amortizable_params = \
+            0 if self.amortize_everything else None
         prev_extra_input_num = 0
         for k in range(len(self.pdf_defs_list)):
             tot_pars = sum(self.num_parameter_list[k])
@@ -254,6 +276,8 @@ class PDF:
             if (k == 0 and self.conditional_input_dim is None) or tot_pars == 0:
                 self.mlp_predictors.append(None)
                 prev_extra_input_num += emb_dim_k
+                if k == 0 and self.amortize_everything:
+                    self.total_number_amortizable_params += tot_pars
                 continue
             summary_dim = prev_extra_input_num + (self.conditional_input_dim
                                                   or 0)
@@ -261,6 +285,9 @@ class PDF:
                 summary_dim, list_from_str(self.amortization_mlp_dims[k]),
                 tot_pars, low_rank_approximations=self.amortization_mlp_ranks[k],
                 highway_mode=self.amortization_mlp_highway_mode))
+            if self.amortize_everything:
+                self.total_number_amortizable_params += \
+                    self.mlp_predictors[k].num_params
             prev_extra_input_num += emb_dim_k
 
     # ------------------------------------------------------------------
@@ -270,13 +297,16 @@ class PDF:
         """Parameter dict: layer init vectors for permanent parameters; each
         MLP gets kaiming init, its final bias pinned to the layers' init
         vector and everything upstream damped by 1000.  Same numpy RNG
-        sequence as the JAX package, so the values are equal."""
+        sequence as the JAX package, so the values are equal.  Empty with
+        ``amortize_everything`` (see default_amortization_params)."""
         refuse_unported(_PDF_OPTIONS, data=data)
         rng = np.random.default_rng(seed)
         desired = [np.concatenate([l.default_params(rng) for l in layers])
                    if sum(self.num_parameter_list[k]) > 0 else np.zeros(0)
                    for k, layers in enumerate(self.layer_list)]
         params = {}
+        if self.amortize_everything:
+            return params
         for k in range(len(self.layer_list)):
             if self.mlp_predictors[k] is not None:
                 vec = self.mlp_predictors[k].default_init(
@@ -288,12 +318,60 @@ class PDF:
         return {key: torch.as_tensor(v, dtype=dtype, device=self.device)
                 for key, v in params.items()}
 
+    def default_amortization_params(self, rng=None):
+        """The init vector (numpy float64) of an ``amortize_everything``
+        pdf's whole slab: sub-pdf 0's layer init vector when it has no MLP,
+        each MLP's init with its final bias pinned to its layers' vector and
+        everything upstream damped by 1000 (``pdf.py:370-399`` of the JAX
+        package, without its data-driven init)."""
+        if not self.amortize_everything:
+            raise ValueError("default_amortization_params needs "
+                             "amortize_everything=True")
+        rng = rng or np.random.default_rng(0)
+        parts = []
+        for k, layers in enumerate(self.layer_list):
+            desired = [l.default_params(rng) for l in layers]
+            desired = np.concatenate(desired) if desired else np.zeros(0)
+            mlp = self.mlp_predictors[k]
+            parts.append(desired if mlp is None else mlp.default_init(
+                rng, fix_final_bias=desired, prev_damping_factor=1000.0))
+        vec = np.concatenate(parts) if parts else np.zeros(0)
+        if len(vec) != self.total_number_amortizable_params:
+            raise ValueError((len(vec), self.total_number_amortizable_params))
+        return vec
+
     # ------------------------------------------------------------------
     # conditioning / parameter prediction
     # ------------------------------------------------------------------
+    def _amortization_parts(self, amortization_parameters):
+        """Each sub-pdf's columns of the amortization slab (Bp, >= the
+        widths), or None: an MLP's flat weights, or sub-pdf 0's layer
+        parameters in an ``amortize_everything`` pdf; one ``torch.split``,
+        whose backward is one concatenation (a slice each would make a
+        slab-sized gradient each)."""
+        n_sub = len(self.layer_list)
+        if amortization_parameters is None:
+            if self.amortize_everything:
+                raise ValueError("an amortize_everything pdf takes its "
+                                 "parameters as amortization_parameters")
+            return [None] * n_sub
+        slab = self._input(amortization_parameters, "amortization_parameters")
+        widths = [mlp.num_params if mlp is not None
+                  else sum(self.num_parameter_list[0])
+                  if k == 0 and self.amortize_everything else 0
+                  for k, mlp in enumerate(self.mlp_predictors)]
+        if slab.ndim != 2 or slab.shape[1] < sum(widths):
+            raise ValueError(f"amortization slab of shape {tuple(slab.shape)}"
+                             f", the pdf reads {sum(widths)} columns")
+        parts = torch.split(slab, widths + [slab.shape[1] - sum(widths)],
+                            dim=1)
+        return [p if w else None for p, w in zip(parts, widths)]
+
     def _predict_extra_params(self, params, k, data_summary_parts,
-                              conditional_input):
-        """Sub-pdf k's parameters: a (1, P) permanent slab; in float32,
+                              conditional_input, amort=None):
+        """Sub-pdf k's parameters: its columns ``amort`` of the amortization
+        slab (a sub-pdf without an MLP), or its MLP applied to them; a (1,
+        P) permanent slab; in float32,
         LazyParams when the MLP splits at its final matrix: the fused MLP's
         summary and first layer for a block the fused mode takes (a
         one-hidden-layer tanh MLP, a summary at most 128 wide, H at most
@@ -305,12 +383,14 @@ class PDF:
         if mlp is None:
             if sum(self.num_parameter_list[k]) == 0:
                 return None
-            return params["flow_0"][None, :]
+            return amort if amort is not None else params["flow_0"][None, :]
         parts = ([conditional_input] if conditional_input is not None
                  else []) + list(data_summary_parts)
         if not parts:
             raise ValueError("autoregressive conditioning input required")
         summary = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+        if amort is not None:
+            return mlp.apply(amort, summary)
         flat = params[f"mlp_{k}"]
         if summary.dtype == torch.float32 and mlp.supports_penultimate():
             w, b = mlp.final_layer_weights(flat)
@@ -360,7 +440,8 @@ class PDF:
     def _zphi_columns(self, k, extra, target, log_det, direction):
         """Run s2 sub-manifold k's stack on flat (z = cos(theta), phi)
         columns.  The sub-manifold's boundary coordinates are (theta, phi);
-        its first layer projects from or to the plane.  Slicing mirrors the
+        its first layer projects from or to the plane, or, in a passthrough
+        pdf, the stack starts from (theta, phi) too.  Slicing mirrors the
         row loops: front for forward, back-reversed for inverse."""
         layers = self.layer_list[k]
         if extra is None:
@@ -382,17 +463,27 @@ class PDF:
                 cols, log_det = layer.inverse_cols_z(slab[hi - p:hi], cols,
                                                      log_det)
                 cnt += p
+            if not layers[0].euclidean_to_sphere_as_first:
+                cols, log_det = self._z_to_theta(cols, log_det)
         else:
+            if not layers[0].euclidean_to_sphere_as_first:
+                theta = manifold.safe_angle_within_pi(cols[0])
+                log_det = log_det + torch.log(torch.sin(theta))
+                cols = (torch.cos(theta), cols[1])
             for layer in layers:
                 p = layer.num_params
                 cols, log_det = layer.forward_cols_z(slab[cnt:cnt + p], cols,
                                                      log_det)
                 cnt += p
-            theta = torch.arccos(manifold.safe_costheta(cols[0]))
-            log_det = log_det - torch.log(torch.sin(
-                manifold.safe_angle_within_pi(theta)))
-            cols = (theta, cols[1])
+            cols, log_det = self._z_to_theta(cols, log_det)
         return torch.stack(cols, dim=1), log_det
+
+    @staticmethod
+    def _z_to_theta(cols, log_det):
+        theta = torch.arccos(manifold.safe_costheta(cols[0]))
+        log_det = log_det - torch.log(torch.sin(
+            manifold.safe_angle_within_pi(theta)))
+        return (theta, cols[1]), log_det
 
     @staticmethod
     def _layer_slab(extra, lo, hi, target, layer):
@@ -441,7 +532,8 @@ class PDF:
                              f"{self.device}")
         return t
 
-    def all_layer_inverse(self, params, x, log_det, conditional_input=None):
+    def all_layer_inverse(self, params, x, log_det, conditional_input=None,
+                          amortization_parameters=None):
         """Autoregressive target -> base mapping."""
         x = self._input(x, "x")
         if x.shape[1] != self.total_target_dim:
@@ -449,11 +541,12 @@ class PDF:
         if conditional_input is not None:
             conditional_input = self._input(conditional_input,
                                             "conditional_input")
+        amort = self._amortization_parts(amortization_parameters)
         summaries = []
         base_targets = []
         for k, layers in enumerate(self.layer_list):
             extra = self._predict_extra_params(params, k, summaries,
-                                               conditional_input)
+                                               conditional_input, amort[k])
             lo, hi = self.target_dim_indices[k]
             out, log_det = self._apply_stack(k, extra, x[:, lo:hi], log_det,
                                              "density")
@@ -462,17 +555,19 @@ class PDF:
                 x[:, lo:hi]))
         return torch.cat(base_targets, dim=1), log_det
 
-    def all_layer_forward(self, params, z, log_det, conditional_input=None):
+    def all_layer_forward(self, params, z, log_det, conditional_input=None,
+                          amortization_parameters=None):
         """Autoregressive base -> target mapping."""
         z = self._input(z, "z")
         if conditional_input is not None:
             conditional_input = self._input(conditional_input,
                                             "conditional_input")
+        amort = self._amortization_parts(amortization_parameters)
         summaries = []
         new_targets = []
         for k, layers in enumerate(self.layer_list):
             extra = self._predict_extra_params(params, k, summaries,
-                                               conditional_input)
+                                               conditional_input, amort[k])
             lo, hi = self.base_dim_indices[k]
             out, log_det = self._apply_stack(k, extra, z[:, lo:hi], log_det,
                                              "sample")
@@ -487,15 +582,20 @@ class PDF:
                  amortization_parameters=None,
                  force_embedding_coordinates=False,
                  force_intrinsic_coordinates=False):
-        """log p(x [| c]).  Returns (log_pdf, log_pdf_base, base_pos)."""
+        """log p(x [| c]).  Returns (log_pdf, log_pdf_base, base_pos).  A
+        passthrough pdf has no density of its own (ValueError)."""
         refuse_unported(
-            _PDF_OPTIONS, amortization_parameters=amortization_parameters,
+            _PDF_OPTIONS,
             force_embedding_coordinates=force_embedding_coordinates,
             force_intrinsic_coordinates=force_intrinsic_coordinates)
+        if self.use_as_passthrough_instead_of_pdf:
+            raise ValueError("a passthrough pdf (use_as_passthrough_instead_"
+                             "of_pdf) has no log_prob: call all_layer_inverse")
         x = self._input(x, "x")
         log_det = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
-        base_pos, log_det = self.all_layer_inverse(params, x, log_det,
-                                                   conditional_input)
+        base_pos, log_det = self.all_layer_inverse(
+            params, x, log_det, conditional_input,
+            amortization_parameters=amortization_parameters)
         log_base = std_normal_log_prob(base_pos)
         return log_base + log_det, log_base, base_pos
 
@@ -525,7 +625,13 @@ class PDF:
         forward and backward together); any other sub-pdf (a block in the
         lazy mode: the block forward and backward kernels; the s2 `f` layer)
         takes autograd of its own NLL term; float64 takes autograd of the
-        whole objective."""
+        whole objective.  A passthrough or ``amortize_everything`` pdf has
+        no objective of its own here (ValueError; the JAX package's fails
+        its assertion)."""
+        if self.use_as_passthrough_instead_of_pdf or self.amortize_everything:
+            raise ValueError("nll_value_and_grad needs a pdf with its own "
+                             "parameters (not a passthrough or "
+                             "amortize_everything pdf)")
         x = self._input(x, "x")
         if conditional_input is not None:
             conditional_input = self._input(conditional_input,
@@ -592,9 +698,11 @@ class PDF:
                failsafe_crosscheck_tolerance=None, failsafe_rounds=3):
         """Ancestral sampling.  Returns (x, base_pos, log_pdf, log_pdf_base).
         Base draws come from ``generator`` (a torch.Generator on the pdf's
-        device); with a conditional input the batch size is its row count."""
+        device); with a conditional input the batch size is its row count.
+        The dtype is the conditional input's, else ``dtype``, else the
+        parameters' (or the amortization slab's)."""
         refuse_unported(
-            _PDF_OPTIONS, amortization_parameters=amortization_parameters,
+            _PDF_OPTIONS,
             force_embedding_coordinates=force_embedding_coordinates,
             force_intrinsic_coordinates=force_intrinsic_coordinates,
             failsafe_crosscheck_tolerance=failsafe_crosscheck_tolerance,
@@ -606,13 +714,16 @@ class PDF:
             dtype = conditional_input.dtype
         else:
             n = samplesize
-            dtype = dtype or next(iter(params.values())).dtype
+            if dtype is None:
+                dtype = next(iter(params.values()),
+                             amortization_parameters).dtype
         z = torch.randn((n, self.total_base_dim), generator=generator,
                         dtype=dtype, device=self.device)
         log_base = std_normal_log_prob(z)
         log_det = torch.zeros(n, dtype=dtype, device=self.device)
-        x, log_det = self.all_layer_forward(params, z, log_det,
-                                            conditional_input)
+        x, log_det = self.all_layer_forward(
+            params, z, log_det, conditional_input,
+            amortization_parameters=amortization_parameters)
         return x, z, log_base - log_det, log_base
 
 

@@ -1,11 +1,12 @@
-"""Circle, S2 and interval coordinate conversions with exact
+"""Circle, S2, interval and simplex coordinate conversions with exact
 log-determinants.
 
-PyTorch counterpart of the S1, S2 and interval parts of
-``jammy_flows_tpu/ops/manifold.py``: the angle clamps; the circle's and the
-interval's Gaussian-CDF projections from the real line, on (B, 1) rows; the
-embedding; and the (z, phi) column converters used by the s2 layers' column
-path, on tuples of flat (B,) columns.  The log-det accumulator is (B,).
+PyTorch counterpart of ``jammy_flows_tpu/ops/manifold.py``: the angle
+clamps; the circle's and the interval's Gaussian-CDF projections from the
+real line, on (B, 1) rows; the embedding; the simplex chain (Gaussian ->
+box -> skewed box -> base simplex -> canonical simplex, on (B, d) rows);
+and the (z, phi) column converters used by the s2 layers' column path, on
+tuples of flat (B,) columns.  The log-det accumulator is (B,).
 """
 from __future__ import annotations
 
@@ -59,10 +60,21 @@ def circle_to_plane(x, log_det):
     return torch.where(negative, -r, r), log_det
 
 
+def _inside_unit(u):
+    """u kept eps/2 inside (0, 1), both ways through the Gaussian CDF.  In
+    float32 the CDF rounds to 0 or 1 beyond |x| ~ 5.4, and a coordinate
+    within an ulp of a face (a simplex row whose remainder 1 - sum(x) is
+    below x's resolution) comes back as 0 or 1, where erfinv gives +-inf
+    and log_prob a NaN; the JAX package's float32 erf stops short of +-1 by
+    an argument clamp, but not its erfinv (ROADMAP.md, Queue 3)."""
+    half = torch.finfo(u.dtype).eps / 2
+    return torch.clamp(u, half, 1.0 - half)
+
+
 def real_line_to_interval(x, log_det, low, high):
     """R -> [low, high] through the Gaussian CDF: x (B, 1)."""
     width = high - low
-    res = 0.5 + 0.5 * torch.erf(x / SQRT2)
+    res = _inside_unit(0.5 + 0.5 * torch.erf(x / SQRT2))
     log_det = log_det - 0.5 * x[:, 0]**2 - LOG_SQRT_2PI + math.log(width)
     return res * width + low, log_det
 
@@ -70,10 +82,106 @@ def real_line_to_interval(x, log_det, low, high):
 def interval_to_real_line(x, log_det, low, high):
     """[low, high] -> R, the inverse of real_line_to_interval."""
     width = high - low
-    u = (x - low) / width
+    u = _inside_unit((x - low) / width)
     res = torch.special.erfinv(2.0 * u - 1.0) * SQRT2
     log_det = log_det + 0.5 * res[:, 0]**2 + LOG_SQRT_2PI - math.log(width)
     return res, log_det
+
+
+def _tiny(x):
+    return torch.finfo(x.dtype).tiny
+
+
+def gauss_to_box(x, log_det):
+    """R^d -> (0, 1)^d through the Gaussian CDF."""
+    log_det = log_det + torch.sum(-0.5 * x**2 - LOG_SQRT_2PI, dim=-1)
+    return _inside_unit(0.5 * (1.0 + torch.erf(x / SQRT2))), log_det
+
+
+def box_to_gauss(x, log_det):
+    res = SQRT2 * torch.special.erfinv(2.0 * _inside_unit(x) - 1.0)
+    log_det = log_det - torch.sum(-0.5 * res**2 - LOG_SQRT_2PI, dim=-1)
+    return res, log_det
+
+
+def box_to_skewed_box(x, log_det):
+    """Skew the box so that the induced simplex density is flat: every
+    dimension but the last takes u -> 1 - (1 - u)^(1/2).  The log-det is the
+    exact Jacobian, sum(-log 2 - log(1 - u_new)), as in the JAX package
+    (whose note says why it departs from the torch reference's forward
+    factor)."""
+    if x.shape[1] > 1:
+        head = 1.0 - torch.sqrt(1.0 - x[:, :-1])
+        log_det = log_det + torch.sum(
+            -torch.log(torch.clamp(1.0 - head, min=_tiny(x))), dim=-1) \
+            - math.log(2.0) * (x.shape[1] - 1)
+        x = torch.cat([head, x[:, -1:]], dim=1)
+    return x, log_det
+
+
+def skewed_box_to_box(x, log_det):
+    if x.shape[1] > 1:
+        log_det = log_det + torch.sum(
+            torch.log(torch.clamp(1.0 - x[:, :-1], min=_tiny(x))), dim=-1) \
+            + math.log(2.0) * (x.shape[1] - 1)
+        head = 1.0 - (1.0 - x[:, :-1])**2
+        x = torch.cat([head, x[:, -1:]], dim=1)
+    return x, log_det
+
+
+def box_to_base_simplex(x, log_det):
+    """Box -> axis-aligned base simplex: res[i] = x[i] prod_{j<i}(1 - x[j]),
+    log_det += sum_i sum_{j<i} log(1 - x[j])."""
+    d = x.shape[1]
+    one_minus = 1.0 - x
+    cum = torch.cumprod(one_minus, dim=1)
+    excl = torch.cat([torch.ones_like(cum[:, :1]), cum[:, :-1]], dim=1)
+    if d > 1:
+        # dimension j < d - 1 is counted d - 1 - j times
+        weights = torch.arange(d - 1, 0, -1, dtype=x.dtype, device=x.device)
+        log_det = log_det + torch.sum(weights * torch.log(torch.clamp(
+            one_minus[:, :-1], min=_tiny(x))), dim=-1)
+    return x * excl, log_det
+
+
+def base_simplex_to_box(x, log_det):
+    d = x.shape[1]
+    cums = torch.cumsum(x, dim=1)
+    excl = torch.cat([torch.zeros_like(cums[:, :1]), cums[:, :-1]], dim=1)
+    denom = torch.clamp(1.0 - excl, min=_tiny(x))
+    if d > 1:
+        log_det = log_det - torch.sum(torch.log(denom[:, 1:]), dim=-1)
+    return x / denom, log_det
+
+
+def simplex_projection_matrices(dim, dtype=torch.float64, device=None):
+    """(M (dim, dim + 1), M_reverse (dim + 1, dim)) projecting the base
+    simplex to the canonical simplex and back."""
+    m = torch.zeros((dim, dim + 1), dtype=dtype, device=device)
+    m[:, 0] = -1.0
+    m[:, 1:] = torch.eye(dim, dtype=dtype, device=device)
+    m_rev = torch.full((dim + 1, dim), -1.0, dtype=dtype, device=device)
+    idx = torch.arange(dim, device=device)
+    m_rev[1 + idx, idx] = float(dim)
+    return m, m_rev / (1.0 + dim)
+
+
+def _onehot0(n, x):
+    return torch.nn.functional.one_hot(
+        torch.zeros((), dtype=torch.long, device=x.device), n).to(x.dtype)
+
+
+def base_simplex_to_canonical(x, log_det):
+    dim = x.shape[1]
+    m, _ = simplex_projection_matrices(dim, x.dtype, x.device)
+    return _onehot0(dim + 1, x) + x @ m, log_det + 0.5 * math.log(dim + 1)
+
+
+def canonical_simplex_to_base(x, log_det):
+    dim = x.shape[1] - 1
+    _, m_rev = simplex_projection_matrices(dim, x.dtype, x.device)
+    return (x - _onehot0(dim + 1, x)) @ m_rev, \
+        log_det - 0.5 * math.log(dim + 1)
 
 
 def spherical_to_eucl(x):

@@ -4,8 +4,9 @@ PyTorch counterpart of ``jammy_flows_tpu/registry.py``: the same option
 tables, defaults and validators (tests/test_torch_registry.py holds the two
 equal).  Layer classes are imported lazily.  Every Euclidean symbol (`g`,
 `h`, `t`, `x`), the circle symbols (`m`, `o`, `y`), the interval ones (`r`,
-`z`) and the s2 `f` layer are ported; the other symbols (simplex, `v` and
-`c`) raise ``NotImplementedError`` naming the ROADMAP item.
+`z`), the simplex ones (`u`, `w`) and the s2 `f` layer are ported; the
+other symbols (`v` and `c`) raise ``NotImplementedError`` naming the
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -172,7 +173,8 @@ OPTS = {
 # layer classes the port has; everything else is ROADMAP Queue 1 item 4
 _PORTED = {"GaussianizationFlow", "MultivariateNormal", "EuclideanIdentity",
             "FisherVonMises2D", "Moebius", "CircularRQSpline",
-            "SphericalIdentity", "RQSplineInterval", "IntervalIdentity"}
+            "SphericalIdentity", "RQSplineInterval", "IntervalIdentity",
+            "GumbelSoftmax", "InnerLoopSimplex"}
 
 
 def obtain_default_options(flow_abbreviation):

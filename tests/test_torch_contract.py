@@ -5,7 +5,8 @@
   tuple key whose layer index is out of range builds in both;
 * every keyword of the JAX signatures of ``PDF``, ``init_params``,
   ``log_prob``, ``sample`` and ``train.fit`` is taken: its JAX default runs,
-  any other value raises ``NotImplementedError`` naming the ROADMAP item."""
+  any other value raises ``NotImplementedError`` naming the ROADMAP item,
+  but for the ported ones (the amortization keywords), which run."""
 import re
 
 import numpy as np
@@ -44,19 +45,22 @@ NON_DEFAULT = {
     "join_poisson_and_pdf_description": ("PDF", True),
     "hidden_mlp_dims_poisson": ("PDF", "64"),
     "rank_of_mlp_mappings_poisson": ("PDF", 2),
-    "amortization_mlp_use_custom_mode": ("PDF", True),
-    "amortize_everything": ("PDF", True),
-    "use_as_passthrough_instead_of_pdf": ("PDF", True),
     "skip_mlp_initialization": ("PDF", True),
     "verbose": ("PDF", True),
     "data": ("init_params", np.zeros((4, 2))),
-    "amortization_parameters": ("log_prob", torch.zeros(4, 3)),
     "force_embedding_coordinates": ("log_prob", True),
     "force_intrinsic_coordinates": ("sample", True),
     "failsafe_crosscheck_tolerance": ("sample", 1e-3),
     "failsafe_rounds": ("sample", 5),
     "optimizer": ("fit", "adam"),
     "checkpoint_every": ("fit", 10),
+}
+# the ported keywords: (entry point, a value other than the JAX default)
+PORTED = {
+    "amortization_mlp_use_custom_mode": ("PDF", True),
+    "amortize_everything": ("PDF", True),
+    "use_as_passthrough_instead_of_pdf": ("PDF", True),
+    "amortization_parameters": ("log_prob", torch.zeros(4, 3)),
 }
 ITEM = {"PDF": "item 4(f)", "init_params": "item 4(f)",
         "log_prob": "item 4(f)", "sample": "item 4(f)", "fit": "item 6"}
@@ -80,6 +84,7 @@ def _call(entry, **kw):
 
 def test_every_keyword_is_listed():
     assert set(NON_DEFAULT) == set(UNPORTED_DEFAULTS)
+    assert not set(PORTED) & set(UNPORTED_DEFAULTS)
 
 
 @pytest.mark.parametrize("name", sorted(NON_DEFAULT))
@@ -91,3 +96,25 @@ def test_unported_keyword(name):
     assert name in str(err.value)
     out = _call(entry, **{name: UNPORTED_DEFAULTS[name]})
     assert out is not None
+
+
+@pytest.mark.parametrize("name", sorted(PORTED))
+def test_ported_keyword(name):
+    """The value runs: custom mode builds the same model (no effect outside
+    the fully amortized pdf), an amortize_everything pdf keeps no
+    parameters of its own, a passthrough pdf has no log_prob, and an
+    amortization slab that no sub-pdf reads (an unconditional pdf's) leaves
+    log_prob as it is."""
+    entry, value = PORTED[name]
+    out = _call(entry, **{name: value})
+    if name == "amortization_mlp_use_custom_mode":
+        assert out.num_parameter_list == _call("PDF").num_parameter_list
+    elif name == "amortize_everything":
+        assert out.init_params(seed=0) == {}
+        assert out.total_number_amortizable_params == \
+            sum(out.num_parameter_list[0])
+    elif name == "use_as_passthrough_instead_of_pdf":
+        with pytest.raises(ValueError):
+            out.log_prob({}, torch.zeros((4, 2)))
+    else:
+        torch.testing.assert_close(out, _call(entry), rtol=0, atol=0)

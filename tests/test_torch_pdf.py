@@ -9,8 +9,10 @@
   parity_e2_gg_skew and the Euclidean ones (the pade iCDF, `h`, a
   conditional pdf, the rq_splines stretch, angles, `t` full / diagonal,
   `x` with an offset), the circle ones (`m`, `o` smooth and not, `y`, and
-  `o` amortized from an e2 block) and the interval ones (`r`, `z`), each at
-  its stored tolerance.
+  `o` amortized from an e2 block), the interval ones (`r`, `z`), the simplex
+  ones (`u`, `w`, conditional and not), the fully amortized `e2+s1` model
+  and the custom-mode MLPs (full, highway mode 1, low rank), each at its
+  stored tolerance.
 
 Inputs are made with numpy from a seed and handed to both packages."""
 import json
@@ -24,7 +26,7 @@ import torch
 
 import jammy_flows_tpu.ops.pallas_gf as pg
 from jammy_flows_tpu import pdf as jpdf
-from jammy_flows_tpu_torch import pdf as tpdf
+from jammy_flows_tpu_torch import fully_amortized_pdf as tfa, pdf as tpdf
 from jammy_flows_tpu_torch.ops.special import std_normal_log_prob
 from jammy_flows_tpu_torch.utils.convert import params_from_jax
 
@@ -164,14 +166,21 @@ def test_f32_wide_summary_takes_the_block_op(interpret_mode, monkeypatch,
                                   "e2_g_rqsplines", "e3_gg_angles",
                                   "e10_t_full", "e4_t_diag", "e2_x_offset",
                                   "s1_m", "s1_o", "s1_o_nonsmooth", "s1_y",
-                                  "joint_e2s1", "i1_r", "i1_z"])
+                                  "joint_e2s1", "i1_r", "i1_z", "a1_u",
+                                  "a1_w", "a2_u", "a2_w_cond", "a3_w",
+                                  "fa_e2s1", "cond_custom_full",
+                                  "cond_custom_hw1", "cond_custom_lowrank"])
 def test_frozen_reference_fixture(name):
     with np.load(FIXTURES / f"parity_{name}.npz", allow_pickle=False) as f:
         data = {k: f[k] for k in f.files}
     cond = int(data["cond_dim"])
-    p = tpdf(str(data["defs"]), str(data["flows"]),
+    kwargs = json.loads(str(data["pdf_kwargs_json"])) \
+        if "pdf_kwargs_json" in data else {}
+    ctor = tfa if bool(data.get("fully_amortized", False)) else tpdf
+    p = ctor(str(data["defs"]), str(data["flows"]),
              options_overwrite=json.loads(str(data["opts_json"])),
-             conditional_input_dim=None if cond < 0 else cond, device="cpu")
+             conditional_input_dim=None if cond < 0 else cond, device="cpu",
+             **kwargs)
     params = {k[len("param_"):]: torch.as_tensor(v) for k, v in data.items()
               if k.startswith("param_")}
     assert sorted(params) == sorted(p.init_params(seed=0))
@@ -214,14 +223,14 @@ def test_f32_sample_roundtrip_on_cpu(cond):
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
-        tpdf("e2+a2", "gg+u", device="cpu")
+        tpdf("s2", "c", device="cpu")
     with pytest.raises(NotImplementedError):
         tpdf("s2", "f", options_overwrite={
             "f": {"add_vertical_rq_spline_flow": 1}}, device="cpu")
     with pytest.raises(NotImplementedError):
         tpdf("s2", "v", device="cpu")
     with pytest.raises(NotImplementedError):
-        tpdf("e2", "gg", amortization_mlp_highway_mode=1,
+        tpdf("e2", "gg", predict_log_normalization=True,
              conditional_input_dim=2, device="cpu")
 
 

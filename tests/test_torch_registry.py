@@ -47,8 +47,9 @@ def test_unported_layers_raise_not_implemented():
     assert treg.get_layer_class("x").__name__ == "EuclideanIdentity"
     for sym, cls in (("m", "Moebius"), ("o", "CircularRQSpline"),
                      ("y", "SphericalIdentity"), ("r", "RQSplineInterval"),
-                     ("z", "IntervalIdentity")):
+                     ("z", "IntervalIdentity"), ("u", "GumbelSoftmax"),
+                     ("w", "InnerLoopSimplex")):
         assert treg.get_layer_class(sym).__name__ == cls
-    for sym in ("v", "c", "u", "w"):
+    for sym in ("v", "c"):
         with pytest.raises(NotImplementedError):
             treg.get_layer_class(sym)
