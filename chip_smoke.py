@@ -51,6 +51,18 @@ in parallel), then drives the flagship ``pdf("e4+s2+e4", "gggg+f+gggg")``:
   per-layer call against its plain version, log_prob (and the gradients)
   against the port's f64 CPU path, sample and log_prob timed and censused,
   each model's peak device memory;
+* the s2 options of `f` and the exponential map `v`, at full width: the
+  production S2 recipe ``pdf("s2", "f" * 15)`` with nested smooth vertical
+  and circular splines (PRODUCTION_F, unconditional), the conditional
+  flagship with that `f` (its gggg blocks through T1 / T2 / T3 lazy2), and
+  the `v` fixtures' models (exponential and splines potentials with
+  conditional_input_dim=2, the exponential one solved in the density
+  direction unconditionally): serving at 262,144 rows with exact launch
+  counts, every block call against its plain version, log_prob against
+  the port's f64 CPU path, sample and log_prob timed and censused, peak
+  device memory, each sphere-Newton solve's iterations and unconverged
+  rows; the production models and the conditional exponential `v` model
+  trained as the flagship;
 * the block's lazy mode (precomputed hidden activations, T1 / T2), on the
   flagship with two-hidden-layer ``amortization_mlp_dims="64-64"`` MLPs,
   unconditional and conditional, serving and training as the flagship;
@@ -297,6 +309,48 @@ EXPECTED_TRAIN_LAUNCHES.update({
 # CPU; PERF.md). Its roundtrip and log_prob are held against the port's
 # float32 CPU path on the same inputs, the float64 distance printed
 F32_HELD = ("a2 u unconditional",)
+# the sphere phase (the s2 options of `f` and the exponential map `v`):
+# the production S2 recipe (docs/suggested_settings.md, tools/
+# bench_production.py PRODUCTION_F), the conditional flagship with it, and
+# the `v` fixtures' models at their default 10 components: (label,
+# definitions, flows, options, conditional input dim, trained), each at the
+# default 128-wide MLPs, served at N_COND rows
+PRODUCTION_F = {"f": {
+    "add_vertical_rq_spline_flow": 1,
+    "add_circular_rq_spline_flow": 1,
+    "spline_num_basis_functions": -1,
+    "vertical_smooth": 1,
+    "vertical_flow_defs": "rr",
+    "circular_flow_defs": "oo",
+    "vertical_fix_boundary_derivative": 1,
+    "vertical_fix_first_width_n_height_to_zero": 1,
+    "vertical_also_fix_second_width_to_zero": 1,
+    "vertical_independent_width_height_parametrization": 1,
+    "circular_add_rotation": 0,
+    "kappa_prediction": "direct_log_real_bounded",
+    "rotation_mode": "householder",
+}}
+SPHERE_MODELS = (
+    ("production s2", "s2", "f" * 15, PRODUCTION_F, None, True),
+    ("flagship production f", *FLAGSHIP, PRODUCTION_F, 3, True),
+    ("v exponential conditional", "s2", "v",
+     {"v": {"exp_map_type": "exponential"}}, 2, True),
+    ("v splines conditional", "s2", "v", {"v": {"exp_map_type": "splines"}},
+     2, False),
+    ("v exponential sample-natural", "s2", "v",
+     {"v": {"exp_map_type": "exponential", "natural_direction": 1}}, None,
+     False))
+# the `f` and `v` layers launch nothing (no kernel in either package); the
+# flagship with the production `f` launches what the conditional flagship
+# does (its two gggg blocks in lazy2)
+EXPECTED_LAUNCHES.update({label: {} for label, *_ in SPHERE_MODELS})
+EXPECTED_LAUNCHES["flagship production f"] = EXPECTED_LAUNCHES["conditional"]
+EXPECTED_TRAIN_LAUNCHES.update({
+    "production s2": {"nll": {}, "log_prob_grad": {}, "sample_grad": {},
+                      "fit": {}},
+    "flagship production f": EXPECTED_TRAIN_LAUNCHES["conditional"],
+    "v exponential conditional": {"nll": {}, "log_prob_grad": {},
+                                  "sample_grad": {}, "fit": {}}})
 # the per-row raw instances it runs, timed on its first recorded calls
 PER_ROW_RAW = ("forward_raw", "sample_raw", "forward_bwd_raw")
 # the per-layer entry points and T7 bodies that run on the plain mixture
@@ -1101,15 +1155,17 @@ def rel_norm(a, b):
 
 
 def card_vs_f64_grads(label, p, params, xs, zs, cis, opts, sample_f32=False,
-                      f32_reading=False):
+                      f32_reading=False, nll_f32=False):
     """The card's f32 gradients of the NLL and of the sample objective on
     N_CROSS rows against the port's f64 CPU path, as relative norms.  With
     ``sample_f32`` the sample objective's gradient is held against the
     port's f32 CPU path instead, and its distance to f64 only printed (the
     centred models: there the JAX package's own f32 path lies up to 1.0e-3
-    from its f64 path, PERF.md).  With ``f32_reading`` the f64 limit holds
-    and the card's and the f32 CPU path's distances to each other and to
-    f64 are printed beside it: they tell an f32 algorithm's own distance
+    from its f64 path, PERF.md); with ``nll_f32`` the NLL gradient likewise
+    (the production `f` stack: the JAX package's f32 NLL gradient lies
+    4.8e-3 from its f64 one, PERF.md).  With ``f32_reading`` the f64 limit
+    holds and the card's and the f32 CPU path's distances to each other and
+    to f64 are printed beside it: they tell an f32 algorithm's own distance
     from one the card adds."""
     from jammy_flows_tpu_torch.utils.convert import params_from_jax
     p_cpu = cpu_twin(p, opts)
@@ -1123,10 +1179,15 @@ def card_vs_f64_grads(label, p, params, xs, zs, cis, opts, sample_f32=False,
     _, gs_cpu = p_cpu._value_and_grad(
         lambda pp: sample_objective(p_cpu, pp, zs.double().cpu(), cis64),
         par64)
-    checks = [("card f32", "NLL", "f64", gn_card, gn_cpu, True),
+    checks = [("card f32", "NLL", "f64", gn_card, gn_cpu, not nll_f32),
               ("card f32", "sample", "f64", gs_card, gs_cpu, not sample_f32)]
+    par32 = {k: v.cpu() for k, v in params.items()}
+    if nll_f32:
+        _, gn_32 = p_cpu.nll_value_and_grad(par32, xs.cpu(), None if cis is None
+                                            else cis.cpu())
+        checks.append(("card f32", "NLL", "f32", gn_card, gn_32, True))
+        checks.append(("CPU f32", "NLL", "f64", gn_32, gn_cpu, False))
     if sample_f32 or f32_reading:
-        par32 = {k: v.cpu() for k, v in params.items()}
         _, gs_32 = p_cpu._value_and_grad(
             lambda pp: sample_objective(p_cpu, pp, zs.cpu(), None if cis is None
                                         else cis.cpu()), par32)
@@ -1186,10 +1247,13 @@ def ragged_layer_check(label, layer_calls):
     return errs
 
 
-def train(label, p, params, seed, opts=None, f32_reading=False):
+def train(label, p, params, seed, opts=None, f32_reading=False,
+          f32_held=False):
     """The training phase of one configuration; returns (launches per path,
     errors per kernel, recorded block calls, recorded per-layer calls, step
-    times).  ``f32_reading``: card_vs_f64_grads's."""
+    times).  ``f32_reading``: card_vs_f64_grads's; ``f32_held``: both
+    gradients held against the port's f32 CPU path (its ``nll_f32`` and
+    ``sample_f32``)."""
     from jammy_flows_tpu_torch import train as ttrain
     dev = p.device
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -1261,7 +1325,8 @@ def train(label, p, params, seed, opts=None, f32_reading=False):
     # card f32 against the port's f64 CPU path, N_CROSS rows
     card_vs_f64_grads(label, p, params, x[:N_CROSS], z[:N_CROSS],
                       None if ci is None else ci[:N_CROSS], opts,
-                      f32_reading=f32_reading)
+                      f32_reading=f32_reading, nll_f32=f32_held,
+                      sample_f32=f32_held)
 
     # train.fit: TRAIN_STEPS full-batch Adam steps from init_params(seed=0)
     # on the rows sampled from the jittered model
@@ -2456,6 +2521,80 @@ def simplex_phase(dev, card):
     return rows
 
 
+def solve_report(label, what):
+    """Log the sphere-Newton solves since the last report (ops/inverse.py
+    SPHERE_SOLVES): each call's iteration count at which its last row
+    converged, and its rows still unconverged at max_iter."""
+    from jammy_flows_tpu_torch.ops import inverse
+    if inverse.SPHERE_SOLVES:
+        log(f"{label} {what}: sphere-Newton solves (iterations, rows at "
+            f"max_iter) {list(inverse.SPHERE_SOLVES)}")
+    inverse.SPHERE_SOLVES.clear()
+
+
+def sphere_phase(dev, card):
+    """The s2 options of `f` and the `v` layer (SPHERE_MODELS), at full
+    width: each model served at N_COND rows (sample, then log_prob of the
+    samples, with exact launch counts; every block call against its plain
+    version), log_prob against the port's f64 CPU path, sample and log_prob
+    timed and censused, its peak device memory and every sphere solve's
+    iterations; the production models and the conditional exponential `v`
+    model trained as the flagship (train(): the flagship with the
+    production `f` runs T3 / T2 lazy2, held against their plain versions,
+    T3's val / ld against T1's).  Returns (launches by model and path,
+    errors per kernel)."""
+    from jammy_flows_tpu_torch import pdf
+    t_phase = time.time()
+    launches, errs = {}, {}
+    solve_report("sphere phase", "start")
+    for i, (label, defs, flows, opts, cond, trained) in enumerate(
+            SPHERE_MODELS):
+        torch.cuda.reset_peak_memory_stats()
+        p = pdf(defs, flows, options_overwrite=opts,
+                conditional_input_dim=cond, device=dev)
+        params = jittered_params(p, seed=260 + i)
+        ci = None if cond is None else torch.randn(
+            (N_COND, cond), generator=torch.Generator(device=dev).manual_seed(
+                270 + i), device=dev)
+        x, launch, calls, layer_calls = serve(label, p, params, N_COND, ci,
+                                              seed=280 + i)
+        solve_report(label, "serving (sample, log_prob)")
+        if layer_calls:
+            raise AssertionError(f"{label}: a per-layer kernel ran")
+        for k, v in check_calls(label, calls).items():
+            errs[k] = max(errs.get(k, 0.0), v)
+        del calls
+        cross_check(label, p, params, x, ci, opts)
+        solve_report(label, "log_prob cross-check")
+        launches[label] = {"serving": launch}
+        time_serving(label, p, params, x, N_COND, ci, 290 + i, card)
+        solve_report(label, "timed sample / log_prob calls")
+        peak_memory(label, f"serving {N_COND} rows")
+        del x
+        torch.cuda.empty_cache()
+        if trained:
+            # the card's gradients against the port's f32 CPU path, their
+            # f64 distance printed: the production `f` stack's f32
+            # gradients lie 4.8e-3 from f64 in both packages (3.1e-5
+            # apart, 512 rows), the `v` sample gradient goes through the
+            # f32 sphere solve, which stops ~1e-3 rad from the root in both
+            # (PERF.md)
+            l_t, e, _, _, (step_nll, step_auto) = train(
+                label, p, params, seed=300 + i, opts=opts, f32_reading=True,
+                f32_held=True)
+            solve_report(label, "training")
+            launches[label].update(l_t)
+            for k, v in e.items():
+                errs[k] = max(errs.get(k, 0.0), v)
+            log(f"{label} training step on {card}: nll_value_and_grad "
+                f"{step_nll:.3f} ms, autograd of -log_prob().mean() "
+                f"{step_auto:.3f} ms per {N_TRAIN} rows")
+            peak_memory(label, f"training at {N_TRAIN} rows")
+            torch.cuda.empty_cache()
+    log(f"sphere phase {time.time() - t_phase:.1f} s")
+    return launches, errs
+
+
 def add_phase_launches(rows, launches, errs):
     """The block rows (T1-T3) gain a phase's launches (``launches``: model
     -> path -> counts) under "<model> <path>" and its kernel-vs-plain
@@ -2898,6 +3037,7 @@ def main():
     nan_check(dev)
     add_phase_launches(rows, *circle_phase(dev, card))
     layer_rows += simplex_phase(dev, card)
+    add_phase_launches(rows, *sphere_phase(dev, card))
 
     layer_rows += layer_phase(dev, card, layer_ptxas)
     rows += lazy_phase(dev, card)

@@ -2,14 +2,18 @@
 rotation), the circle flows Moebius (`m`) and CircularRQSpline (`o`), and
 SphericalIdentity (`y`).
 
-PyTorch counterpart of ``jammy_flows_tpu/layers/sphere.py`` for layers with
-householder rotations.  S1 layers run on (B, 1) rows of angles in [0, 2 pi)
-with (Bp, P) parameter slabs (``forward`` / ``inverse``), the JAX package's
-row form; its column twins, which exist for the TPU's tile padding, are not
-ported.  S2 layers run on the (z, phi) column path: coordinates travel as
-tuples of (B,) columns and parameters as a transposed (P, Bp) slab, and
-z = cos(theta) rides between layers, so the rotations' log(sin) terms vanish
-(dA = dz dphi).  The S2 row path and (theta, phi) columns are not ported.
+PyTorch counterpart of ``jammy_flows_tpu/layers/sphere.py``.  Layers run on
+rows: S1 on (B, 1) angles in [0, 2 pi), S2 on (B, 2) (theta, phi), or on the
+embedding's (B, d + 1) unit vectors when ``always_parametrize_in_embedding_
+space`` is set, with (Bp, P) parameter slabs (``forward`` / ``inverse``).  S2
+layers that have a column form in the JAX package also run on the (z, phi)
+column carrier (``forward_cols_z`` / ``inverse_cols_z``; ``supports_zphi``):
+coordinates travel as tuples of (B,) columns and parameters as a transposed
+(P, Bp) slab, and z = cos(theta) rides between layers, so the rotations'
+log(sin) terms vanish (dA = dz dphi).  The JAX package's (theta, phi)
+columns, which exist for the TPU's tile padding, are not ported.  The
+embedding rotation is householder, givens angles, or (S2 only) xyz or
+quaternion.
 """
 from __future__ import annotations
 
@@ -27,7 +31,7 @@ from ..ops.splines import (SplineParamLayout, fixed_log_derivative,
 
 PI = math.pi
 TWO_PI = 2.0 * math.pi
-_TODO = "is not ported yet (ROADMAP.md, Queue 1: remaining layers)"
+ROTATION_MODES = ("householder", "angles", "xyz", "quaternion")
 
 
 ANGLE_MARGIN = 1e-7
@@ -48,67 +52,97 @@ class SphereLayer(FlowLayer):
         super().__init__(dimension, always_parametrize_in_embedding_space)
         if dimension not in (1, 2):
             raise ValueError(f"spherical layers are S1 or S2, not S{dimension}")
-        if always_parametrize_in_embedding_space:
-            raise NotImplementedError(
-                f"embedding-space parametrization {_TODO}")
+        if rotation_mode not in ROTATION_MODES:
+            raise ValueError(f"unknown sphere rotation mode {rotation_mode!r}")
         self.euclidean_to_sphere_as_first = int(euclidean_to_sphere_as_first)
         self.add_rotation = int(add_rotation)
         self.rotation_mode = rotation_mode
         self.num_rotation_params = 0
         self.householder_iter = 0
         if self.add_rotation:
-            if rotation_mode != "householder":
-                raise NotImplementedError(
-                    f"sphere rotation_mode={rotation_mode!r} {_TODO}")
             emb = dimension + 1
-            it = emb if num_householder_iter == -1 else num_householder_iter
-            self.householder_iter = it
-            self.num_rotation_params = it * emb
+            if rotation_mode == "angles":
+                self.num_rotation_params = emb * (emb - 1) // 2
+            elif rotation_mode in ("xyz", "quaternion"):
+                if dimension != 2:
+                    raise ValueError(f"rotation_mode={rotation_mode!r} "
+                                     "rotates S2 only")
+                self.num_rotation_params = 3 if rotation_mode == "xyz" else 4
+            else:
+                it = emb if num_householder_iter == -1 else num_householder_iter
+                self.householder_iter = it
+                self.num_rotation_params = it * emb
         self.num_params += self.num_rotation_params
 
-    # -- S1 row protocol ----------------------------------------------------
-    def _apply_embedding_rotation(self, rot, x, inverse):
-        """The householder rotation of the circle's (cos, sin) embedding;
-        measure-preserving, so no log-det term."""
+    # -- the embedding rotation ----------------------------------------------
+    def _rotation_matrix(self, rot):
+        """(Bp, d + 1, d + 1) from the (Bp, R) rotation parameters (not the
+        householder mode, which is applied reflection by reflection)."""
+        if self.rotation_mode == "angles":
+            return rotations.givens_matrix(rot, self.dimension + 1)
+        if self.rotation_mode == "xyz":
+            return rotations.xyz_matrix(rot)
+        return rotations.quaternion_matrix(rot)
+
+    def _apply_embedding_rotation(self, rot, x, log_det, inverse):
+        """Rotate rows in embedding space: a measure-preserving map, whose
+        S2 log-det terms come from the conversions to and from the angles."""
         if not self.add_rotation:
-            return x
-        vs = rot.reshape(-1, self.householder_iter, self.dimension + 1)
-        e = rotations.householder_apply(vs, manifold.spherical_to_eucl(x),
-                                        inverse=inverse)
-        return manifold.circle_eucl_to_spherical(e)
-
-    def _check_row_path(self):
-        if self.dimension != 1:
-            raise NotImplementedError(
-                f"the S2 row path {_TODO}: s2 stacks run on the (z, phi) "
-                "columns (forward_cols_z / inverse_cols_z)")
-
-    def forward(self, params, x, log_det):
-        self._check_row_path()
-        rot = params[:, :self.num_rotation_params]
-        child = params[:, self.num_rotation_params:]
-        if self.euclidean_to_sphere_as_first:
-            x, log_det = manifold.plane_to_circle(x, log_det)
-        x, log_det = self._forward(child, x, log_det)
-        return self._apply_embedding_rotation(rot, x, inverse=False), log_det
-
-    def inverse(self, params, x, log_det):
-        self._check_row_path()
-        rot = params[:, :self.num_rotation_params]
-        child = params[:, self.num_rotation_params:]
-        x = self._apply_embedding_rotation(rot, x, inverse=True)
-        x, log_det = self._inverse(child, x, log_det)
-        if self.euclidean_to_sphere_as_first:
-            x, log_det = manifold.circle_to_plane(x, log_det)
+            return x, log_det
+        emb = self.always_parametrize_in_embedding_space
+        if not emb:
+            x, log_det = manifold.spherical_to_eucl(x, log_det)
+        if self.rotation_mode == "householder":
+            vs = rot.reshape(-1, self.householder_iter, self.dimension + 1)
+            x = rotations.householder_apply(vs, x, inverse=inverse)
+        else:
+            x = rotations.apply_rotation(self._rotation_matrix(rot), x,
+                                         inverse=inverse)
+        if not emb:
+            x, log_det = manifold.eucl_to_spherical(x, log_det)
         return x, log_det
 
-    def _forward(self, child, x, log_det):
+    # -- the row protocol -----------------------------------------------------
+    def forward(self, params, x, log_det):
+        rot = params[:, :self.num_rotation_params]
+        child = params[:, self.num_rotation_params:]
+        if self.euclidean_to_sphere_as_first:
+            if self.dimension == 1:
+                x, log_det = manifold.plane_to_circle(x, log_det)
+            else:
+                x, log_det = manifold.plane_to_sphere2(x, log_det)
+            if self.always_parametrize_in_embedding_space:
+                x, log_det = manifold.spherical_to_eucl(x, log_det)
+        x, log_det = self._forward(child, x, log_det, rot)
+        return self._apply_embedding_rotation(rot, x, log_det, inverse=False)
+
+    def inverse(self, params, x, log_det):
+        rot = params[:, :self.num_rotation_params]
+        child = params[:, self.num_rotation_params:]
+        x, log_det = self._apply_embedding_rotation(rot, x, log_det,
+                                                    inverse=True)
+        x, log_det = self._inverse(child, x, log_det, rot)
+        if self.euclidean_to_sphere_as_first:
+            if self.always_parametrize_in_embedding_space:
+                x, log_det = manifold.eucl_to_spherical(x, log_det)
+            if self.dimension == 1:
+                x, log_det = manifold.circle_to_plane(x, log_det)
+            else:
+                x, log_det = manifold.sphere2_to_plane(x, log_det)
+        return x, log_det
+
+    def _forward(self, child, x, log_det, rot):
         raise NotImplementedError
 
-    def _inverse(self, child, x, log_det):
+    def _inverse(self, child, x, log_det, rot):
         raise NotImplementedError
 
-    # -- (z, phi)-carrier column protocol -----------------------------------
+    # -- (z, phi)-carrier column protocol (S2) -------------------------------
+    def supports_zphi(self):
+        """True when this layer runs on the (z, phi) carrier: an S2 layer
+        with a column form in the JAX package, not in embedding space."""
+        return False
+
     def _rot_vs_cols(self, rot_slab):
         emb = self.dimension + 1
         return [[rot_slab[i * emb + j] for j in range(emb)]
@@ -118,8 +152,12 @@ class SphereLayer(FlowLayer):
         if not self.add_rotation:
             return cols
         ecols = manifold.zphi_to_eucl_cols(cols[0], cols[1])
-        ecols = rotations.householder_apply_cols(self._rot_vs_cols(rot_slab),
-                                                 ecols, inverse=inverse)
+        if self.rotation_mode == "householder":
+            ecols = rotations.householder_apply_cols(
+                self._rot_vs_cols(rot_slab), ecols, inverse=inverse)
+        else:
+            ecols = rotations.apply_matrix_cols(
+                self._rotation_matrix(rot_slab.T), ecols, inverse=inverse)
         return manifold.eucl_to_zphi_cols(*ecols)
 
     def forward_cols_z(self, slab, cols, log_det):
@@ -129,7 +167,7 @@ class SphereLayer(FlowLayer):
             z, phi, log_det = manifold.plane_to_zsphere2_cols(cols[0], cols[1],
                                                               log_det)
             cols = (z, phi)
-        cols, log_det = self._forward_cols_z(child, cols, log_det)
+        cols, log_det = self._forward_cols_z(child, cols, log_det, rot)
         return self._apply_embedding_rotation_cols_z(rot, cols,
                                                      inverse=False), log_det
 
@@ -137,23 +175,30 @@ class SphereLayer(FlowLayer):
         rot = slab[:self.num_rotation_params]
         child = slab[self.num_rotation_params:]
         cols = self._apply_embedding_rotation_cols_z(rot, cols, inverse=True)
-        cols, log_det = self._inverse_cols_z(child, cols, log_det)
+        cols, log_det = self._inverse_cols_z(child, cols, log_det, rot)
         if self.euclidean_to_sphere_as_first:
             x0, x1, log_det = manifold.zsphere2_to_plane_cols(cols[0], cols[1],
                                                               log_det)
             cols = (x0, x1)
         return cols, log_det
 
-    def _forward_cols_z(self, child_slab, cols, log_det):
+    def _forward_cols_z(self, child_slab, cols, log_det, rot_slab):
         raise NotImplementedError
 
-    def _inverse_cols_z(self, child_slab, cols, log_det):
+    def _inverse_cols_z(self, child_slab, cols, log_det, rot_slab):
         raise NotImplementedError
 
     # -- coordinate bookkeeping ---------------------------------------------
     @property
     def embedded_dim(self):
         return self.dimension + 1
+
+    @property
+    def base_dim(self):
+        if self.always_parametrize_in_embedding_space and \
+                not self.euclidean_to_sphere_as_first:
+            return self.dimension + 1
+        return self.dimension
 
     def embedding_conditional_return(self, x):
         if x.shape[1] == self.dimension:
@@ -262,6 +307,8 @@ class Moebius(SphereLayer):
 
     def _apply(self, params, x, log_det, sampling):
         mp = params.reshape(-1, self.num_basis_functions, self.num_omega_pars)
+        if self.always_parametrize_in_embedding_space:
+            x, log_det = manifold.eucl_to_spherical(x, log_det)
         x = torch.where(x > PI, x - TWO_PI, x)
         if bool(self.natural_direction) == sampling:
             log_deriv = torch.sum(torch.log(
@@ -271,12 +318,15 @@ class Moebius(SphereLayer):
             x = self._solve(x, (mp,))
             log_deriv = -torch.sum(torch.log(
                 moebius_trafo_deriv(x, mp, self.use_xyz)), dim=-1)
-        return torch.where(x < 0.0, x + TWO_PI, x), log_det + log_deriv
+        x = torch.where(x < 0.0, x + TWO_PI, x)
+        if self.always_parametrize_in_embedding_space:
+            return manifold.spherical_to_eucl(x, log_det + log_deriv)
+        return x, log_det + log_deriv
 
-    def _forward(self, params, x, log_det):
+    def _forward(self, params, x, log_det, rot):
         return self._apply(params, x, log_det, sampling=True)
 
-    def _inverse(self, params, x, log_det):
+    def _inverse(self, params, x, log_det, rot):
         return self._apply(params, x, log_det, sampling=False)
 
 
@@ -332,6 +382,8 @@ class CircularRQSpline(SphereLayer):
                             + self.num_derivative_params)
 
     def _apply(self, params, x, log_det, sampling):
+        if self.always_parametrize_in_embedding_space:
+            x, log_det = manifold.eucl_to_spherical(x, log_det)
         x = safe_angle_within_2pi(x)
         w, h, d = self.layout.unpack(params)
         use_inverse = not sampling if self.natural_direction else sampling
@@ -353,12 +405,16 @@ class CircularRQSpline(SphereLayer):
                 x, w[:, None, :], h[:, None, :], inverse=use_inverse,
                 rel_min_bin_width=self.min_width,
                 rel_min_bin_height=self.min_height)
-        return safe_angle_within_2pi(res), log_det + torch.sum(ld, dim=-1)
+        res = safe_angle_within_2pi(res)
+        log_det = log_det + torch.sum(ld, dim=-1)
+        if self.always_parametrize_in_embedding_space:
+            return manifold.spherical_to_eucl(res, log_det)
+        return res, log_det
 
-    def _forward(self, params, x, log_det):
+    def _forward(self, params, x, log_det, rot):
         return self._apply(params, x, log_det, sampling=True)
 
-    def _inverse(self, params, x, log_det):
+    def _inverse(self, params, x, log_det, rot):
         return self._apply(params, x, log_det, sampling=False)
 
     def _default_params(self, rng):
@@ -382,16 +438,20 @@ class SphericalIdentity(SphereLayer):
         super().__init__(dimension, euclidean_to_sphere_as_first, add_rotation,
                          rotation_mode="householder", **kwargs)
 
-    def _forward(self, params, x, log_det):
+    def _forward(self, params, x, log_det, rot):
         return x, log_det
 
-    def _inverse(self, params, x, log_det):
+    def _inverse(self, params, x, log_det, rot):
         return x, log_det
 
-    def _forward_cols_z(self, child_slab, cols, log_det):
+    def supports_zphi(self):
+        return self.dimension == 2 and \
+            not self.always_parametrize_in_embedding_space
+
+    def _forward_cols_z(self, child_slab, cols, log_det, rot_slab):
         return cols, log_det
 
-    def _inverse_cols_z(self, child_slab, cols, log_det):
+    def _inverse_cols_z(self, child_slab, cols, log_det, rot_slab):
         return cols, log_det
 
     def _default_params(self, rng):

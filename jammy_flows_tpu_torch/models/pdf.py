@@ -26,7 +26,9 @@ with permanent parameters ("perm"), the fused one-hidden-layer tanh MLP
 activations of any other MLP that splits at its final matrix ("lazy"); an
 amortizing MLP whose final hidden width exceeds gf_block.MAX_KERNEL_H (1024)
 sends its block layer by layer, with materialized rows.  An s2 stack runs on
-the (z, phi) column path; other stacks run layer by layer on rows (float32
+the (z, phi) column path when every layer has that form (not the `f`
+layer's correlated flow or in-between rotation, nor a layer in embedding
+space); other stacks run layer by layer on rows (float32
 `g` layers through the per-layer kernels of ops/gf_layer.py, with the
 amortization MLP's final product in the kernel when its rows stay factored
 as LazyParams; circle, interval and simplex layers in plain PyTorch, their
@@ -221,6 +223,8 @@ class PDF:
                 if mtype == "s":
                     kwargs["euclidean_to_sphere_as_first"] = int(
                         layer_ind == 0) * first
+                    if sym == "f":    # its nested pdfs run on this device
+                        kwargs["device"] = self.device
                 elif mtype == "i":
                     kwargs["low_boundary"], kwargs["high_boundary"] = bounds
                     kwargs["euclidean_to_interval_as_first"] = int(
@@ -248,11 +252,17 @@ class PDF:
             self.num_parameter_list.append([l.num_params for l in layers])
 
     def _update_embedding_structure(self):
+        """Each sub-pdf's target and base columns: a sub-pdf whose layers
+        parametrize in embedding space takes embedded target coordinates
+        (``pdf.py:223-250`` of the JAX package)."""
         self.target_dim_indices = []
         self.base_dim_indices = []
         td = tb = 0
         for layers in self.layer_list:
-            d_tgt = layers[-1].intrinsic_dim
+            use_emb = any(l.always_parametrize_in_embedding_space
+                          for l in layers)
+            d_tgt = layers[-1].embedded_dim if use_emb \
+                else layers[-1].intrinsic_dim
             d_base = layers[0].base_dim
             self.target_dim_indices.append((td, td + d_tgt))
             self.base_dim_indices.append((tb, tb + d_base))
@@ -498,13 +508,16 @@ class PDF:
 
     def _apply_stack(self, k, extra, target, log_det, direction):
         """Sub-manifold k's layer stack in one direction: whole-block op,
-        (z, phi) column path, or the per-layer row loop."""
+        (z, phi) column path (an s2 stack whose every layer has that form),
+        or the per-layer row loop (``pdf.py:534-650`` of the JAX package,
+        without its (theta, phi) columns)."""
         fused = self._try_block(k, extra, target, direction)
         if fused is not None:
             out, ld_sum = fused
             return out, (log_det + ld_sum if direction == "density"
                          else log_det - ld_sum)
-        if self.pdf_defs_list[k] == "s2":
+        if self.pdf_defs_list[k] == "s2" and all(
+                l.supports_zphi() for l in self.layer_list[k]):
             return self._zphi_columns(k, extra, target, log_det, direction)
         layers = self.layer_list[k]
         total = sum(self.num_parameter_list[k])

@@ -5,8 +5,9 @@ PyTorch counterpart of ``jammy_flows_tpu/ops/manifold.py``: the angle
 clamps; the circle's and the interval's Gaussian-CDF projections from the
 real line, on (B, 1) rows; the embedding; the simplex chain (Gaussian ->
 box -> skewed box -> base simplex -> canonical simplex, on (B, d) rows);
-and the (z, phi) column converters used by the s2 layers' column path, on
-tuples of flat (B,) columns.  The log-det accumulator is (B,).
+the S2 projection from the plane and the embedding on (theta, phi) rows;
+and the (z, phi) and (theta, phi) column converters used by the s2 layers,
+on tuples of flat (B,) columns.  The log-det accumulator is (B,).
 """
 from __future__ import annotations
 
@@ -184,17 +185,43 @@ def canonical_simplex_to_base(x, log_det):
         log_det - 0.5 * math.log(dim + 1)
 
 
-def spherical_to_eucl(x):
+def spherical_to_eucl(x, log_det=None):
     """Intrinsic angles -> embedded unit vector: (B, 1) circle angle ->
-    (B, 2) (cos, sin), or (B, 2) (theta, phi) -> (B, 3) (the S2 log-det term
-    is not needed by the callers)."""
+    (B, 2) (cos, sin), or (B, 2) (theta, phi) -> (B, 3).  With ``log_det``
+    returns (eucl, log_det'), the S2 one gaining log sin(theta) (the circle's
+    map is measure-preserving)."""
     if x.shape[1] == 1:
-        return torch.cat([torch.cos(x), torch.sin(x)], dim=1)
-    theta = safe_angle_within_pi(x[:, :1])
-    phi = x[:, 1:2]
-    st = torch.sin(theta)
-    return torch.cat([st * torch.cos(phi), st * torch.sin(phi),
-                      torch.cos(theta)], dim=1)
+        eucl = torch.cat([torch.cos(x), torch.sin(x)], dim=1)
+        return eucl if log_det is None else (eucl, log_det)
+    *eucl, ld = spherical_to_eucl_cols(x[:, 0], x[:, 1], 0.0 if log_det is None
+                                       else log_det)
+    eucl = torch.stack(eucl, dim=1)
+    return eucl if log_det is None else (eucl, ld)
+
+
+def eucl_to_spherical(x, log_det):
+    """Embedded point -> intrinsic angles: (B, 2) -> (B, 1) circle angle,
+    or (B, 3) -> (B, 2) (theta, phi) with log_det - log sin(theta)."""
+    if x.shape[1] == 2:
+        return circle_eucl_to_spherical(x), log_det
+    theta, phi, log_det = eucl_to_spherical_cols(x[:, 0], x[:, 1], x[:, 2],
+                                                 log_det)
+    return torch.stack([theta, phi], dim=1), log_det
+
+
+def sphere_tangent_basis_cols(x, y, z):
+    """An orthonormal basis (t1, t2) of the tangent plane at the unit vector
+    (x, y, z) columns: e_z (e_x near the poles, |z| >= 0.9) projected and
+    normalized, and its cross product with the point."""
+    near_pole = torch.abs(z) >= 0.9
+    rx = torch.where(near_pole, 1.0, 0.0).to(x.dtype)
+    rz = torch.where(near_pole, 0.0, 1.0).to(x.dtype)
+    rdx = rx * x + rz * z
+    t1x, t1y, t1z = rx - x * rdx, -y * rdx, rz - z * rdx
+    t1n = torch.sqrt(t1x * t1x + t1y * t1y + t1z * t1z)
+    t1x, t1y, t1z = t1x / t1n, t1y / t1n, t1z / t1n
+    return ((t1x, t1y, t1z),
+            (y * t1z - z * t1y, z * t1x - x * t1z, x * t1y - y * t1x))
 
 
 def circle_eucl_to_spherical(x):
@@ -203,6 +230,50 @@ def circle_eucl_to_spherical(x):
     norm = torch.sqrt(torch.sum(x**2, dim=1, keepdim=True))
     ang = torch.arccos(_safe_acos_arg(x[:, :1] / norm))
     return torch.where(x[:, 1:2] < 0, TWO_PI - ang, ang)
+
+
+def plane_to_sphere2(x, log_det):
+    """R^2 -> (theta, phi) rows through the radial Gaussian-CDF projection;
+    the log-det in the (theta, phi) measure (its sin(theta) dropped)."""
+    radius = torch.sqrt(torch.sum(x**2, dim=-1, keepdim=True))
+    phi = _phi_from_xy(x[:, :1], x[:, 1:2], radius)
+    theta = torch.arccos(_safe_acos_arg(1.0 - 2.0 * torch.exp(
+        -0.5 * radius**2)))
+    theta = safe_angle_within_pi(theta)
+    log_det = log_det + torch.log(1.0 - torch.cos(theta[:, 0])) \
+        - torch.log(torch.sin(theta[:, 0]))
+    return torch.cat([theta, phi], dim=1), log_det
+
+
+def sphere2_to_plane(x, log_det):
+    """(theta, phi) rows -> R^2, the inverse of plane_to_sphere2."""
+    theta = safe_angle_within_pi(x[:, :1])
+    cos_t = safe_costheta(torch.cos(theta), margin=1e-6)
+    r = torch.sqrt(-2.0 * torch.log(0.5 * (1.0 - cos_t)))
+    log_det = log_det - torch.log(1.0 - cos_t[:, 0]) \
+        + torch.log(torch.sin(theta[:, 0]))
+    phi = x[:, 1:2]
+    return torch.cat([r * torch.cos(phi), r * torch.sin(phi)], dim=1), \
+        log_det
+
+
+def spherical_to_eucl_cols(theta, phi, log_det):
+    """(theta, phi) columns -> (x, y, z) columns, log_det + log sin(theta)."""
+    theta = safe_angle_within_pi(theta)
+    st = torch.sin(theta)
+    return st * torch.cos(phi), st * torch.sin(phi), torch.cos(theta), \
+        log_det + torch.log(st)
+
+
+def eucl_to_spherical_cols(x, y, z, log_det):
+    """(x, y, z) columns -> (theta, phi) columns, log_det - log sin(theta)."""
+    norm = torch.sqrt(x**2 + y**2 + z**2)
+    theta = safe_angle_within_pi(torch.arccos(_safe_acos_arg(z / norm)))
+    log_det = log_det - torch.log(torch.sin(theta))
+    xy_norm = torch.sqrt(x**2 + y**2)
+    phi = torch.arccos(_safe_acos_arg(x / torch.clamp(xy_norm, min=1e-30)))
+    phi = torch.where(y < 0, TWO_PI - phi, phi)
+    return theta, phi, log_det
 
 
 def _phi_from_xy(x0, x1, r):

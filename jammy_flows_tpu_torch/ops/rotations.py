@@ -1,8 +1,8 @@
-"""Rotations of the `g` flow: householder (row and column form), givens
-angles and cayley.
+"""Rotations of the `g` flow and of the sphere layers' embedding space:
+householder (row and column form), givens angles, cayley, and the S2 modes
+xyz (the z-axis turned onto a unit vector) and quaternion.
 
-PyTorch counterpart of ``jammy_flows_tpu/ops/rotations.py``.  The xyz and
-quaternion modes wait for the spherical layers that use them.
+PyTorch counterpart of ``jammy_flows_tpu/ops/rotations.py``.
 """
 from __future__ import annotations
 
@@ -71,6 +71,55 @@ def cayley_matrix(param):
     row0 = torch.stack([a, -off], dim=-1)
     row1 = torch.stack([off, a], dim=-1)
     return torch.stack([row0, row1], dim=1)
+
+
+def xyz_matrix(params):
+    """The rotation turning the z-axis onto mu = params / |params|: params
+    (Bp, 3) -> (Bp, 3, 3); singular at mu = -e_z (it divides by 1 + mu_z),
+    as in the JAX package."""
+    normed = params / torch.sqrt(torch.sum(params**2, dim=-1, keepdim=True)
+                                 + 1e-20)
+    mx, my, mz = normed[:, 0], normed[:, 1], normed[:, 2]
+    opz = 1.0 + mz
+    r00 = 1.0 - mx**2 / opz
+    r11 = 1.0 - my**2 / opz
+    r01 = -mx * my / opz
+    row0 = torch.stack([r00, r01, mx], dim=-1)
+    row1 = torch.stack([r01, r11, my], dim=-1)
+    row2 = torch.stack([-mx, -my, mz], dim=-1)
+    return torch.stack([row0, row1, row2], dim=1)
+
+
+def quaternion_matrix(params):
+    """The rotation of the unnormalized quaternion (a, i, j, k): params
+    (Bp, 4) -> (Bp, 3, 3)."""
+    sq = torch.sum(params**2, dim=-1) + 1e-20
+    a, i, j, k = params[:, 0], params[:, 1], params[:, 2], params[:, 3]
+    row0 = torch.stack([1.0 - 2.0 * (j**2 + k**2) / sq,
+                        2.0 * (i * j - a * k) / sq,
+                        2.0 * (i * k + j * a) / sq], dim=-1)
+    row1 = torch.stack([2.0 * (i * j + a * k) / sq,
+                        1.0 - 2.0 * (i**2 + k**2) / sq,
+                        2.0 * (j * k - i * a) / sq], dim=-1)
+    row2 = torch.stack([2.0 * (i * k - j * a) / sq,
+                        2.0 * (j * k + i * a) / sq,
+                        1.0 - 2.0 * (i**2 + j**2) / sq], dim=-1)
+    return torch.stack([row0, row1, row2], dim=1)
+
+
+def apply_matrix_cols(mat, cols, inverse=False):
+    """(Bp, d, d) rotations applied to d (B,) columns: y_i = sum_j R_ij x_j
+    (R^T when ``inverse``)."""
+    d = len(cols)
+    out = []
+    for i in range(d):
+        acc = None
+        for j in range(d):
+            r = mat[:, j, i] if inverse else mat[:, i, j]
+            term = r * cols[j]
+            acc = term if acc is None else acc + term
+        out.append(acc)
+    return tuple(out)
 
 
 def apply_rotation(mat, x, inverse=False):

@@ -179,11 +179,31 @@ def rq_spline(inputs, unnormalized_widths, unnormalized_heights,
               restrict_max_min_width_height_ratio=-1.0):
     """The monotone RQ spline on the box [left, right] x [bottom, top];
     K + 1 derivatives."""
+    return rq_spline_on_bins(inputs, rq_spline_bins(
+        unnormalized_widths, unnormalized_heights, unnormalized_derivatives,
+        left, right, bottom, top, rel_min_bin_width, rel_min_bin_height,
+        min_derivative, restrict_max_min_width_height_ratio), inverse)
+
+
+def rq_spline_bins(unnormalized_widths, unnormalized_heights,
+                   unnormalized_derivatives, left=0.0, right=1.0, bottom=0.0,
+                   top=1.0, rel_min_bin_width=MIN_BIN_WIDTH,
+                   rel_min_bin_height=MIN_BIN_HEIGHT,
+                   min_derivative=MIN_DERIVATIVE,
+                   restrict_max_min_width_height_ratio=-1.0):
+    """rq_spline's bins, made once for many evaluations: (widths,
+    cumwidths, heights, cumheights, derivatives)."""
     widths, cumwidths, heights, cumheights = _box_bins(
         unnormalized_widths, unnormalized_heights, left, right, bottom, top,
         rel_min_bin_width, rel_min_bin_height,
         restrict_max_min_width_height_ratio)
-    derivatives = min_derivative + softplus(unnormalized_derivatives)
+    return (widths, cumwidths, heights, cumheights,
+            min_derivative + softplus(unnormalized_derivatives))
+
+
+def rq_spline_on_bins(inputs, bins, inverse=False):
+    """rq_spline on bins made by rq_spline_bins."""
+    widths, cumwidths, heights, cumheights, derivatives = bins
     idx = _searchsorted(cumheights if inverse else cumwidths, inputs)
     return _rq_core(inputs, idx, cumwidths, widths, cumheights, heights,
                     derivatives, inverse)

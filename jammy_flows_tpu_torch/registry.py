@@ -172,7 +172,8 @@ OPTS = {
 
 # layer classes the port has; everything else is ROADMAP Queue 1 item 4
 _PORTED = {"GaussianizationFlow", "MultivariateNormal", "EuclideanIdentity",
-            "FisherVonMises2D", "Moebius", "CircularRQSpline",
+            "FisherVonMises2D", "ExponentialMapS2", "Moebius",
+            "CircularRQSpline",
             "SphericalIdentity", "RQSplineInterval", "IntervalIdentity",
             "GumbelSoftmax", "InnerLoopSimplex"}
 

@@ -26,6 +26,7 @@ from jammy_flows_tpu import pdf as jpdf
 from jammy_flows_tpu_torch import pdf as tpdf
 from jammy_flows_tpu_torch.ops import gf_block as tblk, gf_layer as tlay
 from jammy_flows_tpu_torch.utils.convert import params_from_jax
+from torch_one_thread import _one_torch_thread  # noqa: F401
 
 FLAGSHIP = ("e4+s2+e4", "gggg+f+gggg")
 IFTS = ("inormal_partly_precise", "isigmoid", "inormal_partly_crude",

@@ -23,6 +23,7 @@ import torch
 from jammy_flows_tpu.ops import pallas_gf_block as jblk
 from jammy_flows_tpu_torch import pdf
 from jammy_flows_tpu_torch.ops import gf_block as gb
+from torch_one_thread import _one_torch_thread  # noqa: F401
 
 N_ROWS = 200
 ULPS = 8               # "a few": a float32 matmul itself lies ~5 away

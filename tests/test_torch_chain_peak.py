@@ -15,6 +15,7 @@ import torch
 from jax.experimental import pallas as pl
 
 from jammy_flows_tpu_torch.tools import transcendental_peak as tp
+from torch_one_thread import _one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 ROWS, LANES = 8, 1024       # the TPU probe's block

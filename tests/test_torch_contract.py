@@ -17,6 +17,7 @@ from jammy_flows_tpu import pdf as jpdf
 from jammy_flows_tpu_torch import pdf as tpdf
 from jammy_flows_tpu_torch import train as ttrain
 from jammy_flows_tpu_torch.models.pdf import UNPORTED_DEFAULTS
+from torch_one_thread import _one_torch_thread  # noqa: F401
 
 SKEW = {"g": {"add_skewness": 1}}
 BAD_KEYS = [3, -1, (2, 0), (-1, 0)]

@@ -23,6 +23,7 @@ from jammy_flows_tpu.ops import matrix as jmat, rotations as jrot, \
     splines as jspl
 from jammy_flows_tpu_torch.ops import matrix as tmat, rotations as trot, \
     splines as tspl
+from torch_one_thread import _one_torch_thread  # noqa: F401
 
 B, D, K = 24, 3, 5
 # the same float64 expressions: libm and summation-order differences only

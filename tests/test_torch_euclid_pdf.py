@@ -28,6 +28,7 @@ from jammy_flows_tpu_torch import pdf as tpdf
 from jammy_flows_tpu_torch.ops import gf_block as tblk, gf_layer as gl
 from jammy_flows_tpu_torch.utils.convert import params_from_jax
 from test_torch_grad_pdf import _j, _rel, _t
+from torch_one_thread import _one_torch_thread  # noqa: F401
 
 B = 128
 TOL_F64 = 1e-8
@@ -68,14 +69,6 @@ ROUTE_CALLS = {
     3: {("forward", "raw"): 1, ("forward", "lazy"): 1, ("sample", "lazy"): 1,
         ("inverse", "prepared"): 1, ("forward", "prepared"): 1},
 }
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture

@@ -21,6 +21,7 @@ import torch
 from jammy_flows_tpu.ops import logistic_kde as jlk
 from jammy_flows_tpu_torch.ops import gf, logistic_kde as lk
 from jammy_flows_tpu_torch.tools import perm_edge_probe as probe
+from torch_one_thread import _one_torch_thread  # noqa: F401
 
 K, D, B = 10, 4, 2048
 

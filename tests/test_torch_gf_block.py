@@ -18,6 +18,7 @@ import jammy_flows_tpu.ops.pallas_gf_block as jblk
 from jammy_flows_tpu import pdf as jpdf
 from jammy_flows_tpu_torch import pdf as tpdf
 from jammy_flows_tpu_torch.ops import gf_block as tblk
+from torch_one_thread import _one_torch_thread  # noqa: F401
 
 B = 1024
 # the JAX package's kernel-vs-XLA limits (tests/test_pallas_interpret.py):

@@ -24,6 +24,7 @@ from jammy_flows_tpu_torch import pdf as tpdf
 from jammy_flows_tpu_torch.ops import gf_block as tblk
 from jammy_flows_tpu_torch.ops import gf_layer as gl
 from jammy_flows_tpu_torch.ops import special as tspecial
+from torch_one_thread import _one_torch_thread  # noqa: F401
 
 K, D, B, H = 10, 4, 256, 16
 # the JAX package's kernel-vs-XLA limits (tests/test_pallas_interpret.py,
@@ -32,18 +33,6 @@ K, D, B, H = 10, 4, 256, 16
 # the prepared VJP, 3e-4 for the sample body
 TOL = {"forward": 3e-4, "sample": 3e-3, "inverse": 3e-3}
 TOL_GRAD = {"forward": 1e-4, "sample": 3e-4}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One PyTorch intra-op thread: the suite runs in several worker
-    processes, and on tensors this small a thread pool per process only
-    contends with the others (the skewed roundtrip test took 0.6 s alone and
-    178 s beside five busy workers)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -22,6 +22,7 @@ import jammy_flows_tpu.ops.pallas_gf_block as jblk
 from jammy_flows_tpu import pdf as jpdf
 from jammy_flows_tpu_torch import pdf as tpdf
 from jammy_flows_tpu_torch.ops import gf_block as tblk
+from torch_one_thread import _one_torch_thread  # noqa: F401
 
 B = 512
 IFTS = ("inormal_partly_precise", "isigmoid", "inormal_partly_crude",

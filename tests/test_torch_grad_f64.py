@@ -16,6 +16,7 @@ from jammy_flows_tpu import pdf as jpdf
 from jammy_flows_tpu_torch import pdf as tpdf
 from jammy_flows_tpu_torch.utils.convert import params_from_jax, to_numpy
 from test_torch_grad_pdf import _data, _j, _jittered, _pair, _rel, _t
+from torch_one_thread import _one_torch_thread  # noqa: F401
 
 # the flagship's manifolds, normal and logistic iCDF layers, offset and
 # conditional MLPs, with two layers per Euclidean block: JAX's f64 compile

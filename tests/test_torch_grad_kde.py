@@ -20,6 +20,7 @@ from jammy_flows_tpu.ops import logistic_kde as jkde
 from jammy_flows_tpu.ops import special as jspecial
 from jammy_flows_tpu_torch.ops import logistic_kde as tkde
 from jammy_flows_tpu_torch.ops import special as tspecial
+from torch_one_thread import _one_torch_thread  # noqa: F401
 
 # float64: the same formulas in both packages, rounding only
 TOL_F64 = 1e-10

@@ -17,6 +17,7 @@ import jammy_flows_tpu.ops.pallas_gf as pg
 from jammy_flows_tpu import pdf as jpdf
 from jammy_flows_tpu_torch import pdf as tpdf
 from jammy_flows_tpu_torch.utils.convert import params_from_jax, to_numpy
+from torch_one_thread import _one_torch_thread  # noqa: F401
 
 CONFIGS = [("e4", "gggg", 3), ("e4", "gggg", None),
            ("e4+s2+e4", "gggg+f+gggg", 3)]

@@ -18,6 +18,7 @@ from jammy_flows_tpu import train as jtrain
 from jammy_flows_tpu_torch import pdf as tpdf
 from jammy_flows_tpu_torch import train as ttrain
 from jammy_flows_tpu_torch.utils.convert import params_from_jax, to_numpy
+from torch_one_thread import _one_torch_thread  # noqa: F401
 
 # float64: the same algorithm and optimizer arithmetic, rounding only
 TOL_F64 = 1e-7

@@ -17,6 +17,7 @@ from jammy_flows_tpu import pdf as jpdf
 from jammy_flows_tpu_torch import pdf as tpdf
 from jammy_flows_tpu_torch.ops import gf_block as tblk, gf_layer as gl
 from jammy_flows_tpu_torch.utils.convert import params_from_jax
+from torch_one_thread import _one_torch_thread  # noqa: F401
 
 SKEW = {"g": {"add_skewness": 1}}
 CENTRE = {"g": {"center_mean": 1}}
@@ -27,18 +28,6 @@ B = 256
 # limits (tests/test_pallas_interpret.py), density 3e-4, sample 3e-3
 TOL_F32_DENSITY = 3e-4
 TOL_F32_SAMPLE = 3e-3
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One PyTorch intra-op thread: the suite runs in several worker
-    processes, and on tensors this small a thread pool per process only
-    contends with the others (the skewed roundtrip test took 0.6 s alone and
-    178 s beside five busy workers)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture

@@ -16,6 +16,7 @@ import torch
 from jammy_flows_tpu import pdf as jpdf
 from jammy_flows_tpu_torch import pdf as tpdf
 from jammy_flows_tpu_torch.utils.convert import params_from_jax
+from torch_one_thread import _one_torch_thread  # noqa: F401
 
 SKEW = {"g": {"add_skewness": 1}}
 CENTRE = {"g": {"center_mean": 1}}
@@ -25,18 +26,6 @@ B = 256
 # root carries its residual)
 TOL_F64 = 1e-8
 TOL_GRAD_F64 = 1e-7
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One PyTorch intra-op thread: the suite runs in several worker
-    processes, and on tensors this small a thread pool per process only
-    contends with the others (the skewed roundtrip test took 0.6 s alone and
-    178 s beside five busy workers)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _data(seed, dtype, cond, d_total=10):

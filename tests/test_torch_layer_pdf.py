@@ -21,6 +21,7 @@ import torch
 from jammy_flows_tpu import pdf as jpdf
 from jammy_flows_tpu_torch import pdf as tpdf
 from jammy_flows_tpu_torch.utils.convert import params_from_jax
+from torch_one_thread import _one_torch_thread  # noqa: F401
 
 FLAGSHIP = ("e4+s2+e4", "gggg+f+gggg")
 SKEW = {"g": {"add_skewness": 1}}
@@ -31,18 +32,6 @@ B = 256
 TOL_ROUNDTRIP_Q999 = 1e-3      # tests/test_tpu_kernels.py
 # nll_value_and_grad vs autograd: the same graph, summed per sub-pdf
 TOL_NLL = 1e-6
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One PyTorch intra-op thread: the suite runs in several worker
-    processes, and on tensors this small a thread pool per process only
-    contends with the others (the skewed roundtrip test took 0.6 s alone and
-    178 s beside five busy workers)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _pair(opts, cond, dims="16"):

@@ -23,19 +23,10 @@ import jammy_flows_tpu.ops.pallas_gf as pg
 from jammy_flows_tpu.ops import special as jspecial
 from jammy_flows_tpu_torch.ops import gf_layer as gl
 from jammy_flows_tpu_torch.ops import special as tspecial
+from torch_one_thread import _one_torch_thread  # noqa: F401
 
 B = 256
 TOL_GRAD = {"forward": 1e-4, "sample": 3e-4}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One PyTorch intra-op thread: the suite runs in several worker
-    processes, and on tensors this small a thread pool only contends."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True, scope="module")

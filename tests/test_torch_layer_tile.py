@@ -23,6 +23,7 @@ from jammy_flows_tpu_torch.ops import gf_block as gb
 from jammy_flows_tpu_torch.ops import gf_layer as gl
 from jammy_flows_tpu_torch.ops.special import (log_bounded_exp_fn,
                                                width_regulator_fn)
+from torch_one_thread import _one_torch_thread  # noqa: F401
 
 N_ROWS = 96
 ULPS = 8               # "a few": a float32 matmul itself lies ~5 away

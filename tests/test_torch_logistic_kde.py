@@ -12,6 +12,7 @@ from jammy_flows_tpu.ops import special as jspecial
 from jammy_flows_tpu_torch.ops import gf as tgf
 from jammy_flows_tpu_torch.ops import logistic_kde as tkde
 from jammy_flows_tpu_torch.ops import special as tspecial
+from torch_one_thread import _one_torch_thread  # noqa: F401
 
 IFTS = ["isigmoid", "inormal_partly_precise", "inormal_partly_crude",
         "inormal_full_pade"]

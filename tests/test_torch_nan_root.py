@@ -25,6 +25,7 @@ import torch
 import jammy_flows_tpu.ops.pallas_gf as pg
 from jammy_flows_tpu_torch.ops import gf_layer as gl
 from test_torch_layer_raw_bwd import _inputs, _preps, _rel
+from torch_one_thread import _one_torch_thread  # noqa: F401
 
 TOL = 3e-4
 

@@ -10,9 +10,11 @@
   conditional pdf, the rq_splines stretch, angles, `t` full / diagonal,
   `x` with an offset), the circle ones (`m`, `o` smooth and not, `y`, and
   `o` amortized from an e2 block), the interval ones (`r`, `z`), the simplex
-  ones (`u`, `w`, conditional and not), the fully amortized `e2+s1` model
-  and the custom-mode MLPs (full, highway mode 1, low rank), each at its
-  stored tolerance.
+  ones (`u`, `w`, conditional and not), the fully amortized `e2+s1` model,
+  the custom-mode MLPs (full, highway mode 1, low rank) and the s2 ones
+  (`f` with nested flows, with the identity region; `v` linear,
+  exponential, conditional exponential and splines), each at its stored
+  tolerance.
 
 Inputs are made with numpy from a seed and handed to both packages."""
 import json
@@ -29,6 +31,7 @@ from jammy_flows_tpu import pdf as jpdf
 from jammy_flows_tpu_torch import fully_amortized_pdf as tfa, pdf as tpdf
 from jammy_flows_tpu_torch.ops.special import std_normal_log_prob
 from jammy_flows_tpu_torch.utils.convert import params_from_jax
+from torch_one_thread import _one_torch_thread  # noqa: F401
 
 FLAGSHIP = ("e4+s2+e4", "gggg+f+gggg")
 FIXTURES = pathlib.Path(__file__).resolve().parent / "fixtures"
@@ -169,7 +172,10 @@ def test_f32_wide_summary_takes_the_block_op(interpret_mode, monkeypatch,
                                   "joint_e2s1", "i1_r", "i1_z", "a1_u",
                                   "a1_w", "a2_u", "a2_w_cond", "a3_w",
                                   "fa_e2s1", "cond_custom_full",
-                                  "cond_custom_hw1", "cond_custom_lowrank"])
+                                  "cond_custom_hw1", "cond_custom_lowrank",
+                                  "s2_f_boundary", "s2_ff_vertcirc",
+                                  "s2_v_linear", "s2_v_exponential",
+                                  "s2_v_cond_exp", "s2_v_cond_splines"])
 def test_frozen_reference_fixture(name):
     with np.load(FIXTURES / f"parity_{name}.npz", allow_pickle=False) as f:
         data = {k: f[k] for k in f.files}
@@ -225,10 +231,10 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         tpdf("s2", "c", device="cpu")
     with pytest.raises(NotImplementedError):
-        tpdf("s2", "f", options_overwrite={
-            "f": {"add_vertical_rq_spline_flow": 1}}, device="cpu")
+        tpdf("e2+s2", "gg+f", conditional_input_dim=[2, 3], device="cpu")
     with pytest.raises(NotImplementedError):
-        tpdf("s2", "v", device="cpu")
+        tpdf("s2", "v", device="cpu").log_prob(
+            {}, torch.zeros((2, 3)), force_embedding_coordinates=True)
     with pytest.raises(NotImplementedError):
         tpdf("e2", "gg", predict_log_normalization=True,
              conditional_input_dim=2, device="cpu")

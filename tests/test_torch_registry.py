@@ -45,11 +45,11 @@ def test_unported_layers_raise_not_implemented():
     assert treg.get_layer_class("f").__name__ == "FisherVonMises2D"
     assert treg.get_layer_class("t").__name__ == "MultivariateNormal"
     assert treg.get_layer_class("x").__name__ == "EuclideanIdentity"
-    for sym, cls in (("m", "Moebius"), ("o", "CircularRQSpline"),
+    for sym, cls in (("v", "ExponentialMapS2"), ("m", "Moebius"),
+                     ("o", "CircularRQSpline"),
                      ("y", "SphericalIdentity"), ("r", "RQSplineInterval"),
                      ("z", "IntervalIdentity"), ("u", "GumbelSoftmax"),
                      ("w", "InnerLoopSimplex")):
         assert treg.get_layer_class(sym).__name__ == cls
-    for sym in ("v", "c"):
-        with pytest.raises(NotImplementedError):
-            treg.get_layer_class(sym)
+    with pytest.raises(NotImplementedError, match="remaining layers"):
+        treg.get_layer_class("c")

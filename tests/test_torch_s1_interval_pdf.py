@@ -34,6 +34,7 @@ from jammy_flows_tpu_torch import pdf as tpdf
 from jammy_flows_tpu_torch.ops import gf_block as tblk
 from jammy_flows_tpu_torch.utils.convert import params_from_jax
 from test_torch_grad_pdf import _j, _rel, _t
+from torch_one_thread import _one_torch_thread  # noqa: F401
 
 B = 128
 TOL_F64 = 1e-8
@@ -101,14 +102,6 @@ BLOCK_CALLS = {
     "e2+s1 unconditional": {"density_perm": 1, "sample_perm": 1},
     "interval conditional": {},
 }
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _pair(defs, flows, opts=None, cond=None):

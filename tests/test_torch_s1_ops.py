@@ -28,6 +28,7 @@ from jammy_flows_tpu.layers import sphere as jsph
 from jammy_flows_tpu.ops import manifold as jman, splines as jspl
 from jammy_flows_tpu_torch.layers import sphere as tsph
 from jammy_flows_tpu_torch.ops import manifold as tman, splines as tspl
+from torch_one_thread import _one_torch_thread  # noqa: F401
 
 B, D = 24, 2
 # the same float64 expressions: libm and summation-order differences only

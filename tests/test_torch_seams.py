@@ -26,6 +26,7 @@ import torch
 
 from jammy_flows_tpu.ops import logistic_kde as jk
 from jammy_flows_tpu_torch.ops import logistic_kde as tk
+from torch_one_thread import _one_torch_thread  # noqa: F401
 
 KERNEL_TOL = 3e-4   # kernel vs plain, the density direction
 SMOOTH = 1e-5       # a step between float32 neighbours off the seam

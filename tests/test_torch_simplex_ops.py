@@ -32,6 +32,7 @@ from jammy_flows_tpu_torch import pdf as tpdf
 from jammy_flows_tpu_torch.layers.simplex import GumbelSoftmax as TGumbel
 from jammy_flows_tpu_torch.models.amortizable_mlp import AmortizableMLP as TMLP
 from jammy_flows_tpu_torch.ops import manifold as tman
+from torch_one_thread import _one_torch_thread  # noqa: F401
 
 B = 64
 TOL = 1e-10

@@ -40,6 +40,7 @@ from jammy_flows_tpu_torch import fully_amortized_pdf as tfa, pdf as tpdf
 from jammy_flows_tpu_torch.ops import gf_layer as tgl
 from jammy_flows_tpu_torch.utils.convert import params_from_jax
 from test_torch_grad_pdf import _j, _rel, _t
+from torch_one_thread import _one_torch_thread  # noqa: F401
 
 B = 128
 TOL_F64 = 1e-8
@@ -59,14 +60,6 @@ MODELS = {
     "a2+e1 u+g conditional": ("a2+e1", "u+g", 2, False),
     "fully amortized e2+s1": FA + (3, True),
 }
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

@@ -23,6 +23,7 @@ from jammy_flows_tpu.ops import special as jspecial
 from jammy_flows_tpu_torch.ops import gf as tgf
 from jammy_flows_tpu_torch.ops import logistic_kde as tkde
 from jammy_flows_tpu_torch.ops import special as tspecial
+from torch_one_thread import _one_torch_thread  # noqa: F401
 
 K, D = 10, 3
 # float64: the same formulas, rounding only.  float32: a few ulp of exp /

@@ -31,6 +31,7 @@ from jammy_flows_tpu.ops import special as jspecial
 from jammy_flows_tpu_torch import pdf as tpdf
 from jammy_flows_tpu_torch.ops import gf_block as tblk, gf_layer as gl
 from jammy_flows_tpu_torch.ops import special as tspecial
+from torch_one_thread import _one_torch_thread  # noqa: F401
 
 B = 128
 IFTS = ("isigmoid", "inormal_partly_precise")

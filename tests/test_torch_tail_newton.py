@@ -37,6 +37,7 @@ from jammy_flows_tpu import pdf as jpdf
 from jammy_flows_tpu_torch import pdf as tpdf
 from jammy_flows_tpu_torch.ops.special import std_normal_log_prob
 from jammy_flows_tpu_torch.utils.convert import params_from_jax
+from torch_one_thread import _one_torch_thread  # noqa: F401
 
 B = 256
 SKEW_TN = {"g": {"add_skewness": 1, "high_precision_tail_newton": 2}}
@@ -44,14 +45,6 @@ TOL_ROUNDTRIP_Q999 = 1e-3      # tests/test_tpu_kernels.py
 TOL_VS_F64 = 1e-3              # chip_smoke.py TOL_CROSS
 GAP_NATS = 1.0
 TOL_SAMPLE = 3e-3              # tests/test_torch_layer_f32.py, sample
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture

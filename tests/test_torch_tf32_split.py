@@ -22,6 +22,7 @@ import torch
 
 from jammy_flows_tpu_torch import pdf
 from jammy_flows_tpu_torch.ops import gf_block as gb
+from torch_one_thread import _one_torch_thread  # noqa: F401
 
 N_ROWS = 512
 TOL_DENSITY = 3e-4     # kernel vs plain, the density direction
