@@ -63,6 +63,27 @@ in parallel), then drives the flagship ``pdf("e4+s2+e4", "gggg+f+gggg")``:
   device memory, each sphere-Newton solve's iterations and unconverged
   rows; the production models and the conditional exponential `v` model
   trained as the flagship;
+* the manifold CNF `c` at its registry defaults (hidden 32, 4 charts,
+  dopri5 at rtol = atol = 1e-7): ``pdf("s2", "c")``, its rk4 form (the
+  s2_c fixture's model) and the conditional flagship with `c` between its
+  gggg blocks (``"e4+s2+e4", "gggg+c+gggg"``, the field's 259 weights
+  predicted per row; T1-T3 lazy2 for the blocks): serving at 262,144 rows
+  with exact launch counts, every block call against its plain version,
+  log_prob against the port's f64 CPU path, sample and log_prob timed and
+  censused, peak device memory; training through the continuous adjoint
+  (dopri5) or rk4's checkpointed steps: the fused NLL, autograd of
+  log_prob and of a sample objective, gradients against the CPU path,
+  ``train.fit`` (rk4 20 steps, dopri5 as many as FIT_BUDGET_S allows, the
+  flagship with `c` none); each ODE integration's steps per chart, forward
+  and adjoint apart;
+* the PDF-level options on the conditional flagship with one conditional
+  input per sub-pdf (3, 2 and 2 wide) and a standalone Poisson head:
+  ``init_params(data=...)`` from the training rows, failsafe sampling in
+  embedding coordinates and log_prob with forced embedding coordinates
+  (exact launch counts, every block call against its plain version, the
+  roundtrip), log_mean_poisson and log_prob against the port's f64 CPU
+  path, and training from the data-driven init (its NLL through autograd:
+  T1 / T2 lazy2, a Poisson head);
 * the block's lazy mode (precomputed hidden activations, T1 / T2), on the
   flagship with two-hidden-layer ``amortization_mlp_dims="64-64"`` MLPs,
   unconditional and conditional, serving and training as the flagship;
@@ -351,6 +372,45 @@ EXPECTED_TRAIN_LAUNCHES.update({
     "flagship production f": EXPECTED_TRAIN_LAUNCHES["conditional"],
     "v exponential conditional": {"nll": {}, "log_prob_grad": {},
                                   "sample_grad": {}, "fit": {}}})
+# the manifold CNF `c` at the registry's defaults (hidden 32, 4 charts,
+# dopri5 at rtol = atol = 1e-7, highway 0): unconditional, its rk4 form (the
+# s2_c fixture's model), and between the conditional flagship's gggg
+# blocks, where the field's 259 weights are predicted per row; "fit": 20
+# train.fit steps, None: as many as FIT_BUDGET_S allows, 0: none
+CNF_MODELS = (
+    ("c dopri5", "s2", "c", None, None, None),
+    ("c rk4", "s2", "c", {"c": {"solver": "rk4"}}, None, TRAIN_STEPS),
+    ("flagship c", "e4+s2+e4", "gggg+c+gggg", None, 3, 0))
+# the c models' calls take seconds (host-bound, ~20 us per launch, one
+# sync per attempted ODE step): sample / log_prob are timed over CNF_REPS
+# calls, a training step over one; their gradients are held against the
+# CPU path on N_CROSS_CNF rows
+FIT_BUDGET_S = 20.0
+CNF_REPS = 3
+N_CROSS_CNF = 1024
+EXPECTED_LAUNCHES.update({"c dopri5": {}, "c rk4": {},
+                          "flagship c": EXPECTED_LAUNCHES["conditional"]})
+EXPECTED_TRAIN_LAUNCHES.update({
+    "c dopri5": {"nll": {}, "log_prob_grad": {}, "sample_grad": {},
+                 "fit": {}},
+    "c rk4": {"nll": {}, "log_prob_grad": {}, "sample_grad": {}, "fit": {}},
+    "flagship c": {k: v for k, v in EXPECTED_TRAIN_LAUNCHES[
+        "conditional"].items() if k != "fit"}})
+# the PDF-level options: the conditional flagship with one conditional
+# input per sub-pdf (3, 2 and 2 wide) and a standalone Poisson head,
+# initialized from data, served with failsafe sampling in embedding
+# coordinates; its NLL takes the plain autograd route (a Poisson head), so
+# T1 density and T2 density lazy2 per block and step
+OPTIONS_MODEL = ("e4+s2+e4", "gggg+f+gggg", [3, 2, 2])
+FAILSAFE_TOL = 1e-3
+FAILSAFE_ROUNDS = 3
+_LAZY2_AUTOGRAD = {"density_lazy2": 2, "density_bwd_lazy2": 2}
+EXPECTED_LAUNCHES["options"] = {"sample_lazy2": 2 * (1 + FAILSAFE_ROUNDS),
+                                "density_lazy2": 2 * (FAILSAFE_ROUNDS + 1)}
+EXPECTED_TRAIN_LAUNCHES["options"] = {
+    "nll": _LAZY2_AUTOGRAD, "log_prob_grad": _LAZY2_AUTOGRAD,
+    "sample_grad": {"sample_lazy2": 2, "sample_bwd_lazy2": 2},
+    "fit": {k: v * TRAIN_STEPS for k, v in _LAZY2_AUTOGRAD.items()}}
 # the per-row raw instances it runs, timed on its first recorded calls
 PER_ROW_RAW = ("forward_raw", "sample_raw", "forward_bwd_raw")
 # the per-layer entry points and T7 bodies that run on the plain mixture
@@ -483,10 +543,11 @@ def ptxas_summary(report):
     return lines
 
 
-def cuda_ms(fn, reps):
+def cuda_ms(fn, reps, warm=True):
     """Median over ``reps`` single-launch CUDA-event timings, after one
-    warm-up call."""
-    fn()
+    warm-up call (none without ``warm``)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -911,6 +972,25 @@ def sample_rows(p, params, n, ci, g):
     return p.sample(params, samplesize=n, conditional_input=ci, generator=g)
 
 
+def cond_input(p, n, g):
+    """n rows of p's conditional input from the generator g: None, a
+    tensor, or one tensor per sub-pdf (a list-valued
+    conditional_input_dim)."""
+    cd = p.conditional_input_dim
+    if cd is None:
+        return None
+    if isinstance(cd, list):
+        return [torch.randn((n, w), generator=g, device=p.device) for w in cd]
+    return torch.randn((n, cd), generator=g, device=p.device)
+
+
+def ci_map(ci, fn):
+    """fn of a conditional input, or of each tensor of a list of them."""
+    if ci is None:
+        return None
+    return [fn(c) for c in ci] if isinstance(ci, list) else fn(ci)
+
+
 def roundtrip(p, params, n, ci, seed):
     """sample n rows, then log_prob of them; returns (x, base draws,
     |dlogp|)."""
@@ -979,7 +1059,9 @@ def cpu_twin(p, opts=None):
     return pdf("+".join(p.pdf_defs_list), "+".join(p.flow_defs_list),
                options_overwrite=opts,
                conditional_input_dim=p.conditional_input_dim,
-               amortization_mlp_dims=p.amortization_mlp_dims, device="cpu")
+               amortization_mlp_dims=p.amortization_mlp_dims,
+               predict_log_normalization=p.predict_log_normalization,
+               device="cpu")
 
 
 def cross_check(label, p, params, x, ci, opts=None, p_cpu=None,
@@ -989,12 +1071,12 @@ def cross_check(label, p, params, x, ci, opts=None, p_cpu=None,
     against its f32 CPU path, the f64 distance printed."""
     from jammy_flows_tpu_torch.utils.convert import params_from_jax
     xs = x[:N_CROSS]
-    cis = None if ci is None else ci[:N_CROSS]
+    cis = ci_map(ci, lambda c: c[:N_CROSS])
     lp_gpu = p.log_prob(params, xs, conditional_input=cis)[0].double().cpu()
     p_cpu = p_cpu or cpu_twin(p, opts)
     par64 = params_from_jax({k: v.cpu().numpy() for k, v in params.items()},
                             dtype=torch.float64)
-    ci64 = None if cis is None else cis.double().cpu()
+    ci64 = ci_map(cis, lambda c: c.double().cpu())
     lp_cpu = p_cpu.log_prob(par64, xs.double().cpu(),
                             conditional_input=ci64)[0]
     cross = (lp_gpu - lp_cpu).abs().max().item()
@@ -1003,8 +1085,8 @@ def cross_check(label, p, params, x, ci, opts=None, p_cpu=None,
                                      else f"(limit {TOL_CROSS:g})"))
     if f32_held:
         lp_32 = p_cpu.log_prob({k: v.float() for k, v in par64.items()},
-                               xs.cpu(), conditional_input=None if ci64 is None
-                               else ci64.float())[0].double()
+                               xs.cpu(), conditional_input=ci_map(
+                                   ci64, lambda c: c.float()))[0].double()
         cross = (lp_gpu - lp_32).abs().max().item()
         log(f"{label}: card f32 vs CPU f32 log_prob on {N_CROSS} samples: "
             f"max|diff| {cross:.3e} (limit {TOL_CROSS:g}); CPU f32 vs f64 "
@@ -1171,7 +1253,7 @@ def card_vs_f64_grads(label, p, params, xs, zs, cis, opts, sample_f32=False,
     p_cpu = cpu_twin(p, opts)
     par64 = params_from_jax({k: v.cpu().numpy() for k, v in params.items()},
                             dtype=torch.float64)
-    cis64 = None if cis is None else cis.double().cpu()
+    cis64 = ci_map(cis, lambda c: c.double().cpu())
     _, gn_card = p.nll_value_and_grad(params, xs, cis)
     _, gn_cpu = p_cpu.nll_value_and_grad(par64, xs.double().cpu(), cis64)
     _, gs_card = p._value_and_grad(
@@ -1183,14 +1265,14 @@ def card_vs_f64_grads(label, p, params, xs, zs, cis, opts, sample_f32=False,
               ("card f32", "sample", "f64", gs_card, gs_cpu, not sample_f32)]
     par32 = {k: v.cpu() for k, v in params.items()}
     if nll_f32:
-        _, gn_32 = p_cpu.nll_value_and_grad(par32, xs.cpu(), None if cis is None
-                                            else cis.cpu())
+        _, gn_32 = p_cpu.nll_value_and_grad(par32, xs.cpu(),
+                                            ci_map(cis, lambda c: c.cpu()))
         checks.append(("card f32", "NLL", "f32", gn_card, gn_32, True))
         checks.append(("CPU f32", "NLL", "f64", gn_32, gn_cpu, False))
     if sample_f32 or f32_reading:
         _, gs_32 = p_cpu._value_and_grad(
-            lambda pp: sample_objective(p_cpu, pp, zs.cpu(), None if cis is None
-                                        else cis.cpu()), par32)
+            lambda pp: sample_objective(p_cpu, pp, zs.cpu(),
+                                        ci_map(cis, lambda c: c.cpu())), par32)
         checks.append(("card f32", "sample", "f32", gs_card, gs_32,
                        sample_f32))
     if f32_reading:
@@ -1248,17 +1330,24 @@ def ragged_layer_check(label, layer_calls):
 
 
 def train(label, p, params, seed, opts=None, f32_reading=False,
-          f32_held=False):
+          f32_held=False, sample_f32=False, init=None, fit_steps=TRAIN_STEPS,
+          reps=10, n_cross=N_CROSS, warm_rows=4096, report=None):
     """The training phase of one configuration; returns (launches per path,
     errors per kernel, recorded block calls, recorded per-layer calls, step
     times).  ``f32_reading``: card_vs_f64_grads's; ``f32_held``: both
     gradients held against the port's f32 CPU path (its ``nll_f32`` and
-    ``sample_f32``)."""
+    ``sample_f32``), ``sample_f32`` the sample objective's alone.
+    ``train.fit`` takes ``fit_steps`` Adam steps from
+    ``init`` (init_params(seed=0) by default; none with 0, as many as
+    FIT_BUDGET_S allows at the fused NLL's time with None) on the sampled
+    rows, after a one-step fit on ``warm_rows``; the steps are timed over
+    ``reps`` calls; the gradients are held against the CPU path on
+    ``n_cross`` rows; ``report(what)`` runs after each path."""
     from jammy_flows_tpu_torch import train as ttrain
+    report = report or (lambda what: None)
     dev = p.device
     g = torch.Generator(device=dev).manual_seed(seed)
-    ci = None if p.conditional_input_dim is None else torch.randn(
-        (N_TRAIN, p.conditional_input_dim), generator=g, device=dev)
+    ci = cond_input(p, N_TRAIN, g)
     # the rows come from another jittered model (flow_0 moved as well): at
     # the model that drew them, a gradient is a sum of cancelling per-row
     # terms and its relative error measures float32 summation order only
@@ -1268,14 +1357,20 @@ def train(label, p, params, seed, opts=None, f32_reading=False,
                      generator=g)[0]
     z = torch.randn((N_TRAIN, p.total_base_dim), generator=g, device=dev)
 
+    report("sampling the training rows")
+    t_nll = time.time()
     (l_f, g_f), l_nll, c_nll, lc_nll = train_path(
         label, "nll", p, lambda: p.nll_value_and_grad(params, x, ci))
+    t_nll = time.time() - t_nll
+    report("nll_value_and_grad")
     (l_a, g_a), l_lp, c_lp, lc_lp = train_path(
         label, "log_prob_grad", p, lambda: p._value_and_grad(
             lambda pp: -p.log_prob(pp, x, ci)[0].mean(), params))
+    report("autograd of -log_prob().mean()")
     (l_s, g_s), l_sg, c_sg, lc_sg = train_path(
         label, "sample_grad", p, lambda: p._value_and_grad(
             lambda pp: sample_objective(p, pp, z, ci), params))
+    report("autograd of the sample objective")
 
     d_loss = abs(l_f.item() - l_a.item())
     rels = {k: rel_norm(g_f[k], g_a[k]) for k in g_f}
@@ -1322,45 +1417,59 @@ def train(label, p, params, seed, opts=None, f32_reading=False,
     lc_calls = first_calls(lc_nll + lc_lp + lc_sg)
     del lc_nll, lc_lp, lc_sg
 
-    # card f32 against the port's f64 CPU path, N_CROSS rows
-    card_vs_f64_grads(label, p, params, x[:N_CROSS], z[:N_CROSS],
-                      None if ci is None else ci[:N_CROSS], opts,
+    # card f32 against the port's f64 CPU path, n_cross rows
+    card_vs_f64_grads(label, p, params, x[:n_cross], z[:n_cross],
+                      ci_map(ci, lambda c: c[:n_cross]), opts,
                       f32_reading=f32_reading, nll_f32=f32_held,
-                      sample_f32=f32_held)
+                      sample_f32=f32_held or sample_f32)
+    report(f"gradients on {n_cross} rows (card, then the CPU f64 path)")
+    launches = {"nll": l_nll, "log_prob_grad": l_lp, "sample_grad": l_sg}
 
-    # train.fit: TRAIN_STEPS full-batch Adam steps from init_params(seed=0)
-    # on the rows sampled from the jittered model
-    init = p.init_params(seed=0)
-    # one untimed step first: the first optimizer step of a process carries
-    # one-time set-up (torch.optim's lazy imports)
-    ttrain.fit(p, init, x[:4096], conditional_input=None if ci is None
-               else ci[:4096], num_steps=1, learning_rate=TRAIN_LR)
-    torch.cuda.synchronize()
-    t0 = time.time()
-    (_, losses), l_fit, _, _ = train_path(
-        label, "fit", p, lambda: ttrain.fit(p, init, x, conditional_input=ci,
-                                            num_steps=TRAIN_STEPS,
-                                            learning_rate=TRAIN_LR),
-        record=False)
-    torch.cuda.synchronize()
-    fit_s = time.time() - t0
-    log(f"{label}: train.fit {TRAIN_STEPS} Adam steps (lr {TRAIN_LR:g}, "
-        f"{N_TRAIN} rows): NLL {losses[0]:.6f} -> {losses[-1]:.6f}; "
-        f"{fit_s / TRAIN_STEPS * 1e3:.3f} ms per step (host clock, mean, after "
-        f"a one-step warm-up fit)")
-    log(f"{label}: loss history {' '.join(f'{v:.6f}' for v in losses)}")
-    if not (len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses))
-            and losses[-1] < losses[0]):
-        raise AssertionError(f"{label}: training did not lower the loss: "
-                             f"{list(losses)}")
+    if fit_steps is None:
+        fit_steps = max(2, min(TRAIN_STEPS, int(FIT_BUDGET_S / t_nll)))
+        log(f"{label}: {fit_steps} train.fit steps: the fused NLL step took "
+            f"{t_nll:.1f} s (host clock, with its recording), "
+            f"{FIT_BUDGET_S:g} s allowed for the fit, {TRAIN_STEPS} at most")
+    if fit_steps:
+        # train.fit: fit_steps full-batch Adam steps from init (by default
+        # init_params(seed=0)) on the rows sampled from the jittered model
+        init = p.init_params(seed=0) if init is None else init
+        # one untimed step first: the first optimizer step of a process
+        # carries one-time set-up (torch.optim's lazy imports)
+        ttrain.fit(p, init, x[:warm_rows], num_steps=1,
+                   conditional_input=ci_map(ci, lambda c: c[:warm_rows]),
+                   learning_rate=TRAIN_LR)
+        torch.cuda.synchronize()
+        report("the one-step warm-up fit")
+        t0 = time.time()
+        (_, losses), l_fit, _, _ = train_path(
+            label, "fit", p, lambda: ttrain.fit(
+                p, init, x, conditional_input=ci, num_steps=fit_steps,
+                learning_rate=TRAIN_LR), record=False)
+        torch.cuda.synchronize()
+        fit_s = time.time() - t0
+        launches["fit"] = l_fit
+        log(f"{label}: train.fit {fit_steps} Adam steps (lr {TRAIN_LR:g}, "
+            f"{N_TRAIN} rows): NLL {losses[0]:.6f} -> {losses[-1]:.6f}; "
+            f"{fit_s / fit_steps * 1e3:.3f} ms per step (host clock, mean, "
+            "after a one-step warm-up fit)")
+        log(f"{label}: loss history {' '.join(f'{v:.6f}' for v in losses)}")
+        report("train.fit")
+        if not (len(losses) == fit_steps and all(map(math.isfinite, losses))
+                and losses[-1] < losses[0]):
+            raise AssertionError(f"{label}: training did not lower the "
+                                 f"loss: {list(losses)}")
 
-    step_fused = cuda_ms(lambda: p.nll_value_and_grad(params, x, ci), 10)
+    # one timed call needs no warm-up: the paths above ran the same call
+    step_fused = cuda_ms(lambda: p.nll_value_and_grad(params, x, ci), reps,
+                         warm=reps > 1)
     step_auto = cuda_ms(lambda: p._value_and_grad(
-        lambda pp: -p.log_prob(pp, x, ci)[0].mean(), params), 10)
+        lambda pp: -p.log_prob(pp, x, ci)[0].mean(), params), reps,
+                        warm=reps > 1)
     log(f"{label} value-and-grad step at {N_TRAIN} rows: nll_value_and_grad "
-        f"{step_fused:.3f} ms, autograd {step_auto:.3f} ms (median of 10)")
-    launches = {"nll": l_nll, "log_prob_grad": l_lp, "sample_grad": l_sg,
-                "fit": l_fit}
+        f"{step_fused:.3f} ms, autograd {step_auto:.3f} ms (median of "
+        f"{reps})")
+    report("the timed steps")
     return (launches, errs, c_nll + c_lp + c_sg, lc_calls,
             (step_fused, step_auto))
 
@@ -2328,9 +2437,9 @@ def kernel_census(fn):
     return len(dev), sum(e.time_range.elapsed_us() for e in dev) / 1e3, wall
 
 
-def time_serving(label, p, params, x, n, ci, seed, card):
-    """sample (n rows) and log_prob (of x) timed, median of 5, and one call
-    of each censused by torch.profiler (kernel_census)."""
+def time_serving(label, p, params, x, n, ci, seed, card, reps=5):
+    """sample (n rows) and log_prob (of x) timed, median of ``reps``, and
+    one call of each censused by torch.profiler (kernel_census)."""
     g = torch.Generator(device=p.device).manual_seed(seed)
 
     def sample():
@@ -2340,9 +2449,9 @@ def time_serving(label, p, params, x, n, ci, seed, card):
         return p.log_prob(params, x, ci)
 
     for what, fn in (("sample", sample), ("log_prob", log_prob)):
-        ms = cuda_ms(fn, 5)
+        ms = cuda_ms(fn, reps)
         log(f"{label} {what} on {card}: {ms:.3f} ms per {n} rows = "
-            f"{n / ms * 1e3:.6g} rows/s (median of 5)")
+            f"{n / ms * 1e3:.6g} rows/s (median of {reps})")
         census = kernel_census(fn)
         log(f"{label} {what}: " + (
             "torch.profiler recorded no device event (not measured)"
@@ -2592,6 +2701,235 @@ def sphere_phase(dev, card):
             peak_memory(label, f"training at {N_TRAIN} rows")
             torch.cuda.empty_cache()
     log(f"sphere phase {time.time() - t_phase:.1f} s")
+    return launches, errs
+
+
+def ode_report(label, what):
+    """Log the ODE integrations since the last report (ops/odeint.py
+    ODE_SOLVES), forward and adjoint apart: each chart's (accepted,
+    rejected, stopped at max_steps); a summary where there are more than
+    16."""
+    from jammy_flows_tpu_torch.ops import odeint
+    solves = list(odeint.ODE_SOLVES)
+    odeint.ODE_SOLVES.clear()
+    for kind in ("forward", "adjoint"):
+        got = [(a, r, m) for k, a, r, m in solves if k == kind]
+        if not got:
+            continue
+        if len(got) <= 16:
+            text = str(got)
+        else:
+            acc, rej = [a for a, _, _ in got], [r for _, r, _ in got]
+            text = (f"{len(got)} charts, accepted {min(acc)}-{max(acc)} "
+                    f"(mean {statistics.mean(acc):.1f}), rejected "
+                    f"{min(rej)}-{max(rej)} (mean {statistics.mean(rej):.1f}),"
+                    f" {sum(m for _, _, m in got)} at max_steps")
+        log(f"{label} {what}: {kind} ODE steps per chart (accepted, "
+            f"rejected, at max_steps) {text}")
+
+
+def cnf_phase(dev, card):
+    """The manifold CNF `c` (CNF_MODELS), at full width: each model served
+    at N_COND rows (sample, then log_prob of the samples, with exact launch
+    counts; every block call against its plain version), log_prob against
+    the port's f64 CPU path (on N_CROSS rows: the card and the CPU each
+    integrate those rows as one batch, whose step sequence the batch-global
+    error norm sets, so the two agree to the solver's tolerance), sample
+    and log_prob timed and censused, peak device memory; trained as the
+    flagship (train(): the fused NLL, autograd of log_prob and of a sample
+    objective through the continuous adjoint or rk4's checkpointed steps;
+    the flagship with `c` runs T3 / T2 lazy2, held against their plain
+    versions, T3's val / ld against T1's); every ODE integration's steps
+    per chart, forward and adjoint apart.  Returns (launches by model and
+    path, errors per kernel)."""
+    from jammy_flows_tpu_torch import pdf
+    t_phase = time.time()
+    launches, errs = {}, {}
+    ode_report("cnf phase", "start")
+    for i, (label, defs, flows, opts, cond, fit_steps) in enumerate(
+            CNF_MODELS):
+        t_model = time.time()
+        torch.cuda.reset_peak_memory_stats()
+        p = pdf(defs, flows, options_overwrite=opts,
+                conditional_input_dim=cond, device=dev)
+        params = jittered_params(p, seed=310 + i)
+        ci = cond_input(p, N_COND, torch.Generator(device=dev).manual_seed(
+            320 + i))
+        x, launch, calls, layer_calls = serve(label, p, params, N_COND, ci,
+                                              seed=330 + i)
+        ode_report(label, "serving (sample, log_prob)")
+        if layer_calls:
+            raise AssertionError(f"{label}: a per-layer kernel ran")
+        for k, v in check_calls(label, calls).items():
+            errs[k] = max(errs.get(k, 0.0), v)
+        del calls
+        cross_check(label, p, params, x, ci, opts)
+        ode_report(label, "log_prob cross-check (the card, then the CPU "
+                   "f64 path)")
+        launches[label] = {"serving": launch}
+        time_serving(label, p, params, x, N_COND, ci, 340 + i, card,
+                     reps=CNF_REPS)
+        ode_report(label, "timed and censused sample / log_prob calls")
+        peak_memory(label, f"serving {N_COND} rows")
+        del x
+        torch.cuda.empty_cache()
+        # the sample objective's f32 gradient is held against the port's
+        # f32 CPU path, its f64 distance printed: a sample within ~1e-4 of
+        # the azimuth pi, where the conversion to (theta, phi) clips in
+        # float32, puts it 5e-2 - 7e-2 from f64 in both packages
+        # (tests/f32_cnf_reading.py, PERF.md)
+        l_t, e, _, _, (step_nll, step_auto) = train(
+            label, p, params, seed=350 + i, opts=opts, f32_reading=True,
+            sample_f32=True, fit_steps=fit_steps, reps=1,
+            n_cross=N_CROSS_CNF, warm_rows=256,
+            report=lambda what, label=label: ode_report(label, what))
+        launches[label].update(l_t)
+        for k, v in e.items():
+            errs[k] = max(errs.get(k, 0.0), v)
+        log(f"{label} training step on {card}: nll_value_and_grad "
+            f"{step_nll:.3f} ms, autograd of -log_prob().mean() "
+            f"{step_auto:.3f} ms per {N_TRAIN} rows")
+        peak_memory(label, f"training at {N_TRAIN} rows")
+        torch.cuda.empty_cache()
+        log(f"{label}: {time.time() - t_model:.1f} s")
+    log(f"cnf phase {time.time() - t_phase:.1f} s")
+    return launches, errs
+
+
+def options_phase(dev, card):
+    """The PDF-level options on OPTIONS_MODEL at N_COND rows: init_params
+    from the training rows' first sub-pdf (data-driven init), served with
+    failsafe sampling (FAILSAFE_TOL, FAILSAFE_ROUNDS) in embedding
+    coordinates and log_prob of those rows with forced embedding
+    coordinates (exact launch counts, every block call against its plain
+    version, the roundtrip's q999), log_mean_poisson and log_prob against
+    the port's f64 CPU path, sample and log_prob timed, trained as the
+    flagship from the data-driven init (its NLL through autograd: T1 / T2
+    lazy2).  Returns (launches by path, errors per kernel)."""
+    from jammy_flows_tpu_torch import pdf
+    from jammy_flows_tpu_torch.utils.convert import params_from_jax
+    t_phase = time.time()
+    label = "options"
+    defs, flows, cond = OPTIONS_MODEL
+    p = pdf(defs, flows, conditional_input_dim=cond,
+            predict_log_normalization=True, device=dev)
+    g = torch.Generator(device=dev).manual_seed(400)
+    ci = cond_input(p, N_COND, g)
+    with torch.no_grad():
+        rows = p.sample(jittered_params(p, 401, flow_scale=0.1),
+                        conditional_input=ci, generator=g)[0]
+    lo, hi = p.target_dim_indices[0]
+    t0 = time.time()
+    init = p.init_params(seed=0, data=rows[:, lo:hi])
+    plain = p.init_params(seed=0)
+    moved = (init["mlp_0"] - plain["mlp_0"]).abs().max().item()
+    log(f"{label}: init_params(data=) from {rows.shape[0]} rows' first "
+        f"sub-pdf in {time.time() - t0:.2f} s (host); mlp_0 moved by "
+        f"{moved:.4g} from the plain init")
+    if not (moved > 1e-3 and all(torch.isfinite(v).all()
+                                 for v in init.values())):
+        raise AssertionError(f"{label}: the data-driven init")
+    gj = torch.Generator(device=dev).manual_seed(402)
+    params = {k: v + 0.02 * torch.randn(v.shape, generator=gj, device=dev)
+              if k.startswith("mlp_") else v for k, v in init.items()}
+
+    calls = []
+    reset_counts()
+    with recording(calls):
+        g = torch.Generator(device=dev).manual_seed(403)
+        x, z, lp_s, _ = p.sample(params, conditional_input=ci, generator=g,
+                                 failsafe_crosscheck_tolerance=FAILSAFE_TOL,
+                                 failsafe_rounds=FAILSAFE_ROUNDS,
+                                 force_embedding_coordinates=True)
+        lp_e = p.log_prob(params, x, conditional_input=ci,
+                          force_embedding_coordinates=True)[0]
+    torch.cuda.synchronize()
+    launch = counts()
+    log(f"{label} ({N_COND} rows, failsafe sampling in embedding "
+        f"coordinates, then log_prob of them): launches "
+        f"{ {k: v for k, v in launch.items() if v} }")
+    if launch != all_counts(EXPECTED_LAUNCHES[label]) or             len(calls) != sum(launch.values()):
+        raise AssertionError(f"{label}: launches {launch}, "
+                             f"{len(calls)} recorded calls")
+    d = (lp_e - lp_s).abs()
+    off = (d > FAILSAFE_TOL).float().mean().item()
+    log(f"{label}: rows of width {x.shape[1]} (embedding: "
+        f"{p.total_target_dim_embedded}); sample->log_prob |dlogp| q999 "
+        f"{torch.quantile(d.float(), 0.999).item():.3e} max "
+        f"{d.max().item():.3e}, {off:.3e} of the rows beyond the failsafe "
+        f"tolerance {FAILSAFE_TOL:g} after {FAILSAFE_ROUNDS} rounds "
+        "(printed)")
+    if not (x.shape == (N_COND, p.total_target_dim_embedded)
+            and torch.isfinite(x).all() and torch.isfinite(lp_e).all()):
+        raise AssertionError(f"{label}: failsafe / embedding serving")
+    errs = check_calls(label, calls)
+    del calls
+
+    # the data-initialized model's float32 sampling solve (4 Newton steps,
+    # the JAX package's kernels') leaves ~12% of the rows beyond 1e-3 in
+    # both packages (tests/f32_options_reading.py, PERF.md): the card's
+    # roundtrip is held against the port's f32 CPU path on the same merged
+    # base draws, N_CROSS of them
+    from jammy_flows_tpu_torch.ops.special import std_normal_log_prob
+    p_cpu = cpu_twin(p)
+    par32 = {k: v.cpu() for k, v in params.items()}
+    cis = ci_map(ci, lambda c: c[:N_CROSS])
+    ci32 = ci_map(cis, lambda c: c.cpu())
+    zc = z[:N_CROSS].cpu()
+    xc, ldc = p_cpu.all_layer_forward(par32, zc, torch.zeros(N_CROSS), ci32,
+                                      force_embedding_coordinates=True)
+    dc = (p_cpu.log_prob(par32, xc, conditional_input=ci32,
+                         force_embedding_coordinates=True)[0]
+          - (std_normal_log_prob(zc) - ldc)).abs()
+    q_card = torch.quantile(d[:N_CROSS].float(), 0.999).item()
+    q_cpu = torch.quantile(dc, 0.999).item()
+    log(f"{label}: on the first {N_CROSS} rows the card's roundtrip q999 "
+        f"{q_card:.3e}, the port's CPU f32 path on the same base draws "
+        f"{q_cpu:.3e} (limit |q999 - its| < {TOL_ROUNDTRIP_Q999:g})")
+    if not abs(q_card - q_cpu) < TOL_ROUNDTRIP_Q999:
+        raise AssertionError(f"{label}: roundtrip q999 {q_card:.3e}, the CPU "
+                             f"f32 path's {q_cpu:.3e}")
+
+    par64 = params_from_jax({k: v.cpu().numpy() for k, v in params.items()},
+                            dtype=torch.float64)
+    lm = p.log_mean_poisson(params, ci)
+    lm_cpu = p_cpu.log_mean_poisson(par64, ci_map(cis, lambda c:
+                                                  c.double().cpu()))
+    lm_err = (lm[:N_CROSS].double().cpu() - lm_cpu).abs().max().item()
+    log(f"{label}: log_mean_poisson {tuple(lm.shape)}, card f32 vs CPU f64 "
+        f"on {N_CROSS} rows max|diff| {lm_err:.3e} (limit {TOL_CROSS:g})")
+    if not (lm.shape == (N_COND, 1) and torch.isfinite(lm).all()
+            and lm_err < TOL_CROSS):
+        raise AssertionError(f"{label}: log_mean_poisson")
+    x_def = p.transform_target_space(x, transform_from="embedding",
+                                     transform_to="default")[0]
+    cross_check(label, p, params, x_def, ci, p_cpu=p_cpu)
+    launches = {label: {"serving": launch}}
+    time_serving(label, p, params, x_def, N_COND, ci, 404, card)
+    g = torch.Generator(device=dev).manual_seed(405)
+    ms = cuda_ms(lambda: p.sample(params, conditional_input=ci, generator=g,
+                                  failsafe_crosscheck_tolerance=FAILSAFE_TOL,
+                                  failsafe_rounds=FAILSAFE_ROUNDS,
+                                  force_embedding_coordinates=True), 5)
+    log(f"{label} failsafe sample ({FAILSAFE_ROUNDS} rounds, embedding "
+        f"coordinates) on {card}: {ms:.3f} ms per {N_COND} rows (median of 5)")
+    peak_memory(label, f"serving {N_COND} rows")
+    del x, x_def, rows
+    torch.cuda.empty_cache()
+    # its f32 sample gradient lies 2.6e-3 from f64 in both packages' kernel
+    # route (tests/f32_options_reading.py): held against the f32 CPU path
+    l_t, e, _, _, (step_nll, step_auto) = train(
+        label, p, params, seed=410, init=init, f32_reading=True,
+        sample_f32=True)
+    launches[label].update(l_t)
+    for k, v in e.items():
+        errs[k] = max(errs.get(k, 0.0), v)
+    log(f"{label} training step on {card}: nll_value_and_grad (autograd: a "
+        f"Poisson head) {step_nll:.3f} ms, autograd of -log_prob().mean() "
+        f"{step_auto:.3f} ms per {N_TRAIN} rows")
+    peak_memory(label, f"training at {N_TRAIN} rows")
+    torch.cuda.empty_cache()
+    log(f"options phase {time.time() - t_phase:.1f} s")
     return launches, errs
 
 
@@ -3035,13 +3373,20 @@ def main():
     log(f"training phase {time.time() - t_train:.1f} s")
     del p_u, p_c, par_u, par_c, x_u, x_c
     nan_check(dev)
+    log(f"{time.time() - t0:.1f} s since the build started")
     add_phase_launches(rows, *circle_phase(dev, card))
     layer_rows += simplex_phase(dev, card)
     add_phase_launches(rows, *sphere_phase(dev, card))
+    add_phase_launches(rows, *cnf_phase(dev, card))
+    add_phase_launches(rows, *options_phase(dev, card))
+    log(f"{time.time() - t0:.1f} s since the build started")
 
     layer_rows += layer_phase(dev, card, layer_ptxas)
+    log(f"{time.time() - t0:.1f} s since the build started")
     rows += lazy_phase(dev, card)
+    log(f"{time.time() - t0:.1f} s since the build started")
     chain_rows = chain_phase(dev, card)
+    log(f"{time.time() - t0:.1f} s since the build started")
     add_slot_bounds(layer_rows, chain_rows, card)
     rows += layer_rows + chain_rows
 

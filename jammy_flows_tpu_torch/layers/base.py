@@ -36,6 +36,12 @@ class FlowLayer:
         rng = rng or np.random.default_rng(0)
         return rng.standard_normal(self.num_params)
 
+    def param_structure(self):
+        """Ordered (name, size) pairs of the packed parameter row (the
+        named split of ``PDF.obtain_flow_param_structure``); the sizes sum to
+        ``num_params``."""
+        return [("params", self.num_params)] if self.num_params else []
+
     @property
     def intrinsic_dim(self):
         return self.dimension
@@ -52,6 +58,29 @@ class FlowLayer:
         """Embed target coordinates for downstream autoregressive
         conditioning."""
         return x
+
+    def transform_target_space(self, x, log_det=0.0, transform_from="default",
+                               transform_to="embedding"):
+        """Target coordinates from one system ("default", "intrinsic",
+        "embedding") to another; the identity for Euclidean and interval
+        layers."""
+        return x, log_det
+
+
+def named_parts(layer, parts):
+    """The named parts, checked to cover the layer's parameters."""
+    if sum(s for _, s in parts) != layer.num_params:
+        raise ValueError((type(layer).__name__, parts, layer.num_params))
+    return parts
+
+
+def coordinates_intrinsic(layer, transform_from, transform_to):
+    """(whether the coordinates are intrinsic now, whether they are wanted
+    intrinsic) for a manifold layer with an embedding."""
+    emb = layer.always_parametrize_in_embedding_space
+    now = {"default": not emb, "embedding": False}.get(transform_from, True)
+    want = {"default": not emb, "intrinsic": True}.get(transform_to, False)
+    return now, want
 
 
 def split_params(params, sizes):

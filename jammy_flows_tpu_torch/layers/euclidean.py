@@ -30,7 +30,7 @@ import math
 import numpy as np
 import torch
 
-from .base import FlowLayer, split_params
+from .base import FlowLayer, named_parts, split_params
 from ..ops import gf_block, gf_layer, logistic_kde, matrix, rotations
 from ..ops.inverse import make_inverse_fn
 from ..ops.lazy_params import LazyParams, materialize_if_lazy
@@ -79,6 +79,14 @@ class EuclideanLayer(FlowLayer):
             parts.append(np.full(self.dimension, 0.001))
         parts.append(self._default_params(rng))
         return np.concatenate(parts)
+
+    def param_structure(self):
+        parts = [("offset", self.dimension)] if self.model_offset else []
+        return named_parts(self, parts + self._child_param_structure())
+
+    def _child_param_structure(self):
+        rest = self.num_params - self.model_offset * self.dimension
+        return [("params", rest)] if rest else []
 
     def _forward(self, params, x, log_det):
         raise NotImplementedError
@@ -393,6 +401,32 @@ class GaussianizationFlow(EuclideanLayer):
             val, log_deriv = self._gf_density_pass(x, flow_params, raws)
         return val, log_det + torch.sum(log_deriv, dim=-1)
 
+    def _child_param_structure(self):
+        """The reference's names: the rotation ("vs", "anglepars",
+        "cayleypars", "trianglepars"), "means", "log_widths", "log_norms",
+        "exponents"; the rq_splines stretch's "log_heights",
+        "log_derivatives", "boundary_points"."""
+        rot_name = {"householder": "vs", "angles": "anglepars",
+                    "cayley": "cayleypars",
+                    "triangular_combination": "trianglepars",
+                    "none": "rotation"}[self.rotation_mode]
+        parts = []
+        if self.num_rotation_params:
+            parts.append((rot_name, self.num_rotation_params))
+        d, k = self.dimension, self.num_kde
+        if self.nonlinear_stretch_type == "classic":
+            parts.append(("means", self.num_mean_params))
+            parts.append(("log_widths", k * d))
+            if self.fit_normalization:
+                parts.append(("log_norms", k * d))
+            if self.add_skewness:
+                parts.append(("exponents", k * d))
+        else:
+            parts += [("log_widths", d * k), ("log_heights", d * k),
+                      ("log_derivatives", d * (k + 1)),
+                      ("boundary_points", d * 4)]
+        return parts
+
     def _default_params(self, rng):
         """``euclidean.py:512-532`` of the JAX package: random householder
         vectors, zeros for the other rotations."""
@@ -464,6 +498,17 @@ class MultivariateNormal(EuclideanLayer):
 
     def _inverse(self, params, x, log_det):
         return self._apply(params, x, log_det, inverse=True)
+
+    def _child_param_structure(self):
+        """The reference's names, "lower_trinagular_entries" spelling
+        included."""
+        d = self.dimension
+        return {"identity": [],
+                "diagonal_symmetric": [("log_diagonal_symmetric", 1)],
+                "diagonal": [("log_diagonal", d)],
+                "full": [("log_diagonal", d),
+                         ("lower_trinagular_entries", d * (d - 1) // 2)]}[
+                             self.cov_type]
 
     def _default_params(self, rng):
         return np.zeros(self.num_cov_params)

@@ -104,6 +104,11 @@ class RQSplineInterval(IntervalLayer):
         self.num_params = (self.layout.num_widths + self.layout.num_heights
                            + self.num_derivative_params)
 
+    def param_structure(self):
+        return [("widths", self.layout.num_widths),
+                ("heights", self.layout.num_heights),
+                ("derivatives", self.num_derivative_params)]
+
     def _unpack(self, params):
         w, h, d = self.layout.unpack(params)
         if self.mirrored:

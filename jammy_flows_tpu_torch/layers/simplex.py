@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .base import FlowLayer
+from .base import FlowLayer, coordinates_intrinsic
 from ..ops import logistic_kde, manifold
 from ..ops.special import LOG_SQRT_2PI
 
@@ -64,20 +64,11 @@ class SimplexLayer(FlowLayer):
     def transform_target_space(self, x, log_det=0.0, transform_from="default",
                                transform_to="embedding"):
         """Intrinsic (base simplex) <-> embedding (canonical simplex)
-        coordinates; not wired into the pdf yet (ROADMAP.md, Queue 1 item
-        4(f))."""
-        currently_intrinsic = True
-        if transform_from == "default":
-            currently_intrinsic = not self.always_parametrize_in_embedding_space
-        elif transform_from == "embedding":
-            currently_intrinsic = False
-        if transform_to == "default":
-            want_intrinsic = not self.always_parametrize_in_embedding_space
-        else:
-            want_intrinsic = transform_to == "intrinsic"
-        if currently_intrinsic and not want_intrinsic:
+        coordinates."""
+        now, want = coordinates_intrinsic(self, transform_from, transform_to)
+        if now and not want:
             return manifold.base_simplex_to_canonical(x, log_det)
-        if not currently_intrinsic and want_intrinsic:
+        if want and not now:
             return manifold.canonical_simplex_to_base(x, log_det)
         return x, log_det
 
@@ -109,6 +100,9 @@ class InnerLoopSimplex(SimplexLayer):
                               device=device)
         self.num_inner_params = self.inner_flow.total_number_amortizable_params
         self.num_params += self.num_inner_params
+
+    def param_structure(self):
+        return [("inner_flow_params", self.num_inner_params)]
 
     def _through_box(self, params, x, log_det, inner_map):
         if self.always_parametrize_in_embedding_space:
@@ -149,6 +143,9 @@ class GumbelSoftmax(SimplexLayer):
                          project_from_gauss_to_simplex)
         self.num_params += dimension + 2   # log_tau + (d + 1) log_probs
         self.inverse_function_type = "inormal_partly_precise"
+
+    def param_structure(self):
+        return [("log_tau", 1), ("log_probs", self.dimension + 1)]
 
     def _unpack(self, params):
         return params[:, 0:1], params[:, 1:self.dimension + 2]

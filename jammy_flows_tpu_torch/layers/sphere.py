@@ -22,7 +22,7 @@ import math
 import numpy as np
 import torch
 
-from .base import FlowLayer
+from .base import FlowLayer, coordinates_intrinsic, named_parts
 from ..ops import manifold, rotations
 from ..ops.inverse import make_inverse_fn
 from ..ops.special import logaddexp
@@ -205,11 +205,35 @@ class SphereLayer(FlowLayer):
             x = manifold.spherical_to_eucl(x)
         return x
 
+    def transform_target_space(self, x, log_det=0.0, transform_from="default",
+                               transform_to="embedding"):
+        """Intrinsic angles <-> embedding unit vectors, with the log-det of
+        the conversion."""
+        now, want = coordinates_intrinsic(self, transform_from, transform_to)
+        if now and not want:
+            return manifold.spherical_to_eucl(x, log_det)
+        if want and not now:
+            return manifold.eucl_to_spherical(x, log_det)
+        return x, log_det
+
     def default_params(self, rng=None):
         rng = rng or np.random.default_rng(0)
         parts = [rng.standard_normal(self.num_rotation_params)]
         parts.append(self._default_params(rng))
         return np.concatenate(parts)
+
+    def param_structure(self):
+        """The rotation's parameters first, then the child layer's."""
+        rot_name = {"householder": "householder", "angles": "anglepars",
+                    "xyz": "xyzpars", "quaternion": "quatpars"}[
+                        self.rotation_mode]
+        parts = [(rot_name, self.num_rotation_params)] \
+            if self.num_rotation_params else []
+        return named_parts(self, parts + self._child_param_structure())
+
+    def _child_param_structure(self):
+        rest = self.num_params - self.num_rotation_params
+        return [("params", rest)] if rest else []
 
     def _default_params(self, rng):
         return rng.standard_normal(self.num_params - self.num_rotation_params)
@@ -305,6 +329,9 @@ class Moebius(SphereLayer):
                            moebius_trafo_deriv(xx, p[0], self.use_xyz)),
             lo=-PI, hi=PI, num_bisection_iter=20, num_newton_iter=20)
 
+    def _child_param_structure(self):
+        return [("moebius", self.num_basis_functions * self.num_omega_pars)]
+
     def _apply(self, params, x, log_det, sampling):
         mp = params.reshape(-1, self.num_basis_functions, self.num_omega_pars)
         if self.always_parametrize_in_embedding_space:
@@ -380,6 +407,11 @@ class CircularRQSpline(SphereLayer):
         self.num_derivative_params = k + 1 - bd_sub
         self.num_params += (self.layout.num_widths + self.layout.num_heights
                             + self.num_derivative_params)
+
+    def _child_param_structure(self):
+        return [("widths", self.layout.num_widths),
+                ("heights", self.layout.num_heights),
+                ("derivatives", self.num_derivative_params)]
 
     def _apply(self, params, x, log_det, sampling):
         if self.always_parametrize_in_embedding_space:

@@ -378,6 +378,21 @@ class FisherVonMises2D(SphereLayer):
                                             log_det)
         return (z, angle), log_det
 
+    def _child_param_structure(self):
+        """The reference's names (each nested flow's whole amortization
+        slab under one)."""
+        parts = []
+        if self.num_kappa_params:
+            parts.append(("loglike_kappa", self.num_kappa_params))
+        if self.add_correlated:
+            parts.append(("correlated_params", self.total_num_correlated))
+        else:
+            if self.add_vertical:
+                parts.append(("vertical_params", self.total_num_vertical))
+            if self.add_circular:
+                parts.append(("circular_params", self.total_num_circular))
+        return parts
+
     def _default_params(self, rng):
         parts = []
         if self.has_kappa_param:
@@ -573,6 +588,10 @@ class ExponentialMapS2(SphereLayer):
 
     def _inverse(self, child, x, log_det, rot):
         return self._rows(child, x, log_det, sampling=False)
+
+    def _child_param_structure(self):
+        return [("potential_pars",
+                 self.num_potential_pars * self.num_components)]
 
     def supports_zphi(self):
         return not self.always_parametrize_in_embedding_space

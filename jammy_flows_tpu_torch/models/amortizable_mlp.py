@@ -66,6 +66,14 @@ def _make_block(inputs, outputs, low_rank, add_final_bias, svd_mode):
                 used_ranks=used_ranks, num_params=total)
 
 
+def _matmat(w, rows, cols, tan):
+    """tan @ W.T for K tangents tan (B, K, cols) of the packed (Bp, rows *
+    cols) matrix W: (B, K, rows); one 2-D product for shared weights."""
+    if w.shape[0] == 1:
+        return torch.matmul(tan, w[0].view(rows, cols).T)
+    return torch.bmm(tan, w.view(-1, rows, cols).transpose(1, 2))
+
+
 def _matvec(w, rows, cols, vec):
     """vec @ W.T for the packed (Bp, rows * cols) matrix W: one 2-D product
     for shared weights, a batched product on a (B, rows, cols) view of the
@@ -179,6 +187,56 @@ class AmortizableMLP:
         return out
 
     __call__ = apply
+
+    @staticmethod
+    def _apply_block_jvp(block, x, tan, pieces):
+        """_apply_block with tangents tan (B, K, In) carried beside x."""
+        prev, prev_t = x, tan
+        n = len(block["inputs"])
+        for i in range(n):
+            u, v, b = next(pieces), next(pieces), next(pieces)
+            out_d, in_d = block["outputs"][i], block["inputs"][i]
+            if block["full_flags"][i]:
+                out = _matvec(u, out_d, in_d, prev)
+                out_t = _matmat(u, out_d, in_d, prev_t)
+            else:
+                r = block["used_ranks"][i]
+                out = _matvec(u, out_d, r, _matvec(v, r, in_d, prev))
+                out_t = _matmat(u, out_d, r, _matmat(v, r, in_d, prev_t))
+            if b.shape[1]:
+                out = out + b
+            if i == n - 1:
+                prev, prev_t = out, out_t
+            else:
+                prev = torch.tanh(out)
+                prev_t = (1.0 - prev * prev)[:, None, :] * out_t
+        return prev, prev_t
+
+    def apply_jvp(self, flat_params, x, tan):
+        """(apply(flat_params, x), its directional derivatives along the
+        K input tangents tan (B, K, In): (B, K, Out)), forward mode by
+        hand."""
+        if flat_params.ndim == 1:
+            flat_params = flat_params[None, :]
+        pieces = torch.split(flat_params, self._sizes, dim=1)
+        n_lin = 3 * len(self.linear_highway["inputs"]) \
+            if self.linear_highway is not None else 0
+        out = out_t = None
+        if n_lin:
+            out, out_t = self._apply_block_jvp(
+                self.linear_highway, x, tan, iter(pieces[len(pieces) - n_lin:]))
+        head = iter(pieces[:len(pieces) - n_lin])
+        for j, block in enumerate(self.mlp_list):
+            if j == 0 or self.highway_mode == 2:
+                feed, feed_t = x, tan
+            elif self.highway_mode == 3:
+                feed, feed_t = out, out_t
+            else:
+                feed = torch.cat([x, out], dim=1)
+                feed_t = torch.cat([tan, out_t], dim=2)
+            y, y_t = self._apply_block_jvp(block, feed, feed_t, head)
+            out, out_t = (y, y_t) if out is None else (out + y, out_t + y_t)
+        return out, out_t
 
     def supports_penultimate(self):
         """True when ``apply`` factorizes as ``hidden(x) @ w.T + b`` with a

@@ -44,23 +44,14 @@ import torch
 
 from .. import registry
 from ..ops import gf_block, manifold
-from ..ops.lazy_params import LazyParams, for_layer
+from ..ops.lazy_params import LazyParams, for_layer, materialize_if_lazy
 from ..ops.special import LOG_SQRT_2PI, std_normal_log_prob
 from .amortizable_mlp import AmortizableMLP, list_from_str
+from .init import find_init_pars_of_chained_blocks
 
-_TODO = "is not ported yet (ROADMAP.md, Queue 1)"
-_PDF_OPTIONS = "Queue 1 item 4(f): PDF-level options"
 # the JAX package's keywords that the port takes but does not run yet, with
 # their JAX defaults: any other value raises NotImplementedError
-UNPORTED_DEFAULTS = {
-    "predict_log_normalization": False,
-    "join_poisson_and_pdf_description": False,
-    "hidden_mlp_dims_poisson": "128", "rank_of_mlp_mappings_poisson": 0,
-    "skip_mlp_initialization": False, "verbose": False, "data": None,
-    "force_embedding_coordinates": False,
-    "force_intrinsic_coordinates": False,
-    "failsafe_crosscheck_tolerance": None, "failsafe_rounds": 3,
-    "optimizer": None, "checkpoint_every": None}
+UNPORTED_DEFAULTS = {"optimizer": None, "checkpoint_every": None}
 
 
 def refuse_unported(item, **given):
@@ -159,22 +150,36 @@ class PDF:
                  amortize_everything=False,
                  use_as_passthrough_instead_of_pdf=False,
                  skip_mlp_initialization=False, verbose=False, device=None):
-        refuse_unported(
-            _PDF_OPTIONS,
-            predict_log_normalization=predict_log_normalization,
-            join_poisson_and_pdf_description=join_poisson_and_pdf_description,
-            hidden_mlp_dims_poisson=hidden_mlp_dims_poisson,
-            rank_of_mlp_mappings_poisson=rank_of_mlp_mappings_poisson,
-            skip_mlp_initialization=skip_mlp_initialization, verbose=verbose)
         self.device = resolve_device(device)
         self.pdf_defs_list = pdf_defs.split("+")
         self.flow_defs_list = flow_defs.split("+")
-        if len(self.pdf_defs_list) != len(self.flow_defs_list):
+        n_sub = len(self.pdf_defs_list)
+        if len(self.flow_defs_list) != n_sub:
             raise ValueError((self.pdf_defs_list, self.flow_defs_list))
-        if conditional_input_dim is not None and \
-                not isinstance(conditional_input_dim, int):
-            raise NotImplementedError(f"per-sub-pdf conditional inputs {_TODO}")
+        # an int, or a list: one conditional input per sub-pdf
+        if isinstance(conditional_input_dim, (list, tuple)):
+            conditional_input_dim = list(conditional_input_dim)
+            if len(conditional_input_dim) != n_sub:
+                raise ValueError(f"{len(conditional_input_dim)} conditional "
+                                 f"input widths for {n_sub} sub-pdfs")
         self.conditional_input_dim = conditional_input_dim
+        self.encoding_type = "multi" if isinstance(conditional_input_dim,
+                                                   list) else "single"
+        self.predict_log_normalization = predict_log_normalization
+        self.join_poisson_and_pdf_description = \
+            join_poisson_and_pdf_description
+        if amortize_everything and predict_log_normalization:
+            raise ValueError("a Poisson head with amortize_everything exists "
+                             "only in the fully amortized pdf")
+        if join_poisson_and_pdf_description and (
+                n_sub != 1 or conditional_input_dim is None):
+            raise ValueError("join_poisson_and_pdf_description needs one "
+                             "conditional sub-pdf")
+        # stored with no effect, as in the JAX package (``verbose`` only
+        # reaches its option resolution, which ignores it)
+        self.skip_mlp_initialization = skip_mlp_initialization
+        self.force_permanent_parameters_in_first_subpdf = (
+            conditional_input_dim is None and not amortize_everything)
         self.amortization_mlp_highway_mode = amortization_mlp_highway_mode
         # accepted with no effect, as in the JAX PDF: only the fully
         # amortized model reads it
@@ -182,7 +187,6 @@ class PDF:
         self.amortize_everything = amortize_everything
         self.use_as_passthrough_instead_of_pdf = \
             use_as_passthrough_instead_of_pdf
-        n_sub = len(self.pdf_defs_list)
         self.amortization_mlp_dims = [amortization_mlp_dims] * n_sub \
             if isinstance(amortization_mlp_dims, str) \
             else list(amortization_mlp_dims)
@@ -193,7 +197,7 @@ class PDF:
                                                options_overwrite or {})
         self._build_layers()
         self._update_embedding_structure()
-        self._build_mlps()
+        self._build_mlps(hidden_mlp_dims_poisson, rank_of_mlp_mappings_poisson)
         self._block_meta = [gf_block.block_meta(layers)
                             for layers in self.layer_list]
 
@@ -242,9 +246,6 @@ class PDF:
                             kwargs.get("replace_first_sigmoid_with_icdf", 0) > 0 \
                             and kwargs.get("inverse_function_type") == "isigmoid":
                         kwargs["inverse_function_type"] = "inormal_partly_precise"
-                elif mtype != "e":
-                    raise NotImplementedError(
-                        f"manifold type {mtype!r} {_TODO}")
                 kwargs.pop("skip_model_offset", None)
                 kwargs.pop("replace_first_sigmoid_with_icdf", None)
                 layers.append(registry.get_layer_class(sym)(dim, **kwargs))
@@ -252,30 +253,45 @@ class PDF:
             self.num_parameter_list.append([l.num_params for l in layers])
 
     def _update_embedding_structure(self):
-        """Each sub-pdf's target and base columns: a sub-pdf whose layers
-        parametrize in embedding space takes embedded target coordinates
-        (``pdf.py:223-250`` of the JAX package)."""
+        """Each sub-pdf's target columns in its default, intrinsic and
+        embedding coordinates, and its base columns: a sub-pdf whose layers
+        parametrize in embedding space takes embedded target coordinates by
+        default (``pdf.py:223-250`` of the JAX package)."""
         self.target_dim_indices = []
+        self.target_dim_indices_intrinsic = []
+        self.target_dim_indices_embedded = []
         self.base_dim_indices = []
-        td = tb = 0
+        td = ti = te = tb = 0
         for layers in self.layer_list:
             use_emb = any(l.always_parametrize_in_embedding_space
                           for l in layers)
-            d_tgt = layers[-1].embedded_dim if use_emb \
-                else layers[-1].intrinsic_dim
+            d_int = layers[-1].intrinsic_dim
+            d_emb = layers[-1].embedded_dim
+            d_tgt = d_emb if use_emb else d_int
             d_base = layers[0].base_dim
             self.target_dim_indices.append((td, td + d_tgt))
+            self.target_dim_indices_intrinsic.append((ti, ti + d_int))
+            self.target_dim_indices_embedded.append((te, te + d_emb))
             self.base_dim_indices.append((tb, tb + d_base))
             td += d_tgt
+            ti += d_int
+            te += d_emb
             tb += d_base
         self.total_target_dim = td
+        self.total_target_dim_intrinsic = ti
+        self.total_target_dim_embedded = te
         self.total_base_dim = tb
 
-    def _build_mlps(self):
-        """Per-sub-pdf amortization MLPs: sub-pdf k reads [conditional
-        input, embeddings of sub-pdfs < k].  With ``amortize_everything``,
-        total_number_amortizable_params counts the slab: sub-pdf 0's layer
-        parameters when it has no MLP, then every MLP's flat weights."""
+    def _build_mlps(self, hidden_mlp_dims_poisson="128",
+                    rank_of_mlp_mappings_poisson=0):
+        """Per-sub-pdf amortization MLPs: sub-pdf k reads [its conditional
+        input (the k-th of a list), embeddings of sub-pdfs < k].  With
+        ``amortize_everything``, total_number_amortizable_params counts the
+        slab: sub-pdf 0's layer parameters when it has no MLP, then every
+        MLP's flat weights.  A Poisson log-mean head is one more output of
+        sub-pdf 0's MLP (``join_poisson_and_pdf_description``) or an MLP of
+        its own on the (first) conditional input
+        (``pdf.py:271-315`` of the JAX package)."""
         self.mlp_predictors = []
         self.total_number_amortizable_params = \
             0 if self.amortize_everything else None
@@ -289,57 +305,101 @@ class PDF:
                 if k == 0 and self.amortize_everything:
                     self.total_number_amortizable_params += tot_pars
                 continue
-            summary_dim = prev_extra_input_num + (self.conditional_input_dim
-                                                  or 0)
+            cd = self.conditional_input_dim
+            summary_dim = prev_extra_input_num + (
+                cd[k] if isinstance(cd, list) else cd or 0)
             self.mlp_predictors.append(AmortizableMLP(
                 summary_dim, list_from_str(self.amortization_mlp_dims[k]),
-                tot_pars, low_rank_approximations=self.amortization_mlp_ranks[k],
+                tot_pars + int(k == 0 and self._joined_poisson()),
+                low_rank_approximations=self.amortization_mlp_ranks[k],
                 highway_mode=self.amortization_mlp_highway_mode))
             if self.amortize_everything:
                 self.total_number_amortizable_params += \
                     self.mlp_predictors[k].num_params
             prev_extra_input_num += emb_dim_k
+        self.log_normalization_mlp = None
+        if self.predict_log_normalization and \
+                self.conditional_input_dim is not None and \
+                not self.join_poisson_and_pdf_description:
+            cd = self.conditional_input_dim
+            self.log_normalization_mlp = AmortizableMLP(
+                cd[0] if isinstance(cd, list) else cd,
+                list_from_str(hidden_mlp_dims_poisson), 1,
+                low_rank_approximations=rank_of_mlp_mappings_poisson,
+                highway_mode=self.amortization_mlp_highway_mode)
+
+    def _joined_poisson(self):
+        return self.predict_log_normalization and \
+            self.join_poisson_and_pdf_description
 
     # ------------------------------------------------------------------
     # parameters
     # ------------------------------------------------------------------
+    def _data_init(self, layers, data, rng):
+        """The data-driven init vector of a Euclidean first sub-pdf's chain
+        (models/init.py)."""
+        if self.pdf_defs_list[0][0] != "e":
+            raise ValueError("data-driven init needs a Euclidean first "
+                             "sub-pdf")
+        if isinstance(data, torch.Tensor):
+            data = data.detach().cpu().numpy()
+        return find_init_pars_of_chained_blocks(layers, np.asarray(data), rng)
+
     def init_params(self, seed=0, dtype=torch.float32, data=None):
         """Parameter dict: layer init vectors for permanent parameters; each
         MLP gets kaiming init, its final bias pinned to the layers' init
-        vector and everything upstream damped by 1000.  Same numpy RNG
-        sequence as the JAX package, so the values are equal.  Empty with
-        ``amortize_everything`` (see default_amortization_params)."""
-        refuse_unported(_PDF_OPTIONS, data=data)
+        vector (and 0 for a joined Poisson output) and everything upstream
+        damped by 1000; a standalone Poisson MLP's final bias is -1, an
+        unconditional Poisson head's ``log_lambda`` 0.  With ``data`` (N, D)
+        sub-pdf 0's chain starts from its data-driven init
+        (models/init.py).  Same numpy RNG sequence as the JAX package, so
+        the values are equal.  Empty with ``amortize_everything`` (see
+        default_amortization_params)."""
         rng = np.random.default_rng(seed)
         desired = [np.concatenate([l.default_params(rng) for l in layers])
                    if sum(self.num_parameter_list[k]) > 0 else np.zeros(0)
                    for k, layers in enumerate(self.layer_list)]
+        if data is not None:
+            desired[0] = self._data_init(self.layer_list[0], data, rng)
         params = {}
         if self.amortize_everything:
             return params
         for k in range(len(self.layer_list)):
             if self.mlp_predictors[k] is not None:
-                vec = self.mlp_predictors[k].default_init(
-                    rng, fix_final_bias=desired[k], prev_damping_factor=1000.0)
-                params[f"mlp_{k}"] = vec
-            elif k == 0 and self.conditional_input_dim is None \
+                fix = desired[k]
+                if k == 0 and self._joined_poisson():
+                    fix = np.concatenate([fix, np.zeros(1)])
+                params[f"mlp_{k}"] = self.mlp_predictors[k].default_init(
+                    rng, fix_final_bias=fix, prev_damping_factor=1000.0)
+            elif k == 0 and self.force_permanent_parameters_in_first_subpdf \
                     and desired[0].size:
                 params["flow_0"] = desired[0]
+        if self.predict_log_normalization and \
+                not self.join_poisson_and_pdf_description:
+            if self.log_normalization_mlp is not None:
+                params["poisson_mlp"] = self.log_normalization_mlp.default_init(
+                    rng, fix_final_bias=np.array([-1.0]),
+                    prev_damping_factor=1000.0)
+            else:
+                params["log_lambda"] = np.zeros(1)
         return {key: torch.as_tensor(v, dtype=dtype, device=self.device)
                 for key, v in params.items()}
 
-    def default_amortization_params(self, rng=None):
+    def default_amortization_params(self, rng=None, data=None):
         """The init vector (numpy float64) of an ``amortize_everything``
-        pdf's whole slab: sub-pdf 0's layer init vector when it has no MLP,
-        each MLP's init with its final bias pinned to its layers' vector and
-        everything upstream damped by 1000 (``pdf.py:370-399`` of the JAX
-        package, without its data-driven init)."""
+        pdf's whole slab: sub-pdf 0's layer init vector when it has no MLP
+        (its data-driven init with ``data``), each MLP's init with its final
+        bias pinned to its layers' vector and everything upstream damped by
+        1000 (``pdf.py:370-399`` of the JAX package)."""
         if not self.amortize_everything:
             raise ValueError("default_amortization_params needs "
                              "amortize_everything=True")
         rng = rng or np.random.default_rng(0)
         parts = []
         for k, layers in enumerate(self.layer_list):
+            if k == 0 and data is not None:
+                parts.append(self._data_init(layers, data, rng))
+                continue
             desired = [l.default_params(rng) for l in layers]
             desired = np.concatenate(desired) if desired else np.zeros(0)
             mlp = self.mlp_predictors[k]
@@ -349,6 +409,21 @@ class PDF:
         if len(vec) != self.total_number_amortizable_params:
             raise ValueError((len(vec), self.total_number_amortizable_params))
         return vec
+
+    def count_parameters(self, params=None):
+        """The number of trainable parameters: every MLP's, sub-pdf 0's
+        permanent ones and the Poisson head's."""
+        total = 0
+        for k, mlp in enumerate(self.mlp_predictors):
+            if mlp is not None:
+                total += mlp.num_params
+            elif k == 0 and self.force_permanent_parameters_in_first_subpdf:
+                total += sum(self.num_parameter_list[0])
+        if self.predict_log_normalization and \
+                not self.join_poisson_and_pdf_description:
+            total += self.log_normalization_mlp.num_params \
+                if self.log_normalization_mlp is not None else 1
+        return total
 
     # ------------------------------------------------------------------
     # conditioning / parameter prediction
@@ -388,17 +463,28 @@ class PDF:
         MAX_KERNEL_H: ``pdf.py:499-503`` of the JAX package), else the
         hidden activations, made once here for the block's lazy mode or the
         per-layer kernels; a materialized (B, P) slab otherwise; or None
-        (``pdf.py:446-455``)."""
+        (``pdf.py:446-455``).  A joined Poisson head's output, the MLP's
+        last, is left out."""
         mlp = self.mlp_predictors[k]
         if mlp is None:
             if sum(self.num_parameter_list[k]) == 0:
                 return None
             return amort if amort is not None else params["flow_0"][None, :]
+        if isinstance(conditional_input, list):
+            conditional_input = conditional_input[k]
         parts = ([conditional_input] if conditional_input is not None
                  else []) + list(data_summary_parts)
         if not parts:
             raise ValueError("autoregressive conditioning input required")
         summary = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+        extra = self._mlp_params(params, k, mlp, summary, amort)
+        if k == 0 and self._joined_poisson():
+            n = sum(self.num_parameter_list[0])
+            extra = extra.rows(0, n) if isinstance(extra, LazyParams) \
+                else extra[:, :n]
+        return extra
+
+    def _mlp_params(self, params, k, mlp, summary, amort):
         if amort is not None:
             return mlp.apply(amort, summary)
         flat = params[f"mlp_{k}"]
@@ -545,15 +631,34 @@ class PDF:
                              f"{self.device}")
         return t
 
+    def _conditional(self, conditional_input):
+        """None, a tensor, or (a list-valued conditional_input_dim) a list
+        of one tensor per sub-pdf, each on the pdf's device."""
+        if conditional_input is None:
+            return None
+        if isinstance(conditional_input, (list, tuple)):
+            return [self._input(c, "conditional_input")
+                    for c in conditional_input]
+        return self._input(conditional_input, "conditional_input")
+
     def all_layer_inverse(self, params, x, log_det, conditional_input=None,
-                          amortization_parameters=None):
-        """Autoregressive target -> base mapping."""
+                          amortization_parameters=None,
+                          force_embedding_coordinates=False,
+                          force_intrinsic_coordinates=False):
+        """Autoregressive target -> base mapping; x in the default
+        coordinates, or the embedding / intrinsic ones when forced."""
         x = self._input(x, "x")
-        if x.shape[1] != self.total_target_dim:
-            raise ValueError((x.shape[1], self.total_target_dim))
-        if conditional_input is not None:
-            conditional_input = self._input(conditional_input,
-                                            "conditional_input")
+        coords = "embedding" if force_embedding_coordinates else \
+            "intrinsic" if force_intrinsic_coordinates else None
+        width = {None: self.total_target_dim,
+                 "embedding": self.total_target_dim_embedded,
+                 "intrinsic": self.total_target_dim_intrinsic}[coords]
+        if x.shape[1] != width:
+            raise ValueError((x.shape[1], width))
+        if coords is not None:
+            x, log_det = self.transform_target_space(
+                x, log_det, transform_from=coords, transform_to="default")
+        conditional_input = self._conditional(conditional_input)
         amort = self._amortization_parts(amortization_parameters)
         summaries = []
         base_targets = []
@@ -569,12 +674,13 @@ class PDF:
         return torch.cat(base_targets, dim=1), log_det
 
     def all_layer_forward(self, params, z, log_det, conditional_input=None,
-                          amortization_parameters=None):
-        """Autoregressive base -> target mapping."""
+                          amortization_parameters=None,
+                          force_embedding_coordinates=False,
+                          force_intrinsic_coordinates=False):
+        """Autoregressive base -> target mapping; the targets in the default
+        coordinates, or the embedding / intrinsic ones when forced."""
         z = self._input(z, "z")
-        if conditional_input is not None:
-            conditional_input = self._input(conditional_input,
-                                            "conditional_input")
+        conditional_input = self._conditional(conditional_input)
         amort = self._amortization_parts(amortization_parameters)
         summaries = []
         new_targets = []
@@ -586,7 +692,13 @@ class PDF:
                                              "sample")
             new_targets.append(out)
             summaries.append(layers[-1].embedding_conditional_return(out))
-        return torch.cat(new_targets, dim=1), log_det
+        x = torch.cat(new_targets, dim=1)
+        if force_embedding_coordinates or force_intrinsic_coordinates:
+            x, log_det = self.transform_target_space(
+                x, log_det, transform_from="default",
+                transform_to="embedding" if force_embedding_coordinates
+                else "intrinsic")
+        return x, log_det
 
     # ------------------------------------------------------------------
     # public API
@@ -597,10 +709,6 @@ class PDF:
                  force_intrinsic_coordinates=False):
         """log p(x [| c]).  Returns (log_pdf, log_pdf_base, base_pos).  A
         passthrough pdf has no density of its own (ValueError)."""
-        refuse_unported(
-            _PDF_OPTIONS,
-            force_embedding_coordinates=force_embedding_coordinates,
-            force_intrinsic_coordinates=force_intrinsic_coordinates)
         if self.use_as_passthrough_instead_of_pdf:
             raise ValueError("a passthrough pdf (use_as_passthrough_instead_"
                              "of_pdf) has no log_prob: call all_layer_inverse")
@@ -608,7 +716,9 @@ class PDF:
         log_det = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
         base_pos, log_det = self.all_layer_inverse(
             params, x, log_det, conditional_input,
-            amortization_parameters=amortization_parameters)
+            amortization_parameters=amortization_parameters,
+            force_embedding_coordinates=force_embedding_coordinates,
+            force_intrinsic_coordinates=force_intrinsic_coordinates)
         log_base = std_normal_log_prob(base_pos)
         return log_base + log_det, log_base, base_pos
 
@@ -637,8 +747,9 @@ class PDF:
         one fused call (``gf_block_nll_perm`` / ``gf_block_nll_lazy2``:
         forward and backward together); any other sub-pdf (a block in the
         lazy mode: the block forward and backward kernels; the s2 `f` layer)
-        takes autograd of its own NLL term; float64 takes autograd of the
-        whole objective.  A passthrough or ``amortize_everything`` pdf has
+        takes autograd of its own NLL term; float64, and a pdf with a Poisson
+        head, take autograd of the whole objective (``pdf.py:828-831`` of the
+        JAX package).  A passthrough or ``amortize_everything`` pdf has
         no objective of its own here (ValueError; the JAX package's fails
         its assertion)."""
         if self.use_as_passthrough_instead_of_pdf or self.amortize_everything:
@@ -646,10 +757,8 @@ class PDF:
                              "parameters (not a passthrough or "
                              "amortize_everything pdf)")
         x = self._input(x, "x")
-        if conditional_input is not None:
-            conditional_input = self._input(conditional_input,
-                                            "conditional_input")
-        if x.dtype != torch.float32:
+        conditional_input = self._conditional(conditional_input)
+        if x.dtype != torch.float32 or self.predict_log_normalization:
             return self._value_and_grad(
                 lambda pp: -self.log_prob(pp, x, conditional_input)[0].mean(),
                 params)
@@ -711,33 +820,184 @@ class PDF:
                failsafe_crosscheck_tolerance=None, failsafe_rounds=3):
         """Ancestral sampling.  Returns (x, base_pos, log_pdf, log_pdf_base).
         Base draws come from ``generator`` (a torch.Generator on the pdf's
-        device); with a conditional input the batch size is its row count.
-        The dtype is the conditional input's, else ``dtype``, else the
-        parameters' (or the amortization slab's)."""
-        refuse_unported(
-            _PDF_OPTIONS,
-            force_embedding_coordinates=force_embedding_coordinates,
-            force_intrinsic_coordinates=force_intrinsic_coordinates,
-            failsafe_crosscheck_tolerance=failsafe_crosscheck_tolerance,
-            failsafe_rounds=failsafe_rounds)
+        device); with a conditional input the batch size is its row count
+        (its first tensor's, for a list).  The dtype is the conditional
+        input's, else ``dtype``, else the parameters' (or the amortization
+        slab's).
+
+        ``failsafe_crosscheck_tolerance``: each of ``failsafe_rounds`` rounds
+        evaluates log_prob of the samples and redraws the rows whose two
+        log-densities differ by more than the tolerance, merged in with
+        ``torch.where`` (``pdf.py:947-958`` of the JAX package); a row still
+        off after the last round keeps its last draw.  The forced
+        coordinates apply to the returned samples and their density."""
+        conditional_input = self._conditional(conditional_input)
         if conditional_input is not None:
-            conditional_input = self._input(conditional_input,
-                                            "conditional_input")
-            n = conditional_input.shape[0]
-            dtype = conditional_input.dtype
+            first = conditional_input[0] \
+                if isinstance(conditional_input, list) else conditional_input
+            n = first.shape[0]
+            dtype = first.dtype
         else:
             n = samplesize
             if dtype is None:
                 dtype = next(iter(params.values()),
                              amortization_parameters).dtype
-        z = torch.randn((n, self.total_base_dim), generator=generator,
-                        dtype=dtype, device=self.device)
-        log_base = std_normal_log_prob(z)
-        log_det = torch.zeros(n, dtype=dtype, device=self.device)
-        x, log_det = self.all_layer_forward(
-            params, z, log_det, conditional_input,
-            amortization_parameters=amortization_parameters)
-        return x, z, log_base - log_det, log_base
+
+        def draw():
+            z = torch.randn((n, self.total_base_dim), generator=generator,
+                            dtype=dtype, device=self.device)
+            log_base = std_normal_log_prob(z)
+            log_det = torch.zeros(n, dtype=dtype, device=self.device)
+            x, log_det = self.all_layer_forward(
+                params, z, log_det, conditional_input,
+                amortization_parameters=amortization_parameters)
+            return x, z, log_base - log_det, log_base
+
+        x, z, log_pdf, log_base = draw()
+        if failsafe_crosscheck_tolerance is not None:
+            for _ in range(failsafe_rounds):
+                lp_eval = self.log_prob(
+                    params, x, conditional_input=conditional_input,
+                    amortization_parameters=amortization_parameters)[0]
+                bad = (lp_eval - log_pdf).abs() > failsafe_crosscheck_tolerance
+                x2, z2, lp2, lb2 = draw()
+                x = torch.where(bad[:, None], x2, x)
+                z = torch.where(bad[:, None], z2, z)
+                log_pdf = torch.where(bad, lp2, log_pdf)
+                log_base = torch.where(bad, lb2, log_base)
+        if force_embedding_coordinates or force_intrinsic_coordinates:
+            x, neg_ld = self.transform_target_space(
+                x, torch.zeros(n, dtype=dtype, device=self.device),
+                transform_from="default",
+                transform_to="embedding" if force_embedding_coordinates
+                else "intrinsic")
+            log_pdf = log_pdf - neg_ld
+        return x, z, log_pdf, log_base
+
+    def log_mean_poisson(self, params, conditional_input=None,
+                         amortization_parameters=None):
+        """The Poisson head's log-mean: ``log_lambda`` (1, 1) without a
+        conditional input, else (B, 1) from sub-pdf 0's MLP's last output
+        (joined) or the standalone Poisson MLP on the (first) conditional
+        input."""
+        if not self.predict_log_normalization:
+            raise ValueError("the pdf has no Poisson head "
+                             "(predict_log_normalization=False)")
+        if conditional_input is None:
+            return params["log_lambda"][None, :]
+        ci = self._conditional(conditional_input)
+        if isinstance(ci, list):
+            ci = ci[0]
+        if self.join_poisson_and_pdf_description:
+            mlp = self.mlp_predictors[0]
+            flat = params["mlp_0"] if amortization_parameters is None else \
+                self._input(amortization_parameters,
+                            "amortization_parameters")[:, :mlp.num_params]
+            return mlp.apply(flat, ci)[:, -1:]
+        return self.log_normalization_mlp.apply(params["poisson_mlp"], ci)
+
+    # ------------------------------------------------------------------
+    # coordinates and parameter structure
+    # ------------------------------------------------------------------
+    def get_embedding_flags(self):
+        """Each sub-pdf's embedding flag (its layers must agree)."""
+        flags = []
+        for layers in self.layer_list:
+            flag = layers[0].always_parametrize_in_embedding_space
+            if any(l.always_parametrize_in_embedding_space != flag
+                   for l in layers):
+                raise ValueError("a sub-pdf's layers disagree on the "
+                                 "embedding flag")
+            flags.append(flag)
+        return flags
+
+    def set_embedding_flags(self, usement_flag, sub_pdf_index=None):
+        """Parametrize every sub-pdf (or the one at ``sub_pdf_index``) in
+        embedding space (True) or intrinsic coordinates (False)."""
+        if usement_flag not in (True, False):
+            raise ValueError(f"embedding flag {usement_flag!r}")
+        for ind, layers in enumerate(self.layer_list):
+            if sub_pdf_index is None or ind == sub_pdf_index:
+                for layer in layers:
+                    layer.always_parametrize_in_embedding_space = \
+                        bool(usement_flag)
+        self._update_embedding_structure()
+
+    def get_total_embedding_dim(self):
+        """The joint target's width in embedding coordinates."""
+        return sum(layers[-1].embedded_dim for layers in self.layer_list)
+
+    def transform_target_into_returnable_params(self, target):
+        """A target from the default into embedding coordinates."""
+        return self.transform_target_space(target)[0]
+
+    def transform_target_space(self, x, log_det=0.0, transform_from="default",
+                               transform_to="embedding"):
+        """The joint target from one coordinate system ("default",
+        "intrinsic", "embedding") to another, sub-pdf by sub-pdf, with the
+        log-det of the conversion.  Returns (x', log_det')."""
+        if not isinstance(log_det, torch.Tensor):
+            log_det = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+        src = {"default": self.target_dim_indices,
+               "intrinsic": self.target_dim_indices_intrinsic,
+               "embedding": self.target_dim_indices_embedded}[transform_from]
+        outs = []
+        for k, layers in enumerate(self.layer_list):
+            lo, hi = src[k]
+            part, log_det = layers[-1].transform_target_space(
+                x[:, lo:hi], log_det, transform_from=transform_from,
+                transform_to=transform_to)
+            outs.append(part)
+        return torch.cat(outs, dim=1), log_det
+
+    def obtain_flow_param_structure(self, params, conditional_input=None,
+                                    predefined_target_input=None,
+                                    generator=None,
+                                    amortization_parameters=None, dtype=None):
+        """Each layer's parameters along the sampling path, keyed
+        "<k>_<flows>.<j>": the (B, P) slab ("params"), its named split
+        ("named", by the layer's param_structure), the layer's class and
+        width.  The base rows are ``predefined_target_input``, else one
+        draw per conditional input row (one row without one) from
+        ``generator``."""
+        conditional_input = self._conditional(conditional_input)
+        if predefined_target_input is not None:
+            z = self._input(predefined_target_input, "predefined_target_input")
+        else:
+            first = conditional_input[0] if isinstance(conditional_input,
+                                                       list) \
+                else conditional_input
+            n = 1 if first is None else first.shape[0]
+            if dtype is None:
+                dtype = next(iter(params.values()),
+                             amortization_parameters).dtype
+            z = torch.randn((n, self.total_base_dim), generator=generator,
+                            dtype=dtype, device=self.device)
+        amort = self._amortization_parts(amortization_parameters)
+        structure = {}
+        summaries = []
+        log_det = torch.zeros(z.shape[0], dtype=z.dtype, device=z.device)
+        for k, layers in enumerate(self.layer_list):
+            extra = self._predict_extra_params(params, k, summaries,
+                                               conditional_input, amort[k])
+            lo, hi = self.base_dim_indices[k]
+            target = z[:, lo:hi]
+            cnt = 0
+            for j, layer in enumerate(layers):
+                p = layer.num_params
+                sl = materialize_if_lazy(self._layer_slab(
+                    extra, cnt, cnt + p, target, layer))
+                named, off = {}, 0
+                for pname, size in layer.param_structure():
+                    named[pname] = sl[:, off:off + size]
+                    off += size
+                structure[f"{k:03d}_{self.flow_defs_list[k]}.{j:03d}"] = {
+                    "params": sl, "named": named,
+                    "layer_type": type(layer).__name__, "num_params": p}
+                target, log_det = layer.forward(sl, target, log_det)
+                cnt += p
+            summaries.append(layers[-1].embedding_conditional_return(target))
+        return structure
 
 
 # user-facing alias matching `jammy_flows.pdf`

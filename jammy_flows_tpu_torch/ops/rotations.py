@@ -24,6 +24,19 @@ def householder_apply(vs, x, inverse=False):
     return x
 
 
+def householder_matrix(vs):
+    """The product of reflections R = q1 q2 ... qn as a matrix: vs (B,
+    n_iter, d) raw vectors -> (B, d, d)."""
+    b, n_iter, d = vs.shape
+    eye = torch.eye(d, dtype=vs.dtype, device=vs.device)
+    q = eye.expand(b, d, d)
+    for i in range(n_iter):
+        v = vs[:, i, :]
+        v = v / torch.sqrt(torch.sum(v**2, dim=-1, keepdim=True) + 1e-20)
+        q = torch.bmm(q, eye - 2.0 * v[:, :, None] * v[:, None, :])
+    return q
+
+
 def householder_apply_cols(vs_cols, cols, inverse=False):
     """Column twin of householder_apply: cols is a tuple of d (B,) columns,
     vs_cols a list (n_iter) of lists (d) of (Bp,) raw reflection columns."""

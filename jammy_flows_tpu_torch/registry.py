@@ -2,11 +2,11 @@
 
 PyTorch counterpart of ``jammy_flows_tpu/registry.py``: the same option
 tables, defaults and validators (tests/test_torch_registry.py holds the two
-equal).  Layer classes are imported lazily.  Every Euclidean symbol (`g`,
-`h`, `t`, `x`), the circle symbols (`m`, `o`, `y`), the interval ones (`r`,
-`z`), the simplex ones (`u`, `w`) and the s2 `f` layer are ported; the
-other symbols (`v` and `c`) raise ``NotImplementedError`` naming the
-ROADMAP item.
+equal).  Layer classes are imported lazily.  Every symbol is ported: the
+Euclidean ones (`g`, `h`, `t`, `x`), the circle ones (`m`, `o`, `y`), the
+interval ones (`r`, `z`), the simplex ones (`u`, `w`) and the s2 ones (`f`,
+`v`, `c`); ``get_layer_class`` raises ``NotImplementedError`` for a class
+missing from ``_PORTED``.
 """
 from __future__ import annotations
 
@@ -170,12 +170,12 @@ OPTS = {
     "w": ("a", _PKG + ".simplex", "InnerLoopSimplex", {}),
 }
 
-# layer classes the port has; everything else is ROADMAP Queue 1 item 4
+# the layer classes the port has
 _PORTED = {"GaussianizationFlow", "MultivariateNormal", "EuclideanIdentity",
-            "FisherVonMises2D", "ExponentialMapS2", "Moebius",
-            "CircularRQSpline",
-            "SphericalIdentity", "RQSplineInterval", "IntervalIdentity",
-            "GumbelSoftmax", "InnerLoopSimplex"}
+            "FisherVonMises2D", "ExponentialMapS2", "CNFSphereCharts",
+            "Moebius", "CircularRQSpline", "SphericalIdentity",
+            "RQSplineInterval", "IntervalIdentity", "GumbelSoftmax",
+            "InnerLoopSimplex"}
 
 
 def obtain_default_options(flow_abbreviation):
@@ -215,6 +215,6 @@ def get_layer_class(flow_abbreviation):
     if class_name not in _PORTED:
         raise NotImplementedError(
             f"flow symbol {flow_abbreviation!r} ({class_name}) is not ported "
-            "yet (ROADMAP.md, Queue 1: remaining layers)")
+            "yet (ROADMAP.md, Queue 1)")
     mod = importlib.import_module(module_path)
     return getattr(mod, class_name)

@@ -67,15 +67,15 @@ def fit(pdf_obj, params, data, conditional_input=None, num_steps=1000,
     array); the input ``params`` are not modified.
 
     data: (N, total_target_dim) on the pdf's device; conditional_input:
-    (N, c) or None.  batch_size: minibatch rows drawn each step with
-    ``generator`` (None = full batch)."""
+    (N, c), a list of one (N, c_k) per sub-pdf (a list-valued
+    conditional_input_dim), or None.  batch_size: minibatch rows drawn each
+    step with ``generator`` (None = full batch)."""
     if checkpoint_path is not None:
         raise NotImplementedError(_CHECKPOINT_TODO)
     refuse_unported(_TRAINER, optimizer=optimizer,
                      checkpoint_every=checkpoint_every)
     data = pdf_obj._input(data, "data")
-    ci_all = None if conditional_input is None else pdf_obj._input(
-        conditional_input, "conditional_input")
+    ci_all = pdf_obj._conditional(conditional_input)
     params = {k: v.detach().clone().requires_grad_() for k, v in
               params.items()}
     opt = make_optimizer(params, learning_rate)
@@ -85,7 +85,8 @@ def fit(pdf_obj, params, data, conditional_input=None, num_steps=1000,
             idx = torch.randint(0, data.shape[0], (batch_size,),
                                 generator=generator, device=data.device)
             x = data[idx]
-            ci = None if ci_all is None else ci_all[idx]
+            ci = None if ci_all is None else [c[idx] for c in ci_all] \
+                if isinstance(ci_all, list) else ci_all[idx]
         else:
             x, ci = data, ci_all
         loss, grads = pdf_obj.nll_value_and_grad(params, x,

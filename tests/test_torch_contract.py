@@ -6,7 +6,8 @@
 * every keyword of the JAX signatures of ``PDF``, ``init_params``,
   ``log_prob``, ``sample`` and ``train.fit`` is taken: its JAX default runs,
   any other value raises ``NotImplementedError`` naming the ROADMAP item,
-  but for the ported ones (the amortization keywords), which run."""
+  but for the ported ones (all but ``train.fit``'s optimizer and
+  checkpoints), which run."""
 import re
 
 import numpy as np
@@ -42,33 +43,36 @@ def test_tuple_key_past_the_layers_builds():
 
 # keyword -> (entry point, a value other than the JAX default)
 NON_DEFAULT = {
-    "predict_log_normalization": ("PDF", True),
-    "join_poisson_and_pdf_description": ("PDF", True),
-    "hidden_mlp_dims_poisson": ("PDF", "64"),
-    "rank_of_mlp_mappings_poisson": ("PDF", 2),
-    "skip_mlp_initialization": ("PDF", True),
-    "verbose": ("PDF", True),
-    "data": ("init_params", np.zeros((4, 2))),
-    "force_embedding_coordinates": ("log_prob", True),
-    "force_intrinsic_coordinates": ("sample", True),
-    "failsafe_crosscheck_tolerance": ("sample", 1e-3),
-    "failsafe_rounds": ("sample", 5),
     "optimizer": ("fit", "adam"),
     "checkpoint_every": ("fit", 10),
 }
-# the ported keywords: (entry point, a value other than the JAX default)
+# a conditional pdf with a Poisson head, for the Poisson head's keywords
+POISSON = {"conditional_input_dim": 8, "predict_log_normalization": True}
+# the ported keywords: (entry point, a value other than the JAX default,
+# the constructor's other keywords)
 PORTED = {
-    "amortization_mlp_use_custom_mode": ("PDF", True),
-    "amortize_everything": ("PDF", True),
-    "use_as_passthrough_instead_of_pdf": ("PDF", True),
-    "amortization_parameters": ("log_prob", torch.zeros(4, 3)),
+    "amortization_mlp_use_custom_mode": ("PDF", True, {}),
+    "amortize_everything": ("PDF", True, {}),
+    "use_as_passthrough_instead_of_pdf": ("PDF", True, {}),
+    "amortization_parameters": ("log_prob", torch.zeros(4, 3), {}),
+    "predict_log_normalization": ("PDF", True, {}),
+    "join_poisson_and_pdf_description": ("PDF", True, POISSON),
+    "hidden_mlp_dims_poisson": ("PDF", "64", POISSON),
+    "rank_of_mlp_mappings_poisson": ("PDF", 2, POISSON),
+    "skip_mlp_initialization": ("PDF", True, {}),
+    "verbose": ("PDF", True, {}),
+    "data": ("init_params", np.arange(8.0).reshape(4, 2), {}),
+    "force_embedding_coordinates": ("log_prob", True, {}),
+    "force_intrinsic_coordinates": ("sample", True, {}),
+    "failsafe_crosscheck_tolerance": ("sample", 1e-3, {}),
+    "failsafe_rounds": ("sample", 5, {}),
 }
-ITEM = {"PDF": "item 4(f)", "init_params": "item 4(f)",
-        "log_prob": "item 4(f)", "sample": "item 4(f)", "fit": "item 6"}
+ITEM = {"fit": "item 6"}
 
 
-def _call(entry, **kw):
-    p = tpdf("e2", "gg", device="cpu", **(kw if entry == "PDF" else {}))
+def _call(entry, ctor=None, **kw):
+    p = tpdf("e2", "gg", device="cpu", **(ctor or {}),
+             **(kw if entry == "PDF" else {}))
     if entry == "PDF":
         return p
     params = p.init_params(seed=0, **(kw if entry == "init_params" else {}))
@@ -103,13 +107,19 @@ def test_unported_keyword(name):
 def test_ported_keyword(name):
     """The value runs: custom mode builds the same model (no effect outside
     the fully amortized pdf), an amortize_everything pdf keeps no
-    parameters of its own, a passthrough pdf has no log_prob, and an
-    amortization slab that no sub-pdf reads (an unconditional pdf's) leaves
-    log_prob as it is."""
-    entry, value = PORTED[name]
-    out = _call(entry, **{name: value})
+    parameters of its own, a passthrough pdf has no log_prob, an
+    amortization slab that no sub-pdf reads (an unconditional pdf's)
+    leaves log_prob as it is; a Poisson head adds its parameters (one more
+    output of sub-pdf 0's MLP when joined; its own MLP's width and rank);
+    skip_mlp_initialization and verbose build the same model with the same
+    init; data moves the init; the forced coordinates of a Euclidean pdf
+    are its default ones; failsafe rounds without a tolerance change
+    nothing, a tolerance gives finite rows."""
+    entry, value, ctor = PORTED[name]
+    out = _call(entry, ctor, **{name: value})
+    plain = _call(entry, ctor)
     if name == "amortization_mlp_use_custom_mode":
-        assert out.num_parameter_list == _call("PDF").num_parameter_list
+        assert out.num_parameter_list == plain.num_parameter_list
     elif name == "amortize_everything":
         assert out.init_params(seed=0) == {}
         assert out.total_number_amortizable_params == \
@@ -117,5 +127,27 @@ def test_ported_keyword(name):
     elif name == "use_as_passthrough_instead_of_pdf":
         with pytest.raises(ValueError):
             out.log_prob({}, torch.zeros((4, 2)))
+    elif name == "predict_log_normalization":
+        assert sorted(out.init_params()) == ["flow_0", "log_lambda"]
+        assert out.count_parameters() == plain.count_parameters() + 1
+    elif name == "join_poisson_and_pdf_description":
+        assert out.mlp_predictors[0].output_dim == \
+            plain.mlp_predictors[0].output_dim + 1
+        assert out.log_normalization_mlp is None
+    elif name == "hidden_mlp_dims_poisson":
+        assert out.log_normalization_mlp.hidden_dims == [64]
+    elif name == "rank_of_mlp_mappings_poisson":
+        assert out.log_normalization_mlp.num_params < \
+            plain.log_normalization_mlp.num_params
+    elif name in ("skip_mlp_initialization", "verbose"):
+        assert out.num_parameter_list == plain.num_parameter_list
+        for key, v in plain.init_params(seed=0).items():
+            assert torch.equal(out.init_params(seed=0)[key], v)
+    elif name == "data":
+        assert any(not torch.equal(out[k], plain[k]) for k in plain)
+    elif name == "failsafe_crosscheck_tolerance":
+        assert all(torch.isfinite(t).all() for t in out)
     else:
-        torch.testing.assert_close(out, _call(entry), rtol=0, atol=0)
+        for a, b in zip(out if isinstance(out, tuple) else (out,),
+                        plain if isinstance(plain, tuple) else (plain,)):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)

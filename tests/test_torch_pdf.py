@@ -13,8 +13,9 @@
   ones (`u`, `w`, conditional and not), the fully amortized `e2+s1` model,
   the custom-mode MLPs (full, highway mode 1, low rank) and the s2 ones
   (`f` with nested flows, with the identity region; `v` linear,
-  exponential, conditional exponential and splines), each at its stored
-  tolerance.
+  exponential, conditional exponential and splines; `c` with rk4), each at
+  its stored tolerance;
+* what is still refused (the trainer's optimizer choice and checkpoints).
 
 Inputs are made with numpy from a seed and handed to both packages."""
 import json
@@ -29,6 +30,7 @@ import torch
 import jammy_flows_tpu.ops.pallas_gf as pg
 from jammy_flows_tpu import pdf as jpdf
 from jammy_flows_tpu_torch import fully_amortized_pdf as tfa, pdf as tpdf
+from jammy_flows_tpu_torch import train as ttrain
 from jammy_flows_tpu_torch.ops.special import std_normal_log_prob
 from jammy_flows_tpu_torch.utils.convert import params_from_jax
 from torch_one_thread import _one_torch_thread  # noqa: F401
@@ -175,7 +177,8 @@ def test_f32_wide_summary_takes_the_block_op(interpret_mode, monkeypatch,
                                   "cond_custom_hw1", "cond_custom_lowrank",
                                   "s2_f_boundary", "s2_ff_vertcirc",
                                   "s2_v_linear", "s2_v_exponential",
-                                  "s2_v_cond_exp", "s2_v_cond_splines"])
+                                  "s2_v_cond_exp", "s2_v_cond_splines",
+                                  "s2_c"])
 def test_frozen_reference_fixture(name):
     with np.load(FIXTURES / f"parity_{name}.npz", allow_pickle=False) as f:
         data = {k: f[k] for k in f.files}
@@ -228,16 +231,15 @@ def test_f32_sample_roundtrip_on_cpu(cond):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        tpdf("s2", "c", device="cpu")
-    with pytest.raises(NotImplementedError):
-        tpdf("e2+s2", "gg+f", conditional_input_dim=[2, 3], device="cpu")
-    with pytest.raises(NotImplementedError):
-        tpdf("s2", "v", device="cpu").log_prob(
-            {}, torch.zeros((2, 3)), force_embedding_coordinates=True)
-    with pytest.raises(NotImplementedError):
-        tpdf("e2", "gg", predict_log_normalization=True,
-             conditional_input_dim=2, device="cpu")
+    """What is still refused: the trainer's optimizer choice and its
+    checkpoints (ROADMAP Queue 1 item 6)."""
+    p = tpdf("e2", "gg", device="cpu")
+    par = p.init_params(seed=0)
+    x = torch.zeros((4, 2))
+    for kw in ({"optimizer": "adam"}, {"checkpoint_every": 10},
+               {"checkpoint_path": "ckpt"}):
+        with pytest.raises(NotImplementedError, match="item 6"):
+            ttrain.fit(p, par, x, num_steps=1, **kw)
 
 
 def test_default_device_is_cuda():

@@ -40,7 +40,9 @@ def test_validators_accept_and_reject_the_same_values(sym):
     assert not _accepts(treg.check_flow_option, sym, "no_such_option", 1)
 
 
-def test_unported_layers_raise_not_implemented():
+def test_unported_layers_raise_not_implemented(monkeypatch):
+    """Every symbol loads its class; a class missing from the port's list
+    still raises."""
     assert treg.get_layer_class("g").__name__ == "GaussianizationFlow"
     assert treg.get_layer_class("f").__name__ == "FisherVonMises2D"
     assert treg.get_layer_class("t").__name__ == "MultivariateNormal"
@@ -49,7 +51,9 @@ def test_unported_layers_raise_not_implemented():
                      ("o", "CircularRQSpline"),
                      ("y", "SphericalIdentity"), ("r", "RQSplineInterval"),
                      ("z", "IntervalIdentity"), ("u", "GumbelSoftmax"),
-                     ("w", "InnerLoopSimplex")):
+                     ("w", "InnerLoopSimplex"), ("c", "CNFSphereCharts")):
         assert treg.get_layer_class(sym).__name__ == cls
-    with pytest.raises(NotImplementedError, match="remaining layers"):
+    assert {c for _, _, c, _ in treg.OPTS.values()} <= treg._PORTED
+    monkeypatch.setattr(treg, "_PORTED", treg._PORTED - {"CNFSphereCharts"})
+    with pytest.raises(NotImplementedError, match="CNFSphereCharts"):
         treg.get_layer_class("c")
