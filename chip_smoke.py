@@ -73,8 +73,8 @@ in parallel), then drives the flagship ``pdf("e4+s2+e4", "gggg+f+gggg")``:
   censused, peak device memory; training through the continuous adjoint
   (dopri5) or rk4's checkpointed steps: the fused NLL, autograd of
   log_prob and of a sample objective, gradients against the CPU path,
-  ``train.fit`` (rk4 20 steps, dopri5 as many as FIT_BUDGET_S allows, the
-  flagship with `c` none); each ODE integration's steps per chart, forward
+  ``train.fit`` (rk4 and dopri5 as many steps as FIT_BUDGET_S allows,
+  the flagship with `c` none); each ODE integration's steps per chart, forward
   and adjoint apart;
 * the PDF-level options on the conditional flagship with one conditional
   input per sub-pdf (3, 2 and 2 wide) and a standalone Poisson head:
@@ -84,6 +84,24 @@ in parallel), then drives the flagship ``pdf("e4+s2+e4", "gggg+f+gggg")``:
   roundtrip), log_mean_poisson and log_prob against the port's f64 CPU
   path, and training from the data-driven init (its NLL through autograd:
   T1 / T2 lazy2, a Poisson head);
+* the diagnostics on the conditional flagship, each path with its own
+  exact launch counts and every block call against its plain version:
+  ``entropy`` of one conditional row from 512 draws (each marginal's
+  512 x 512 = 262,144 conditioning pairs through T1 density lazy2),
+  ``entropy_iterative`` and ``entropy_device`` equal to it on the same
+  generator state, the entropy's gradient (T1 / T2 lazy2 through
+  autograd), ``marginal_moments`` of 512 items x 512 samples with the
+  zlp-Kent fit of the s2 marginal against ``marginal_moments_device`` on
+  the same draws, the chi^2 coverage of 262,144 of the model's own
+  samples, the sub-manifold mappings and marginal entropies against the
+  port's f64 CPU path; then the grid scan of a conditional ``"e4", "gggg"``
+  and the lattice scan of a conditional ``"s2", "f"`` (64 events x 4,096
+  points; host and device scans on one generator state), the s2 entropy
+  scan against Monte Carlo;
+* the CLI (``python -m jammy_flows_tpu_torch``, in-process): fit of the
+  unconditional flagship, then sample, eval and moments of the saved
+  model; a fit checkpointed every 10 steps against the unchunked one, a
+  checkpoint roundtrip on the card, the profiling helpers;
 * the block's lazy mode (precomputed hidden activations, T1 / T2), on the
   flagship with two-hidden-layer ``amortization_mlp_dims="64-64"`` MLPs,
   unconditional and conditional, serving and training as the flagship;
@@ -128,6 +146,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 FLAGSHIP = ("e4+s2+e4", "gggg+f+gggg")
@@ -379,13 +398,15 @@ EXPECTED_TRAIN_LAUNCHES.update({
 # train.fit steps, None: as many as FIT_BUDGET_S allows, 0: none
 CNF_MODELS = (
     ("c dopri5", "s2", "c", None, None, None),
-    ("c rk4", "s2", "c", {"c": {"solver": "rk4"}}, None, TRAIN_STEPS),
+    ("c rk4", "s2", "c", {"c": {"solver": "rk4"}}, None, None),
     ("flagship c", "e4+s2+e4", "gggg+c+gggg", None, 3, 0))
 # the c models' calls take seconds (host-bound, ~20 us per launch, one
 # sync per attempted ODE step): sample / log_prob are timed over CNF_REPS
 # calls, a training step over one; their gradients are held against the
-# CPU path on N_CROSS_CNF rows
-FIT_BUDGET_S = 20.0
+# CPU path on N_CROSS_CNF rows; their fits take as many steps as
+# FIT_BUDGET_S allows (at least 2), which keeps the script inside its
+# time limit on a host where a step takes 2-4 s
+FIT_BUDGET_S = 10.0
 CNF_REPS = 3
 N_CROSS_CNF = 1024
 EXPECTED_LAUNCHES.update({"c dopri5": {}, "c rk4": {},
@@ -411,6 +432,71 @@ EXPECTED_TRAIN_LAUNCHES["options"] = {
     "nll": _LAZY2_AUTOGRAD, "log_prob_grad": _LAZY2_AUTOGRAD,
     "sample_grad": {"sample_lazy2": 2, "sample_bwd_lazy2": 2},
     "fit": {k: v * TRAIN_STEPS for k, v in _LAZY2_AUTOGRAD.items()}}
+# the diagnostics (models/diagnostics.py) on the conditional flagship:
+# entropy of one conditional row from DIAG_S draws (each marginal's S x S
+# conditioning pairs are 262,144 rows through all_layer_inverse_subdims),
+# entropy_iterative in chunks of DIAG_ITER marginal samples, marginal
+# moments of DIAG_ITEMS items x DIAG_S samples (262,144 rows) with the
+# zlp-Kent fit of the s2 marginal, the chi^2 coverage of N_COND of the
+# model's own samples; then the pdf scans of a conditional "e4", "gggg"
+# (an 8^4 grid per event) and "s2", "f" (a 4,096-point lattice) over
+# N_SCAN_EVENTS events (262,144 rows), and the s2 entropy scan
+DIAG_S = 512
+DIAG_ITER = 64
+DIAG_ITEMS = 512
+N_SCAN_EVENTS = 64
+N_SCAN = 4096
+SCAN_E = ("e4", "gggg")
+SCAN_S = ("s2", "f")
+N_S2_MC = 65_536                  # the s2 Monte-Carlo entropy's draws
+TOL_ENTROPY = 1e-5                # entropy_iterative / entropy_device vs
+                                  # entropy on one generator state
+TOL_MOMENTS = 1e-4                # device vs host moments, relative
+TOL_COVERAGE = 0.01               # max |expected - actual| chi^2 coverage
+TOL_SCAN = 1e-4                   # device vs host scans: coverage values
+TOL_LATTICE_MASS = 1e-2           # each event's s2 lattice mass vs 1
+TOL_S2_SCAN_ENTROPY = 0.05        # scan vs MC entropy (tests/test_diagnostics.py:263)
+N_CROSS_DIAG = 1024               # card vs the port's f64 CPU path
+CROSS_S = 32                      # a 32 x 32 marginal block: 1,024 rows
+# the CLI (python -m jammy_flows_tpu_torch, run in-process by main()): the
+# unconditional flagship fitted for TRAIN_STEPS steps on N_CLI rows, then
+# sample / eval / moments on the saved model; train.fit with checkpoints
+# every CLI_CHECKPOINT_EVERY steps against the unchunked fit
+N_CLI = 4096
+CLI_MOMENTS_N = 2000
+CLI_CHECKPOINT_EVERY = 10
+_DIAG_ENTROPY = {"sample_lazy2": 2, "density_lazy2": 4}
+EXPECTED_DIAG_LAUNCHES = {
+    "diagnostics": {
+        # sampling DIAG_S rows, then each marginal's S x S block through
+        # both blocks (the later sub-manifold's columns are filled with ones)
+        "entropy": _DIAG_ENTROPY,
+        "entropy_iterative": {"sample_lazy2": 2,
+                              "density_lazy2": 4 * DIAG_S // DIAG_ITER},
+        "entropy_device": _DIAG_ENTROPY,
+        # the joint and the s2 marginal: the marginal's block calls get
+        # their (zero) cotangents through the concatenated base positions
+        "entropy_grad": {"sample_lazy2": 2, "density_lazy2": 2,
+                         "sample_bwd_lazy2": 2, "density_bwd_lazy2": 2},
+        "moments": {"sample_lazy2": 2},
+        "moments_device": {"sample_lazy2": 2},
+        "coverage": {"sample_lazy2": 2, "density_lazy2": 2},
+        # forward / inverse mappings, a CROSS_S draw, two marginals
+        "cross": {"sample_lazy2": 4, "density_lazy2": 6}},
+    # labels, their approximate coverage and log_prob, the draws, the grids
+    "scan e4": {"host scan": {"sample_lazy2": 2, "density_lazy2": 3},
+                "device scan": {"sample_lazy2": 1, "density_lazy2": 1}},
+    # the `f` layer has no kernel
+    "scan s2": {"host scan": {}, "device scan": {}},
+}
+_CLI_FIT = {"nll_perm": TRAIN_STEPS, "nll_lazy2": TRAIN_STEPS}
+EXPECTED_CLI_LAUNCHES = {
+    "fit": _CLI_FIT,
+    "sample": {"sample_perm": 1, "sample_lazy2": 1},
+    "eval": {"density_perm": 1, "density_lazy2": 1},
+    "moments": {"sample_perm": 1, "sample_lazy2": 1},
+    # throughput's warm-up and 5 reps, one call under the profiler
+    "profiling": {"density_perm": 7, "density_lazy2": 7}}
 # the per-row raw instances it runs, timed on its first recorded calls
 PER_ROW_RAW = ("forward_raw", "sample_raw", "forward_bwd_raw")
 # the per-layer entry points and T7 bodies that run on the plain mixture
@@ -2933,6 +3019,484 @@ def options_phase(dev, card):
     return launches, errs
 
 
+def diag_path(label, what, fn, expected, grads=False):
+    """One diagnostics or CLI path with the launch counts set to 0 just
+    before it and read just after; every block call (with ``grads`` every
+    T2 / T3 call too) recorded and held against its plain version.
+    Returns (result, launches, errors per kernel)."""
+    calls, bwd_calls = [], []
+    reset_counts()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(recording(calls))
+        if grads:
+            stack.enter_context(recording_bwd(bwd_calls))
+        out = fn()
+        torch.cuda.synchronize()
+    launch = counts()
+    log(f"{label} {what}: launches "
+        f"{ {k: v for k, v in launch.items() if v} }")
+    if launch != all_counts(expected) or \
+            len(calls) + len(bwd_calls) != sum(launch.values()):
+        raise AssertionError(f"{label} {what}: launches {launch}, expected "
+                             f"{expected}, {len(calls) + len(bwd_calls)} "
+                             "recorded calls")
+    errs = check_calls(f"{label} {what}", calls)
+    for k, v in check_bwd_calls(f"{label} {what}", bwd_calls).items():
+        errs[k] = max(errs.get(k, 0.0), v)
+    return out, launch, errs
+
+
+def host_ms(fn, reps=3):
+    """Median host-clock time of fn() ending in a synchronize, after one
+    warm-up call: the diagnostics mix device work with host reductions."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.time() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def rel_err(a, b):
+    """max|a - b| / max(max|b|, 1e-30) of two arrays or tensors."""
+    a = torch.as_tensor(a).double().cpu()
+    b = torch.as_tensor(b).double().cpu()
+    return (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+
+
+def diagnostics_cross_check(label, p, params, ci, g):
+    """The card's f32 sub-manifold mappings (on shared base draws z and
+    their targets) and marginal entropies (on shared targets) against the
+    port's f64 CPU path; returns the largest difference."""
+    from jammy_flows_tpu_torch.utils.convert import params_from_jax
+    p_cpu = cpu_twin(p)
+    par64 = params_from_jax({k: v.cpu().numpy() for k, v in params.items()},
+                            dtype=torch.float64)
+    z = torch.randn((N_CROSS_DIAG, p.total_base_dim), generator=g, device=p.device)
+    ci_x = ci[:N_CROSS_DIAG]
+    ci64 = ci_x.double().cpu()
+    errs = {}
+    with torch.no_grad():
+        x, ld = p.all_layer_forward_subdims(params, z, ci_x,
+                                            force_embedding_coordinates=True)
+        xc, ldc = p_cpu.all_layer_forward_subdims(
+            par64, z.double().cpu(), ci64, force_embedding_coordinates=True)
+        errs["all_layer_forward_subdims"] = max(
+            [(x.double().cpu() - xc).abs().max().item()]
+            + [(ld[k].double().cpu() - ldc[k]).abs().max().item() for k in ld])
+        b, lb = p.all_layer_inverse_subdims(params, x, ci_x,
+                                            force_embedding_coordinates=True)
+        bc, lbc = p_cpu.all_layer_inverse_subdims(
+            par64, x.double().cpu(), ci64, force_embedding_coordinates=True)
+        errs["all_layer_inverse_subdims"] = max(
+            [(b.double().cpu() - bc).abs().max().item()]
+            + [(lb[k].double().cpu() - lbc[k]).abs().max().item() for k in lb])
+        ds = ci[:1].repeat_interleave(CROSS_S, dim=0)
+        targets = p.sample_with_subdim_logprobs(params, g, CROSS_S, ds)[0]
+        for k in (1, 2):
+            e = p._marginal_entropy(params, targets, ds, k, CROSS_S, 1, True,
+                                    False, CROSS_S)
+            ec = p_cpu._marginal_entropy(par64, targets.double().cpu(),
+                                         ds.double().cpu(), k, CROSS_S, 1,
+                                         True, False, CROSS_S)
+            errs[f"_marginal_entropy {k}"] = (e.double().cpu()
+                                              - ec).abs().max().item()
+    for what, err in errs.items():
+        log(f"{label}: card f32 vs CPU f64 {what} ({N_CROSS_DIAG} rows): "
+            f"max|diff| {err:.3e} (limit {TOL_CROSS:g})")
+        if not err < TOL_CROSS:
+            raise AssertionError(f"{label}: card vs CPU {what} differ by "
+                                 f"{err:.3e}")
+
+
+def scan_ties(p, scan, labels):
+    """Per event of a device scan (return_scan=True): how many other cells
+    have exactly the density of the label's cell, and their mass.  The HPD
+    order of equal densities is the sort's (the host scan: numpy's
+    ascending argsort reversed; the device scan: a stable descending one,
+    as in the JAX package), so the two coverages may differ by it."""
+    pos, lab = scan["scan_positions"], labels
+    if p.pdf_defs_list == ["s2"]:
+        b, g, _ = pos.shape
+        pos = p._to_embedding(pos.reshape(b * g, 2)).reshape(b, g, 3)
+        lab = p._to_embedding(labels)
+    lp = scan["scan_log_evals"]
+    cell = torch.argmin(torch.linalg.norm(pos - lab[:, None, :], dim=2),
+                        dim=1)
+    lc = torch.gather(lp, 1, cell[:, None])
+    ties = (lp == lc).sum(dim=1) - 1
+    mass = ties * torch.exp(lc[:, 0]) * scan["scan_volumes"][:, 0]
+    return ties.cpu().numpy(), mass.double().cpu().numpy()
+
+
+def diagnostics_phase(dev, card):
+    """The diagnostics (models/diagnostics.py) on the conditional flagship
+    at 262,144 rows per marginal or sample call: entropy of one conditional
+    row (DIAG_S draws, both marginals' S x S blocks), entropy_iterative and
+    entropy_device on the same generator state, the entropy's gradient
+    (joint + the s2 marginal: T1 / T2 lazy2 through autograd), marginal
+    moments with the zlp-Kent fit and their device twin on the same draws,
+    the chi^2 coverage of the model's own samples; then the pdf scans of
+    SCAN_E and SCAN_S (host and device on one generator state), the s2
+    entropy scan against Monte Carlo, and the card against the port's f64
+    CPU path.  Each path has its own exact launch counts; every block call
+    is held against its plain version.  Returns (launches by path, errors
+    per kernel)."""
+    from jammy_flows_tpu_torch import pdf
+    t_phase = time.time()
+    label = "diagnostics"
+    p = pdf(*FLAGSHIP, conditional_input_dim=3, device=dev)
+    params = jittered_params(p, seed=500)
+    g = torch.Generator(device=dev).manual_seed(501)
+    ci1 = torch.randn((1, 3), generator=g, device=dev)
+    launches, errs = {label: {}}, {}
+
+    def run(what, fn, grads=False, model=label):
+        out, launch, e = diag_path(model, what, fn,
+                                   EXPECTED_DIAG_LAUNCHES[model][what], grads)
+        launches.setdefault(model, {})[what] = launch
+        for k, v in e.items():
+            errs[k] = max(errs.get(k, 0.0), v)
+        return out
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    subs = (-1, 0, 1, 2)
+    with torch.no_grad():
+        ent = run("entropy", lambda: p.entropy(
+            params, gen(502), sub_manifolds=subs, conditional_input=ci1,
+            samplesize=DIAG_S))
+        ent_it = run("entropy_iterative", lambda: p.entropy_iterative(
+            params, gen(502), sub_manifolds=subs, conditional_input=ci1,
+            samplesize=DIAG_S, iterative_samplesize=DIAG_ITER))
+        ent_dev = run("entropy_device", lambda: p.entropy_device(
+            params, gen(502), sub_manifolds=subs, conditional_input=ci1,
+            samplesize=DIAG_S))
+    gaps = {k: max((ent_it[k] - v).abs().max().item(),
+                   (ent_dev[str(k)] - v).abs().max().item())
+            for k, v in ent.items()}
+    log(f"{label}: entropy of one conditional row from {DIAG_S} draws "
+        f"({DIAG_S}x{DIAG_S} = {DIAG_S**2} rows per marginal) "
+        f"{ {k: round(v.item(), 6) for k, v in ent.items()} }; "
+        f"entropy_iterative (chunks of {DIAG_ITER}) and entropy_device on "
+        f"the same generator state: largest gap per key {gaps} (limit "
+        f"{TOL_ENTROPY:g})")
+    if not (all(torch.isfinite(v).all() for v in ent.values())
+            and max(gaps.values()) < TOL_ENTROPY):
+        raise AssertionError(f"{label}: entropy twins differ: {gaps}")
+    for what, fn in (
+            ("entropy", lambda: p.entropy(
+                params, gen(502), sub_manifolds=subs, conditional_input=ci1,
+                samplesize=DIAG_S)),
+            ("entropy_iterative", lambda: p.entropy_iterative(
+                params, gen(502), sub_manifolds=subs, conditional_input=ci1,
+                samplesize=DIAG_S, iterative_samplesize=DIAG_ITER))):
+        with torch.no_grad():
+            ms = host_ms(fn)
+        log(f"{label} {what} (sub-manifolds {subs}) on {card}: {ms:.3f} ms "
+            "(host clock, median of 3)")
+
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+
+    def ent_grad():
+        e = p.entropy(leaves, gen(503), sub_manifolds=(-1, 1),
+                      conditional_input=ci1, samplesize=DIAG_S)
+        return torch.autograd.grad((e["total"] + e[1]).sum(),
+                                   list(leaves.values()))
+
+    grads = run("entropy_grad", ent_grad, grads=True)
+    norms = {k: gr.norm().item() for k, gr in zip(leaves, grads)}
+    log(f"{label}: gradient of the joint + s2-marginal entropy, norms per "
+        f"parameter {norms}")
+    if not all(math.isfinite(v) and v > 0 for v in norms.values()):
+        raise AssertionError(f"{label}: entropy gradient {norms}")
+    del grads, leaves
+
+    ci_m = torch.randn((DIAG_ITEMS, 3), generator=g, device=dev)
+    t0 = time.time()
+    mm = run("moments", lambda: p.marginal_moments(
+        params, gen(504), conditional_input=ci_m, samplesize=DIAG_S,
+        calc_zlp_kent_fit=True))
+    t_mm = time.time() - t0
+    mmd = run("moments_device", lambda: p.marginal_moments_device(
+        params, gen(504), conditional_input=ci_m, samplesize=DIAG_S))
+    m_err = {k: rel_err(v, mm[k]) for k, v in mmd.items()}
+    fit = mm["zlp_kent_pars_1"]
+    log(f"{label}: marginal moments of {DIAG_ITEMS} items x {DIAG_S} "
+        f"samples ({DIAG_ITEMS * DIAG_S} rows) in {t_mm:.3f} s with the "
+        f"zlp-Kent fit of the s2 marginal on the card (150 Adam + up to 8 "
+        f"Newton steps on {DIAG_S // 2} samples per item): kappa median "
+        f"{np.median(fit['kappa']):.4g}, grad_norm median "
+        f"{np.median(fit['grad_norm']):.3e} max {fit['grad_norm'].max():.3e}"
+        f"; device twin vs host, relative, per key {m_err} (limit "
+        f"{TOL_MOMENTS:g})")
+    if not (max(m_err.values()) < TOL_MOMENTS and all(
+            np.isfinite(v).all() for v in fit.values())):
+        raise AssertionError(f"{label}: moments {m_err}")
+    with torch.no_grad():
+        ms = host_ms(lambda: p.marginal_moments_device(
+            params, gen(504), conditional_input=ci_m, samplesize=DIAG_S))
+    log(f"{label} marginal_moments_device on {card}: {ms:.3f} ms per "
+        f"{DIAG_ITEMS * DIAG_S} rows (host clock, median of 3)")
+
+    ci_c = torch.randn((N_COND, 3), generator=g, device=dev)
+
+    def coverage():
+        with torch.no_grad():
+            x = p.sample(params, conditional_input=ci_c, generator=gen(505))[0]
+        return p.approximate_coverage(params, x, conditional_input=ci_c,
+                                      sub_manifolds=subs)
+
+    cov = run("coverage", coverage)
+    dev_cov = {k: float(np.abs(cov["expected"] - v).max())
+               for k, v in cov["true"].items()}
+    log(f"{label}: chi^2 coverage of {N_COND} of the model's own samples, "
+        f"max |expected - actual| per sub-manifold {dev_cov} (limit "
+        f"{TOL_COVERAGE:g})")
+    if not max(dev_cov.values()) < TOL_COVERAGE:
+        raise AssertionError(f"{label}: coverage {dev_cov}")
+    with torch.no_grad():
+        run("cross", lambda: diagnostics_cross_check(label, p, params, ci_c,
+                                                     gen(506)))
+    del p, params, ci_c
+    torch.cuda.empty_cache()
+
+    for model, (defs, flows), seed in (("scan e4", SCAN_E, 510),
+                                       ("scan s2", SCAN_S, 520)):
+        pm = pdf(defs, flows, conditional_input_dim=3, device=dev)
+        pp = jittered_params(pm, seed=seed)
+        ci_e = torch.randn((N_SCAN_EVENTS, 3), generator=gen(seed + 1),
+                           device=dev)
+
+        def host_scan():
+            with torch.no_grad():
+                labels = pm.sample(pp, conditional_input=ci_e,
+                                   generator=gen(seed + 2))[0]
+            return labels, pm.coverage_and_or_pdf_scan(
+                pp, labels=labels, conditional_input=ci_e,
+                exact_coverage_calculation=True, calculate_MAP=True,
+                save_pdf_scan=True, samples_per_event=N_SCAN,
+                generator=gen(seed + 3))
+
+        t0 = time.time()
+        labels, host = run("host scan", host_scan, model=model)
+        t_host = time.time() - t0
+        t0 = time.time()
+        with torch.no_grad():
+            dv = run("device scan", lambda: pm.coverage_scan_device(
+                pp, labels, conditional_input=ci_e, samples_per_event=N_SCAN,
+                generator=gen(seed + 3), return_scan=True), model=model)
+        t_dev = time.time() - t0
+        rc = host["real_cov_values"]
+        # the mass each event's scan holds: a coarse grid's Riemann sum may
+        # pass 1, and the HPD coverage goes up to it
+        mass = np.asarray([np.exp(lp).sum() * np.asarray(v).max()
+                           for lp, v in zip(host["pdf_scan_log_evals"],
+                                            host["pdf_scan_volume_sizes"])])
+        ties, tie_mass = scan_ties(pm, dv, labels)
+        gap = np.abs(dv["real_cov_values"].cpu().numpy() - rc)
+        cov_err = float((gap - tie_mass).max())
+        map_err = float(np.abs(dv["map_positions"].cpu().numpy()
+                               - host["map_positions"]).max())
+        log(f"{label} {model}: {N_SCAN_EVENTS} events x {N_SCAN} points "
+            f"({N_SCAN_EVENTS * N_SCAN} rows): host scan {t_host:.3f} s, "
+            f"device scan {t_dev:.3f} s (host clock, first calls); device vs "
+            f"host coverage max|diff| {gap.max():.3e}, beyond the mass of "
+            f"the cells of the label cell's density ({ties.max()} at most) "
+            f"{cov_err:.3e} (limit {TOL_SCAN:g}), MAP "
+            f"positions max|diff| {map_err:.3e}; coverage values in "
+            f"[{rc.min():.4f}, {rc.max():.4f}], each at most its event's "
+            f"scanned mass ({mass.min():.4f}-{mass.max():.4f})")
+        if not (cov_err < TOL_SCAN and map_err < TOL_SCAN
+                and ((rc >= 0) & (rc <= mass + 1e-5)).all()):
+            raise AssertionError(f"{label} {model}: scans differ")
+        if defs == "s2":
+            lp = dv["scan_log_evals"].double()
+            theta = dv["scan_positions"][..., 0].double()
+            area = 4.0 * math.pi / N_SCAN
+            mass = (area * torch.exp(lp - torch.log(torch.sin(theta)))).sum(1)
+            mass_ref = (area * torch.exp(lp)).sum(1)
+            mass_err = (mass - 1.0).abs().max().item()
+            log(f"{label} {model}: each event's lattice mass of the density "
+                f"per steradian (log_prob - log sin theta) within "
+                f"{mass_err:.3e} of 1 (limit {TOL_LATTICE_MASS:g}); the "
+                f"scans' own sum of area * exp(intrinsic log_prob), which "
+                f"the HPD coverage accumulates as the JAX package does, "
+                f"{mass_ref.min().item():.4f}-{mass_ref.max().item():.4f} "
+                "(printed)")
+            if not mass_err < TOL_LATTICE_MASS:
+                raise AssertionError(f"{label} {model}: lattice mass")
+            t0 = time.time()
+            with torch.no_grad():
+                e_scan = pm.marginal_moments(
+                    pp, gen(seed + 4), conditional_input=ci_e[:1],
+                    samplesize=200, calc_kl_diff_and_entropic_quantities=True,
+                    s2_entropy_scanning=True)["entropy_0"][0]
+            t_scan = time.time() - t0
+            e_mc = pm.marginal_moments(
+                pp, gen(seed + 5), conditional_input=ci_e[:1],
+                samplesize=N_S2_MC, iterative_samplesize=DIAG_ITER,
+                calc_kl_diff_and_entropic_quantities=True)["entropy_0"][0]
+            log(f"{label} {model}: s2 entropy scan (multires, nside 32) "
+                f"{e_scan:.6f} in {t_scan:.3f} s, Monte Carlo from {N_S2_MC} "
+                f"draws {e_mc:.6f}: |diff| {abs(e_scan - e_mc):.3e} (limit "
+                f"{TOL_S2_SCAN_ENTROPY:g})")
+            if not abs(e_scan - e_mc) < TOL_S2_SCAN_ENTROPY:
+                raise AssertionError(f"{label}: s2 entropy scan")
+        del pm, pp, host, dv
+        torch.cuda.empty_cache()
+    peak_memory(label, "the diagnostics")
+    log(f"diagnostics phase {time.time() - t_phase:.1f} s")
+    return launches, errs
+
+
+def cli_phase(dev, card):
+    """The CLI in-process (``jammy_flows_tpu_torch.__main__.main``) on
+    ``--platform default``: fit of the unconditional flagship (TRAIN_STEPS
+    steps on N_CLI rows it drew on the CPU), then sample, eval and moments
+    on the saved model; train.fit with checkpoints every
+    CLI_CHECKPOINT_EVERY steps against the unchunked fit, the checkpoint
+    restored bit-equal, a save / restore roundtrip with extra state, and
+    the profiling helpers.  Returns (launches by path, errors per
+    kernel)."""
+    import io
+    import os
+    import tempfile
+    from jammy_flows_tpu_torch import pdf, train
+    from jammy_flows_tpu_torch.__main__ import main as cli_main
+    from jammy_flows_tpu_torch.utils import checkpoint, profiling
+    t_phase = time.time()
+    label = "cli"
+    launches, errs = {label: {}}, {}
+
+    def run(what, argv_or_fn, expected, grads=False):
+        def fn():
+            if callable(argv_or_fn):
+                return argv_or_fn()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                cli_main(argv_or_fn + ["--platform", "default"])
+            return buf.getvalue()
+        t0 = time.time()
+        out, launch, e = diag_path(label, what, fn, expected, grads)
+        log(f"{label} {what}: {time.time() - t0:.3f} s on the host's clock "
+            "(with the calls' recording)")
+        launches[label][what] = launch
+        for k, v in e.items():
+            errs[k] = max(errs.get(k, 0.0), v)
+        return out
+
+    p_cpu = pdf(*FLAGSHIP, device="cpu")
+    with torch.no_grad():
+        data = p_cpu.sample(jittered_params(p_cpu, seed=600, flow_scale=0.1),
+                            samplesize=N_CLI,
+                            generator=torch.Generator().manual_seed(601))[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        data_path = os.path.join(tmp, "data.npy")
+        model = os.path.join(tmp, "model")
+        np.save(data_path, data.numpy())
+        out = run("fit", ["fit", "--pdf-defs", FLAGSHIP[0], "--flow-defs",
+                          FLAGSHIP[1], "--data", data_path, "--out", model,
+                          "--steps", str(TRAIN_STEPS), "--lr",
+                          str(TRAIN_LR), "--no-data-init"],
+                  EXPECTED_CLI_LAUNCHES["fit"],
+                  grads=True)
+        log(f"{label} fit: {out.strip().splitlines()[-1]}")
+        out = run("sample", ["sample", "--model", model, "-n", str(N_CLI),
+                             "--out", os.path.join(tmp, "s.npy")],
+                  EXPECTED_CLI_LAUNCHES["sample"])
+        xs = np.load(os.path.join(tmp, "s.npy"))
+        log(f"{label} sample: {out.strip()}")
+        if not (xs.shape == (N_CLI, 10) and np.isfinite(xs).all()):
+            raise AssertionError(f"{label}: samples {xs.shape}")
+        out = run("eval", ["eval", "--model", model, "--data", data_path],
+                  EXPECTED_CLI_LAUNCHES["eval"])
+        ev = json.loads(out)
+        from jammy_flows_tpu_torch.__main__ import _load_model
+        p, params, _ = _load_model(model, dev)
+        x = data.to(dev)
+        direct = run("direct log_prob", lambda: -p.log_prob(
+            params, x)[0].mean().item(), EXPECTED_CLI_LAUNCHES["eval"])
+        log(f"{label} eval: {ev}; the restored model's mean NLL "
+            f"{direct:.6f} (limit |diff| < 1e-5)")
+        if not (ev["finite_fraction"] == 1.0 and ev["n"] == N_CLI
+                and abs(ev["mean_nll"] - direct) < 1e-5):
+            raise AssertionError(f"{label}: eval {ev}")
+        out = run("moments", ["moments", "--model", model, "-n",
+                              str(CLI_MOMENTS_N)],
+                  EXPECTED_CLI_LAUNCHES["moments"])
+        mm = json.loads(out)
+        log(f"{label} moments: keys {sorted(mm)}; s2 kappa "
+            f"{mm['varlike_1']}")
+        if not all(np.isfinite(np.asarray(v, dtype=float)).all()
+                   for v in mm.values()):
+            raise AssertionError(f"{label}: moments")
+
+        init = p.init_params(seed=0)
+        ck = os.path.join(tmp, "ckpt")
+        chunked, l_chunk = run("fit checkpointed", lambda: train.fit(
+            p, init, x, num_steps=TRAIN_STEPS, learning_rate=TRAIN_LR,
+            checkpoint_path=ck, checkpoint_every=CLI_CHECKPOINT_EVERY),
+            EXPECTED_CLI_LAUNCHES["fit"], grads=True)
+        whole, l_whole = run("fit unchunked", lambda: train.fit(
+            p, init, x, num_steps=TRAIN_STEPS, learning_rate=TRAIN_LR),
+            EXPECTED_CLI_LAUNCHES["fit"], grads=True)
+        saved = sorted(os.listdir(ck))
+        restored, _ = checkpoint.restore(os.path.join(ck, saved[-1]),
+                                         like_params=init)
+        l_err = float(np.abs(l_chunk - l_whole).max())
+        same = all(torch.equal(restored[k], chunked[k]) for k in chunked)
+        log(f"{label}: train.fit with checkpoint_every="
+            f"{CLI_CHECKPOINT_EVERY} saved {saved}; its losses vs the "
+            f"unchunked fit's max|diff| {l_err:.3e} (limit 1e-6), the last "
+            f"checkpoint restored bit-equal to the returned parameters: "
+            f"{same}")
+        if not (saved == [f"step_{s:08d}" for s in range(
+                CLI_CHECKPOINT_EVERY, TRAIN_STEPS + 1, CLI_CHECKPOINT_EVERY)]
+                and l_err < 1e-6 and same):
+            raise AssertionError(f"{label}: checkpointed fit")
+        extra = {"step": TRAIN_STEPS, "moments": [v.square() for v in
+                                                  whole.values()]}
+        path = os.path.join(tmp, "roundtrip.pt")
+        checkpoint.save(path, whole, extra_state=extra)
+        back, back_extra = checkpoint.restore(
+            path, like_params=whole, like_extra_state=extra)
+        same = all(torch.equal(back[k], v) and back[k].device == v.device
+                   for k, v in whole.items()) and \
+            back_extra["step"] == TRAIN_STEPS and all(
+                torch.equal(a, b) for a, b in zip(back_extra["moments"],
+                                                  extra["moments"]))
+        log(f"{label}: checkpoint save / restore on {dev}: bit-equal "
+            f"{same}")
+        if not same:
+            raise AssertionError(f"{label}: checkpoint roundtrip")
+
+        def profiled():
+            with torch.no_grad():
+                rate = profiling.throughput(p.log_prob, params, x,
+                                            items_per_call=N_CLI, reps=5)
+                with profiling.trace(os.path.join(tmp, "trace")) as d:
+                    with profiling.annotate("log_prob"):
+                        p.log_prob(params, x)
+                    torch.cuda.synchronize()
+            return rate, os.path.getsize(os.path.join(d, "trace.json"))
+
+        rate, size = run("profiling", profiled,
+                         EXPECTED_CLI_LAUNCHES["profiling"])
+        log(f"{label}: profiling.throughput of log_prob on {card}: "
+            f"{rate['items_per_s']:.6g} rows/s ({N_CLI} rows, 5 reps, a "
+            f"scalar pulled to the host each rep); profiling.trace wrote a "
+            f"{size}-byte Chrome trace")
+        if not size > 0:
+            raise AssertionError(f"{label}: empty trace")
+    log(f"cli phase {time.time() - t_phase:.1f} s")
+    return launches, errs
+
+
 def add_phase_launches(rows, launches, errs):
     """The block rows (T1-T3) gain a phase's launches (``launches``: model
     -> path -> counts) under "<model> <path>" and its kernel-vs-plain
@@ -3379,6 +3943,8 @@ def main():
     add_phase_launches(rows, *sphere_phase(dev, card))
     add_phase_launches(rows, *cnf_phase(dev, card))
     add_phase_launches(rows, *options_phase(dev, card))
+    add_phase_launches(rows, *diagnostics_phase(dev, card))
+    add_phase_launches(rows, *cli_phase(dev, card))
     log(f"{time.time() - t0:.1f} s since the build started")
 
     layer_rows += layer_phase(dev, card, layer_ptxas)

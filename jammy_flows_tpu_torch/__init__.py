@@ -3,11 +3,15 @@ manifolds, with the Gaussianization-flow kernels hand-written in CUDA for
 Hopper (csrc/).
 
 Main entry points:
-    pdf                 - joint autoregressive manifold pdf (two-string DSL)
+    pdf                 - joint autoregressive manifold pdf (two-string DSL),
+                          with its diagnostics (entropy, coverage, pdf scans,
+                          marginal moments)
     fully_amortized_pdf - one outer MLP predicts every parameter of an inner
                           pdf
+    train.fit           - maximum-likelihood fitting with checkpoints
+    python -m jammy_flows_tpu_torch fit | sample | eval | moments
 
-See ROADMAP.md for what is not ported yet."""
+The JAX package's samplers (inference/, parallel/) are not ported yet."""
 from .models.pdf import PDF, pdf
 from .models.fully_amortized import FullyAmortizedPDF, fully_amortized_pdf
 

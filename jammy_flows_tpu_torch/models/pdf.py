@@ -3,9 +3,11 @@
 PyTorch counterpart of ``jammy_flows_tpu/models/pdf.py`` for the serving and
 training paths: the two-string DSL, ``log_prob``, ancestral ``sample`` (both
 differentiable in the parameters) and the training objective
-``nll_value_and_grad``.  The object holds static configuration only; numbers
-live in a parameter dict with the JAX package's keys and packing, so a JAX
-dict loads 1:1 (utils/convert.params_from_jax):
+``nll_value_and_grad``; the diagnostics (entropy, coverage, pdf scans,
+marginal moments) come from models/diagnostics.DiagnosticsMixin.  The
+object holds static configuration only; numbers live in a parameter dict
+with the JAX package's keys and packing, so a JAX dict loads 1:1
+(utils/convert.params_from_jax):
 
     "flow_0"  : (P0,)  permanent parameters of sub-pdf 0 (unconditional pdfs)
     "mlp_<k>" : (Pk,)  packed AmortizableMLP predicting sub-pdf k
@@ -47,22 +49,8 @@ from ..ops import gf_block, manifold
 from ..ops.lazy_params import LazyParams, for_layer, materialize_if_lazy
 from ..ops.special import LOG_SQRT_2PI, std_normal_log_prob
 from .amortizable_mlp import AmortizableMLP, list_from_str
+from .diagnostics import DiagnosticsMixin
 from .init import find_init_pars_of_chained_blocks
-
-# the JAX package's keywords that the port takes but does not run yet, with
-# their JAX defaults: any other value raises NotImplementedError
-UNPORTED_DEFAULTS = {"optimizer": None, "checkpoint_every": None}
-
-
-def refuse_unported(item, **given):
-    """NotImplementedError naming ROADMAP ``item`` for the first keyword
-    whose value is not its JAX default (UNPORTED_DEFAULTS)."""
-    for name, value in given.items():
-        default = UNPORTED_DEFAULTS[name]
-        if value is not default and (default is None or value != default):
-            raise NotImplementedError(
-                f"{name}={value!r} is not ported yet (ROADMAP.md, {item})")
-
 
 def resolve_device(device=None):
     """torch.device for the port's entry points: the current CUDA device
@@ -134,7 +122,7 @@ def _resolve_flow_options(flow_defs_list, options_overwrite):
     return flow_opts
 
 
-class PDF:
+class PDF(DiagnosticsMixin):
     """Joint autoregressive (conditional) normalizing-flow PDF over products
     of manifolds, defined by a two-string DSL - e.g.
     ``PDF("e4+s2+e4", "gggg+f+gggg")``."""

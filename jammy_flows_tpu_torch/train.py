@@ -1,11 +1,13 @@
-"""The trainer: full-batch or minibatch NLL fitting with Adam.
+"""The trainer: full-batch or minibatch NLL fitting with checkpoints.
 
 PyTorch counterpart of ``jammy_flows_tpu/train.py``: ``torch.optim.Adam``
 (optax's defaults: betas 0.9 / 0.999, eps 1e-8) on a constant, ``cosine`` or
 ``warmup_cosine`` learning-rate schedule written out as optax defines them,
-optional global-norm clipping as ``optax.clip_by_global_norm`` does it, and
-each step's gradient from ``PDF.nll_value_and_grad`` (the fused NLL kernels
-on the card).  Minibatch rows come from an explicit ``torch.Generator``.
+optional global-norm clipping as ``optax.clip_by_global_norm`` does it, or
+any ``torch.optim`` optimizer the caller makes; each step's gradient from
+``PDF.nll_value_and_grad`` (the fused NLL kernels on the card); the
+parameters saved (utils/checkpoint.py) after every ``checkpoint_every``
+steps.  Minibatch rows come from an explicit ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -14,10 +16,7 @@ import math
 import numpy as np
 import torch
 
-from .models.pdf import refuse_unported
-
-_TRAINER = "Queue 1 item 6: trainer and CLI"
-_CHECKPOINT_TODO = f"checkpointing is not ported yet (ROADMAP.md, {_TRAINER})"
+from .utils import checkpoint as ckpt
 
 
 def learning_rate_at(step, learning_rate=1e-3, schedule=None,
@@ -69,16 +68,25 @@ def fit(pdf_obj, params, data, conditional_input=None, num_steps=1000,
     data: (N, total_target_dim) on the pdf's device; conditional_input:
     (N, c), a list of one (N, c_k) per sub-pdf (a list-valued
     conditional_input_dim), or None.  batch_size: minibatch rows drawn each
-    step with ``generator`` (None = full batch)."""
-    if checkpoint_path is not None:
-        raise NotImplementedError(_CHECKPOINT_TODO)
-    refuse_unported(_TRAINER, optimizer=optimizer,
-                     checkpoint_every=checkpoint_every)
+    step with ``generator`` (None = full batch).  optimizer: the port's
+    counterpart of an optax transformation, a callable that takes the list
+    of parameter tensors and returns a ``torch.optim.Optimizer`` (e.g.
+    ``lambda ps: torch.optim.SGD(ps, lr=1e-2)``); when given,
+    learning_rate / schedule / clip_norm are ignored, as the JAX package's
+    make_optimizer returns it unchanged.  checkpoint_path: the parameters
+    are saved to ``{checkpoint_path}/step_{done:08d}`` after every
+    ``checkpoint_every`` steps and after the last (only after the last
+    without checkpoint_every), as the JAX package saves after each of its
+    chunks."""
     data = pdf_obj._input(data, "data")
     ci_all = pdf_obj._conditional(conditional_input)
     params = {k: v.detach().clone().requires_grad_() for k, v in
               params.items()}
-    opt = make_optimizer(params, learning_rate)
+    if optimizer is not None:
+        opt = optimizer(list(params.values()))
+    else:
+        opt = make_optimizer(params, learning_rate)
+    chunk = checkpoint_every or num_steps
     history = []
     for step in range(num_steps):
         if batch_size is not None:
@@ -91,18 +99,23 @@ def fit(pdf_obj, params, data, conditional_input=None, num_steps=1000,
             x, ci = data, ci_all
         loss, grads = pdf_obj.nll_value_and_grad(params, x,
                                                  conditional_input=ci)
-        if clip_norm is not None:
-            grads = clip_by_global_norm(grads, clip_norm)
-        for group in opt.param_groups:
-            group["lr"] = learning_rate_at(step, learning_rate, schedule,
-                                           num_steps)
+        if optimizer is None:
+            if clip_norm is not None:
+                grads = clip_by_global_norm(grads, clip_norm)
+            for group in opt.param_groups:
+                group["lr"] = learning_rate_at(step, learning_rate, schedule,
+                                               num_steps)
         for key, p in params.items():
             p.grad = grads[key]
         opt.step()
         history.append(loss.detach())
+        done = step + 1
         if verbose:
-            print(f"step {step + 1}/{num_steps}: NLL {float(loss):.4f}",
+            print(f"step {done}/{num_steps}: NLL {float(loss):.4f}",
                   flush=True)
+        if checkpoint_path is not None and (done % chunk == 0
+                                            or done == num_steps):
+            ckpt.save(f"{checkpoint_path}/step_{done:08d}", params)
     losses = torch.stack(history).cpu().numpy() if history \
         else np.zeros(0)
     return {k: v.detach() for k, v in params.items()}, losses

@@ -4,20 +4,22 @@
   (``ValueError`` in the port, an assertion in the JAX package), while a
   tuple key whose layer index is out of range builds in both;
 * every keyword of the JAX signatures of ``PDF``, ``init_params``,
-  ``log_prob``, ``sample`` and ``train.fit`` is taken: its JAX default runs,
-  any other value raises ``NotImplementedError`` naming the ROADMAP item,
-  but for the ported ones (all but ``train.fit``'s optimizer and
-  checkpoints), which run."""
-import re
+  ``log_prob``, ``sample``, ``train.fit`` and the diagnostics is taken (a
+  ``torch.Generator`` where the JAX package takes a key), and a value other
+  than the JAX default runs and does what it says."""
+import inspect
 
 import numpy as np
 import pytest
 import torch
 
 from jammy_flows_tpu import pdf as jpdf
+from jammy_flows_tpu import train as jtrain
+from jammy_flows_tpu.models.pdf import PDF as JPDF
 from jammy_flows_tpu_torch import pdf as tpdf
 from jammy_flows_tpu_torch import train as ttrain
-from jammy_flows_tpu_torch.models.pdf import UNPORTED_DEFAULTS
+from jammy_flows_tpu_torch.models.pdf import PDF as TPDF
+from jammy_flows_tpu_torch.utils import checkpoint
 from torch_one_thread import _one_torch_thread  # noqa: F401
 
 SKEW = {"g": {"add_skewness": 1}}
@@ -41,11 +43,6 @@ def test_tuple_key_past_the_layers_builds():
     assert [l.add_skewness for l in tp.layer_list[0]] == [1, 1]
 
 
-# keyword -> (entry point, a value other than the JAX default)
-NON_DEFAULT = {
-    "optimizer": ("fit", "adam"),
-    "checkpoint_every": ("fit", 10),
-}
 # a conditional pdf with a Poisson head, for the Poisson head's keywords
 POISSON = {"conditional_input_dim": 8, "predict_log_normalization": True}
 # the ported keywords: (entry point, a value other than the JAX default,
@@ -66,8 +63,18 @@ PORTED = {
     "force_intrinsic_coordinates": ("sample", True, {}),
     "failsafe_crosscheck_tolerance": ("sample", 1e-3, {}),
     "failsafe_rounds": ("sample", 5, {}),
+    "optimizer": ("fit", lambda ps: torch.optim.SGD(ps, lr=1e-2), {}),
+    "checkpoint_every": ("fit", 1, {}),
 }
-ITEM = {"fit": "item 6"}
+# (JAX entry point, the port's) whose keywords the port takes
+SIGNATURES = [(JPDF.__init__, TPDF.__init__), (jtrain.fit, ttrain.fit)] + [
+    (getattr(JPDF, name), getattr(TPDF, name)) for name in (
+        "init_params", "log_prob", "sample", "all_layer_forward_subdims",
+        "all_layer_inverse_subdims", "sample_with_subdim_logprobs",
+        "entropy", "entropy_iterative", "entropy_device",
+        "approximate_coverage", "coverage_and_or_pdf_scan",
+        "coverage_scan_device", "marginal_moments",
+        "marginal_moments_device")]
 
 
 def _call(entry, ctor=None, **kw):
@@ -88,23 +95,22 @@ def _call(entry, ctor=None, **kw):
 
 
 def test_every_keyword_is_listed():
-    assert set(NON_DEFAULT) == set(UNPORTED_DEFAULTS)
-    assert not set(PORTED) & set(UNPORTED_DEFAULTS)
-
-
-@pytest.mark.parametrize("name", sorted(NON_DEFAULT))
-def test_unported_keyword(name):
-    entry, value = NON_DEFAULT[name]
-    with pytest.raises(NotImplementedError,
-                       match=re.escape(ITEM[entry])) as err:
-        _call(entry, **{name: value})
-    assert name in str(err.value)
-    out = _call(entry, **{name: UNPORTED_DEFAULTS[name]})
-    assert out is not None
+    """Every keyword of the JAX entry points is one of the port's (its
+    ``key`` a ``generator``), and every keyword PORTED lists is one of
+    them."""
+    taken = set()
+    for jfn, tfn in SIGNATURES:
+        jkw = set(inspect.signature(jfn).parameters)
+        tkw = set(inspect.signature(tfn).parameters)
+        if "key" in jkw:
+            jkw = (jkw - {"key"}) | {"generator"}
+        assert jkw <= tkw, (jfn.__qualname__, jkw - tkw)
+        taken |= jkw
+    assert set(PORTED) <= taken
 
 
 @pytest.mark.parametrize("name", sorted(PORTED))
-def test_ported_keyword(name):
+def test_ported_keyword(name, tmp_path):
     """The value runs: custom mode builds the same model (no effect outside
     the fully amortized pdf), an amortize_everything pdf keeps no
     parameters of its own, a passthrough pdf has no log_prob, an
@@ -114,7 +120,9 @@ def test_ported_keyword(name):
     skip_mlp_initialization and verbose build the same model with the same
     init; data moves the init; the forced coordinates of a Euclidean pdf
     are its default ones; failsafe rounds without a tolerance change
-    nothing, a tolerance gives finite rows."""
+    nothing, a tolerance gives finite rows; an optimizer takes the step
+    (SGD: the parameters move by -lr times the gradient), and
+    checkpoint_every with a checkpoint path saves after every chunk."""
     entry, value, ctor = PORTED[name]
     out = _call(entry, ctor, **{name: value})
     plain = _call(entry, ctor)
@@ -147,6 +155,29 @@ def test_ported_keyword(name):
         assert any(not torch.equal(out[k], plain[k]) for k in plain)
     elif name == "failsafe_crosscheck_tolerance":
         assert all(torch.isfinite(t).all() for t in out)
+    elif name == "optimizer":
+        p = tpdf("e2", "gg", device="cpu")
+        params = p.init_params(seed=0)
+        x = torch.randn((4, 2), generator=torch.Generator().manual_seed(0))
+        _, grads = p.nll_value_and_grad(params, x)
+        for key, v in params.items():
+            torch.testing.assert_close(out[0][key], v - 1e-2 * grads[key],
+                                       rtol=0, atol=1e-7)
+        assert any(not torch.equal(out[0][k], plain[0][k]) for k in plain[0])
+    elif name == "checkpoint_every":
+        p = tpdf("e2", "gg", device="cpu")
+        x = torch.randn((4, 2), generator=torch.Generator().manual_seed(0))
+        new, _ = ttrain.fit(p, p.init_params(seed=0), x, num_steps=2,
+                            checkpoint_every=value, checkpoint_path=tmp_path)
+        assert sorted(f.name for f in tmp_path.iterdir()) == \
+            ["step_00000001", "step_00000002"]
+        last, _ = checkpoint.restore(tmp_path / "step_00000002")
+        assert all(torch.equal(last[k], v) for k, v in new.items())
+        for a, b in zip(out, plain):       # chunking alone changes nothing
+            if isinstance(a, dict):
+                assert all(torch.equal(a[k], b[k]) for k in a)
+            else:
+                np.testing.assert_array_equal(a, b)
     else:
         for a, b in zip(out if isinstance(out, tuple) else (out,),
                         plain if isinstance(plain, tuple) else (plain,)):

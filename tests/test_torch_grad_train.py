@@ -3,7 +3,8 @@
 * five full-batch float64 Adam steps: loss history and final parameters
   against JAX's optax run on the same data and initial parameters;
 * the learning-rate schedules and global-norm clipping against optax's;
-* a float32 CPU fit (the fused NLL calls' plain versions) lowers the loss.
+* a float32 CPU fit (the fused NLL calls' plain versions) lowers the loss,
+  and with a checkpoint path saves a restorable checkpoint.
 
 Inputs are made with numpy from a seed and handed to both packages."""
 import jax
@@ -17,6 +18,7 @@ from jammy_flows_tpu import pdf as jpdf
 from jammy_flows_tpu import train as jtrain
 from jammy_flows_tpu_torch import pdf as tpdf
 from jammy_flows_tpu_torch import train as ttrain
+from jammy_flows_tpu_torch.utils import checkpoint
 from jammy_flows_tpu_torch.utils.convert import params_from_jax, to_numpy
 from torch_one_thread import _one_torch_thread  # noqa: F401
 
@@ -87,7 +89,7 @@ def test_clip_by_global_norm_matches_optax(max_norm):
                                    rtol=1e-12)
 
 
-def test_f32_fit_on_cpu_lowers_the_loss():
+def test_f32_fit_on_cpu_lowers_the_loss(tmp_path):
     tp = tpdf("e4+s2+e4", "gggg+f+gggg", device="cpu",
               amortization_mlp_dims="16")
     par = tp.init_params(seed=0)
@@ -98,5 +100,7 @@ def test_f32_fit_on_cpu_lowers_the_loss():
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
     assert sorted(new) == sorted(par)
     assert all(not v.requires_grad for v in new.values())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        ttrain.fit(tp, par, x, num_steps=1, checkpoint_path="ckpt")
+    # a checkpoint path saves the fitted parameters once, at the end
+    one, _ = ttrain.fit(tp, par, x, num_steps=1, checkpoint_path=tmp_path)
+    saved, _ = checkpoint.restore(tmp_path / "step_00000001", like_params=par)
+    assert all(torch.equal(saved[k], v) for k, v in one.items())

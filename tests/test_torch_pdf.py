@@ -32,6 +32,7 @@ from jammy_flows_tpu import pdf as jpdf
 from jammy_flows_tpu_torch import fully_amortized_pdf as tfa, pdf as tpdf
 from jammy_flows_tpu_torch import train as ttrain
 from jammy_flows_tpu_torch.ops.special import std_normal_log_prob
+from jammy_flows_tpu_torch.utils import checkpoint
 from jammy_flows_tpu_torch.utils.convert import params_from_jax
 from torch_one_thread import _one_torch_thread  # noqa: F401
 
@@ -230,16 +231,25 @@ def test_f32_sample_roundtrip_on_cpu(cond):
     assert torch.quantile((lp_eval - lp).abs(), 0.999).item() < 1e-3
 
 
-def test_unported_options_raise():
-    """What is still refused: the trainer's optimizer choice and its
-    checkpoints (ROADMAP Queue 1 item 6)."""
+def test_trainer_options_run(tmp_path):
+    """The trainer's optimizer, checkpoint_path and checkpoint_every run: a
+    caller's optimizer (Adam at lr 1e-3 gives the default fit's losses), a
+    checkpoint after every chunk and at the end, each restorable."""
     p = tpdf("e2", "gg", device="cpu")
     par = p.init_params(seed=0)
-    x = torch.zeros((4, 2))
-    for kw in ({"optimizer": "adam"}, {"checkpoint_every": 10},
-               {"checkpoint_path": "ckpt"}):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            ttrain.fit(p, par, x, num_steps=1, **kw)
+    x = torch.randn((16, 2), generator=torch.Generator().manual_seed(0))
+    _, ref = ttrain.fit(p, par, x, num_steps=3)
+    got, losses = ttrain.fit(
+        p, par, x, num_steps=3,
+        optimizer=lambda ps: torch.optim.Adam(ps, lr=1e-3, eps=1e-8),
+        checkpoint_path=tmp_path / "ck", checkpoint_every=2)
+    np.testing.assert_array_equal(losses, ref)
+    assert sorted(f.name for f in (tmp_path / "ck").iterdir()) == \
+        ["step_00000002", "step_00000003"]
+    last, extra = checkpoint.restore(tmp_path / "ck" / "step_00000003",
+                                     like_params=par)
+    assert extra is None
+    assert all(torch.equal(last[k], v) for k, v in got.items())
 
 
 def test_default_device_is_cuda():
